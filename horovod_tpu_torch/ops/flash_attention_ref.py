@@ -15,8 +15,8 @@ The CPU path of ``flash_attention`` runs these, and so do the tests;
 on the card they are only the yardstick the kernels are held against.
 Operands are ``[b·h, s, d]``; each function returns ``(out [b·h, sq, d]
 in q's dtype, lse [b·h, sq] fp32)``. The tiles need not divide the
-sequence: a partial last tile masks the keys past ``sk``, as the kernels
-do.
+sequence: a partial last tile holds only the rows up to the end, where
+the kernels load a whole tile and mask the rest, which adds exact zeros.
 """
 
 import torch
@@ -57,12 +57,11 @@ class _Tiles:
         # fp32 accumulation computes
         s = torch.matmul(self.q[:, qr].float(),
                          self.k[:, kr].float().transpose(1, 2)) * self.scale2
+        if not self.causal:
+            return s
         q_pos = torch.arange(qr.start, qr.stop, device=s.device)[:, None]
         k_pos = torch.arange(kr.start, kr.stop, device=s.device)[None, :]
-        keep = k_pos < self.sk
-        if self.causal:
-            keep = keep & (k_pos <= q_pos)
-        return torch.where(keep, s, torch.full_like(s, NEG_INF))
+        return torch.where(k_pos <= q_pos, s, torch.full_like(s, NEG_INF))
 
     def pv(self, p, kb):
         v = self.v[:, self.k_rows(kb)]

@@ -8,7 +8,7 @@ and on the natural-log lse (the reference's ``lse[:, 0, :]``: the port
 drops the TPU's 8-row replication). Tolerances are
 tests/test_flash_variants.py's: fp32 2e-5, bf16 5e-2. The CUDA kernels
 themselves are held against the same plain versions on the card by
-``chip_smoke.py`` and by the ``cuda``-marked test at the end.
+``chip_smoke.py`` and tests/test_torch_port_cuda.py.
 """
 
 import numpy as np
@@ -181,23 +181,3 @@ class TestDecodeAttention:
         x = torch.zeros(1, 2, 1, 8)
         with pytest.raises(ValueError, match="decode_attention"):
             tfa.decode_attention(x, x, x, torch.tensor([2]))
-
-
-@pytest.mark.cuda
-class TestKernelOnCard:
-    @pytest.mark.parametrize("variant", VARIANTS)
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    def test_kernel_matches_plain(self, variant, dtype):
-        if not torch.cuda.is_available():
-            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-        _, (tq, tk, tv) = _inputs(12, b=1, s=256, h=6, d=128, dtype=dtype)
-        tq, tk, tv = (t.cuda() for t in (tq, tk, tv))
-        out, lse = tfa.flash_fwd(tq, tk, tv, True, variant=variant)
-        flat = [t.transpose(1, 2).reshape(6, 256, 128) for t in
-                (tq, tk, tv)]
-        p_out, p_lse = tref.FWD[variant](*flat, True, 64, 64)
-        rtol, atol = _TOL[dtype]
-        torch.testing.assert_close(
-            out.transpose(1, 2).reshape(6, 256, 128).float(),
-            p_out.float(), rtol=rtol, atol=atol)
-        torch.testing.assert_close(lse, p_lse, rtol=rtol, atol=atol)
