@@ -44,6 +44,7 @@ if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from horovod_tpu_torch.models import transformer as tr  # noqa: E402
@@ -94,19 +95,31 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
-    """Device time per call: the CUDA kernel time that torch.profiler
-    records over ``iters`` calls, summed over every kernel the call
-    launches; None when the profiler records no device time."""
+def device_profile(fn, iters=20):
+    """Device time per call from torch.profiler over ``iters`` calls,
+    counting each event that ran on the card once: (total ms, None when
+    nothing was recorded; {kernel name: ms})."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0) +
+                               e.time_range.elapsed_us() / 1e3 / iters)
+    return sum(by_name.values()) or None, by_name
+
+
+def device_ms(fn, iters=20):
+    return device_profile(fn, iters)[0]
+
+
+def top_kernels(by_name, n=6):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
 def qkv(seed, b, s, h, d, dtype, device):
@@ -431,11 +444,11 @@ def main():
         def prefill():
             return prefill_forward(cfg, model, toks)
         wall = time_ms(prefill, iters=10)
-        busy = device_ms(prefill, iters=5)
+        busy, by_name = device_profile(prefill, iters=5)
         log(card, f"phase 4: prefill gpt2_small_tpu bf16 prompt {s}: "
                   f"{wall:.3f} ms wall, {busy:.3f} ms device "
                   f"(busy {busy / wall:.1%}), {s / wall * 1e3:.0f} prompt "
-                  f"tokens/s")
+                  f"tokens/s; top device ms: {top_kernels(by_name)}")
     kv_shape = (cfg.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, h, d)
     kv_k = torch.zeros(kv_shape, dtype=cfg.dtype, device=dev)
     kv_v = torch.zeros_like(kv_k)
@@ -445,11 +458,12 @@ def main():
     def decode():
         return decode_step(cfg, model, tokens, positions, kv_k, kv_v)
     wall = time_ms(decode, iters=20)
-    busy = device_ms(decode, iters=10)
+    busy, by_name = device_profile(decode, iters=10)
     log(card, f"phase 4: decode_step gpt2_small_tpu bf16 {SERVE_SLOTS} "
               f"slots, max_len {SERVE_MAX_LEN}: {wall:.3f} ms/step wall, "
               f"{busy:.3f} ms device (busy {busy / wall:.1%}), "
-              f"{SERVE_SLOTS / wall * 1e3:.1f} tokens/s")
+              f"{SERVE_SLOTS / wall * 1e3:.1f} tokens/s; top device ms: "
+              f"{top_kernels(by_name)}")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())
