@@ -39,8 +39,10 @@ def _leaf(tree, path):
 def params_from_flax(tree, cfg, device=None, dtype=None):
     """A ``TransformerLM`` for ``cfg`` on ``device`` holding ``tree``.
 
-    ``dtype`` is the storage dtype of the dense and embedding weights
-    (``cfg.dtype`` by default); RMSNorm scales stay fp32."""
+    ``dtype`` is the model's working dtype (``cfg.dtype`` by default):
+    the port keeps the dense and embedding weights in it, so it is also
+    their storage dtype; RMSNorm scales stay fp32. The returned model's
+    ``cfg`` carries it."""
     if dtype is not None and dtype != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = TransformerLM(cfg, device)
