@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBlock = 64;      // q rows and k rows per tile
@@ -572,36 +574,47 @@ flash_fwd_f32_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int bh, const Params& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The dynamic shared-memory opt-in is a property of the function on each
+// device: it is set at the first launch on a device and not again, so a
+// launch costs no extra driver call.
+template <bool Bf16, int D, int V>
+cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
+  constexpr int smem =
+      Bf16 ? Bf16Layout<D>::kSmemBytes : F32Layout<D>::kSmemBytes;
+  void (*kernel)(Params) =
+      Bf16 ? flash_fwd_bf16_kernel<D, V> : flash_fwd_f32_kernel<D, V>;
+  static std::atomic<uint32_t> opted_in{0};   // bit per device ordinal
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (!(opted_in.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in.fetch_or(bit, std::memory_order_release);
+  }
   dim3 grid((p.sq + kBlock - 1) / kBlock, bh);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaSuccess;   // launch errors are read by the caller
 }
 
+template <int D, bool Bf16>
+cudaError_t dispatch_variant(int variant, int bh, const Params& p,
+                             cudaStream_t stream) {
+  switch (variant) {
+    case kOnline: return launch<Bf16, D, kOnline>(bh, p, stream);
+    case kLazy: return launch<Bf16, D, kLazy>(bh, p, stream);
+    case kTwopass: return launch<Bf16, D, kTwopass>(bh, p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t dispatch(bool bf16, int variant, int bh, const Params& p,
                      cudaStream_t stream) {
-  if (bf16) {
-    constexpr int smem = Bf16Layout<D>::kSmemBytes;
-    switch (variant) {
-      case kOnline: return launch(flash_fwd_bf16_kernel<D, kOnline>, smem, bh, p, stream);
-      case kLazy: return launch(flash_fwd_bf16_kernel<D, kLazy>, smem, bh, p, stream);
-      case kTwopass: return launch(flash_fwd_bf16_kernel<D, kTwopass>, smem, bh, p, stream);
-    }
-  } else {
-    constexpr int smem = F32Layout<D>::kSmemBytes;
-    switch (variant) {
-      case kOnline: return launch(flash_fwd_f32_kernel<D, kOnline>, smem, bh, p, stream);
-      case kLazy: return launch(flash_fwd_f32_kernel<D, kLazy>, smem, bh, p, stream);
-      case kTwopass: return launch(flash_fwd_f32_kernel<D, kTwopass>, smem, bh, p, stream);
-    }
-  }
-  return cudaErrorInvalidValue;
+  return bf16 ? dispatch_variant<D, true>(variant, bh, p, stream)
+              : dispatch_variant<D, false>(variant, bh, p, stream);
 }
 
 }  // namespace

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .models import transformer as tr
+from .ops import flash_attention as fa
 from .serving.engine import ServeEngine
 from .serving.queue import AdmissionQueue, Request
 
@@ -34,6 +35,16 @@ def serving_config(device):
         return tr.TransformerConfig.gpt2_small_tpu(attention_impl="flash")
     return tr.TransformerConfig.tiny(dtype=torch.float32,
                                      attention_impl="full")
+
+
+def serving_defaults(device):
+    """(max_len, kv_block, prompt_lens) when the command line gives none.
+    On the card, prompts of 16-960 tokens in a 1024-token cache, so
+    prefill runs both the one-tile (online) and the multi-tile (lazy)
+    kernel; on the CPU, short prompts for the tiny config."""
+    if torch.device(device).type == "cuda":
+        return 1024, 16, (16, 960)
+    return 64, 8, (4, 8)
 
 
 def make_workload(seed, n_requests, rate, short_tokens=8, long_tokens=40,
@@ -121,8 +132,15 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=48)
     ap.add_argument("--rate", type=float, default=0.5,
                     help="mean arrivals per decode step (open loop)")
-    ap.add_argument("--max-len", type=int, default=64)
-    ap.add_argument("--kv-block", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="cache rows per slot (default 1024 on cuda, "
+                         "64 on cpu)")
+    ap.add_argument("--kv-block", type=int, default=None,
+                    help="KV block rows (default 16 on cuda, 8 on cpu)")
+    ap.add_argument("--prompt-lens", type=int, nargs=2, default=None,
+                    metavar=("MIN", "MAX"),
+                    help="prompt length range (default 16 960 on cuda, "
+                         "4 8 on cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--baseline", action="store_true",
@@ -131,21 +149,29 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = serving_config(args.device)
+    max_len, kv_block, prompt_lens = serving_defaults(args.device)
+    max_len = args.max_len or max_len
+    kv_block = args.kv_block or kv_block
+    prompt_lens = tuple(args.prompt_lens or prompt_lens)
     model = tr.init_params(cfg, torch.Generator().manual_seed(args.seed),
                            device=args.device)
     workload = make_workload(args.seed, args.requests, args.rate,
+                             prompt_lens=prompt_lens,
                              temperature=args.temperature)
     out = {"device": str(model.device), "slots": args.slots,
-           "requests": args.requests, "rate": args.rate}
+           "requests": args.requests, "rate": args.rate, "max_len": max_len,
+           "prompt_lens": list(prompt_lens)}
     if model.device.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(model.device)
+    fa.reset_launch_counts()
     out["continuous"] = serve_workload(
-        cfg, model, workload, "continuous", args.slots, args.max_len,
-        kv_block=args.kv_block, seed=args.seed, device=args.device)
+        cfg, model, workload, "continuous", args.slots, max_len,
+        kv_block=kv_block, seed=args.seed, device=args.device)
+    out["continuous"]["kernel_launches"] = dict(fa.launch_counts)
     if args.baseline:
         out["static"] = serve_workload(
-            cfg, model, workload, "drain", args.slots, args.max_len,
-            kv_block=args.kv_block, seed=args.seed, device=args.device)
+            cfg, model, workload, "drain", args.slots, max_len,
+            kv_block=kv_block, seed=args.seed, device=args.device)
         out["speedup_tokens_per_step"] = (
             out["continuous"]["tokens_per_step"] /
             max(out["static"]["tokens_per_step"], 1e-9))

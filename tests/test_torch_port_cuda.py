@@ -20,7 +20,6 @@ from horovod_tpu_torch.serving.engine import ServeEngine
 from horovod_tpu_torch.serving.queue import AdmissionQueue, Request
 
 pytestmark = pytest.mark.cuda
-_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
 @pytest.fixture
@@ -30,26 +29,60 @@ def card():
     return torch.device("cuda")
 
 
-def _qkv(seed, b, s, h, d, dtype, device):
+def _qkv(seed, b, s, h, d, dtype, device, k_ramp=None):
+    """Unit-scale q, k, v [b, s, h, d]; ``k_ramp`` [s] scales each key."""
     g = torch.Generator().manual_seed(seed)
-    return [(torch.randn(b, s, h, d, generator=g) * 0.3).to(device, dtype)
-            for _ in range(3)]
+    q, k, v = (torch.randn(b, s, h, d, generator=g) for _ in range(3))
+    if k_ramp is not None:
+        k = k * k_ramp[None, :, None, None]
+    return [t.to(device, dtype) for t in (q, k, v)]
+
+
+def _assert_kernel_close(got, want, what, dtype):
+    """fp32: 2e-5. bf16 O: two bf16 ulps of each value plus 1 % of the
+    largest |O|, so O = 0 or a skipped rescale fails; lse is fp32 from
+    fp32 logits in both dtypes: 1e-3."""
+    want = want.float()
+    if dtype == torch.float32:
+        rtol, atol = 2e-5, 2e-5
+    elif what == "lse":
+        rtol, atol = 0.0, 1e-3
+    else:
+        rtol, atol = 1.6e-2, 1e-2 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def _check(q, k, v, causal, variant, dtype):
+    b, s, h, d = q.shape
+    out, lse = fa.flash_fwd(q, k, v, causal, variant=variant)
+    flat = [t.transpose(1, 2).reshape(b * h, s, d) for t in (q, k, v)]
+    block = fa.fit_block(s)
+    p_out, p_lse = ref.FWD[variant](*flat, causal, block, block)
+    _assert_kernel_close(out.transpose(1, 2).reshape(b * h, s, d), p_out,
+                         "O", dtype)
+    _assert_kernel_close(lse, p_lse, "lse", dtype)
 
 
 @pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [40, 256])
 def test_kernel_matches_plain(card, variant, dtype, s):
-    q, k, v = _qkv(12, 1, s, 6, 128, dtype, card)
-    out, lse = fa.flash_fwd(q, k, v, True, variant=variant)
-    flat = [t.transpose(1, 2).reshape(6, s, 128) for t in (q, k, v)]
-    block = fa.fit_block(s)
-    p_out, p_lse = ref.FWD[variant](*flat, True, block, block)
-    tol = _TOL[dtype]
-    torch.testing.assert_close(
-        out.transpose(1, 2).reshape(6, s, 128).float(), p_out.float(),
-        rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, p_lse, rtol=tol, atol=tol)
+    _check(*_qkv(12, 1, s, 6, 128, dtype, card), True, variant, dtype)
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("ramp", ["down", "up"])
+def test_kernel_matches_plain_on_rising_max(card, variant, dtype, causal,
+                                            ramp):
+    """Keys ramped so every k tile raises the row max in one walk order:
+    ``down`` in lazy's diagonal-first walk, ``up`` in the ascending one."""
+    k_ramp = torch.linspace(4.0, 0.5, 512)
+    if ramp == "up":
+        k_ramp = k_ramp.flip(0)
+    _check(*_qkv(14, 1, 512, 6, 128, dtype, card, k_ramp), causal, variant,
+           dtype)
 
 
 def test_kernel_refuses_what_it_cannot_take(card):

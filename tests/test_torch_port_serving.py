@@ -9,6 +9,8 @@ same prompts. The engine cases mirror tests/test_serving.py without its
 metrics asserts (the port's metrics plane comes later).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -424,3 +426,30 @@ class TestSampling:
         greedy = torch.argmax(logits, dim=-1)
         assert a[0] == greedy[0] and a[2] == greedy[2]
         assert all(0 <= t < 50 for t in a.tolist())
+
+
+# ---------------------------------------------------------------------------
+# the serve_lm entry point
+# ---------------------------------------------------------------------------
+
+class TestServeLmCli:
+    def test_cpu_run_prints_one_json_line(self, capsys):
+        from horovod_tpu_torch import serve_lm
+        assert serve_lm.main(["--device", "cpu", "--requests", "6",
+                              "--baseline"]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert len(lines) == 1
+        out = json.loads(lines[0])
+        assert out["max_len"] == 64 and out["prompt_lens"] == [4, 8]
+        for arm in ("continuous", "static"):
+            assert out[arm]["completed"] == 6 and out[arm]["failed"] == 0
+        # the CPU config attends with "full": no kernel is launched
+        assert out["continuous"]["kernel_launches"] == {}
+
+    def test_card_defaults_reach_the_multi_tile_kernel(self):
+        from horovod_tpu_torch import serve_lm
+        max_len, kv_block, (lo, hi) = serve_lm.serving_defaults("cuda")
+        assert (max_len, kv_block) == (1024, 16)
+        # one-tile (online) and multi-tile (lazy) prompts, and the longest
+        # prompt plus the longest decode still fits the cache
+        assert lo <= 64 < hi and hi + 40 <= max_len
