@@ -40,18 +40,9 @@
 // alpha = exp2(m - m) = 1 exactly either way, so the two are bit-identical
 // and the narrower predicate skips more work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlock = 64;      // q rows and k rows per tile
-constexpr int kThreads = 128;   // 4 warps
-constexpr float kNegInf = -1e30f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 enum Variant { kOnline = 0, kLazy = 1, kTwopass = 2 };
 
@@ -67,64 +58,6 @@ struct Params {
   int causal;
 };
 
-// ---------------------------------------------------------------------------
-// helpers
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from shared memory, the first in the low half
-__device__ __forceinline__ uint32_t pack2(const __nv_bfloat16* lo,
-                                          const __nv_bfloat16* hi) {
-  uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
-// two fp32 rounded to bf16 (nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // number of k tiles this q tile visits: the causal loop stops at the
 // diagonal tile (q and k tiles are both kBlock rows)
 __device__ __forceinline__ int k_tiles(const Params& p, int qi) {
@@ -135,31 +68,13 @@ __device__ __forceinline__ int k_tiles(const Params& p, int qi) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 
-// shared-memory row stride in elements: +8 bf16 puts the 8 rows a
-// fragment load touches in 8 distinct bank groups
+// Q tile + two K tiles + two V tiles
 template <int D>
 struct Bf16Layout {
-  static constexpr int kStride = D + 8;
-  static constexpr int kTile = kBlock * kStride;
-  // Q tile + two K tiles + two V tiles
+  static constexpr int kStride = Bf16Tile<D>::kStride;
+  static constexpr int kTile = Bf16Tile<D>::kElems;
   static constexpr int kSmemBytes = 5 * kTile * 2;
 };
-
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int rows, int tid) {
-  constexpr int kChunks = D / 8;   // 16-byte chunks per row
-  constexpr int kStride = Bf16Layout<D>::kStride;
-  for (int c = tid; c < kBlock * kChunks; c += kThreads) {
-    int r = c / kChunks;
-    int col = (c % kChunks) * 8;
-    int gr = row0 + r;
-    bool ok = gr < rows;
-    cp_async16(dst + r * kStride + col,
-               src + static_cast<size_t>(ok ? gr : 0) * D + col, ok);
-  }
-}
 
 template <int D, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -412,26 +327,14 @@ flash_fwd_bf16_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores, full fp32
 
+// Q, K, V tiles + the probabilities tile
 template <int D>
 struct F32Layout {
-  static constexpr int kStride = D + 1;          // floats per row
-  static constexpr int kTile = kBlock * kStride;
+  static constexpr int kStride = F32Tile<D>::kStride;   // floats per row
+  static constexpr int kTile = F32Tile<D>::kElems;
   static constexpr int kPStride = kBlock + 1;
-  // Q, K, V tiles + the probabilities tile
   static constexpr int kSmemBytes = (3 * kTile + kBlock * kPStride) * 4;
 };
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int rows, int tid) {
-  constexpr int kStride = F32Layout<D>::kStride;
-  for (int i = tid; i < kBlock * D; i += kThreads) {
-    int r = i / D;
-    int c = i % D;
-    int gr = row0 + r;
-    dst[r * kStride + c] = gr < rows ? src[static_cast<size_t>(gr) * D + c] : 0.f;
-  }
-}
 
 // Each pair of threads owns one query row: thread `half` computes the
 // logits of keys half, half+2, ... and the output columns
@@ -574,26 +477,15 @@ flash_fwd_f32_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-// The dynamic shared-memory opt-in is a property of the function on each
-// device: it is set at the first launch on a device and not again, so a
-// launch costs no extra driver call.
 template <bool Bf16, int D, int V>
 cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
   constexpr int smem =
       Bf16 ? Bf16Layout<D>::kSmemBytes : F32Layout<D>::kSmemBytes;
   void (*kernel)(Params) =
       Bf16 ? flash_fwd_bf16_kernel<D, V> : flash_fwd_f32_kernel<D, V>;
-  static std::atomic<uint32_t> opted_in{0};   // bit per device ordinal
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<uint32_t> opted_in{0};
+  cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
-  uint32_t bit = dev < 32 ? 1u << dev : 0u;
-  if (!(opted_in.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    opted_in.fetch_or(bit, std::memory_order_release);
-  }
   dim3 grid((p.sq + kBlock - 1) / kBlock, bh);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaSuccess;   // launch errors are read by the caller

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .transformer import TransformerLM
+from .transformer import TransformerLM, set_trainable
 
 
 def _dense_names(i):
@@ -36,16 +36,22 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
-def params_from_flax(tree, cfg, device=None, dtype=None):
+def params_from_flax(tree, cfg, device=None, dtype=None, train=False,
+                     param_dtype=None):
     """A ``TransformerLM`` for ``cfg`` on ``device`` holding ``tree``.
 
-    ``dtype`` is the model's working dtype (``cfg.dtype`` by default):
-    the port keeps the dense and embedding weights in it, so it is also
-    their storage dtype; RMSNorm scales stay fp32. The returned model's
-    ``cfg`` carries it."""
+    ``dtype`` is the model's working dtype (``cfg.dtype`` by default; the
+    returned model's ``cfg`` carries it). ``train=True`` gives a training
+    model with gradients on, whose dense and embedding weights keep the
+    flax fp32 values unrounded (``param_dtype`` fp32 by default), so that
+    a training step from converted weights is the same function in both
+    packages; otherwise they are stored in ``param_dtype`` or the working
+    dtype and frozen, for serving. RMSNorm scales stay fp32."""
     if dtype is not None and dtype != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    model = TransformerLM(cfg, device)
+    if param_dtype is None and train:
+        param_dtype = torch.float32
+    model = TransformerLM(cfg, device, param_dtype)
     mapping = {"embed.weight": (("embed", "embedding"), False),
                "ln_f.scale": (("ln_f", "scale"), False)}
     for i in range(cfg.num_layers):
@@ -72,4 +78,4 @@ def params_from_flax(tree, cfg, device=None, dtype=None):
                                  f"does not fit {name} {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(
                 device=p.device, dtype=p.dtype))
-    return model.eval().requires_grad_(False)
+    return set_trainable(model, train)

@@ -11,9 +11,13 @@ In PyTorch a module owns its weights, so where the JAX package passes a
 ``(model, params)`` pair the port passes the ``TransformerLM`` alone:
 ``init_params`` returns one with seeded weights and
 ``models.convert.params_from_flax`` one holding a flax checkpoint.
-Dense and embedding weights are kept in ``cfg.dtype`` (the flax model
-casts its fp32 params to that dtype at every use, which is the same
-arithmetic); the RMSNorm scales stay fp32, where flax applies them.
+
+Dense and embedding weights are stored in the model's ``param_dtype``
+and cast to ``cfg.dtype`` at every use, as flax casts its fp32 params
+("bf16 compute, fp32 params"). A training model keeps fp32 masters, so
+that a 3e-4 update does not round away in bf16; a serving model stores
+them in ``cfg.dtype`` (the casts are then no-ops, and the arithmetic is
+the same). The RMSNorm scales are fp32 in both, where flax applies them.
 """
 
 import dataclasses
@@ -127,17 +131,44 @@ class RMSNorm(nn.Module):
             self.dtype)
 
 
-def _dense(d_in, d_out, cfg, device):
-    return nn.Linear(d_in, d_out, bias=False, dtype=cfg.dtype,
-                     device=device)
+class Dense(nn.Linear):
+    """Bias-free ``nn.Linear`` computing in ``dtype`` from a weight stored
+    in ``param_dtype``: flax's ``Dense(dtype=...)``, which casts its input
+    and its kernel to ``dtype`` at each use."""
+
+    def __init__(self, d_in, d_out, dtype, param_dtype, device=None):
+        super().__init__(d_in, d_out, bias=False, dtype=param_dtype,
+                         device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``dtype`` from a table
+    stored in ``param_dtype`` (flax's ``Embed(dtype=...)``)."""
+
+    def __init__(self, vocab, dim, dtype, param_dtype, device=None):
+        super().__init__(vocab, dim, dtype=param_dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, tokens):
+        return super().forward(tokens).to(self.compute_dtype)
+
+
+def _dense(d_in, d_out, cfg, param_dtype, device):
+    return Dense(d_in, d_out, cfg.dtype, param_dtype, device)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, param_dtype, device=None):
         super().__init__()
         self.cfg = cfg
-        self.qkv = _dense(cfg.d_model, 3 * cfg.d_model, cfg, device)
-        self.out = _dense(cfg.d_model, cfg.d_model, cfg, device)
+        self.qkv = _dense(cfg.d_model, 3 * cfg.d_model, cfg, param_dtype,
+                          device)
+        self.out = _dense(cfg.d_model, cfg.d_model, cfg, param_dtype, device)
 
     def project(self, x, positions):
         """Rotated q, k and v, each ``[b, s, heads, head_dim]``."""
@@ -156,23 +187,23 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """Gated SiLU MLP: down(silu(gate(x)) · up(x))."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, param_dtype, device=None):
         super().__init__()
-        self.gate = _dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.up = _dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down = _dense(cfg.d_ff, cfg.d_model, cfg, device)
+        self.gate = _dense(cfg.d_model, cfg.d_ff, cfg, param_dtype, device)
+        self.up = _dense(cfg.d_model, cfg.d_ff, cfg, param_dtype, device)
+        self.down = _dense(cfg.d_ff, cfg.d_model, cfg, param_dtype, device)
 
     def forward(self, x):
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, param_dtype, device=None):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, param_dtype, device)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, param_dtype, device)
 
     def forward(self, x, positions):
         x = x + self.attn(self.ln_attn(x), positions)
@@ -191,24 +222,31 @@ def head_logits(cfg, x, weight):
 
 
 class TransformerLM(nn.Module):
-    """The LM; ``forward(tokens [b, s])`` gives logits ``[b, s, vocab]``."""
+    """The LM; ``forward(tokens [b, s])`` gives logits ``[b, s, vocab]``.
 
-    def __init__(self, cfg, device=None):
+    ``param_dtype`` is the storage dtype of the dense and embedding
+    weights (``cfg.dtype`` when None): fp32 masters for training,
+    ``cfg.dtype`` for serving."""
+
+    def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
         if cfg.num_experts > 0:
             raise NotImplementedError(
                 "the port has no Mixture-of-Experts layer yet "
                 "(num_experts must be 0)")
         device = resolve_device(device)
+        param_dtype = cfg.dtype if param_dtype is None else param_dtype
         self.cfg = cfg
         self.device = device
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
-                                  dtype=cfg.dtype, device=device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.param_dtype = param_dtype
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
+                               param_dtype, device)
+        self.layers = nn.ModuleList(Block(cfg, param_dtype, device)
                                     for _ in range(cfg.num_layers))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
-                        _dense(cfg.d_model, cfg.vocab_size, cfg, device))
+                        _dense(cfg.d_model, cfg.vocab_size, cfg, param_dtype,
+                               device))
 
     def head_weight(self):
         """``[vocab, d_model]``: the tied embedding or the lm_head."""
@@ -216,27 +254,48 @@ class TransformerLM(nn.Module):
             return self.embed.weight
         return self.lm_head.weight
 
-    @torch.no_grad()
-    def forward(self, tokens):
+    def forward(self, tokens, return_hidden=False):
+        """Logits ``[b, s, vocab]``; with ``return_hidden=True`` the
+        final-norm hidden states ``[b, s, d_model]`` instead. Serving
+        callers run it under ``torch.no_grad()``."""
         check_on(self.device, tokens)
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         for layer in self.layers:
             x = layer(x, positions)
-        return head_logits(self.cfg, self.ln_f(x), self.head_weight())
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return head_logits(self.cfg, x, self.head_weight())
 
 
-def init_params(cfg, generator=None, device=None):
+def set_trainable(model, train):
+    """``model`` in training mode with gradients on, or in eval mode with
+    its parameters frozen (serving)."""
+    model.train(train)
+    return model.requires_grad_(train)
+
+
+def init_params(cfg, generator=None, device=None, train=False,
+                param_dtype=None):
     """A ``TransformerLM`` on ``device`` (CUDA unless told otherwise)
     with random weights drawn from ``generator`` (a CPU generator seeded
     0 when None, so a seed gives the same weights on every device):
     dense kernels normal with std 1/sqrt(fan_in), the embedding normal
     with std 1/sqrt(d_model), RMSNorm scales one — the scales of the
-    flax initializers."""
+    flax initializers.
+
+    ``train=True`` gives a training model: fp32 master weights (unless
+    ``param_dtype`` says otherwise) with gradients on. Otherwise the
+    weights are stored in ``param_dtype`` or ``cfg.dtype`` and frozen,
+    for serving. The fp32 draws are the same either way, so a training
+    and a serving model of one seed compute the same function."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = TransformerLM(cfg, device)
+    if param_dtype is None and train:
+        param_dtype = torch.float32
+    model = TransformerLM(cfg, device, param_dtype)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith(".scale"):
@@ -247,4 +306,44 @@ def init_params(cfg, generator=None, device=None):
             draw = torch.randn(p.shape, generator=generator,
                                device=generator.device) * std
             p.copy_(draw.to(device=device, dtype=p.dtype))
-    return model.eval().requires_grad_(False)
+    return set_trainable(model, train)
+
+
+def lm_loss_fn(model, vocab_chunk=0):
+    """Next-token loss for ``TransformerLM``: returns ``loss_fn(model,
+    tokens) -> loss``, the model standing where the JAX package's params
+    stand.
+
+    Full-length inputs, as the JAX package feeds them: the targets are the
+    tokens rolled left by one, and the final position, whose target is
+    unknowable, gets weight 0 — causal masking keeps every other
+    position's output independent of the extra input token, so the loss is
+    that of the shifted split. ``vocab_chunk > 0`` (the chunked cross
+    entropy over vocab blocks) is not ported yet."""
+    if vocab_chunk:
+        raise NotImplementedError(
+            "vocab_chunk > 0 (chunked_softmax_cross_entropy) is not ported "
+            "yet (ROADMAP.md); use vocab_chunk=0")
+    if model.cfg.num_experts > 0:
+        raise NotImplementedError("the MoE auxiliary loss is not ported yet")
+    from .. import trainer
+
+    def loss_fn(model, tokens):
+        targets = torch.roll(tokens, -1, dims=1)
+        weights = torch.ones(tokens.shape, dtype=torch.float32,
+                             device=tokens.device)
+        weights[:, -1] = 0.0
+        return trainer.softmax_cross_entropy(model(tokens), targets, weights)
+    return loss_fn
+
+
+def matmul_flops_per_token(cfg, seq):
+    """Matmul FLOPs per token, PaLM appendix-B convention:
+    ``6·P_matmul + 12·L·seq·d_model``. P_matmul counts the qkv and out
+    projections (4·d²), the gated MLP's three d×d_ff kernels and the
+    lm_head. Head-count independent, so MFU numbers are comparable across
+    head shapes."""
+    p_matmul = (cfg.num_layers * (4 * cfg.d_model ** 2 +
+                                  3 * cfg.d_model * cfg.d_ff) +
+                cfg.d_model * cfg.vocab_size)
+    return 6 * p_matmul + 12 * cfg.num_layers * seq * cfg.d_model

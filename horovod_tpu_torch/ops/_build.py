@@ -14,7 +14,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
-SOURCES = ("flash_fwd.cu", "bindings.cpp")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "bindings.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17",
               "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -1,11 +1,17 @@
-"""Fused (flash) attention forward for the port: public side and dispatch.
+"""Fused (flash) attention for the port: public side and dispatch.
 
-The counterpart of ``horovod_tpu/ops/flash_attention.py``'s forward. A
-CUDA tensor goes to the hand-written Hopper kernels in
-``csrc/flash_fwd.cu`` (one per variant: online, lazy, twopass); a CPU
-tensor goes to their plain PyTorch versions in ``flash_attention_ref.py``,
-which walk the same tiles. Nothing on a CUDA tensor ever takes the plain
-version: if the kernel cannot build or launch, the call raises.
+The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
+backward. A CUDA tensor goes to the hand-written Hopper kernels: the
+forward variants (online, lazy, twopass) in ``csrc/flash_fwd.cu``, the
+backward's dq and dk/dv kernels in ``csrc/flash_bwd.cu``. A CPU tensor
+goes to their plain PyTorch versions in ``flash_attention_ref.py``, which
+walk the same tiles. Nothing on a CUDA tensor ever takes the plain
+version: if a kernel cannot build or launch, the call raises.
+
+``flash_attention`` is differentiable through a ``torch.autograd.Function``
+(the counterpart of the JAX package's ``custom_vjp``): the forward saves
+q, k, v, O and lse; the backward computes delta = rowsum(dO∘O) as plain
+torch, as the JAX package does, and launches the two backward kernels.
 
 Tiles are 64 rows of Q by 64 rows of K/V, chosen for Hopper: 16 query
 rows per warp of mma.sync, and a bf16 K/V tile of d=128 double-buffered
@@ -33,8 +39,8 @@ NEG_INF = ref.NEG_INF
 LOG2E = ref.LOG2E
 
 #: Forward accumulation variants (see flash_attention_ref.py for each one's
-#: tile walk). The backward kernels, when they land, are shared: every
-#: variant writes the same natural-log lse.
+#: tile walk). The backward kernels are shared: every variant writes the
+#: same natural-log lse.
 VARIANTS = ("online", "lazy", "twopass")
 
 #: Rows of Q and of K/V per tile — the one tile shape the kernels compile.
@@ -73,8 +79,8 @@ def fit_block(s):
     return min(BLOCK, s)
 
 
-def _kernel_fwd(qf, kf, vf, causal, scale, variant):
-    """Launch the CUDA kernel on ``[b·h, s, d]`` operands."""
+def _check_operands(qf, kf, vf):
+    """Raise unless ``[b·h, s, d]`` q, k, v are what the kernels take."""
     if qf.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{qf.dtype}")
@@ -87,16 +93,117 @@ def _kernel_fwd(qf, kf, vf, causal, scale, variant):
             kf.shape[2] != qf.shape[2]:
         raise ValueError(f"k/v shape {tuple(kf.shape)} does not fit q "
                          f"{tuple(qf.shape)}")
-    for t in (qf, kf, vf):
+    _check_contiguous(qf, kf, vf)
+
+
+def _check_contiguous(*ts):
+    for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash kernel operands must be contiguous and "
                              "16-byte aligned")
+
+
+def _kernel_fwd(qf, kf, vf, causal, scale, variant):
+    """Launch the forward kernel on ``[b·h, s, d]`` operands."""
+    _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
     extension().flash_fwd(qf, kf, vf, out, lse, VARIANTS.index(variant),
                           bool(causal), float(scale * LOG2E))
     launch_counts[f"flash_fwd_{variant}"] += 1
     return out, lse
+
+
+def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
+    """Launch the backward kernels on ``[b·h, s, d]`` operands (dO like
+    q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv)."""
+    _check_operands(qf, kf, vf)
+    if dof.shape != qf.shape or dof.dtype != qf.dtype:
+        raise ValueError(f"dO {tuple(dof.shape)} {dof.dtype} does not fit "
+                         f"q {tuple(qf.shape)} {qf.dtype}")
+    for stat in (lse, delta):
+        if stat.dtype != torch.float32 or stat.shape != qf.shape[:2]:
+            raise ValueError("lse and delta must be fp32 [b·h, sq]")
+    _check_contiguous(dof, lse, delta)
+    dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+    ext = extension()
+    args = (bool(causal), float(scale * LOG2E), float(scale))
+    ext.flash_bwd_dq(qf, kf, vf, dof, lse, delta, dq, *args)
+    launch_counts["flash_bwd_dq"] += 1
+    ext.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
+    launch_counts["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+def _check_kernel_blocks(block_q, block_k, sq, sk):
+    if (block_q, block_k) != (fit_block(sq), fit_block(sk)):
+        raise ValueError(
+            f"the CUDA kernel walks {BLOCK}-row tiles; got blocks "
+            f"({block_q}, {block_k}) for seq ({sq}, {sk})")
+
+
+def _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant):
+    """(out, lse) of ``[b·h, s, d]`` operands: the kernel on the card,
+    the plain version on the CPU."""
+    scale = qf.shape[-1] ** -0.5
+    if qf.is_cuda:
+        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1])
+        return _kernel_fwd(qf.contiguous(), kf.contiguous(),
+                           vf.contiguous(), causal, scale, variant)
+    if qf.device.type == "cpu":
+        return ref.FWD[variant](qf, kf, vf, causal, block_q, block_k, scale)
+    raise ValueError(f"flash attention runs on cuda or cpu, not {qf.device}")
+
+
+def _bwd_flat(qf, kf, vf, of, lse, dof, causal, block_q, block_k):
+    """(dq, dk, dv) of ``[b·h, s, d]`` operands given the forward's out
+    and lse and the output gradient dO."""
+    scale = qf.shape[-1] ** -0.5
+    delta = ref.flash_delta(of, dof)
+    if qf.is_cuda:
+        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1])
+        return _kernel_bwd(qf.contiguous(), kf.contiguous(),
+                           vf.contiguous(), dof.contiguous(), lse, delta,
+                           causal, scale)
+    if qf.device.type == "cpu":
+        dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, block_q,
+                              block_k, scale)
+        dk, dv = ref.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, causal,
+                                   block_q, block_k, scale)
+        return dq, dk, dv
+    raise ValueError(f"flash attention runs on cuda or cpu, not {qf.device}")
+
+
+def _layout_dims(q, k, layout):
+    """(b, h, sq, sk, d) of operands in ``layout``."""
+    if layout == "bhsd":
+        b, h, sq, d = q.shape
+        return b, h, sq, k.shape[2], d
+    if layout == "bshd":
+        b, sq, h, d = q.shape
+        return b, h, sq, k.shape[1], d
+    raise ValueError(f"unknown layout {layout!r}")
+
+
+def _flat(t, layout):
+    """``[b, s, h, d]`` or ``[b, h, s, d]`` to ``[b·h, s, d]``."""
+    if layout == "bhsd":
+        return t.reshape(-1, t.shape[2], t.shape[3])
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+def _unflat(t, b, h, layout):
+    t = t.reshape(b, h, t.shape[1], t.shape[2])
+    return t if layout == "bhsd" else t.transpose(1, 2)
+
+
+def _blocks(sq, sk, block_q, block_k):
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(
+            f"flash_attention needs seq divisible by block sizes: "
+            f"q {sq}%{block_q}, k {sk}%{block_k}")
+    return block_q, block_k
 
 
 def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
@@ -110,42 +217,42 @@ def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
     version at the given blocks."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r}")
-    if layout == "bhsd":
-        b, h, sq, d = q.shape
-        sk = k.shape[2]
-    elif layout == "bshd":
-        b, sq, h, d = q.shape
-        sk = k.shape[1]
-    else:
-        raise ValueError(f"unknown layout {layout!r}")
-    block_q, block_k = min(block_q, sq), min(block_k, sk)
-    if sq % block_q or sk % block_k:
-        raise ValueError(
-            f"flash_attention needs seq divisible by block sizes: "
-            f"q {sq}%{block_q}, k {sk}%{block_k}")
-    scale = d ** -0.5
+    b, h, sq, sk, _ = _layout_dims(q, k, layout)
+    block_q, block_k = _blocks(sq, sk, block_q, block_k)
+    out, lse = _fwd_flat(_flat(q, layout), _flat(k, layout),
+                         _flat(v, layout), causal, block_q, block_k, variant)
+    return _unflat(out, b, h, layout), lse
 
-    def flat(t, s):
-        if layout == "bhsd":
-            return t.reshape(b * h, s, d)
-        return t.transpose(1, 2).reshape(b * h, s, d)
 
-    qf, kf, vf = flat(q, sq), flat(k, sk), flat(v, sk)
-    if q.is_cuda:
-        if (block_q, block_k) != (fit_block(sq), fit_block(sk)):
-            raise ValueError(
-                f"the CUDA kernel walks {BLOCK}-row tiles; got blocks "
-                f"({block_q}, {block_k}) for seq ({sq}, {sk})")
-        out, lse = _kernel_fwd(qf.contiguous(), kf.contiguous(),
-                               vf.contiguous(), causal, scale, variant)
-    elif q.device.type == "cpu":
-        out, lse = ref.FWD[variant](qf, kf, vf, causal, block_q, block_k,
-                                    scale)
-    else:
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
-    if layout == "bhsd":
-        return out.reshape(b, h, sq, d), lse
-    return out.reshape(b, h, sq, d).transpose(1, 2), lse
+def flash_bwd(q, k, v, out, lse, g, causal, block_q=BLOCK, block_k=BLOCK,
+              layout="bshd"):
+    """Gradients ``(dq, dk, dv)`` in the operands' layout, given the
+    forward's ``out`` (layout like q) and ``lse`` (``[b·h, sq]``) and the
+    output gradient ``g`` (like out): the counterpart of the JAX
+    package's ``_flash_bwd``. CUDA tensors launch the dq and dk/dv
+    kernels; CPU tensors run their plain versions at the given blocks."""
+    b, h, sq, sk, _ = _layout_dims(q, k, layout)
+    block_q, block_k = _blocks(sq, sk, block_q, block_k)
+    dq, dk, dv = _bwd_flat(*(_flat(t, layout) for t in (q, k, v, out)), lse,
+                           _flat(g, layout), causal, block_q, block_k)
+    return tuple(_unflat(t, b, h, layout) for t in (dq, dk, dv))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on ``[b·h, s, d]`` operands with the flash backward."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, causal, block_q, block_k, variant):
+        out, lse = _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant)
+        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.walk = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_flat(qf, kf, vf, out, lse, g, *ctx.walk)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, layout="bshd", variant="auto",
@@ -153,18 +260,20 @@ def flash_attention(q, k, v, causal=True, layout="bshd", variant="auto",
     """Fused attention; q/k/v ``[b, s, h, d]`` (or ``[b, h, s, d]`` with
     ``layout="bhsd"``). Causal mask in global positions; exact softmax
     with fp32 statistics, matching ``parallel.ring.full_attention``.
+    Differentiable: gradients come from the flash backward (the kernels
+    on the card, their plain versions on the CPU), the same for every
+    forward variant.
 
     ``device`` is where the caller means to run (CUDA unless it says
     ``"cpu"``); the tensors must lie there. A sequence the tile does not
-    divide is end-padded for causal self-attention and refused otherwise.
-    ``variant`` is 'auto' or one of VARIANTS (HVD_FLASH_VARIANT overrides
-    both)."""
+    divide is end-padded for causal self-attention and refused otherwise;
+    the padded rows get a zero output gradient, so they add nothing to
+    dk and dv. ``variant`` is 'auto' or one of VARIANTS
+    (HVD_FLASH_VARIANT overrides both)."""
     device = resolve_device(device)
     check_on(device, q, k, v)
-    if layout not in ("bshd", "bhsd"):
-        raise ValueError(f"unknown layout {layout!r}")
+    b, h, sq, sk, _ = _layout_dims(q, k, layout)
     seq_axis = 2 if layout == "bhsd" else 1
-    sq, sk = q.shape[seq_axis], k.shape[seq_axis]
     bq, bk = fit_block(sq), fit_block(sk)
     pad_q, pad_k = -sq % bq, -sk % bk
     if (pad_q or pad_k) and not (causal and sq == sk):
@@ -177,8 +286,9 @@ def flash_attention(q, k, v, causal=True, layout="bshd", variant="auto",
             return F.pad(t, [0, 0] * (3 - seq_axis) + [0, p])
         q, k, v = seq_pad(q, pad_q), seq_pad(k, pad_k), seq_pad(v, pad_k)
     variant = resolve_variant(variant, nk=(sk + pad_k) // bk)
-    out, _ = flash_fwd(q, k, v, causal, bq, bk, layout=layout,
-                       variant=variant)
+    qf, kf, vf = (_flat(t, layout).contiguous() for t in (q, k, v))
+    out = _unflat(_FlashAttention.apply(qf, kf, vf, causal, bq, bk, variant),
+                  b, h, layout)
     if pad_q:
         out = out[:, :, :sq] if layout == "bhsd" else out[:, :sq]
     return out

@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the flash-attention forward kernels.
+"""Plain PyTorch versions of the flash-attention kernels.
 
-One function per variant, each walking the same tiles in the same order
-as its CUDA kernel (``csrc/flash_fwd.cu``) and its TPU original
+Forward: one function per variant, each walking the same tiles in the
+same order as its CUDA kernel (``csrc/flash_fwd.cu``) and its TPU original
 (``horovod_tpu/ops/flash_attention.py``): the causal k loop stops at the
 diagonal tile; ``lazy`` walks k tiles diagonal-first and rescales only
 when ``any(m_tile > m)`` over the q tile; ``twopass`` takes the row max
@@ -10,6 +10,16 @@ the kernels': logits in fp32 from the input-dtype operands, the exp2
 domain with log2(e) in the scale, the finite -1e30 mask sentinel, P
 rounded to V's dtype before P@V, and lse = (m + log2 l)·ln2 with l
 clipped at 1e-30.
+
+Backward: ``flash_bwd_dq`` and ``flash_bwd_dkv``, the counterparts of the
+CUDA kernels in ``csrc/flash_bwd.cu`` and of the TPU's ``_dq_kernel`` and
+``_dkv_kernel``, with ``flash_delta`` the plain rowsum(dO∘O) the JAX
+package also leaves outside any kernel. dq walks q tiles, each over its k
+tiles up to the causal diagonal; dk/dv walk k tiles, each over its q
+tiles from the diagonal on. Each rebuilds p = exp2(s − lse·log2e) from the
+forward's lse, rounds ds to the input dtype before ds@K and dsᵀ@Q and p
+to dO's dtype before pᵀ@dO, accumulates in fp32 and applies the softmax
+scale once, after the loop, to dq and dk (never to dv).
 
 The CPU path of ``flash_attention`` runs these, and so do the tests;
 on the card they are only the yardstick the kernels are held against.
@@ -75,6 +85,11 @@ class _Tiles:
                            device=dev),
                 torch.zeros((bh, rows), dtype=torch.float32, device=dev),
                 torch.zeros((bh, rows, d), dtype=torch.float32, device=dev))
+
+    def q_stats(self, stat, qi):
+        """Rows of a per-query fp32 statistic ``[b·h, sq]`` for q tile
+        qi, as a column ``[b·h, rows, 1]``."""
+        return stat[:, self.q_rows(qi), None]
 
 
 def _finish(tiles, parts):
@@ -158,3 +173,68 @@ def flash_fwd_twopass(q, k, v, causal, block_q, block_k, scale=None):
 
 FWD = {"online": flash_fwd_online, "lazy": flash_fwd_lazy,
        "twopass": flash_fwd_twopass}
+
+
+def flash_delta(out, dout):
+    """delta = rowsum(dO ∘ O) in fp32, ``[b·h, sq]``: the dP correction
+    term of the backward."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+def _probs(t, lse2, qi, kb):
+    """p of q tile qi against k tile kb, rebuilt from the forward's lse
+    (``lse2`` = lse·log2e); exactly 0 where masked."""
+    return torch.exp2(t.logits(qi, kb) - t.q_stats(lse2, qi))
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, block_q, block_k,
+                 scale=None):
+    """dq = scale · Σ_k [p∘(dP − delta)]@K, dP = dO@Vᵀ; ``[b·h, sq, d]`` in
+    q's dtype. Each q tile walks its k tiles up to the causal diagonal."""
+    scale = _default_scale(q, scale)
+    t = _Tiles(q, k, v, causal, block_q, block_k, scale)
+    lse2 = lse * LOG2E
+    parts = []
+    for qi in range(t.nq):
+        do = dout[:, t.q_rows(qi)].float()
+        dq = torch.zeros(do.shape, dtype=torch.float32, device=q.device)
+        for kb in range(t.nk(qi)):
+            kr = t.k_rows(kb)
+            p = _probs(t, lse2, qi, kb)
+            dp = torch.matmul(do, v[:, kr].float().transpose(1, 2))
+            ds = (p * (dp - t.q_stats(delta, qi))).to(k.dtype)
+            dq = dq + torch.matmul(ds.float(), k[:, kr].float())
+        parts.append((dq * scale).to(q.dtype))
+    return torch.cat(parts, dim=1)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, block_q, block_k,
+                  scale=None):
+    """(dk, dv): dv = Σ_q pᵀ@dO, dk = scale · Σ_q dsᵀ@Q; ``[b·h, sk, d]`` in
+    k's and v's dtypes. Each k tile walks its q tiles from the first one
+    that can see it (the diagonal, for causal attention) to the end."""
+    scale = _default_scale(q, scale)
+    t = _Tiles(q, k, v, causal, block_q, block_k, scale)
+    lse2 = lse * LOG2E
+    dks, dvs = [], []
+    for kb in range(t.nk_total):
+        kr = t.k_rows(kb)
+        vt = v[:, kr].float().transpose(1, 2)
+        dk = torch.zeros(k[:, kr].shape, dtype=torch.float32,
+                         device=k.device)
+        dv = torch.zeros_like(dk)
+        # first q tile whose last row can see this k tile's first row
+        qb_start = (kb * block_k) // block_q if causal else 0
+        for qi in range(qb_start, t.nq):
+            qr = t.q_rows(qi)
+            do = dout[:, qr].float()
+            p = _probs(t, lse2, qi, kb)
+            dv = dv + torch.matmul(p.to(dout.dtype).float().transpose(1, 2),
+                                   do)
+            dp = torch.matmul(do, vt)
+            ds = (p * (dp - t.q_stats(delta, qi))).to(q.dtype)
+            dk = dk + torch.matmul(ds.float().transpose(1, 2),
+                                   q[:, qr].float())
+        dks.append((dk * scale).to(k.dtype))
+        dvs.append(dv.to(v.dtype))
+    return torch.cat(dks, dim=1), torch.cat(dvs, dim=1)

@@ -13,6 +13,7 @@ that has only PyTorch:
 import pytest
 import torch
 
+from horovod_tpu_torch import mpi_ops, optim, trainer
 from horovod_tpu_torch.models import transformer as tr
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import flash_attention_ref as ref
@@ -114,3 +115,109 @@ def test_engine_prefills_through_the_kernels(card):
     layers = cfg.num_layers
     assert dict(fa.launch_counts) == {"flash_fwd_online": layers,
                                       "flash_fwd_lazy": layers}
+
+
+def _assert_grad_close(got, want, dtype):
+    """fp32: rtol 1e-4 / atol 1e-5. bf16: two bf16 ulps of each value plus
+    1 % of the gradient's largest magnitude."""
+    want = want.float()
+    if dtype == torch.float32:
+        rtol, atol = 1e-4, 1e-5
+    else:
+        rtol, atol = 1.6e-2, 1e-2 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def _plain_grads(qf, kf, vf, gf, lse, delta, causal):
+    block = fa.fit_block(qf.shape[1])
+    dq = ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta, causal, block, block)
+    return (dq, *ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, causal, block,
+                                   block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(40, 128), (256, 128), (192, 64), (64, 16),
+                                 (130, 32)])
+def test_backward_kernels_match_plain(card, dtype, causal, s, d):
+    q, k, v = _qkv(20 + s, 2, s, 3, d, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(s)).to(
+        card, dtype)
+    qf, kf, vf, gf = (t.transpose(1, 2).reshape(6, s, d).contiguous()
+                      for t in (q, k, v, g))
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, "online")
+    delta = ref.flash_delta(out, gf)
+    fa.reset_launch_counts()
+    got = fa._kernel_bwd(qf, kf, vf, gf, lse, delta, causal, d ** -0.5)
+    assert dict(fa.launch_counts) == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for a, w in zip(got, _plain_grads(qf, kf, vf, gf, lse, delta, causal)):
+        assert a.dtype == dtype
+        _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 48])
+def test_autograd_through_the_kernels_matches_plain_path(card, dtype, s):
+    q, k, v = _qkv(30, 1, s, 6, 128, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(31)).to(
+        card, dtype)
+
+    def grads():
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        fa.flash_attention(*ts, causal=True, device=card).backward(g)
+        return [t.grad for t in ts]
+    fa.reset_launch_counts()
+    got = grads()
+    assert fa.launch_counts["flash_bwd_dq"] == 1
+    block = fa.fit_block(s)
+
+    def plain_fwd(qf, kf, vf, causal, scale, variant):
+        return ref.FWD[variant](qf, kf, vf, causal, block, block, scale)
+
+    def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
+        return _plain_grads(qf, kf, vf, dof, lse, delta, causal)
+    saved = fa._kernel_fwd, fa._kernel_bwd
+    fa._kernel_fwd, fa._kernel_bwd = plain_fwd, plain_bwd
+    try:
+        want = grads()
+    finally:
+        fa._kernel_fwd, fa._kernel_bwd = saved
+    for a, w in zip(got, want):
+        _assert_grad_close(a, w, dtype)
+
+
+def test_backward_refuses_what_it_cannot_take(card):
+    q, k, v = _qkv(32, 1, 64, 2, 64, torch.bfloat16, card)
+    qf, kf, vf = (t.transpose(1, 2).reshape(2, 64, 64).contiguous()
+                  for t in (q, k, v))
+    lse = torch.zeros(2, 64, device=card)
+    with pytest.raises(ValueError, match="dO"):
+        fa._kernel_bwd(qf, kf, vf, qf.float(), lse, lse, True, 0.125)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa._kernel_bwd(qf, kf, vf, qf, lse.double(), lse, True, 0.125)
+
+
+def test_training_step_launches_the_kernels(card):
+    mpi_ops.init()
+    try:
+        cfg = tr.TransformerConfig.tiny(attention_impl="flash",
+                                        tie_embeddings=True,
+                                        logits_fp32=False)
+        model = tr.init_params(cfg, device=card, train=True)
+        opt = optim.DistributedOptimizer(
+            optim.AdamW(model.parameters(), 3e-3, mu_dtype=torch.bfloat16))
+        step = trainer.make_train_step(model, opt, tr.lm_loss_fn(model))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                               generator=torch.Generator().manual_seed(0)
+                               ).to(card)
+        fa.reset_launch_counts()
+        losses = [step(tokens).item() for _ in range(4)]
+        assert losses[-1] < losses[0]
+        n = 4 * cfg.num_layers
+        assert dict(fa.launch_counts) == {"flash_fwd_lazy": n,
+                                          "flash_bwd_dq": n,
+                                          "flash_bwd_dkv": n}
+        x = torch.arange(5.0, device=card)
+        assert torch.equal(mpi_ops.allreduce(x, average=False), x)
+    finally:
+        mpi_ops.shutdown()

@@ -55,8 +55,22 @@ def test_scan_sees_every_module():
     for want in ("chip_smoke.py",
                  os.path.join("horovod_tpu_torch", "serving", "engine.py"),
                  os.path.join("horovod_tpu_torch", "ops",
-                              "flash_attention.py")):
+                              "flash_attention.py"),
+                 os.path.join("horovod_tpu_torch", "ops", "_build.py"),
+                 os.path.join("horovod_tpu_torch", "ops", "compression.py"),
+                 os.path.join("horovod_tpu_torch", "ops", "fusion.py"),
+                 os.path.join("horovod_tpu_torch", "common", "state.py"),
+                 os.path.join("horovod_tpu_torch", "optim.py"),
+                 os.path.join("horovod_tpu_torch", "mpi_ops.py"),
+                 os.path.join("horovod_tpu_torch", "trainer.py"),
+                 os.path.join("horovod_tpu_torch", "train_lm.py")):
         assert want in files
+
+
+def test_build_compiles_every_kernel_source():
+    from horovod_tpu_torch.ops import _build
+    assert set(_build.SOURCES) == {
+        f for f in os.listdir(_build.CSRC) if f.endswith((".cu", ".cpp"))}
 
 
 def test_scan_catches_forbidden_forms(tmp_path):
@@ -71,6 +85,7 @@ def test_scan_catches_forbidden_forms(tmp_path):
 
 
 def _entry_points():
+    from horovod_tpu_torch import mpi_ops, train_lm
     from horovod_tpu_torch.models import transformer as tr
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving.engine import ServeEngine
@@ -78,15 +93,19 @@ def _entry_points():
     x = torch.zeros(1, 8, 4, 16)
     return {
         "init_params": lambda: tr.init_params(cfg),
+        "init_params_train": lambda: tr.init_params(cfg, train=True),
         "TransformerLM": lambda: tr.TransformerLM(cfg),
         "ServeEngine": lambda: ServeEngine(
             cfg, tr.init_params(cfg, device="cpu")),
         "flash_attention": lambda: fa.flash_attention(x, x, x),
+        "init": mpi_ops.init,
+        "train_lm": lambda: train_lm.main([]),
     }
 
 
-@pytest.mark.parametrize("name", ["init_params", "TransformerLM",
-                                  "ServeEngine", "flash_attention"])
+@pytest.mark.parametrize("name", ["init_params", "init_params_train",
+                                  "TransformerLM", "ServeEngine",
+                                  "flash_attention", "init", "train_lm"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
