@@ -7,8 +7,8 @@ Run from the root of a checkout; needs one CUDA device and builds the
 kernels from horovod_tpu_torch/csrc/ at first use. Phases, each fatal
 on failure:
 
-  1. the card's name and power limit, then the build of both kernel
-     sources (flash_fwd.cu, flash_bwd.cu) and its time;
+  1. the card's name and power limit, then the build of every kernel
+     source (flash_fwd.cu, flash_bwd.cu, batch_norm.cu) and its time;
   2. every flash-attention forward kernel (online, lazy, twopass) held
      against its plain PyTorch version on the card, on O and lse, in bf16
      and fp32, causal and not, on unit-scale inputs at the serving shape
@@ -22,7 +22,12 @@ on failure:
      same shapes, a partial tile (s=48), the rising-max adversaries, the
      training shape (b=16 h=6 d=128 s=1024, bf16, causal), and the ragged
      s=1000 through the autograd path; fp32 to rtol 1e-4 / atol 1e-5, bf16
-     to two ulps plus 1 % of that gradient's largest magnitude;
+     to two ulps plus 1 % of that gradient's largest magnitude. Then the
+     BatchNorm statistics kernels (B6 moments, B7 moments2) against their
+     plain versions, both held to a float64 sum on the card within 1e-5
+     of the per-channel sum of magnitudes, in bf16 and fp32, on
+     unit-scale and 1e3-offset inputs (never zeros), at every (rows, C)
+     of a ResNet-50 step at batch 32 x 224 and at ragged shapes;
   3. the serving path: ServeEngine over GPT-2-small (gpt2_small_tpu, 6 x
      128 heads, full width, bf16, seeded weights) answers requests with
      prompts of 16-960 tokens, so prefill runs both the one-tile (online)
@@ -42,10 +47,24 @@ on failure:
      finite and falling; then one step's gradients at batch 2 on the
      kernel path against the same step with every launch replaced by its
      plain version (bf16 against each gradient's scale, and fp32);
+  3c. the vision path: ResNet-50 with norm_impl="tpu" (bf16, fp32
+     masters, seeded weights) trained through synthetic_benchmark's
+     build_step (DistributedOptimizer(SGD(0.01, momentum=0.9)),
+     make_data_parallel_step) for 10 steps at batch 32 x 224 on one
+     seeded random batch with random labels: the loss finite and falling,
+     exactly 53 moments and 53 moments2 launches and no layout copy every
+     step; then a batch-2 step's gradients on the kernel path against the
+     plain path (bf16: the loss within 5 %, each gradient within 0.25 of
+     its L2 norm; fp32: every element within 1e-4 of that gradient's
+     largest magnitude, TF32 off, cuDNN deterministic);
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
-     (SDPA, forward and backward), the training step (ms/step, tokens/s,
-     MFU, and where its device time goes), prefill and decode.
+     (SDPA forward and backward; batch_norm_stats and
+     batch_norm_backward_reduce for B6 and B7), the training step
+     (ms/step, tokens/s, MFU, and where its device time goes), the
+     synthetic-benchmark protocol on ResNet-50 at batch 32 for both norm
+     impls (img/s, device time, busy share, top kernels), prefill and
+     decode.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -73,9 +92,12 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import horovod_tpu_torch as hvd  # noqa: E402
+from horovod_tpu_torch import models, synthetic_benchmark  # noqa: E402
 from horovod_tpu_torch import train_lm, trainer  # noqa: E402
 from horovod_tpu_torch.models import transformer as tr  # noqa: E402
 from horovod_tpu_torch.ops import _build  # noqa: E402
+from horovod_tpu_torch.ops import batch_norm as bn  # noqa: E402
+from horovod_tpu_torch.ops import batch_norm_ref as bn_ref  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention_ref as ref  # noqa: E402
 from horovod_tpu_torch.serving.decode import (  # noqa: E402
@@ -91,12 +113,17 @@ PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
 SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
 BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
+BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
 REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "lazy": "horovod_tpu/ops/flash_attention.py:220",
             "twopass": "horovod_tpu/ops/flash_attention.py:312",
             "dq": "horovod_tpu/ops/flash_attention.py:467",
-            "dkv": "horovod_tpu/ops/flash_attention.py:531"}
+            "dkv": "horovod_tpu/ops/flash_attention.py:531",
+            "bn_moments": "horovod_tpu/ops/batch_norm.py:78",
+            "bn_moments2": "horovod_tpu/ops/batch_norm.py:95"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+VISION_BATCH, VISION_SIZE, VISION_STEPS = 32, 224, 10
+BN_PER_STEP = 53   # BatchNorm layers of ResNet-50
 
 
 def card_line():
@@ -151,6 +178,12 @@ def kernel_class(name):
     """A device kernel's family, from its name."""
     if "flash_" in name:
         return "flash"
+    if "bn_partial" in name or "bn_finalize" in name:
+        return "bn_stats (B6/B7)"
+    if "batch_norm" in name:
+        return "torch batch_norm"
+    if "conv" in name.lower() or "dgrad" in name or "wgrad" in name:
+        return "conv"
     if any(k in name for k in ("nvjet", "gemm", "xmma", "cutlass")):
         return "gemm"
     if "elementwise" in name or "copy" in name.lower():
@@ -279,16 +312,21 @@ def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
                                    bk, scale))
 
 
+def plain_bn(af, bf=None):
+    return bn_ref.moments(af) if bf is None else bn_ref.moments2(af, bf)
+
+
 @contextlib.contextmanager
 def plain_path():
     """Every kernel launch of the port replaced by its plain PyTorch
-    version (the same tile walk), on the card."""
-    saved = fa._kernel_fwd, fa._kernel_bwd
-    fa._kernel_fwd, fa._kernel_bwd = plain_fwd, plain_bwd
+    version (the same tile walk for flash attention), on the card."""
+    saved = fa._kernel_fwd, fa._kernel_bwd, bn._kernel
+    fa._kernel_fwd, fa._kernel_bwd, bn._kernel = plain_fwd, plain_bwd, \
+        plain_bn
     try:
         yield
     finally:
-        fa._kernel_fwd, fa._kernel_bwd = saved
+        fa._kernel_fwd, fa._kernel_bwd, bn._kernel = saved
 
 
 def flat(t):
@@ -429,6 +467,85 @@ def check_bwd_kernels(card, dev):
     log(card, f"phase 2: {n_cmp} backward kernel/plain comparisons (dq, dk, "
               f"dv) passed; max |err| by kernel {errs}; largest error as a "
               f"share of its tolerance by kernel and dtype {share}")
+    return errs
+
+
+def vision_bn_shapes(model, images):
+    """The (rows, C) each BatchNorm of ``model`` reduces in one training
+    forward on ``images`` (one entry per layer, in call order)."""
+    shapes = []
+
+    def record(module, args):
+        x = args[0]
+        shapes.append((x.numel() // x.shape[1], x.shape[1]))
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, bn.BatchNormBase)]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def check_bn_kernels(card, dev, step_shapes):
+    """B6 (moments) and B7 (moments2) against their plain versions, and
+    both against a float64 sum on the card, at every distinct (rows, C)
+    of the ResNet-50 step and at ragged shapes, in bf16 and fp32, on
+    unit-scale and 1e3-offset inputs. The tolerance is 1e-5 of the
+    per-channel sum of magnitudes (Σ|x|, Σx², Σ|a·b|): relative to Σx
+    itself it would mean nothing where Σx cancels. Returns the largest
+    |kernel − plain| per kernel on unit-scale inputs."""
+    cases = sorted(set(step_shapes), reverse=True) + [(21, 24), (1000, 3),
+                                                      (1, 2048)]
+    errs = {"bn_moments": 0.0, "bn_moments2": 0.0}
+    share = {}
+    n_cmp = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for n, (rows, c) in enumerate(cases):
+            for offset in (0.0, 1e3):
+                g = torch.Generator(device=dev).manual_seed(1000 + n)
+                a = (torch.randn(rows, c, generator=g, device=dev) +
+                     offset).to(dt)
+                b = (torch.randn(rows, c, generator=g, device=dev) * 0.5 +
+                     offset).to(dt)
+                a64, b64 = a.double(), b.double()
+                runs = {"bn_moments": (bn._kernel(a), bn_ref.moments(a),
+                                       (a64.sum(0), (a64 * a64).sum(0)),
+                                       (a64.abs().sum(0), (a64 * a64).sum(0))),
+                        "bn_moments2": (bn._kernel(a, b),
+                                        bn_ref.moments2(a, b),
+                                        (a64.sum(0), (a64 * b64).sum(0)),
+                                        (a64.abs().sum(0),
+                                         (a64 * b64).abs().sum(0)))}
+                for name, (got, plain, exact, mags) in runs.items():
+                    for i in range(2):
+                        label = (f"{name}[{i}] {dt} rows={rows} C={c} "
+                                 f"offset={offset}")
+                        if not torch.isfinite(got[i]).all():
+                            raise AssertionError(f"{label}: not finite")
+                        tol = 1e-5 * mags[i] + 1e-30
+                        frac = max(
+                            ((got[i].double() - exact[i]).abs() / tol).max(),
+                            ((plain[i].double() - exact[i]).abs() / tol).max(),
+                            ((got[i] - plain[i]).double().abs() / tol).max()
+                        ).item()
+                        if frac > 1.0:
+                            raise AssertionError(
+                                f"{label}: error {frac:.3f} of the "
+                                f"tolerance (1e-5 of the sum of magnitudes)")
+                        key = f"{name} {str(dt).split('.')[1]}"
+                        share[key] = max(share.get(key, 0.0), frac)
+                        if offset == 0.0:
+                            errs[name] = max(errs[name], (got[i] - plain[i])
+                                             .abs().max().item())
+                        n_cmp += 1
+    log(card, f"phase 2: {n_cmp} BatchNorm statistics comparisons (kernel, "
+              f"plain and float64; {len(cases)} shapes x bf16/fp32 x "
+              f"unit/offset inputs) passed; max |kernel - plain| on "
+              f"unit-scale inputs {errs}; largest error as a share of its "
+              f"tolerance by kernel and dtype {share}")
     return errs
 
 
@@ -579,6 +696,116 @@ def check_train_grads(card, dev, cfg, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the vision path
+
+
+def vision_batch(dev, batch, seed=0):
+    """Seeded random images [batch, 3, 224, 224] (bf16, channels_last)
+    and labels."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randn(batch, 3, VISION_SIZE, VISION_SIZE, generator=g)
+    labels = torch.randint(0, 1000, (batch,), generator=g)
+    return (images.to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last), labels.to(dev))
+
+
+def train_vision(card, dev):
+    """10 steps of ResNet-50 (tpu norms) on one random batch through the
+    synthetic benchmark's step; returns the launches of the run."""
+    step, _, _, _ = synthetic_benchmark.build_step(
+        "resnet50", VISION_BATCH, VISION_SIZE, dev, norm_impl="tpu")
+    batch = vision_batch(dev, VISION_BATCH)
+    per_step = {"bn_moments": BN_PER_STEP, "bn_moments2": BN_PER_STEP}
+    losses = []
+    bn.reset_counts()
+    for i in range(VISION_STEPS):
+        before = dict(bn.launch_counts)
+        losses.append(step(batch).item())
+        got = {k: v - before.get(k, 0) for k, v in bn.launch_counts.items()}
+        if got != per_step:
+            raise AssertionError(f"vision step {i} launched {got}, "
+                                 f"expected {per_step}")
+    launches, copies = dict(bn.launch_counts), dict(bn.layout_copies)
+    if copies:
+        raise AssertionError(f"layout copies in the ResNet-50 step: {copies}")
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"vision losses {losses}")
+    log(card, f"phase 3c: trained ResNet-50 (norm_impl tpu, bf16, fp32 "
+              f"masters, SGD 0.01 momentum 0.9) at batch {VISION_BATCH} x "
+              f"{VISION_SIZE} for {VISION_STEPS} steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({[round(x, 4) for x in losses]}); launches {launches} "
+              f"({per_step} every step); layout copies 0")
+    return launches
+
+
+def check_vision_grads(card, dev):
+    """A batch-2 ResNet-50 (tpu) step's gradients on the kernel path
+    against the plain path, where the two differ only in the statistics'
+    order of summation. fp32 (TF32 off; cuDNN deterministic, so that the
+    convolutions do not differ between the runs): every element within
+    1e-4 of that gradient's largest magnitude. bf16: the loss within 5 %
+    and each gradient within 0.25 of its L2 norm. A bf16 output rounded
+    the other way in one layer moves every layer below it: two correct
+    summation orders move bn_init's gradients by 7.0e-2 in L2 and single
+    elements by 0.23 of the largest on the CPU
+    (tests/test_torch_port_batch_norm.py), so 5 % of each gradient's scale
+    cannot hold in bf16, and single elements are printed, not held."""
+    images, labels = vision_batch(dev, 2, seed=1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, tol in ((torch.bfloat16, 0.25), (torch.float32, 1e-4)):
+            model = models.build("resnet50", dtype=dtype, norm_impl="tpu",
+                                 device=dev).train()
+
+            def grads():
+                model.zero_grad(set_to_none=True)
+                loss = trainer.softmax_cross_entropy(model(images), labels)
+                loss.backward()
+                return loss.item(), {n: p.grad.clone()
+                                     for n, p in model.named_parameters()}
+            bn.reset_counts()
+            got_loss, got = grads()
+            if dict(bn.launch_counts) != {"bn_moments": BN_PER_STEP,
+                                          "bn_moments2": BN_PER_STEP}:
+                raise AssertionError(f"kernel path launched "
+                                     f"{dict(bn.launch_counts)}")
+            with plain_path():
+                want_loss, want = grads()
+            if not math.isclose(got_loss, want_loss, rel_tol=min(tol, 5e-2)):
+                raise AssertionError(f"{dtype} loss {got_loss} vs plain "
+                                     f"{want_loss}")
+            worst_elem = worst_norm = 0.0
+            for name, w in want.items():
+                g = got[name]
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{dtype} grad {name} not finite")
+                scale = max(w.abs().max().item(), 1e-30)
+                elem = (g - w).abs().max().item() / scale
+                norm = ((g - w).norm() / max(w.norm().item(), 1e-30)).item()
+                worst_elem, worst_norm = max(worst_elem, elem), max(
+                    worst_norm, norm)
+                if dtype == torch.float32:
+                    torch.testing.assert_close(
+                        g, w, rtol=tol, atol=tol * scale,
+                        msg=lambda m, name=name: f"{dtype} grad {name}: {m}")
+                elif norm > tol:
+                    raise AssertionError(f"{dtype} grad {name}: relative L2 "
+                                         f"difference {norm:.3e} > {tol}")
+            log(card, f"phase 3c: {dtype} ResNet-50 batch-2 step, kernel vs "
+                      f"plain path: loss {got_loss:.6f} vs {want_loss:.6f}; "
+                      f"over {len(want)} parameters the largest grad |diff| "
+                      f"/ that grad's max |value| {worst_elem:.3e} and "
+                      f"relative L2 difference {worst_norm:.3e} (held: "
+                      f"{'elementwise' if dtype == torch.float32 else 'L2'} "
+                      f"to {tol})")
+            del model, got, want
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings of the training path
 
 
@@ -707,6 +934,100 @@ def time_training(card, dev, model, opt, batch, cfg):
         "; ".join(f"{k} {v:.3f}" for k, v in by_op[:12]))
 
 
+def bn_work(rows, c, inputs, itemsize):
+    """(operations, bytes) of one statistics call: an addition and a
+    multiply-add per element (three operations), each input read once,
+    two fp32 [C] outputs written once."""
+    return 3 * rows * c, inputs * rows * c * itemsize + 2 * c * 4
+
+
+def time_bn_kernels(card, dev, step_shapes, launches, errs):
+    """B6 and B7 per call at the step's largest shape (bf16), with the
+    plain version and the library yardstick (torch.batch_norm_stats and
+    torch.batch_norm_backward_reduce on the same channels-last tensor,
+    never on the port's path), and their sums over one step's 53 shapes
+    against the step's bound; returns the kernels' JSON entries."""
+    rows, c = max(step_shapes)
+    g = torch.Generator(device=dev).manual_seed(90)
+    x = torch.randn(rows, c, generator=g, device=dev).bfloat16()
+    dy = torch.randn(rows, c, generator=g, device=dev).bfloat16()
+    # the same memory as NCHW-shaped channels-last [32, C, rows/32, 1]
+    xs = x.view(VISION_BATCH, -1, 1, c).permute(0, 3, 1, 2)
+    dys = dy.view(VISION_BATCH, -1, 1, c).permute(0, 3, 1, 2)
+    mean, invstd = torch.batch_norm_stats(xs, 1e-5)
+    weight = torch.ones(c, device=dev)
+    operands = {shape: [torch.randn(*shape, generator=g, device=dev)
+                        .bfloat16() for _ in range(2)]
+                for shape in set(step_shapes)}
+    calls = {
+        "bn_moments": (lambda: bn._kernel(x), lambda: bn_ref.moments(x),
+                       lambda: torch.batch_norm_stats(xs, 1e-5), 1),
+        "bn_moments2": (lambda: bn._kernel(dy, x),
+                        lambda: bn_ref.moments2(dy, x),
+                        lambda: torch.batch_norm_backward_reduce(
+                            dys, xs, mean, invstd, weight, True, False,
+                            False), 2)}
+    entries = []
+    for name, (kernel, plain, library, inputs) in calls.items():
+        ev = {"kernel": time_ms(kernel), "plain": time_ms(plain),
+              "library": time_ms(library)}
+        dvc = {"kernel": device_ms(kernel), "plain": device_ms(plain),
+               "library": device_ms(library)}
+        ms = {k: dvc[k] if dvc[k] is not None else ev[k] for k in ev}
+        ops, nbytes = bn_work(rows, c, inputs, 2)
+        b_ms, b_by = bound(ops, nbytes, PEAK_FP32_FLOPS)
+        # one step: every BN layer's call, in the step's order
+        step_args = [operands[shape][:inputs] for shape in step_shapes]
+
+        def step_calls():
+            for args in step_args:
+                bn._kernel(*args)
+        step_ms = device_ms(step_calls, iters=5) or time_ms(step_calls)
+        step_bound = sum(bound(*bn_work(*shape, inputs, 2),
+                               PEAK_FP32_FLOPS)[0] for shape in step_shapes)
+        entries.append({
+            "name": name, "route": "cuda", "source": BN_SOURCE,
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": errs[name], "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": ms["library"]})
+        log(card, f"phase 4: {name} bf16 rows={rows} C={c}: device ms "
+                  f"(profiler) {dvc}, event ms per call {ev}, bound "
+                  f"{b_ms:.5f} ms ({b_by}; {ops} operations, {nbytes} "
+                  f"bytes); over one ResNet-50 step's {len(step_shapes)} "
+                  f"calls {step_ms:.4f} device ms against a bound of "
+                  f"{step_bound:.4f} ms")
+    return entries
+
+
+def time_vision(card, dev, step_shapes):
+    """The synthetic-benchmark protocol (10 warm-up steps, 10 iterations
+    of 10 steps, zero images as the JAX harness feeds) on ResNet-50 at
+    batch 32 for both norm impls: img/s, ms/step, device ms per step,
+    busy share and the top device kernels."""
+    for norm_impl in ("flax", "tpu"):
+        step, model, opt, data = synthetic_benchmark.build_step(
+            "resnet50", VISION_BATCH, VISION_SIZE, dev, norm_impl=norm_impl)
+        rates = synthetic_benchmark.timed_rates(step, data, VISION_BATCH,
+                                                10, 10, 10)
+        mean = sum(rates) / len(rates)
+        wall = VISION_BATCH / mean * 1e3
+        busy, by_name = device_profile(lambda: step(data), iters=3)
+        by_class = {}
+        for name, ms in by_name.items():
+            by_class[kernel_class(name)] = by_class.get(kernel_class(name),
+                                                        0.0) + ms
+        log(card, f"phase 4: synthetic benchmark ResNet-50 norm_impl "
+                  f"{norm_impl} b={VISION_BATCH} x {VISION_SIZE} bf16: "
+                  f"{mean:.1f} img/s (per-iteration {[round(r, 1) for r in rates]}), "
+                  f"{wall:.3f} ms/step; one step {busy:.3f} ms device (busy "
+                  f"{busy / wall:.1%}); device ms by kernel family "
+                  f"{ {k: round(v, 3) for k, v in sorted(by_class.items())} }; "
+                  f"top device ms: {top_kernels(by_name, 10)}")
+        del step, model, opt, data
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -727,6 +1048,13 @@ def main():
     # ---- phase 2: kernels vs plain versions
     errs = check_kernels(card, dev)
     errs.update(check_bwd_kernels(card, dev))
+    # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
+    step_shapes = vision_bn_shapes(
+        models.build("resnet50", norm_impl="tpu", device=dev).train(),
+        vision_batch(dev, VISION_BATCH)[0])
+    if len(step_shapes) != BN_PER_STEP:
+        raise AssertionError(f"ResNet-50 has {len(step_shapes)} BatchNorms")
+    errs.update(check_bn_kernels(card, dev, step_shapes))
 
     # ---- phase 3: serve GPT-2-small through the kernels
     cfg = tr.TransformerConfig.gpt2_small_tpu(attention_impl="flash")
@@ -822,6 +1150,10 @@ def main():
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
     check_train_grads(card, dev, train_cfg, t_batch)
 
+    # ---- phase 3c: train ResNet-50 through the BatchNorm kernels
+    launches.update(train_vision(card, dev))
+    check_vision_grads(card, dev)
+
     # ---- phase 4: timings
     kernels = []
     # each kernel at the largest shape the serving runs gave it
@@ -867,6 +1199,7 @@ def main():
                   f"{nbytes} bytes)")
     kernels.extend(time_bwd_kernels(card, dev, launches, errs))
     time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
+    kernels.extend(time_bn_kernels(card, dev, step_shapes, launches, errs))
     del t_model, t_opt
     torch.cuda.empty_cache()
     # the three variants side by side at the serving max_len
@@ -916,6 +1249,8 @@ def main():
               f"{busy:.3f} ms device (busy {busy / wall:.1%}), "
               f"{SERVE_SLOTS / wall * 1e3:.1f} tokens/s; top device ms: "
               f"{top_kernels(by_name)}")
+
+    time_vision(card, dev, step_shapes)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -11,8 +11,13 @@ Ported so far: the serving path (``serving.ServeEngine`` over
 kernels, and the training path — the Horovod API below over
 ``torch.distributed`` (NCCL on the card, gloo on the CPU), ``AdamW`` with
 a bf16 first moment, and ``trainer``'s steps — with the flash-attention
-backward kernels (``ops.flash_attention``). See ROADMAP.md for what comes
-next.
+backward kernels (``ops.flash_attention``), and the vision path — the
+model zoo (``models.build``: ResNet-18/34/50/101/152, VGG-11/16/19,
+InceptionV3; ``models.mnist.MnistCNN``), ``SGD`` with momentum,
+``trainer.make_data_parallel_step`` and ``synthetic_benchmark`` — whose
+``norm_impl="tpu"`` BatchNorm reduces through the statistics kernels
+(``ops.batch_norm``). Every Pallas kernel of the JAX package now has a
+hand-written Hopper counterpart. See ROADMAP.md for what comes next.
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -31,5 +36,5 @@ from .mpi_ops import (  # noqa: F401
     poll, synchronize)
 from .ops.compression import Compression  # noqa: F401
 from .optim import (  # noqa: F401
-    AdamW, DistributedOptimizer, allreduce_gradients, broadcast_object,
+    SGD, AdamW, DistributedOptimizer, allreduce_gradients, broadcast_object,
     broadcast_optimizer_state, broadcast_parameters)

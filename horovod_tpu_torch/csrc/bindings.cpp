@@ -27,6 +27,11 @@ extern "C" cudaError_t hvd_flash_bwd_dkv(const void* q, const void* k,
                                          int sk, int d, int dtype, int causal,
                                          float scale2, float scale,
                                          cudaStream_t stream);
+extern "C" long long hvd_bn_moments_scratch(long long rows, int c);
+extern "C" cudaError_t hvd_bn_moments(const void* a, const void* b,
+                                      float* out0, float* out1, float* part,
+                                      long long rows, int c, int dtype,
+                                      int two, cudaStream_t stream);
 
 namespace {
 
@@ -149,6 +154,44 @@ void flash_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// BatchNorm statistics of row-major [rows, C] inputs in one dtype: out0 =
+// sum a and out1 = sum a*a (two = false, b ignored) or sum a*b (two =
+// true), fp32 [C], allocated by the Python wrapper (ops/batch_norm.py),
+// which also checks shapes and contiguity; the partials' scratch is
+// allocated here.
+void bn_moments(const torch::Tensor& a, const torch::Tensor& b,
+                torch::Tensor& out0, torch::Tensor& out1, bool two) {
+  for (const auto& t : {a, b, out0, out1}) {
+    TORCH_CHECK(t.is_cuda() && t.is_contiguous(),
+                "bn_moments: every tensor must be contiguous on a CUDA device");
+    TORCH_CHECK(t.device() == a.device(),
+                "bn_moments: every tensor must be on a's device");
+  }
+  TORCH_CHECK(a.dim() == 2 && b.sizes() == a.sizes() &&
+                  b.scalar_type() == a.scalar_type(),
+              "bn_moments: a and b must be [rows, C] alike");
+  const int64_t rows = a.size(0), c = a.size(1);
+  TORCH_CHECK(c >= 1 && c <= INT32_MAX, "bn_moments: C out of range");
+  for (const auto& t : {out0, out1})
+    TORCH_CHECK(t.scalar_type() == torch::kFloat32 && t.dim() == 1 &&
+                    t.size(0) == c,
+                "bn_moments: outputs must be fp32 [C]");
+  int dtype = kernel_dtype(a, "bn_moments");
+  const c10::cuda::CUDAGuard guard(a.device());
+  torch::Tensor part = torch::empty(
+      {static_cast<int64_t>(
+          hvd_bn_moments_scratch(rows, static_cast<int>(c)))},
+      a.options().dtype(torch::kFloat32));
+  cudaError_t err = hvd_bn_moments(
+      a.data_ptr(), b.data_ptr(), out0.data_ptr<float>(),
+      out1.data_ptr<float>(), part.data_ptr<float>(), rows,
+      static_cast<int>(c), dtype, two ? 1 : 0,
+      at::cuda::getCurrentCUDAStream(a.device().index()).stream());
+  TORCH_CHECK(err == cudaSuccess, "bn_moments: kernel launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
         "Flash-attention forward (online/lazy/twopass) for sm_90a");
@@ -156,4 +199,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Flash-attention backward, dq, for sm_90a");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
         "Flash-attention backward, dk and dv, for sm_90a");
+  m.def("bn_moments", &bn_moments,
+        "BatchNorm statistics (sum, sum of squares or of products) for "
+        "sm_90a");
 }

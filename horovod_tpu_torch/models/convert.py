@@ -1,15 +1,26 @@
-"""Load a flax ``TransformerLM`` checkpoint into the port's model.
+"""Load flax checkpoints into the port's models.
 
-A pure tensor remap of the param tree that ``horovod_tpu``'s
-``TransformerLM.init`` produces (as numpy arrays, e.g. from
-``jax.device_get(params)``): each Dense ``kernel [in, out]`` becomes a
-``weight [out, in]``; ``embed/embedding``, the RMSNorm ``scale``s and
-``lm_head/kernel`` (absent when the embedding is tied) copy across. It is
-the only bridge between the two packages, and it needs neither jax nor
-flax: the tree is nested dicts of arrays.
+Pure tensor remaps of the trees that ``horovod_tpu``'s models produce (as
+numpy arrays, e.g. from ``jax.device_get(variables)``); they are the only
+bridge between the two packages, and need neither jax nor flax: a tree is
+nested dicts of arrays.
+
+``params_from_flax``: the ``TransformerLM`` param tree. Each Dense
+``kernel [in, out]`` becomes a ``weight [out, in]``; ``embed/embedding``,
+the RMSNorm ``scale``s and ``lm_head/kernel`` (absent when the embedding
+is tied) copy across.
+
+``vision_from_flax``: a vision model's ``{"params", "batch_stats"}``. The
+port's vision modules carry the flax module names, so a dotted parameter
+name is its flax path; Conv ``kernel [kh, kw, in, out]`` becomes
+``weight [out, in, kh, kw]``, Dense ``kernel [in, out]`` ``weight [out,
+in]``, and the BatchNorm ``scale``/``bias`` and running ``mean``/``var``
+copy across.
 """
 
 import dataclasses
+import itertools
+import re
 
 import numpy as np
 import torch
@@ -79,3 +90,71 @@ def params_from_flax(tree, cfg, device=None, dtype=None, train=False,
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(
                 device=p.device, dtype=p.dtype))
     return set_trainable(model, train)
+
+
+_NORM_NAME = re.compile(r"^(Tpu)?BatchNorm_(\d+)$")
+
+
+def _child(tree, key):
+    """``tree[key]``, where a norm's auto-name may differ by norm impl:
+    ``BatchNorm_j`` stands for ``TpuBatchNorm_j`` and the other way round.
+    Returns (the key found, the subtree)."""
+    if key in tree:
+        return key, tree[key]
+    m = _NORM_NAME.match(key)
+    if m:
+        alt = (f"BatchNorm_{m.group(2)}" if m.group(1)
+               else f"TpuBatchNorm_{m.group(2)}")
+        if alt in tree:
+            return alt, tree[alt]
+    raise KeyError(key)
+
+
+def _flax_leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flax_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def vision_from_flax(variables, model):
+    """Copy a flax vision model's ``{"params", "batch_stats"}`` (numpy)
+    into the port's ``model`` (``models.build(...)`` of the same
+    architecture) and return it. Auto-named norms match across norm impls
+    (``BatchNorm_j`` and ``TpuBatchNorm_j``); a missing or left-over leaf
+    raises KeyError, a shape that does not fit ValueError."""
+    trees = {"params": variables["params"],
+             "batch_stats": variables.get("batch_stats", {})}
+    used = set()
+    entries = itertools.chain(model.named_parameters(), model.named_buffers())
+    with torch.no_grad():
+        for name, t in entries:
+            *mods, leaf = name.split(".")
+            collection = ("batch_stats" if leaf in ("mean", "var")
+                          else "params")
+            node, path = trees[collection], [collection]
+            try:
+                for key in mods:
+                    key, node = _child(node, key)
+                    path.append(key)
+                key = "kernel" if leaf == "weight" else leaf
+                arr = np.asarray(node[key])
+            except KeyError:
+                raise KeyError(f"flax variables have no leaf for {name} "
+                               f"(under {'/'.join(path)})") from None
+            path.append(key)
+            if leaf == "weight":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {arr.shape} "
+                                 f"does not fit {name} {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+                device=t.device, dtype=t.dtype))
+            used.add(tuple(path))
+    left = {(c,) + p for c, tree in trees.items() for p in _flax_leaves(tree)}
+    left -= used
+    if left:
+        raise KeyError(f"flax leaves the model has no place for: "
+                       f"{sorted('/'.join(p) for p in left)}")
+    return model

@@ -1,1 +1,1 @@
-from . import flash_attention  # noqa: F401
+from . import batch_norm, flash_attention  # noqa: F401

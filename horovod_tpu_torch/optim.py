@@ -15,6 +15,8 @@ horovod/torch/__init__.py:42-348):
   * ``AdamW`` is ``optax.adamw`` (the JAX package's training optimizer)
     in PyTorch, with its ``mu_dtype``: ``torch.optim.AdamW`` has no
     low-precision first moment and puts the decay elsewhere.
+  * ``SGD`` is ``optax.sgd`` with momentum (the vision benchmarks'
+    optimizer), in optax's order of operations.
   * ``allreduce_gradients``, ``broadcast_parameters``,
     ``broadcast_optimizer_state`` and ``broadcast_object``.
 """
@@ -97,6 +99,41 @@ class AdamW(torch.optim.Optimizer):
                 if group["mu_dtype"] is not None and self.state.get(p):
                     self.state[p]["mu"] = self.state[p]["mu"].to(
                         group["mu_dtype"])
+
+
+class SGD(torch.optim.Optimizer):
+    """``optax.sgd(lr, momentum)``: heavy-ball momentum with no dampening
+    and no Nesterov term,
+
+        t = g + momentum·t            p ← p + (−lr)·t
+
+    the trace starting at zero, in the parameter's dtype. Without momentum
+    the update is ``p ← p + (−lr)·g``. Parameters without a gradient are
+    left alone."""
+
+    def __init__(self, params, lr, momentum=None):
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            momentum = group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                t = p.grad
+                if momentum:
+                    state = self.state[p]
+                    if not state:
+                        state["trace"] = torch.zeros_like(p)
+                    t = t + momentum * state["trace"]
+                    state["trace"] = t
+                p.add_(t * -group["lr"])
+        return loss
 
 
 class _DistributedOptimizer:

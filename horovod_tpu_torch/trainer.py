@@ -10,6 +10,8 @@ GSPMD steps do inside one compiled program.
 
 import torch
 
+from . import mpi_ops
+
 
 def softmax_cross_entropy(logits, labels, weights=None):
     """Mean token-level cross entropy (labels are int ids). ``weights``
@@ -56,3 +58,23 @@ def make_multi_step(model, optimizer, loss_fn):
             loss = step(batch)
         return loss
     return multi_step
+
+
+def make_data_parallel_step(model, optimizer, loss_fn, steps_per_call=1):
+    """``step(batch) -> loss``: the port of the JAX package's
+    ``make_data_parallel_step``. Each worker passes its own shard of the
+    batch; ``optimizer`` is a ``DistributedOptimizer``, which averages the
+    gradients across workers during the backward (with its compression
+    and fusion threshold) before it applies them. ``steps_per_call``
+    updates run on the SAME batch per call, the synthetic-benchmark loop.
+    Returns the last update's loss averaged over the workers, detached and
+    on the device."""
+    one = make_train_step(model, optimizer, loss_fn)
+
+    def step(batch):
+        for _ in range(steps_per_call):
+            loss = one(batch)
+        if mpi_ops.size() > 1:
+            loss = mpi_ops.allreduce(loss, average=True)
+        return loss
+    return step

@@ -13,8 +13,10 @@ that has only PyTorch:
 import pytest
 import torch
 
-from horovod_tpu_torch import mpi_ops, optim, trainer
+from horovod_tpu_torch import models, mpi_ops, optim, trainer
 from horovod_tpu_torch.models import transformer as tr
+from horovod_tpu_torch.ops import batch_norm as bn
+from horovod_tpu_torch.ops import batch_norm_ref as bn_ref
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import flash_attention_ref as ref
 from horovod_tpu_torch.serving.engine import ServeEngine
@@ -219,5 +221,116 @@ def test_training_step_launches_the_kernels(card):
                                           "flash_bwd_dkv": n}
         x = torch.arange(5.0, device=card)
         assert torch.equal(mpi_ops.allreduce(x, average=False), x)
+    finally:
+        mpi_ops.shutdown()
+
+
+def _bn_operands(seed, rows, c, dtype, device, offset=0.0, misalign=False):
+    """a, b [rows, C]; ``misalign`` starts both one element past an
+    allocation's start, so no vector load is aligned."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for scale in (1.0, 0.5):
+        t = (torch.randn(rows, c, generator=g) * scale + offset).to(
+            device, dtype)
+        if misalign:
+            buf = torch.empty(rows * c + 1, dtype=dtype, device=device)
+            buf[1:].copy_(t.reshape(-1))
+            t = buf[1:].view(rows, c)
+        out.append(t)
+    return out
+
+
+def _assert_sums_close(got, a, b=None):
+    """Within 1e-5 of the per-channel sum of magnitudes of a float64
+    reference (the plain version is held to the same)."""
+    a64 = a.double()
+    b64 = a64 if b is None else b.double()
+    exact = (a64.sum(0), (a64 * b64).sum(0))
+    mags = (a64.abs().sum(0), (a64 * b64).abs().sum(0))
+    for g_, e, m in zip(got, exact, mags):
+        assert g_.dtype == torch.float32
+        assert ((g_.double() - e).abs() <= 1e-5 * m + 1e-30).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(401408, 64), (6272, 1024), (1568, 2048),
+                                    (21, 24), (1000, 3), (1, 2048), (7, 1000),
+                                    (0, 5)])
+@pytest.mark.parametrize("offset", [0.0, 1e3])
+def test_bn_kernels_match_float64_and_plain(card, dtype, rows, c, offset):
+    a, b = _bn_operands(rows + c, rows, c, dtype, card, offset)
+    bn.reset_counts()
+    got1, got2 = bn._kernel(a), bn._kernel(a, b)
+    assert dict(bn.launch_counts) == {"bn_moments": 1, "bn_moments2": 1}
+    _assert_sums_close(got1, a)
+    _assert_sums_close(got2, a, b)
+    _assert_sums_close(bn_ref.moments(a), a)
+    _assert_sums_close(bn_ref.moments2(a, b), a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernels_take_unaligned_rows(card, dtype):
+    a, b = _bn_operands(3, 300, 64, dtype, card, misalign=True)
+    assert a.data_ptr() % 16
+    _assert_sums_close(bn._kernel(a), a)
+    _assert_sums_close(bn._kernel(a, b), a, b)
+
+
+def test_bn_kernel_refuses_what_it_cannot_take(card):
+    a = torch.ones(8, 4, dtype=torch.float16, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bn._kernel(a)
+    b = torch.ones(8, 4, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="does not fit"):
+        bn._kernel(b, b.float())
+
+
+def test_tpu_batchnorm_through_the_kernels_matches_plain_path(card):
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(4, 24, 5, 5, generator=g) * 2 + 0.5).to(card)
+    x = x.contiguous(memory_format=torch.channels_last)
+
+    def run():
+        mod = bn.TpuBatchNorm(24, momentum=0.9, device=card).train()
+        xt = x.detach().clone().requires_grad_(True)
+        y = mod(xt)
+        (y ** 2 + 0.3 * y).sum().backward()
+        return y, xt.grad, mod.scale.grad, mod.bias.grad, mod.mean, mod.var
+    bn.reset_counts()
+    got = run()
+    assert dict(bn.launch_counts) == {"bn_moments": 1, "bn_moments2": 1}
+    saved = bn._kernel
+    bn._kernel = lambda af, bf=None: (bn_ref.moments(af) if bf is None
+                                      else bn_ref.moments2(af, bf))
+    try:
+        want = run()
+    finally:
+        bn._kernel = saved
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5)
+
+
+def test_resnet_step_launches_the_bn_kernels(card):
+    mpi_ops.init()
+    try:
+        model = models.build("resnet18", num_classes=10, norm_impl="tpu",
+                             device=card).train()
+        opt = optim.DistributedOptimizer(
+            optim.SGD(model.parameters(), 0.01, momentum=0.9))
+        step = trainer.make_data_parallel_step(
+            model, opt,
+            lambda m, b: trainer.softmax_cross_entropy(m(b[0]), b[1]))
+        g = torch.Generator().manual_seed(0)
+        images = torch.randn(8, 3, 64, 64, generator=g).to(
+            card, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        labels = torch.randint(0, 10, (8,), generator=g).to(card)
+        bn.reset_counts()
+        losses = [step((images, labels)).item() for _ in range(4)]
+        assert losses[-1] < losses[0]
+        # 20 BatchNorms in ResNet-18: the stem, 2 per block, 3 projections
+        assert dict(bn.launch_counts) == {"bn_moments": 80,
+                                          "bn_moments2": 80}
+        assert not bn.layout_copies
     finally:
         mpi_ops.shutdown()

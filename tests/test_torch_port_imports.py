@@ -63,7 +63,16 @@ def test_scan_sees_every_module():
                  os.path.join("horovod_tpu_torch", "optim.py"),
                  os.path.join("horovod_tpu_torch", "mpi_ops.py"),
                  os.path.join("horovod_tpu_torch", "trainer.py"),
-                 os.path.join("horovod_tpu_torch", "train_lm.py")):
+                 os.path.join("horovod_tpu_torch", "train_lm.py"),
+                 os.path.join("horovod_tpu_torch", "synthetic_benchmark.py"),
+                 os.path.join("horovod_tpu_torch", "ops", "batch_norm.py"),
+                 os.path.join("horovod_tpu_torch", "ops",
+                              "batch_norm_ref.py"),
+                 os.path.join("horovod_tpu_torch", "models", "layers.py"),
+                 os.path.join("horovod_tpu_torch", "models", "resnet.py"),
+                 os.path.join("horovod_tpu_torch", "models", "vgg.py"),
+                 os.path.join("horovod_tpu_torch", "models", "inception.py"),
+                 os.path.join("horovod_tpu_torch", "models", "mnist.py")):
         assert want in files
 
 
@@ -85,7 +94,8 @@ def test_scan_catches_forbidden_forms(tmp_path):
 
 
 def _entry_points():
-    from horovod_tpu_torch import mpi_ops, train_lm
+    from horovod_tpu_torch import models, mpi_ops, synthetic_benchmark, train_lm
+    from horovod_tpu_torch.models import mnist
     from horovod_tpu_torch.models import transformer as tr
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving.engine import ServeEngine
@@ -100,12 +110,21 @@ def _entry_points():
         "flash_attention": lambda: fa.flash_attention(x, x, x),
         "init": mpi_ops.init,
         "train_lm": lambda: train_lm.main([]),
+        "synthetic_benchmark": lambda: synthetic_benchmark.main(
+            ["--model", "resnet18", "--batch-size", "2"]),
+        "build_resnet": lambda: models.build("resnet50", norm_impl="tpu"),
+        "build_vgg": lambda: models.build("vgg11"),
+        "build_inception": lambda: models.build("inception3"),
+        "MnistCNN": lambda: mnist.MnistCNN(),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_params_train",
                                   "TransformerLM", "ServeEngine",
-                                  "flash_attention", "init", "train_lm"])
+                                  "flash_attention", "init", "train_lm",
+                                  "synthetic_benchmark", "build_resnet",
+                                  "build_vgg", "build_inception",
+                                  "MnistCNN"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
