@@ -8,14 +8,22 @@ kernels from horovod_tpu_torch/csrc/ at first use. Phases, each fatal
 on failure:
 
   1. the card's name and power limit, then the build of every kernel
-     source (flash_fwd.cu, flash_bwd.cu, batch_norm.cu) and its time;
+     source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu, batch_norm.cu)
+     and its time, and beside it the wgmma/TMA forward's source (B2, B3)
+     alone through nvcc -Xptxas -v: each instantiation's registers and
+     spills, where any spill fails the run;
   2. every flash-attention forward kernel (online, lazy, twopass) held
-     against its plain PyTorch version on the card, on O and lse, in bf16
-     and fp32, causal and not, on unit-scale inputs at the serving shape
-     (b=1, h=6, d=128, s=128 and 1024), at b=2 h=12 d=64 s=512, on a
-     ragged causal s=1000 and on rising-max adversaries (b=1 h=6 d=128
-     s=512, keys ramped so every k tile raises the row max in lazy's
-     diagonal-first walk, or in the ascending one). fp32 is held to 2e-5;
+     against its plain PyTorch version walking the same tiles on the card,
+     on O and lse, in bf16 and fp32, causal and not, on unit-scale inputs
+     at the serving shape (b=1, h=6, d=128, s=128 and 1024), at b=2 h=12
+     d=64 s=512, on a ragged causal s=1000 and on rising-max adversaries
+     (b=1 h=6 d=128 s=512, keys ramped so every k tile raises the row max
+     in lazy's diagonal-first walk, or in the ascending one); then the
+     bf16 wgmma/TMA kernel (lazy, twopass) at every head dim (16/32/64/128,
+     b·h 3, s 192), at s 960 and 192 (multiples of 64, not of 128) with
+     b·h >= 2, non-causal sk != sq, both CTA shapes forced (64 and 128
+     query rows) with the adversaries at its 128-key tiles, and at the
+     training shape (b=16 h=6 d=128 s=1024, causal). fp32 is held to 2e-5;
      bf16 O to two bf16 ulps plus 1 % of its largest value, bf16 lse to
      1e-3. Then the backward kernels (dq, dk/dv) on dq, dk and dv, on
      unit-scale inputs and dO, in bf16 and fp32, causal and not, at the
@@ -59,7 +67,9 @@ on failure:
      largest magnitude, TF32 off, cuDNN deterministic);
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
-     (SDPA forward and backward; batch_norm_stats and
+     (SDPA forward and backward; the lazy forward also at the training
+     shape, and the host time of a forward launch on each kernel;
+     batch_norm_stats and
      batch_norm_backward_reduce for B6 and B7), the training step
      (ms/step, tokens/s, MFU, and where its device time goes), the
      synthetic-benchmark protocol on ResNet-50 at batch 32 for both norm
@@ -100,6 +110,7 @@ from horovod_tpu_torch.ops import batch_norm as bn  # noqa: E402
 from horovod_tpu_torch.ops import batch_norm_ref as bn_ref  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention_ref as ref  # noqa: E402
+from horovod_tpu_torch.ops import flash_fwd_ab as fwd_ab  # noqa: E402
 from horovod_tpu_torch.serving.decode import (  # noqa: E402
     decode_step, prefill_forward)
 from horovod_tpu_torch.serving.engine import ServeEngine  # noqa: E402
@@ -112,6 +123,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
 SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
+SM90_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90.cu"
 BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
 BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
 REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
@@ -301,8 +313,8 @@ def hold_grad(got, want, dtype, label):
 
 
 def plain_fwd(qf, kf, vf, causal, scale, variant):
-    return ref.FWD[variant](qf, kf, vf, causal, fa.fit_block(qf.shape[1]),
-                            fa.fit_block(kf.shape[1]), scale)
+    return ref.FWD[variant](qf, kf, vf, causal,
+                            *fa.kernel_blocks(qf, kf, variant), scale)
 
 
 def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
@@ -365,10 +377,10 @@ def check_kernels(card, dev):
                       **shape)
         qf, kf, vf = (t.transpose(1, 2).reshape(-1, shape["s"], shape["d"])
                       for t in (q, k, v))
-        bq = fa.fit_block(shape["s"])
         for variant in fa.VARIANTS:
             out, lse = fa.flash_fwd(q, k, v, causal, variant=variant)
-            p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal, bq, bq)
+            p_out, p_lse = ref.FWD[variant](
+                qf, kf, vf, causal, *fa.kernel_blocks(qf, kf, variant))
             p_out = p_out.reshape(shape["b"], shape["h"], shape["s"],
                                   shape["d"]).transpose(1, 2)
             label = f"{variant} {dt} {shape} causal={causal} ramp={ramp}"
@@ -388,7 +400,11 @@ def check_kernels(card, dev):
         for variant in fa.VARIANTS:
             out = fa.flash_attention(q, k, v, causal=True, variant=variant,
                                      device=dev)
-            p_out, _ = ref.FWD[variant](qf, kf, vf, True, 64, 64)
+            # the kernel walks the end-padded 1024; the padded keys come
+            # after every real query, so the unpadded walk at its blocks
+            # is the same
+            p_out, _ = ref.FWD[variant](qf, kf, vf, True,
+                                        *fa.kernel_blocks(qf, kf, variant))
             p_out = p_out.reshape(1, 6, 1000, 128).transpose(1, 2)
             err, frac = hold(out, p_out, "O", dtype,
                              f"{variant} {dt} ragged s=1000")
@@ -400,6 +416,61 @@ def check_kernels(card, dev):
               f"dtype {lse_err}; largest error as a share of its "
               f"tolerance by dtype {share}")
     return errs
+
+
+def check_sm90_kernel(card, dev, errs):
+    """The bf16 wgmma/TMA forward (lazy, twopass) on ``[b·h, s, d]``
+    operands against its plain version at the kernel's own tiles: every
+    head dim, sequences that are multiples of 64 but not of 128 with
+    b·h >= 2 (where a flat tensor map would read the next head's keys),
+    non-causal sk != sq, both CTA shapes forced with the rising-max
+    adversaries at 128-key tiles, and the training shape. Folds the
+    largest O error into ``errs``."""
+    ramp = {"down": torch.linspace(4.0, 0.5, 512),
+            "up": torch.linspace(0.5, 4.0, 512)}
+    cases = []   # (bh, sq, sk, d, causal, cta_rows, ramp)
+    for causal in (True, False):
+        for d in (16, 32, 64, 128):
+            cases.append((3, 192, 192, d, causal, None, None))
+        cases.append((6, 960, 960, 128, causal, None, None))
+        for rows in (64, 128):
+            cases.append((2, 384, 384, 128, causal, rows, None))
+            for name in ramp:
+                cases.append((6, 512, 512, 128, causal, rows, name))
+    for rows in (64, 128):
+        cases.append((4, 192, 320, 64, False, rows, None))
+    cases.append((TRAIN_BATCH * 6, TRAIN_SEQ, TRAIN_SEQ, 128, True, None,
+                  None))
+    share = 0.0
+    n_cmp = 0
+    for n, (bh, sq, sk, d, causal, rows, name) in enumerate(cases):
+        g = torch.Generator().manual_seed(500 + n)
+        qf = torch.randn(bh, sq, d, generator=g)
+        kf, vf = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
+        if name:
+            kf = kf * ramp[name][None, :, None]
+        qf, kf, vf = (t.to(dev, torch.bfloat16) for t in (qf, kf, vf))
+        for variant in fa.SM90_VARIANTS:
+            blocks = fa.kernel_blocks(qf, kf, variant, rows)
+            before = fa.launch_counts[f"flash_fwd_{variant}"]
+            out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
+                                      cta_rows=rows)
+            if fa.launch_counts[f"flash_fwd_{variant}"] != before + 1:
+                raise AssertionError(f"{variant} did not launch")
+            p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal, *blocks)
+            label = (f"sm90 {variant} bh={bh} sq={sq} sk={sk} d={d} "
+                     f"causal={causal} blocks={blocks} ramp={name}")
+            for got, want, what in ((out, p_out, "O"), (lse, p_lse, "lse")):
+                err, frac = hold(got, want, what, torch.bfloat16, label)
+                share = max(share, frac)
+                if what == "O":
+                    errs[variant] = max(errs[variant], err)
+                n_cmp += 1
+    log(card, f"phase 2: {n_cmp} wgmma/TMA forward kernel/plain comparisons "
+              f"(bf16 lazy and twopass, O and lse; d 16/32/64/128, s 192 and "
+              f"960 at b·h >= 2, sq 192 x sk 320, CTA rows 64 and 128, "
+              f"rising-max adversaries, the training shape) passed; largest "
+              f"error as a share of its tolerance {share:.3f}")
 
 
 def check_bwd_kernels(card, dev):
@@ -864,15 +935,66 @@ def time_bwd_kernels(card, dev, launches, errs):
                   f"s={s}: device ms (profiler) {dvc}, event ms per call "
                   f"{ev}, bound {b_ms:.5f} ms ({b_by}; {ops} operations, "
                   f"{nbytes} bytes)")
-    fwd_ms = device_ms(lambda: fa._kernel_fwd(qf, kf, vf, True, scale,
-                                              "lazy"))
-    sdpa_fwd = device_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(qs, ks, vs,
-                                                       is_causal=True))
     log(card, f"phase 4: at the training shape, SDPA backward (dq, dk, dv in "
-              f"one call) device ms {lib_dev} (event {lib_ev:.4f}); the "
-              f"lazy forward {fwd_ms} against SDPA's forward {sdpa_fwd}")
+              f"one call) device ms {lib_dev} (event {lib_ev:.4f})")
     return entries
+
+
+def time_fwd_training(card, dev):
+    """The lazy forward (B2, wgmma/TMA) at the training shape (b=16, h=6,
+    d=128, causal s=1024, bf16): device ms against its bound, its plain
+    version at the same tiles and SDPA's forward; returns the keys added
+    to flash_fwd_lazy's JSON entry."""
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 6, 128
+    qf, kf, vf = (flat(t) for t in qkv(82, b=b, s=s, h=h, d=d,
+                                       dtype=torch.bfloat16, device=dev))
+    scale = d ** -0.5
+    blocks = fa.kernel_blocks(qf, kf, "lazy")
+    calls = {
+        "kernel": lambda: fa._kernel_fwd(qf, kf, vf, True, scale, "lazy"),
+        "plain": lambda: ref.flash_fwd_lazy(qf, kf, vf, True, *blocks,
+                                            scale),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(t.view(b, h, s, d) for t in (qf, kf, vf)), is_causal=True)}
+    ev = {k_: time_ms(fn, *((2, 1) if k_ == "plain" else ()))
+          for k_, fn in calls.items()}
+    dvc = {k_: device_ms(fn, 2 if k_ == "plain" else 20)
+           for k_, fn in calls.items()}
+    ms = {k_: dvc[k_] if dvc[k_] is not None else ev[k_] for k_ in ev}
+    ops, nbytes = attention_work(b * h, s, d, True, 2)
+    b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+    log(card, f"phase 4: lazy bf16 causal b={b} h={h} d={d} s={s} (the "
+              f"training shape; CTA {blocks[0]} query rows, {blocks[1]}-key "
+              f"tiles): device ms (profiler) {dvc}, event ms per call {ev}, "
+              f"bound {b_ms:.5f} ms ({b_by}; {ops} operations, {nbytes} "
+              f"bytes); {b_ms / ms['kernel']:.1%} of the bound, "
+              f"{ms['kernel'] / ms['library']:.2f}x SDPA's forward")
+    return {"train_ms": ms["kernel"], "train_plain_ms": ms["plain"],
+            "train_bound_ms": b_ms, "train_library_ms": ms["library"]}
+
+
+def time_fwd_host(card, dev, h, d):
+    """Host time per forward launch (no synchronisation), on the wgmma/TMA
+    kernel (lazy, which encodes three TMA tensor maps per launch) and on
+    the mma.sync kernel (online), at a shape whose device time is a few
+    microseconds."""
+    qf, kf, vf = (flat(t) for t in qkv(83, b=1, s=128, h=h, d=d,
+                                       dtype=torch.bfloat16, device=dev))
+    us = {}
+    for variant in ("lazy", "online"):
+        for _ in range(20):
+            fa._kernel_fwd(qf, kf, vf, True, d ** -0.5, variant)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fa._kernel_fwd(qf, kf, vf, True, d ** -0.5, variant)
+        us[variant] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    log(card, f"phase 4: host us per forward launch through _kernel_fwd "
+              f"(b=1 h={h} d={d} s=128, 500 launches, no sync): "
+              f"{ {k_: round(v_, 2) for k_, v_ in us.items()} }; the "
+              f"difference is the three tensor maps the wgmma kernel "
+              f"encodes per launch")
 
 
 def time_training(card, dev, model, opt, batch, cfg):
@@ -1040,13 +1162,36 @@ def main():
     print(card, flush=True)
 
     # ---- phase 1: build
+    # the register report of the wgmma/TMA forward: its source alone
+    # through nvcc -Xptxas -v, started beside the extension's build
+    cubin = os.path.join(ROOT, "build", "flash_fwd_ab", "flash_fwd_sm90.cubin")
+    os.makedirs(os.path.dirname(cubin), exist_ok=True)
+    ptxas = subprocess.Popen(
+        fwd_ab.nvcc_cmd([os.path.join(_build.CSRC, "flash_fwd_sm90.cu")],
+                        cubin, cubin=True),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
     _build.extension()
     log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s")
+    out, _ = ptxas.communicate(timeout=900)
+    report = fwd_ab.ptxas_report(out)
+    if ptxas.returncode or len(report) != 16:
+        raise AssertionError(f"nvcc -Xptxas -v on flash_fwd_sm90.cu: rc "
+                             f"{ptxas.returncode}, {len(report)} kernels\n"
+                             f"{out[-3000:]}")
+    spilled = {k_: v_ for k_, v_ in report.items() if v_[1] or v_[2]}
+    if spilled:
+        raise AssertionError(f"wgmma/TMA forward spills: {spilled}")
+    log(card, f"phase 1: nvcc -Xptxas -v, flash_fwd_sm90_kernel<d, walk (1 "
+              f"lazy, 2 twopass), consumer warpgroups>: (registers at "
+              f"entry, spill store bytes, spill load bytes) {report}; "
+              f"two-warpgroup CTAs then move registers to the consumers "
+              f"with setmaxnreg (producer 24, consumers 240)")
 
     # ---- phase 2: kernels vs plain versions
     errs = check_kernels(card, dev)
+    check_sm90_kernel(card, dev, errs)
     errs.update(check_bwd_kernels(card, dev))
     # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
     step_shapes = vision_bn_shapes(
@@ -1167,14 +1312,14 @@ def main():
         s = main_s[variant]
         qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in qkv(
             70, b=1, s=s, h=h, d=d, dtype=torch.bfloat16, device=dev))
-        bq = fa.fit_block(s)
+        blocks = fa.kernel_blocks(qf, kf, variant)
         scale = d ** -0.5
 
         def kernel():
             return fa._kernel_fwd(qf, kf, vf, True, scale, variant)
 
         def plain():
-            return ref.FWD[variant](qf, kf, vf, True, bq, bq, scale)
+            return ref.FWD[variant](qf, kf, vf, True, *blocks, scale)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
@@ -1188,7 +1333,8 @@ def main():
         b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
         kernels.append({
             "name": f"flash_fwd_{variant}", "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES[variant],
+            "source": SM90_SOURCE if variant in fa.SM90_VARIANTS else SOURCE,
+            "replaces": REPLACES[variant],
             "launches": launches.get(f"flash_fwd_{variant}", 0),
             "max_abs_err": errs[variant], "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
@@ -1197,6 +1343,10 @@ def main():
                   f"device ms (profiler) {dv}, event ms per call {ev}, "
                   f"bound {b_ms:.5f} ms ({b_by}; {ops} operations, "
                   f"{nbytes} bytes)")
+    kernels[fa.VARIANTS.index("lazy")].update(
+        time_fwd_training(card, dev),
+        train_launches=train_launches.get("flash_fwd_lazy", 0))
+    time_fwd_host(card, dev, h, d)
     kernels.extend(time_bwd_kernels(card, dev, launches, errs))
     time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
     kernels.extend(time_bn_kernels(card, dev, step_shapes, launches, errs))

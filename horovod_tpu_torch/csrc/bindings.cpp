@@ -13,6 +13,12 @@ extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
                                      int bh, int sq, int sk, int d, int dtype,
                                      int variant, int causal, float scale2,
                                      cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
+                                          int bh, int sq, int sk, int d,
+                                          int variant, int causal,
+                                          float scale2, int cta_rows,
+                                          cudaStream_t stream);
 extern "C" cudaError_t hvd_flash_bwd_dq(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const float* lse, const float* delta,
@@ -47,18 +53,25 @@ int kernel_dtype(const torch::Tensor& t, const char* what) {
 // q/k/v [b*h, s, d] contiguous, out like q, lse [b*h, sq] fp32; the Python
 // wrapper (ops/flash_attention.py) allocates the outputs and checks
 // shapes, dtypes and alignment before calling.
+void check_fwd(const char* which, const torch::Tensor& q,
+               const torch::Tensor& k, const torch::Tensor& v,
+               const torch::Tensor& out, const torch::Tensor& lse) {
+  for (const auto& t : {q, k, v, out, lse}) {
+    TORCH_CHECK(t.is_cuda() && t.is_contiguous(), which,
+                ": every tensor must be contiguous on a CUDA device");
+    TORCH_CHECK(t.device() == q.device(), which,
+                ": every tensor must be on q's device");
+  }
+  TORCH_CHECK(q.dim() == 3 && k.sizes() == v.sizes() && q.sizes() == out.sizes(),
+              which, ": q/k/v/out must be [b*h, s, d] with k and v alike");
+  TORCH_CHECK(lse.scalar_type() == torch::kFloat32, which,
+              ": lse must be fp32");
+}
+
 void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, torch::Tensor& out, torch::Tensor& lse,
                int64_t variant, bool causal, double scale2) {
-  TORCH_CHECK(q.is_cuda() && k.is_cuda() && v.is_cuda() && out.is_cuda() &&
-                  lse.is_cuda(),
-              "flash_fwd: every tensor must be on a CUDA device");
-  TORCH_CHECK(q.is_contiguous() && k.is_contiguous() && v.is_contiguous() &&
-                  out.is_contiguous() && lse.is_contiguous(),
-              "flash_fwd: tensors must be contiguous");
-  TORCH_CHECK(q.dim() == 3 && k.sizes() == v.sizes() && q.sizes() == out.sizes(),
-              "flash_fwd: q/k/v/out must be [b*h, s, d] with k and v alike");
-  TORCH_CHECK(lse.scalar_type() == torch::kFloat32, "flash_fwd: lse must be fp32");
+  check_fwd("flash_fwd", q, k, v, out, lse);
   int dtype = kernel_dtype(q, "flash_fwd");
   const c10::cuda::CUDAGuard guard(q.device());
   cudaError_t err = hvd_flash_fwd(
@@ -69,6 +82,31 @@ void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
       causal ? 1 : 0, static_cast<float>(scale2),
       at::cuda::getCurrentCUDAStream(q.device().index()).stream());
   TORCH_CHECK(err == cudaSuccess, "flash_fwd: kernel configuration failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The bf16 lazy (variant 1) and twopass (2) forward on wgmma and TMA
+// (flash_fwd_sm90.cu), with cta_rows (64 or 128) query rows per CTA.
+void flash_fwd_sm90(const torch::Tensor& q, const torch::Tensor& k,
+                    const torch::Tensor& v, torch::Tensor& out,
+                    torch::Tensor& lse, int64_t variant, bool causal,
+                    double scale2, int64_t cta_rows) {
+  check_fwd("flash_fwd_sm90", q, k, v, out, lse);
+  for (const auto& t : {q, k, v, out})
+    TORCH_CHECK(t.scalar_type() == torch::kBFloat16,
+                "flash_fwd_sm90: q, k, v and out must be bfloat16");
+  const c10::cuda::CUDAGuard guard(q.device());
+  cudaError_t err = hvd_flash_fwd_sm90(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(variant),
+      causal ? 1 : 0, static_cast<float>(scale2),
+      static_cast<int>(cta_rows),
+      at::cuda::getCurrentCUDAStream(q.device().index()).stream());
+  TORCH_CHECK(err == cudaSuccess,
+              "flash_fwd_sm90: kernel configuration failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -194,7 +232,10 @@ void bn_moments(const torch::Tensor& a, const torch::Tensor& b,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "Flash-attention forward (online/lazy/twopass) for sm_90a");
+        "Flash-attention forward (bf16 online; fp32 online/lazy/twopass) "
+        "for sm_90a");
+  m.def("flash_fwd_sm90", &flash_fwd_sm90,
+        "Flash-attention forward, bf16 lazy/twopass, on wgmma and TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
         "Flash-attention backward, dq, for sm_90a");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,

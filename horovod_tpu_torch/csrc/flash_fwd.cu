@@ -1,12 +1,14 @@
-// Flash-attention forward for Hopper (sm_90a): the three accumulation
-// variants of horovod_tpu/ops/flash_attention.py, written for the card.
+// Flash-attention forward for Hopper (sm_90a): the variants of
+// horovod_tpu/ops/flash_attention.py that do not run on wgmma.
 //
 // Replaces the Pallas TPU kernels behind pl.pallas_call in
 // horovod_tpu/ops/flash_attention.py (_flash_fwd):
-//   online  -> _fwd_kernel           (rescale every k tile)
+//   online  -> _fwd_kernel           (rescale every k tile), bf16 and fp32
 //   lazy    -> _fwd_kernel_lazy      (rescale only when a tile raises the
-//                                     row max; k tiles diagonal-first)
-//   twopass -> _fwd_kernel_twopass   (pass 1 row max, pass 2 accumulate)
+//                                     row max; k tiles diagonal-first), fp32
+//   twopass -> _fwd_kernel_twopass   (pass 1 row max, pass 2 accumulate),
+//                                     fp32
+// bf16 lazy and twopass run on wgmma and TMA in flash_fwd_sm90.cu.
 //
 // Contract (same as the TPU kernels): q/k/v are [b*h, s, d] contiguous;
 // O has q's dtype; lse is the natural-log row log-sum-exp, fp32, [b*h, sq]
@@ -27,13 +29,10 @@
 // memory.
 //
 // What bounds it: 4*d operations per visible (q, k) pair against q, k, v
-// read once and O written once. At the serving shape (b=1, h=6, d=128,
-// causal s=960) that is ~240 operations per byte, just under the H100's
-// ridge (~295), so HBM is the nominal bound, by a little. This first
-// version is far from either: one CTA per 64-row q tile gives only 90
-// CTAs for 132 SMs at that shape, each walking its k tiles in series, on
-// mma.sync with fragments loaded from shared memory (no ldmatrix, no
-// wgmma/TMA yet).
+// read once and O written once. The online walk runs where the k loop has
+// one tile (prompts of 64 tokens or fewer in serving), where the time is
+// a launch and one tile's latency; the fp32 variants are on no main path.
+// Neither uses wgmma/TMA or ldmatrix.
 //
 // The lazy predicate is taken per warp (16 rows) where the TPU kernel
 // takes it per 64-row block: a row whose max did not rise gets
@@ -76,7 +75,8 @@ struct Bf16Layout {
   static constexpr int kSmemBytes = 5 * kTile * 2;
 };
 
-template <int D, int V>
+// the online walk (the bf16 lazy and twopass walks are flash_fwd_sm90.cu's)
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(Params p) {
   using L = Bf16Layout<D>;
@@ -190,119 +190,43 @@ flash_fwd_bf16_kernel(Params p) {
     }
   };
 
-  // stream k tiles (and v tiles when with_v) through the double buffer,
-  // in ascending or descending tile order, calling body on each
-  auto stream = [&](bool with_v, bool descending, auto&& body) {
-    auto tile = [&](int it) { return descending ? nk - 1 - it : it; };
-    auto issue = [&](int it) {
-      int buf = it & 1;
-      load_tile_bf16<D>(sK + buf * L::kTile, k, tile(it) * kBlock, p.sk, tid);
-      if (with_v)
-        load_tile_bf16<D>(sV + buf * L::kTile, v, tile(it) * kBlock, p.sk, tid);
-      cp_async_commit();
-    };
-    issue(0);
-    for (int it = 0; it < nk; ++it) {
-      if (it + 1 < nk) {
-        issue(it + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      int buf = it & 1;
-      body(tile(it), sK + buf * L::kTile, sV + buf * L::kTile);
-      __syncthreads();
-    }
+  // stream k and v tiles through the double buffer in ascending order,
+  // rescaling on every tile
+  auto issue = [&](int kb) {
+    int buf = kb & 1;
+    load_tile_bf16<D>(sK + buf * L::kTile, k, kb * kBlock, p.sk, tid);
+    load_tile_bf16<D>(sV + buf * L::kTile, v, kb * kBlock, p.sk, tid);
+    cp_async_commit();
   };
-
-  if constexpr (V == kOnline) {
-    stream(true, false, [&](int kb, const __nv_bfloat16* tk,
-                            const __nv_bfloat16* tv) {
-      float s[8][4];
-      logits(tk, kb, s);
+  issue(0);
+  for (int kb = 0; kb < nk; ++kb) {
+    if (kb + 1 < nk) {
+      issue(kb + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int buf = kb & 1;
+    float s[8][4];
+    logits(sK + buf * L::kTile, kb, s);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m[r];
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-        mx = quad_max(mx);
-        rescale(r, exp2f(m[r] - mx));
-        m[r] = mx;
+      for (int nt = 0; nt < 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      mx = quad_max(mx);
+      rescale(r, exp2f(m[r] - mx));
+      m[r] = mx;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          s[nt][2 * r] = exp2f(s[nt][2 * r] - mx);
-          s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mx);
-        }
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][2 * r] = exp2f(s[nt][2 * r] - mx);
+        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mx);
       }
-      accumulate(tv, s);
-    });
-  } else if constexpr (V == kLazy) {
-    // diagonal-first: the near-diagonal tiles set the max early
-    stream(true, true, [&](int kb, const __nv_bfloat16* tk,
-                           const __nv_bfloat16* tv) {
-      float s[8][4];
-      logits(tk, kb, s);
-      float mt[2];
-      bool rises = false;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-        mt[r] = quad_max(mx);
-        rises |= mt[r] > m[r];
-      }
-      if (__any_sync(0xffffffffu, rises)) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mn = fmaxf(m[r], mt[r]);
-          rescale(r, exp2f(m[r] - mn));
-          m[r] = mn;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          s[nt][2 * r] = exp2f(s[nt][2 * r] - m[r]);
-          s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m[r]);
-        }
-      }
-      accumulate(tv, s);
-    });
-  } else {
-    // pass 1: row max only, K stream alone
-    stream(false, false, [&](int kb, const __nv_bfloat16* tk,
-                             const __nv_bfloat16*) {
-      float s[8][4];
-      logits(tk, kb, s);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          m[r] = fmaxf(m[r], fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      }
-    });
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    // pass 2: accumulate against the final max, no correction
-    stream(true, false, [&](int kb, const __nv_bfloat16* tk,
-                            const __nv_bfloat16* tv) {
-      float s[8][4];
-      logits(tk, kb, s);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          s[nt][2 * r] = exp2f(s[nt][2 * r] - m[r]);
-          s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m[r]);
-        }
-      }
-      accumulate(tv, s);
-    });
+    }
+    accumulate(sV + buf * L::kTile, s);
+    __syncthreads();
   }
 
   __nv_bfloat16* o =
@@ -477,13 +401,9 @@ flash_fwd_f32_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-template <bool Bf16, int D, int V>
-cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
-  constexpr int smem =
-      Bf16 ? Bf16Layout<D>::kSmemBytes : F32Layout<D>::kSmemBytes;
-  void (*kernel)(Params) =
-      Bf16 ? flash_fwd_bf16_kernel<D, V> : flash_fwd_f32_kernel<D, V>;
-  static std::atomic<uint32_t> opted_in{0};
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, std::atomic<uint32_t>& opted_in,
+                   int bh, const Params& p, cudaStream_t stream) {
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
   dim3 grid((p.sq + kBlock - 1) / kBlock, bh);
@@ -491,28 +411,36 @@ cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
   return cudaSuccess;   // launch errors are read by the caller
 }
 
-template <int D, bool Bf16>
-cudaError_t dispatch_variant(int variant, int bh, const Params& p,
-                             cudaStream_t stream) {
-  switch (variant) {
-    case kOnline: return launch<Bf16, D, kOnline>(bh, p, stream);
-    case kLazy: return launch<Bf16, D, kLazy>(bh, p, stream);
-    case kTwopass: return launch<Bf16, D, kTwopass>(bh, p, stream);
-  }
-  return cudaErrorInvalidValue;
+template <int D, int V>
+cudaError_t launch_f32(int bh, const Params& p, cudaStream_t stream) {
+  static std::atomic<uint32_t> opted_in{0};
+  return launch(flash_fwd_f32_kernel<D, V>, F32Layout<D>::kSmemBytes,
+                opted_in, bh, p, stream);
 }
 
 template <int D>
 cudaError_t dispatch(bool bf16, int variant, int bh, const Params& p,
                      cudaStream_t stream) {
-  return bf16 ? dispatch_variant<D, true>(variant, bh, p, stream)
-              : dispatch_variant<D, false>(variant, bh, p, stream);
+  if (bf16) {
+    // bf16 lazy and twopass are hvd_flash_fwd_sm90's
+    if (variant != kOnline) return cudaErrorInvalidValue;
+    static std::atomic<uint32_t> opted_in{0};
+    return launch(flash_fwd_bf16_kernel<D>, Bf16Layout<D>::kSmemBytes,
+                  opted_in, bh, p, stream);
+  }
+  switch (variant) {
+    case kOnline: return launch_f32<D, kOnline>(bh, p, stream);
+    case kLazy: return launch_f32<D, kLazy>(bh, p, stream);
+    case kTwopass: return launch_f32<D, kTwopass>(bh, p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point (no PyTorch headers here: they stay in bindings.cpp).
-// dtype: 0 = fp32, 1 = bf16. variant: 0 online, 1 lazy, 2 twopass.
+// dtype: 0 = fp32, 1 = bf16. variant: 0 online, 1 lazy, 2 twopass; bf16
+// takes only online here (hvd_flash_fwd_sm90 takes bf16 lazy and twopass).
 // scale2 is the softmax scale times log2(e), rounded once by the caller.
 // Returns a configuration error; the launch itself is checked by the caller
 // with cudaGetLastError.

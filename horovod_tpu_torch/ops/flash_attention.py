@@ -1,9 +1,10 @@
 """Fused (flash) attention for the port: public side and dispatch.
 
 The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
-backward. A CUDA tensor goes to the hand-written Hopper kernels: the
-forward variants (online, lazy, twopass) in ``csrc/flash_fwd.cu``, the
-backward's dq and dk/dv kernels in ``csrc/flash_bwd.cu``. A CPU tensor
+backward. A CUDA tensor goes to the hand-written Hopper kernels: the bf16
+lazy and twopass forward on wgmma and TMA in ``csrc/flash_fwd_sm90.cu``,
+the bf16 online forward and every fp32 forward in ``csrc/flash_fwd.cu``,
+the backward's dq and dk/dv kernels in ``csrc/flash_bwd.cu``. A CPU tensor
 goes to their plain PyTorch versions in ``flash_attention_ref.py``, which
 walk the same tiles. Nothing on a CUDA tensor ever takes the plain
 version: if a kernel cannot build or launch, the call raises.
@@ -13,12 +14,14 @@ version: if a kernel cannot build or launch, the call raises.
 q, k, v, O and lse; the backward computes delta = rowsum(dO∘O) as plain
 torch, as the JAX package does, and launches the two backward kernels.
 
-Tiles are 64 rows of Q by 64 rows of K/V, chosen for Hopper: 16 query
-rows per warp of mma.sync, and a bf16 K/V tile of d=128 double-buffered
-in 87 KB of shared memory (two CTAs per SM). A sequence shorter than a
-tile is one partial tile; a longer one must be a tile multiple, except
-causal self-attention, which is end-padded (the padded keys sit after
-every real query, so the causal mask discards them exactly).
+The public tile is 64 rows of Q by 64 rows of K/V: a sequence shorter
+than a tile is one partial tile; a longer one must be a tile multiple,
+except causal self-attention, which is end-padded (the padded keys sit
+after every real query, so the causal mask discards them exactly). The
+mma.sync kernels walk those tiles. The wgmma kernel walks its own: 128
+keys per k tile and 64 or 128 query rows per CTA (``sm90_cta_rows``),
+masking a partial last tile itself; ``kernel_blocks`` names the walk of
+the kernel a call reaches, so its plain version can walk the same.
 
 ``decode_attention`` — one query against the KV cache — stays plain
 torch, as the JAX package keeps it plain XLA: a GEMV per (batch, head)
@@ -26,6 +29,7 @@ has no logits matrix to keep out of memory.
 """
 
 import collections
+import functools
 import os
 
 import torch
@@ -43,8 +47,15 @@ LOG2E = ref.LOG2E
 #: same natural-log lse.
 VARIANTS = ("online", "lazy", "twopass")
 
-#: Rows of Q and of K/V per tile — the one tile shape the kernels compile.
+#: Rows of Q and of K/V per tile — the public tile, which the mma.sync
+#: kernels walk.
 BLOCK = 64
+
+#: The variants that run on the wgmma/TMA kernel in bf16.
+SM90_VARIANTS = ("lazy", "twopass")
+
+#: Keys per k tile of the wgmma/TMA kernel.
+SM90_BLOCK_K = 128
 
 #: Kernel launches by kernel name, counted where each launch is made.
 launch_counts = collections.Counter()
@@ -103,13 +114,49 @@ def _check_contiguous(*ts):
                              "16-byte aligned")
 
 
-def _kernel_fwd(qf, kf, vf, causal, scale, variant):
-    """Launch the forward kernel on ``[b·h, s, d]`` operands."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def sm90_cta_rows(bh, sq, sm_count):
+    """Query rows per CTA of the wgmma kernel: 128 (two consumer
+    warpgroups) when ``bh·⌈sq/128⌉`` CTAs fill the SMs, else 64 (one), so
+    a thin grid is not made thinner."""
+    return 128 if bh * -(-sq // 128) >= sm_count else 64
+
+
+def _on_sm90(dtype, variant):
+    return dtype == torch.bfloat16 and variant in SM90_VARIANTS
+
+
+def kernel_blocks(qf, kf, variant, cta_rows=None):
+    """(block_q, block_k) of the tile walk that the kernel a ``[b·h, s, d]``
+    call reaches takes: the plain version walks the same tiles at these
+    blocks."""
+    if _on_sm90(qf.dtype, variant):
+        rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
+                                         _sm_count(qf.device))
+        return rows, SM90_BLOCK_K
+    return fit_block(qf.shape[1]), fit_block(kf.shape[1])
+
+
+def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
+    """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 lazy and
+    twopass on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
+    shape), everything else on the mma.sync/CUDA-core one."""
     _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
-    extension().flash_fwd(qf, kf, vf, out, lse, VARIANTS.index(variant),
-                          bool(causal), float(scale * LOG2E))
+    scale2 = float(scale * LOG2E)
+    if _on_sm90(qf.dtype, variant):
+        rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
+        extension().flash_fwd_sm90(qf, kf, vf, out, lse,
+                                   VARIANTS.index(variant), bool(causal),
+                                   scale2, rows)
+    else:
+        extension().flash_fwd(qf, kf, vf, out, lse, VARIANTS.index(variant),
+                              bool(causal), scale2)
     launch_counts[f"flash_fwd_{variant}"] += 1
     return out, lse
 
@@ -212,9 +259,9 @@ def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
     [b, h, s, d]); returns ``(out, lse)`` with out in q's layout and
     dtype, lse the natural-log row log-sum-exp, fp32, ``[b·h, sq]``.
 
-    CUDA tensors launch the kernel, which walks BLOCK-row tiles (or one
-    partial tile for a shorter sequence); CPU tensors run the plain
-    version at the given blocks."""
+    CUDA tensors launch the kernel, which walks its own tiles (see
+    ``kernel_blocks``); CPU tensors run the plain version at the given
+    blocks."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r}")
     b, h, sq, sk, _ = _layout_dims(q, k, layout)

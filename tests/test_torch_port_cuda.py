@@ -56,14 +56,39 @@ def _assert_kernel_close(got, want, what, dtype):
 
 
 def _check(q, k, v, causal, variant, dtype):
+    """The public entry against the plain version walking the tiles of
+    the kernel the call reaches."""
     b, s, h, d = q.shape
     out, lse = fa.flash_fwd(q, k, v, causal, variant=variant)
     flat = [t.transpose(1, 2).reshape(b * h, s, d) for t in (q, k, v)]
-    block = fa.fit_block(s)
-    p_out, p_lse = ref.FWD[variant](*flat, causal, block, block)
+    p_out, p_lse = ref.FWD[variant](*flat, causal,
+                                    *fa.kernel_blocks(flat[0], flat[1],
+                                                      variant))
     _assert_kernel_close(out.transpose(1, 2).reshape(b * h, s, d), p_out,
                          "O", dtype)
     _assert_kernel_close(lse, p_lse, "lse", dtype)
+
+
+def _check_sm90(seed, bh, sq, sk, d, causal, variant, device, cta_rows=None,
+                k_ramp=None):
+    """The bf16 wgmma/TMA kernel on ``[b·h, s, d]`` operands (CTA shape
+    forced when ``cta_rows`` is given) against its plain version at the
+    same tiles."""
+    g = torch.Generator().manual_seed(seed)
+    qf = torch.randn(bh, sq, d, generator=g)
+    kf, vf = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
+    if k_ramp is not None:
+        kf = kf * k_ramp[None, :, None]
+    qf, kf, vf = (t.to(device, torch.bfloat16) for t in (qf, kf, vf))
+    fa.reset_launch_counts()
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
+                              cta_rows=cta_rows)
+    assert dict(fa.launch_counts) == {f"flash_fwd_{variant}": 1}
+    p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, variant,
+                                                      cta_rows))
+    _assert_kernel_close(out, p_out, "O", torch.bfloat16)
+    _assert_kernel_close(lse, p_lse, "lse", torch.bfloat16)
 
 
 @pytest.mark.parametrize("variant", fa.VARIANTS)
@@ -86,6 +111,55 @@ def test_kernel_matches_plain_on_rising_max(card, variant, dtype, causal,
         k_ramp = k_ramp.flip(0)
     _check(*_qkv(14, 1, 512, 6, 128, dtype, card, k_ramp), causal, variant,
            dtype)
+
+
+@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_sm90_kernel_every_head_dim(card, variant, causal, d):
+    """Each head dim's swizzle (32, 64, 128 B and two 128 B boxes) at
+    s 192: a 128-key tile and a partial one, b·h = 3."""
+    _check_sm90(40 + d, 3, 192, 192, d, causal, variant, card)
+
+
+@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_kernel_partial_last_tile_per_head(card, variant, causal):
+    """s 960 (a multiple of 64, not of 128) at b·h 6: a tensor map over the
+    flat [b·h·s, d] would read 64 keys of the next head into each head's
+    last tile."""
+    _check_sm90(41, 6, 960, 960, 128, causal, variant, card)
+
+
+@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("cta_rows", [64, 128])
+def test_sm90_kernel_non_causal_sk_not_sq(card, variant, cta_rows):
+    _check_sm90(42, 4, 192, 320, 64, False, variant, card, cta_rows)
+
+
+@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cta_rows", [64, 128])
+def test_sm90_kernel_both_cta_shapes(card, variant, causal, cta_rows):
+    """One and two consumer warpgroups, forced, at s 384: with 128 query
+    rows the causal diagonal splits the CTA's tile between the two."""
+    _check_sm90(43, 2, 384, 384, 128, causal, variant, card, cta_rows)
+
+
+@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("ramp", ["down", "up"])
+@pytest.mark.parametrize("cta_rows", [64, 128])
+def test_sm90_kernel_rising_max_at_its_tiles(card, variant, causal, ramp,
+                                             cta_rows):
+    """The rising-max adversaries at the kernel's 128-key tiles: ``down``
+    raises the max on every tile of lazy's diagonal-first walk, ``up`` on
+    every tile of twopass's ascending passes."""
+    k_ramp = torch.linspace(4.0, 0.5, 512)
+    if ramp == "up":
+        k_ramp = k_ramp.flip(0)
+    _check_sm90(44, 6, 512, 512, 128, causal, variant, card, cta_rows,
+                k_ramp)
 
 
 def test_kernel_refuses_what_it_cannot_take(card):

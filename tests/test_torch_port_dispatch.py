@@ -1,0 +1,132 @@
+"""Which hand-written kernel each forward call of horovod_tpu_torch reaches.
+
+The compiled extension is replaced by a stub that records its calls, so
+the dispatch in ``ops/flash_attention.py`` runs here on the CPU: bf16 lazy
+and twopass go to the wgmma/TMA entry point (``flash_fwd_sm90``, with the
+CTA shape the host picks or the caller forces), bf16 online and every
+fp32 variant to ``flash_fwd``, and the launch counts keep one name per
+variant. The stub's outputs are never read: on the card the kernels
+themselves are held against their plain versions
+(tests/test_torch_port_cuda.py, chip_smoke.py).
+"""
+
+import os
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import flash_attention as fa
+
+H100_SMS = 132
+
+
+class _Recorder:
+    """Stands in for the compiled extension: records (entry point, args)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_fwd(self, q, k, v, out, lse, variant, causal, scale2):
+        self.calls.append(("flash_fwd", variant, causal, None))
+
+    def flash_fwd_sm90(self, q, k, v, out, lse, variant, causal, scale2,
+                       cta_rows):
+        self.calls.append(("flash_fwd_sm90", variant, causal, cta_rows))
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    rec = _Recorder()
+    monkeypatch.setattr(fa, "extension", lambda: rec)
+    monkeypatch.setattr(fa, "_sm_count", lambda device: H100_SMS)
+    fa.reset_launch_counts()
+    yield rec
+    fa.reset_launch_counts()
+
+
+def _flat(bh, s, d, dtype):
+    g = torch.Generator().manual_seed(bh * s + d)
+    return [torch.randn(bh, s, d, generator=g).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_each_variant_reaches_its_entry_point(stub, variant, dtype, causal):
+    qf, kf, vf = _flat(6, 192, 64, dtype)
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, 0.125, variant)
+    sm90 = dtype == torch.bfloat16 and variant in ("lazy", "twopass")
+    entry, code, got_causal, rows = stub.calls[0]
+    assert len(stub.calls) == 1
+    assert entry == ("flash_fwd_sm90" if sm90 else "flash_fwd")
+    assert (code, got_causal) == (fa.VARIANTS.index(variant), causal)
+    assert rows == (64 if sm90 else None)
+    assert dict(fa.launch_counts) == {f"flash_fwd_{variant}": 1}
+    assert out.shape == qf.shape and out.dtype == dtype
+    assert lse.shape == (6, 192) and lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bh,sq,rows", [(96, 1024, 128), (6, 960, 64),
+                                        (6, 640, 64), (132, 128, 128),
+                                        (131, 128, 64), (66, 256, 128)])
+def test_host_picks_the_cta_shape_from_the_grid(stub, bh, sq, rows):
+    """Two consumer warpgroups (128 rows) only when bh·⌈sq/128⌉ CTAs fill
+    the 132 SMs: the flagship's b16 h6 s1024 does, serving's b1 h6 does
+    not."""
+    assert fa.sm90_cta_rows(bh, sq, H100_SMS) == rows
+    qf, kf, vf = _flat(bh, sq, 16, torch.bfloat16)
+    assert fa.kernel_blocks(qf, kf, "lazy") == (rows, fa.SM90_BLOCK_K)
+    assert fa.kernel_blocks(qf, kf, "online") == (fa.fit_block(sq),
+                                                  fa.fit_block(sq))
+    fa._kernel_fwd(qf, kf, vf, True, 0.25, "lazy")
+    assert stub.calls[-1][-1] == rows
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_caller_may_force_either_cta_shape(stub, rows):
+    qf, kf, vf = _flat(2, 192, 32, torch.bfloat16)
+    fa._kernel_fwd(qf, kf, vf, False, 0.2, "twopass", cta_rows=rows)
+    assert stub.calls == [("flash_fwd_sm90", 2, False, rows)]
+    assert fa.kernel_blocks(qf, kf, "twopass", rows) == (rows, 128)
+
+
+def test_unsupported_operands_raise_before_any_launch(stub):
+    qf, kf, vf = _flat(2, 64, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._kernel_fwd(qf, kf, vf, True, 0.1, "lazy")
+    qf, kf, vf = _flat(2, 64, 64, torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._kernel_fwd(qf, kf, vf, True, 0.1, "lazy")
+    assert stub.calls == [] and not fa.launch_counts
+
+
+def test_build_lists_every_cuda_source():
+    on_disk = {f for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
+    listed = set(_build.SOURCES)
+    assert on_disk <= listed
+    assert {f for f in listed if f.endswith(".cu")} == on_disk
+    assert "bindings.cpp" in listed
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__1a2b_17_flash_fwd_sm90_cu_3f6ff79121flash_fwd_sm90_kernelILi128ELi1ELi2EEEv14CUtensorMap_S1_S1_NS_10Sm90ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__1a2b
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3c4d_12flash_fwd_cu_3f6ff79121flash_fwd_bf16_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__3c4d
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 100 registers, used 1 barriers, 448 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_names_kernels_and_reads_spills():
+    """chip_smoke.py fails the run on any spill this report shows."""
+    from horovod_tpu_torch.ops import flash_fwd_ab
+    assert flash_fwd_ab.ptxas_report(_PTXAS) == {
+        "flash_fwd_sm90_kernel<128,1,2>": (168, 0, 0),
+        "flash_fwd_bf16_kernel<64>": (100, 8, 4)}
+    cmd = flash_fwd_ab.nvcc_cmd(["a.cu"], "a.cubin", cubin=True)
+    assert "-cubin" in cmd and "-v" in cmd and cmd[-1] == "a.cu"
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd

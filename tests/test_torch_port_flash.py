@@ -56,6 +56,24 @@ class TestVariantsAgainstJax:
         _close(t_out, j_out, dtype)
         _close(t_lse, np.asarray(j_lse)[:, 0, :], dtype)
 
+    @pytest.mark.parametrize("variant", ("lazy", "twopass"))
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_seq256_128_row_blocks(self, hvd, variant, dtype, causal):
+        """The walks at the wgmma kernel's 128-row tiles, each walk
+        crossing two of them: the plain version it is held to on the card
+        against the TPU kernel at the same blocks."""
+        from horovod_tpu.ops import flash_attention as jfa
+        (jq, jk, jv), (tq, tk, tv) = _inputs(10, s=256, dtype=dtype)
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, causal, 128, 128, True,
+                                      variant=variant)
+        t_out, t_lse = tfa.flash_fwd(tq, tk, tv, causal, 128, 128,
+                                     variant=variant)
+        assert t_out.dtype == getattr(torch, dtype)
+        assert t_lse.shape == (4, 256)
+        _close(t_out, j_out, dtype)
+        _close(t_lse, np.asarray(j_lse)[:, 0, :], dtype)
+
     @pytest.mark.parametrize("variant", VARIANTS)
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_ragged_tail(self, hvd, variant, dtype):
