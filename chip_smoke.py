@@ -8,10 +8,12 @@ kernels from horovod_tpu_torch/csrc/ at first use. Phases, each fatal
 on failure:
 
   1. the card's name and power limit, then the build of every kernel
-     source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu, batch_norm.cu)
-     and its time, and beside it the wgmma/TMA forward's source (B2, B3)
-     alone through nvcc -Xptxas -v: each instantiation's registers and
-     spills, where any spill fails the run;
+     source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu,
+     flash_bwd_sm90.cu, batch_norm.cu) and its time, and beside it the
+     wgmma/TMA sources (forward B2, B3; backward B4, B5) each alone through
+     nvcc -Xptxas -v: each instantiation's registers and spills, where any
+     spill fails the run, and ptxas's performance warnings (C7514/C7520,
+     "wgmma serialized"), printed;
   2. every flash-attention forward kernel (online, lazy, twopass) held
      against its plain PyTorch version walking the same tiles on the card,
      on O and lse, in bf16 and fp32, causal and not, on unit-scale inputs
@@ -25,12 +27,17 @@ on failure:
      query rows) with the adversaries at its 128-key tiles, and at the
      training shape (b=16 h=6 d=128 s=1024, causal). fp32 is held to 2e-5;
      bf16 O to two bf16 ulps plus 1 % of its largest value, bf16 lse to
-     1e-3. Then the backward kernels (dq, dk/dv) on dq, dk and dv, on
-     unit-scale inputs and dO, in bf16 and fp32, causal and not, at the
-     same shapes, a partial tile (s=48), the rising-max adversaries, the
-     training shape (b=16 h=6 d=128 s=1024, bf16, causal), and the ragged
-     s=1000 through the autograd path; fp32 to rtol 1e-4 / atol 1e-5, bf16
-     to two ulps plus 1 % of that gradient's largest magnitude. Then the
+     1e-3. Then the backward kernels (dq, dk/dv: bf16 on wgmma/TMA, fp32
+     on the CUDA cores) on dq, dk and dv against their plain versions at
+     the kernels' own tiles (fa.bwd_kernel_blocks), on unit-scale inputs
+     and dO, in bf16 and fp32, causal and not, at the same shapes, a
+     partial tile (s=48), the rising-max adversaries, the training shape
+     (b=16 h=6 d=128 s=1024, bf16, causal), and the ragged s=1000 through
+     the autograd path; then the bf16 wgmma/TMA pair alone at every head
+     dim, both dq CTA shapes forced (with the adversaries), partial last
+     tiles with b·h >= 2 (s 960, 1000), non-causal sq != sk both ways and
+     the training shape; fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
+     plus 1 % of that gradient's largest magnitude. Then the
      BatchNorm statistics kernels (B6 moments, B7 moments2) against their
      plain versions, both held to a float64 sum on the card within 1e-5
      of the per-channel sum of magnitudes, in bf16 and fp32, on
@@ -51,7 +58,8 @@ on failure:
      seq 1024, full width and depth, fp32 master weights,
      DistributedOptimizer(AdamW(3e-4, mu_dtype=bf16)): 10 steps on one
      repeated batch, launch counts zeroed before and read after each step
-     (exactly 12 lazy forwards, 12 dq and 12 dk/dv launches), the loss
+     (exactly 12 lazy forwards, 12 wgmma dq and 12 wgmma dk/dv launches),
+     the loss
      finite and falling; then one step's gradients at batch 2 on the
      kernel path against the same step with every launch replaced by its
      plain version (bf16 against each gradient's scale, and fp32);
@@ -67,7 +75,10 @@ on failure:
      largest magnitude, TF32 off, cuDNN deterministic);
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
-     (SDPA forward and backward; the lazy forward also at the training
+     (SDPA forward and backward; the backward pair, its sum and SDPA's
+     backward by CUDA events over 50 back-to-back calls and by profiler,
+     the event figure kept where the profiler reads under 0.8 of it; the
+     lazy forward also at the training
      shape, and the host time of a forward launch on each kernel;
      batch_norm_stats and
      batch_norm_backward_reduce for B6 and B7), the training step
@@ -124,7 +135,7 @@ PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
 SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
 SM90_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90.cu"
-BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
+BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd_sm90.cu"
 BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
 REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "lazy": "horovod_tpu/ops/flash_attention.py:220",
@@ -317,11 +328,12 @@ def plain_fwd(qf, kf, vf, causal, scale, variant):
                             *fa.kernel_blocks(qf, kf, variant), scale)
 
 
-def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
-    bq, bk = fa.fit_block(qf.shape[1]), fa.fit_block(kf.shape[1])
-    dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, bq, bk, scale)
-    return (dq, *ref.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, causal, bq,
-                                   bk, scale))
+def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
+    dq_walk, dkv_walk = fa.bwd_kernel_blocks(qf, kf, cta_rows)
+    dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, *dq_walk,
+                          scale)
+    return (dq, *ref.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, causal,
+                                   *dkv_walk, scale))
 
 
 def plain_bn(af, bf=None):
@@ -478,7 +490,7 @@ def check_bwd_kernels(card, dev):
     dv: the forward checks' shapes, a partial tile, the rising-max
     adversaries, the training shape, and the ragged causal s=1000
     through the autograd path (end-padded to 1024, the pad rows' dO 0)."""
-    errs = {"dq": 0.0, "dkv": 0.0}
+    errs = {"dq": 0.0, "dkv": 0.0}   # bf16, the wgmma/TMA kernels
     share = {f"{k} {dt}": 0.0 for k in errs
              for dt in ("bfloat16", "float32")}
     ramps = {"down": torch.linspace(4.0, 0.5, 512),
@@ -498,7 +510,8 @@ def check_bwd_kernels(card, dev):
     def record(name, got, want, dtype, label):
         kernel = "dq" if name == "dq" else "dkv"
         err, frac = hold_grad(got, want, dtype, f"{name} {label}")
-        errs[kernel] = max(errs[kernel], err)
+        if dtype == torch.bfloat16:
+            errs[kernel] = max(errs[kernel], err)
         key = f"{kernel} {str(dtype).split('.')[1]}"
         share[key] = max(share[key], frac)
 
@@ -536,9 +549,72 @@ def check_bwd_kernels(card, dev):
             record(name, a, w, dtype, f"{dt} ragged s=1000 (autograd)")
             n_cmp += 1
     log(card, f"phase 2: {n_cmp} backward kernel/plain comparisons (dq, dk, "
-              f"dv) passed; max |err| by kernel {errs}; largest error as a "
-              f"share of its tolerance by kernel and dtype {share}")
+              f"dv) passed; max bf16 |err| by kernel {errs}; largest error "
+              f"as a share of its tolerance by kernel and dtype {share}")
     return errs
+
+
+def check_sm90_bwd(card, dev, errs):
+    """The bf16 wgmma/TMA backward pair (dq, dk/dv) on ``[b·h, s, d]``
+    operands against the plain walks at the kernels' own tiles: every head
+    dim, both dq CTA shapes forced with the rising-max adversaries,
+    sequences that end in a partial tile of the kernels (s 960: 128-key
+    tiles; s 1000: 64-query tiles too) with b·h >= 2, where a flat tensor
+    map would read the next head's rows, non-causal sq != sk both ways,
+    and the training shape. lse and delta come from the plain forward.
+    Folds the largest errors into ``errs``."""
+    ramp = {"down": torch.linspace(4.0, 0.5, 512),
+            "up": torch.linspace(0.5, 4.0, 512)}
+    cases = []   # (bh, sq, sk, d, causal, cta_rows, ramp)
+    for causal in (True, False):
+        for d in (16, 32, 64, 128):
+            cases.append((3, 192, 192, d, causal, None, None))
+        cases.append((6, 960, 960, 128, causal, None, None))
+        cases.append((2, 1000, 1000, 64, causal, None, None))
+        for rows in (64, 128):
+            cases.append((2, 384, 384, 128, causal, rows, None))
+            for name in ramp:
+                cases.append((6, 512, 512, 128, causal, rows, name))
+    for rows in (64, 128):
+        cases.append((4, 192, 320, 64, False, rows, None))
+        cases.append((4, 320, 200, 32, False, rows, None))
+    cases.append((TRAIN_BATCH * 6, TRAIN_SEQ, TRAIN_SEQ, 128, True, None,
+                  None))
+    share = 0.0
+    n_cmp = 0
+    for n, (bh, sq, sk, d, causal, rows, name) in enumerate(cases):
+        g = torch.Generator().manual_seed(900 + n)
+        qf, dof = (torch.randn(bh, sq, d, generator=g) for _ in range(2))
+        kf, vf = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
+        if name:
+            kf = kf * ramp[name][None, :, None]
+        qf, kf, vf, dof = (t.to(dev, torch.bfloat16)
+                           for t in (qf, kf, vf, dof))
+        scale = d ** -0.5
+        out, lse = ref.flash_fwd_online(qf, kf, vf, causal, 64, 64, scale)
+        delta = ref.flash_delta(out, dof)
+        fa.reset_launch_counts()
+        got = fa._kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale,
+                             cta_rows=rows)
+        if dict(fa.launch_counts) != {"flash_bwd_sm90_dq": 1,
+                                      "flash_bwd_sm90_dkv": 1}:
+            raise AssertionError(f"the bf16 backward launched "
+                                 f"{dict(fa.launch_counts)}")
+        want = plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale, rows)
+        label = (f"sm90 bwd bh={bh} sq={sq} sk={sk} d={d} causal={causal} "
+                 f"walks={fa.bwd_kernel_blocks(qf, kf, rows)} ramp={name}")
+        for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+            err, frac = hold_grad(a, w, torch.bfloat16, f"{grad} {label}")
+            kernel = "dq" if grad == "dq" else "dkv"
+            errs[kernel] = max(errs[kernel], err)
+            share = max(share, frac)
+            n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} wgmma/TMA backward kernel/plain comparisons "
+              f"(bf16 dq, dk, dv; d 16/32/64/128, s 960 and 1000 at b·h >= "
+              f"2, sq 192 x sk 320 and 320 x 200, dq CTA rows 64 and 128, "
+              f"rising-max adversaries, the training shape) passed; largest "
+              f"error as a share of its tolerance {share:.3f}")
 
 
 def vision_bn_shapes(model, images):
@@ -704,8 +780,8 @@ def train_flagship(card, dev, cfg):
     batch = toks[0]
     step = trainer.make_train_step(model, opt, tr.lm_loss_fn(model))
     per_step = {"flash_fwd_lazy": cfg.num_layers,
-                "flash_bwd_dq": cfg.num_layers,
-                "flash_bwd_dkv": cfg.num_layers}
+                "flash_bwd_sm90_dq": cfg.num_layers,
+                "flash_bwd_sm90_dkv": cfg.num_layers}
     losses = []
     fa.reset_launch_counts()
     for i in range(TRAIN_STEPS):
@@ -880,11 +956,24 @@ def check_vision_grads(card, dev):
 # phase 4: timings of the training path
 
 
+def time_pair(fn, iters=50):
+    """(event ms, profiler ms, kept ms, which) per call: CUDA events over
+    ``iters`` back-to-back calls, and torch.profiler's device time beside
+    it; the profiler's figure is kept unless it reads under 0.8 of the
+    event figure (the profiler has lost events on this card), then the
+    event figure is."""
+    ev, dvc = time_ms(fn, iters, 5), device_ms(fn, iters)
+    if dvc is None or dvc < 0.8 * ev:
+        return ev, dvc, ev, "event"
+    return ev, dvc, dvc, "profiler"
+
+
 def time_bwd_kernels(card, dev, launches, errs):
-    """dq and dk/dv at the training shape (b=16, h=6, d=128, causal
-    s=1024, bf16): device ms against the bound, their plain versions, and
-    SDPA's backward (one call computing dq, dk and dv) as the library
-    figure; returns the kernels' JSON entries."""
+    """The wgmma/TMA dq and dk/dv (B4, B5) at the training shape (b=16,
+    h=6, d=128, causal s=1024, bf16): device ms against the bound, their
+    plain versions at the kernels' tiles, their sum, and SDPA's backward
+    (one call computing dq, dk and dv) as the library figure, all timed the
+    same way (``time_pair``); returns the kernels' JSON entries."""
     b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 6, 128
     q, k, v = qkv(80, b=b, s=s, h=h, d=d, dtype=torch.bfloat16, device=dev)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(81)).to(
@@ -895,16 +984,20 @@ def time_bwd_kernels(card, dev, launches, errs):
     delta = ref.flash_delta(out, gf)
     ext = fa.extension()
     args = (True, float(scale * fa.LOG2E), float(scale))
+    dq_walk, dkv_walk = fa.bwd_kernel_blocks(qf, kf)
+    rows = dq_walk[0]
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+
+    def k_dq():
+        ext.flash_bwd_sm90_dq(qf, kf, vf, gf, lse, delta, dq, *args, rows)
+
+    def k_dkv():
+        ext.flash_bwd_sm90_dkv(qf, kf, vf, gf, lse, delta, dk, dv, *args)
     calls = {
-        "dq": (lambda: ext.flash_bwd_dq(qf, kf, vf, gf, lse, delta, dq,
-                                        *args),
-               lambda: ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta, True,
-                                        fa.BLOCK, fa.BLOCK, scale)),
-        "dkv": (lambda: ext.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, dk, dv,
-                                          *args),
-                lambda: ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, True,
-                                          fa.BLOCK, fa.BLOCK, scale))}
+        "dq": (k_dq, lambda: ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta,
+                                              True, *dq_walk, scale)),
+        "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta,
+                                                 True, *dkv_walk, scale))}
     # SDPA on [b, h, s, d]; its backward graph is kept, so each call
     # times the backward alone
     qs, ks, vs = (t.reshape(b, h, s, d).detach().requires_grad_(True)
@@ -915,28 +1008,36 @@ def time_bwd_kernels(card, dev, launches, errs):
 
     def library():
         return torch.autograd.grad(o, (qs, ks, vs), go, retain_graph=True)
-    lib_dev, lib_ev = device_ms(library), time_ms(library)
-    lib_ms = lib_dev if lib_dev is not None else lib_ev
+    lib = time_pair(library)
+    pair = time_pair(lambda: (k_dq(), k_dkv()))
     entries = []
     for name, (kernel, plain) in calls.items():
-        ev = {"kernel": time_ms(kernel), "plain": time_ms(plain, 2, 1)}
-        dvc = {"kernel": device_ms(kernel), "plain": device_ms(plain, 2)}
-        ms = {k_: dvc[k_] if dvc[k_] is not None else ev[k_] for k_ in ev}
+        kt = time_pair(kernel)
+        plain_ms = device_ms(plain, 2) or time_ms(plain, 2, 1)
         ops, nbytes = bwd_work(b * h, s, d, True, 2, name)
         b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
         entries.append({
-            "name": f"flash_bwd_{name}", "route": "cuda",
+            "name": f"flash_bwd_sm90_{name}", "route": "cuda",
             "source": BWD_SOURCE, "replaces": REPLACES[name],
-            "launches": launches.get(f"flash_bwd_{name}", 0),
-            "max_abs_err": errs[name], "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms})
-        log(card, f"phase 4: flash_bwd_{name} bf16 causal b={b} h={h} d={d} "
-                  f"s={s}: device ms (profiler) {dvc}, event ms per call "
-                  f"{ev}, bound {b_ms:.5f} ms ({b_by}; {ops} operations, "
-                  f"{nbytes} bytes)")
-    log(card, f"phase 4: at the training shape, SDPA backward (dq, dk, dv in "
-              f"one call) device ms {lib_dev} (event {lib_ev:.4f})")
+            "launches": launches.get(f"flash_bwd_sm90_{name}", 0),
+            "max_abs_err": errs[name], "ms": kt[2],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib[2]})
+        log(card, f"phase 4: flash_bwd_sm90_{name} bf16 causal b={b} h={h} "
+                  f"d={d} s={s} (walk {dq_walk if name == 'dq' else dkv_walk}"
+                  f"): event ms {kt[0]:.5f}, profiler ms {kt[1]}, kept "
+                  f"{kt[2]:.5f} ({kt[3]}); plain {plain_ms:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by}; {ops} operations, {nbytes} bytes), "
+                  f"{b_ms / kt[2]:.1%} of it; {kt[2] / lib[2]:.2f}x SDPA's "
+                  f"backward")
+    ops = sum(bwd_work(b * h, s, d, True, 2, n_)[0] for n_ in calls)
+    log(card, f"phase 4: at the training shape, dq + dk/dv back to back: "
+              f"event ms {pair[0]:.5f}, profiler ms {pair[1]}, kept "
+              f"{pair[2]:.5f} ({pair[3]}), {ops / PEAK_BF16_FLOPS * 1e3 / pair[2]:.1%} "
+              f"of the pair's operations bound, {pair[2] / lib[2]:.2f}x SDPA's "
+              f"backward; SDPA backward (dq, dk, dv in one call): event ms "
+              f"{lib[0]:.5f}, profiler ms {lib[1]}, kept {lib[2]:.5f} "
+              f"({lib[3]})")
     return entries
 
 
@@ -1162,37 +1263,45 @@ def main():
     print(card, flush=True)
 
     # ---- phase 1: build
-    # the register report of the wgmma/TMA forward: its source alone
-    # through nvcc -Xptxas -v, started beside the extension's build
-    cubin = os.path.join(ROOT, "build", "flash_fwd_ab", "flash_fwd_sm90.cubin")
-    os.makedirs(os.path.dirname(cubin), exist_ok=True)
-    ptxas = subprocess.Popen(
-        fwd_ab.nvcc_cmd([os.path.join(_build.CSRC, "flash_fwd_sm90.cu")],
-                        cubin, cubin=True),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the register reports of the wgmma/TMA sources: each alone through
+    # nvcc -Xptxas -v, all started beside the extension's build
+    ptxas = {}
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        cubin = os.path.join(ROOT, "build", "flash_fwd_ab", f"{name}.cubin")
+        os.makedirs(os.path.dirname(cubin), exist_ok=True)
+        ptxas[name] = subprocess.Popen(
+            fwd_ab.nvcc_cmd([os.path.join(_build.CSRC, f"{name}.cu")], cubin,
+                            cubin=True),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
     _build.extension()
     log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s")
-    out, _ = ptxas.communicate(timeout=900)
-    report = fwd_ab.ptxas_report(out)
-    if ptxas.returncode or len(report) != 16:
-        raise AssertionError(f"nvcc -Xptxas -v on flash_fwd_sm90.cu: rc "
-                             f"{ptxas.returncode}, {len(report)} kernels\n"
-                             f"{out[-3000:]}")
-    spilled = {k_: v_ for k_, v_ in report.items() if v_[1] or v_[2]}
-    if spilled:
-        raise AssertionError(f"wgmma/TMA forward spills: {spilled}")
-    log(card, f"phase 1: nvcc -Xptxas -v, flash_fwd_sm90_kernel<d, walk (1 "
-              f"lazy, 2 twopass), consumer warpgroups>: (registers at "
-              f"entry, spill store bytes, spill load bytes) {report}; "
-              f"two-warpgroup CTAs then move registers to the consumers "
-              f"with setmaxnreg (producer 24, consumers 240)")
+    # 16 forward instantiations (d x walk x warpgroups), 12 backward (dq:
+    # d x warpgroups; dk/dv: d)
+    for name, n_kernels in (("flash_fwd_sm90", 16), ("flash_bwd_sm90", 12)):
+        out, _ = ptxas[name].communicate(timeout=900)
+        report = fwd_ab.ptxas_report(out)
+        if ptxas[name].returncode or len(report) != n_kernels:
+            raise AssertionError(f"nvcc -Xptxas -v on {name}.cu: rc "
+                                 f"{ptxas[name].returncode}, {len(report)} "
+                                 f"kernels\n{out[-3000:]}")
+        spilled = {k_: v_ for k_, v_ in report.items() if v_[1] or v_[2]}
+        if spilled:
+            raise AssertionError(f"{name}.cu spills: {spilled}")
+        serialized = [ln.strip() for ln in out.splitlines()
+                      if "C7514" in ln or "C7520" in ln]
+        log(card, f"phase 1: nvcc -Xptxas -v, {name}.cu: (registers at "
+                  f"entry, spill store bytes, spill load bytes) {report}; "
+                  f"CTAs of 384 threads then move registers to the "
+                  f"consumers with setmaxnreg (producer 24, consumers 240); "
+                  f"ptxas 'wgmma serialized' warnings: {serialized or 'none'}")
 
     # ---- phase 2: kernels vs plain versions
     errs = check_kernels(card, dev)
     check_sm90_kernel(card, dev, errs)
     errs.update(check_bwd_kernels(card, dev))
+    check_sm90_bwd(card, dev, errs)
     # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
     step_shapes = vision_bn_shapes(
         models.build("resnet50", norm_impl="tpu", device=dev).train(),
@@ -1292,7 +1401,7 @@ def main():
     t_model, t_opt, t_batch, train_launches, _ = train_flagship(
         card, dev, train_cfg)
     launches.update({k: train_launches[k]
-                     for k in ("flash_bwd_dq", "flash_bwd_dkv")})
+                     for k in ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")})
     check_train_grads(card, dev, train_cfg, t_batch)
 
     # ---- phase 3c: train ResNet-50 through the BatchNorm kernels

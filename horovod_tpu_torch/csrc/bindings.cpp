@@ -19,20 +19,29 @@ extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
                                           int variant, int causal,
                                           float scale2, int cta_rows,
                                           cudaStream_t stream);
-extern "C" cudaError_t hvd_flash_bwd_dq(const void* q, const void* k,
-                                        const void* v, const void* dout,
+extern "C" cudaError_t hvd_flash_bwd_dq(const float* q, const float* k,
+                                        const float* v, const float* dout,
                                         const float* lse, const float* delta,
-                                        void* dq, int bh, int sq, int sk,
-                                        int d, int dtype, int causal,
-                                        float scale2, float scale,
-                                        cudaStream_t stream);
-extern "C" cudaError_t hvd_flash_bwd_dkv(const void* q, const void* k,
-                                         const void* v, const void* dout,
+                                        float* dq, int bh, int sq, int sk,
+                                        int d, int causal, float scale2,
+                                        float scale, cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_dkv(const float* q, const float* k,
+                                         const float* v, const float* dout,
                                          const float* lse, const float* delta,
-                                         void* dk, void* dv, int bh, int sq,
-                                         int sk, int d, int dtype, int causal,
+                                         float* dk, float* dv, int bh, int sq,
+                                         int sk, int d, int causal,
                                          float scale2, float scale,
                                          cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_sm90_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+    int d, int causal, float scale2, float scale, int cta_rows,
+    cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_sm90_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+    int sk, int d, int causal, float scale2, float scale,
+    cudaStream_t stream);
 extern "C" long long hvd_bn_moments_scratch(long long rows, int c);
 extern "C" cudaError_t hvd_bn_moments(const void* a, const void* b,
                                       float* out0, float* out1, float* part,
@@ -49,6 +58,16 @@ int kernel_dtype(const torch::Tensor& t, const char* what) {
 }
 
 }  // namespace
+
+void check_launch(const char* which, cudaError_t err) {
+  TORCH_CHECK(err == cudaSuccess, which, ": kernel configuration failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+cudaStream_t stream_of(const torch::Tensor& t) {
+  return at::cuda::getCurrentCUDAStream(t.device().index()).stream();
+}
 
 // q/k/v [b*h, s, d] contiguous, out like q, lse [b*h, sq] fp32; the Python
 // wrapper (ops/flash_attention.py) allocates the outputs and checks
@@ -74,16 +93,12 @@ void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
   check_fwd("flash_fwd", q, k, v, out, lse);
   int dtype = kernel_dtype(q, "flash_fwd");
   const c10::cuda::CUDAGuard guard(q.device());
-  cudaError_t err = hvd_flash_fwd(
+  check_launch("flash_fwd", hvd_flash_fwd(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       lse.data_ptr<float>(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
       static_cast<int>(q.size(2)), dtype, static_cast<int>(variant),
-      causal ? 1 : 0, static_cast<float>(scale2),
-      at::cuda::getCurrentCUDAStream(q.device().index()).stream());
-  TORCH_CHECK(err == cudaSuccess, "flash_fwd: kernel configuration failed: ",
-              cudaGetErrorString(err));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      causal ? 1 : 0, static_cast<float>(scale2), stream_of(q)));
 }
 
 // The bf16 lazy (variant 1) and twopass (2) forward on wgmma and TMA
@@ -97,18 +112,13 @@ void flash_fwd_sm90(const torch::Tensor& q, const torch::Tensor& k,
     TORCH_CHECK(t.scalar_type() == torch::kBFloat16,
                 "flash_fwd_sm90: q, k, v and out must be bfloat16");
   const c10::cuda::CUDAGuard guard(q.device());
-  cudaError_t err = hvd_flash_fwd_sm90(
+  check_launch("flash_fwd_sm90", hvd_flash_fwd_sm90(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       lse.data_ptr<float>(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
       static_cast<int>(q.size(2)), static_cast<int>(variant),
       causal ? 1 : 0, static_cast<float>(scale2),
-      static_cast<int>(cta_rows),
-      at::cuda::getCurrentCUDAStream(q.device().index()).stream());
-  TORCH_CHECK(err == cudaSuccess,
-              "flash_fwd_sm90: kernel configuration failed: ",
-              cudaGetErrorString(err));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      static_cast<int>(cta_rows), stream_of(q)));
 }
 
 // The backward of one attention: q, k, v, dO [b*h, s, d] contiguous in
@@ -135,61 +145,109 @@ void check_bwd(const char* which, std::initializer_list<torch::Tensor> ts,
               which, ": lse and delta must be [b*h, sq]");
 }
 
+// Every backward operand in one dtype: fp32 for the CUDA-core kernels
+// (flash_bwd.cu), bf16 for the wgmma/TMA ones (flash_bwd_sm90.cu).
+void check_dtype(const char* which, std::initializer_list<torch::Tensor> ts,
+                 torch::ScalarType dtype) {
+  for (const auto& t : ts)
+    TORCH_CHECK(t.scalar_type() == dtype, which,
+                ": q, k, v, dout and the gradients must be ", dtype);
+}
+
+void check_dq(const char* which, const torch::Tensor& q,
+              const torch::Tensor& k, const torch::Tensor& v,
+              const torch::Tensor& dout, const torch::Tensor& lse,
+              const torch::Tensor& delta, const torch::Tensor& dq,
+              torch::ScalarType dtype) {
+  check_bwd(which, {q, k, v, dout, lse, delta, dq}, q, k, lse, delta);
+  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes() &&
+                  dq.sizes() == q.sizes(),
+              which, ": v like k, dout and dq like q");
+  check_dtype(which, {q, k, v, dout, dq}, dtype);
+}
+
+void check_dkv(const char* which, const torch::Tensor& q,
+               const torch::Tensor& k, const torch::Tensor& v,
+               const torch::Tensor& dout, const torch::Tensor& lse,
+               const torch::Tensor& delta, const torch::Tensor& dk,
+               const torch::Tensor& dv, torch::ScalarType dtype) {
+  check_bwd(which, {q, k, v, dout, lse, delta, dk, dv}, q, k, lse, delta);
+  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes() &&
+                  dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
+              which, ": v, dk and dv like k, dout like q");
+  check_dtype(which, {q, k, v, dout, dk, dv}, dtype);
+}
+
+// fp32 dq on the CUDA cores
 void flash_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
                   const torch::Tensor& v, const torch::Tensor& dout,
                   const torch::Tensor& lse, const torch::Tensor& delta,
                   torch::Tensor& dq, bool causal, double scale2,
                   double scale) {
-  check_bwd("flash_bwd_dq", {q, k, v, dout, lse, delta, dq}, q, k, lse,
-            delta);
-  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes() &&
-                  dq.sizes() == q.sizes(),
-              "flash_bwd_dq: v like k, dout and dq like q");
-  int dtype = kernel_dtype(q, "flash_bwd_dq");
-  for (const auto& t : {k, v, dout, dq})
-    TORCH_CHECK(t.scalar_type() == q.scalar_type(),
-                "flash_bwd_dq: q, k, v, dout and dq must share a dtype");
+  check_dq("flash_bwd_dq", q, k, v, dout, lse, delta, dq, torch::kFloat32);
   const c10::cuda::CUDAGuard guard(q.device());
-  cudaError_t err = hvd_flash_bwd_dq(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
-      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
-      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), dtype,
-      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
-      at::cuda::getCurrentCUDAStream(q.device().index()).stream());
-  TORCH_CHECK(err == cudaSuccess,
-              "flash_bwd_dq: kernel configuration failed: ",
-              cudaGetErrorString(err));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  check_launch("flash_bwd_dq", hvd_flash_bwd_dq(
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      dout.data_ptr<float>(), lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dq.data_ptr<float>(), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), causal ? 1 : 0,
+      static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
 }
 
+// fp32 dk and dv on the CUDA cores
 void flash_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v, const torch::Tensor& dout,
                    const torch::Tensor& lse, const torch::Tensor& delta,
                    torch::Tensor& dk, torch::Tensor& dv, bool causal,
                    double scale2, double scale) {
-  check_bwd("flash_bwd_dkv", {q, k, v, dout, lse, delta, dk, dv}, q, k, lse,
-            delta);
-  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes() &&
-                  dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
-              "flash_bwd_dkv: v, dk and dv like k, dout like q");
-  int dtype = kernel_dtype(q, "flash_bwd_dkv");
-  for (const auto& t : {k, v, dout, dk, dv})
-    TORCH_CHECK(t.scalar_type() == q.scalar_type(),
-                "flash_bwd_dkv: q, k, v, dout, dk and dv must share a dtype");
+  check_dkv("flash_bwd_dkv", q, k, v, dout, lse, delta, dk, dv,
+            torch::kFloat32);
   const c10::cuda::CUDAGuard guard(q.device());
-  cudaError_t err = hvd_flash_bwd_dkv(
+  check_launch("flash_bwd_dkv", hvd_flash_bwd_dkv(
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      dout.data_ptr<float>(), lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dk.data_ptr<float>(), dv.data_ptr<float>(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
+      stream_of(q)));
+}
+
+// bf16 dq on wgmma and TMA, with cta_rows (64 or 128) query rows per CTA
+void flash_bwd_sm90_dq(const torch::Tensor& q, const torch::Tensor& k,
+                       const torch::Tensor& v, const torch::Tensor& dout,
+                       const torch::Tensor& lse, const torch::Tensor& delta,
+                       torch::Tensor& dq, bool causal, double scale2,
+                       double scale, int64_t cta_rows) {
+  check_dq("flash_bwd_sm90_dq", q, k, v, dout, lse, delta, dq,
+           torch::kBFloat16);
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_bwd_sm90_dq", hvd_flash_bwd_sm90_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
+      static_cast<int>(cta_rows), stream_of(q)));
+}
+
+// bf16 dk and dv on wgmma and TMA
+void flash_bwd_sm90_dkv(const torch::Tensor& q, const torch::Tensor& k,
+                        const torch::Tensor& v, const torch::Tensor& dout,
+                        const torch::Tensor& lse, const torch::Tensor& delta,
+                        torch::Tensor& dk, torch::Tensor& dv, bool causal,
+                        double scale2, double scale) {
+  check_dkv("flash_bwd_sm90_dkv", q, k, v, dout, lse, delta, dk, dv,
+            torch::kBFloat16);
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_bwd_sm90_dkv", hvd_flash_bwd_sm90_dkv(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
       dv.data_ptr(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), dtype, causal ? 1 : 0,
-      static_cast<float>(scale2), static_cast<float>(scale),
-      at::cuda::getCurrentCUDAStream(q.device().index()).stream());
-  TORCH_CHECK(err == cudaSuccess,
-              "flash_bwd_dkv: kernel configuration failed: ",
-              cudaGetErrorString(err));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      static_cast<int>(q.size(2)), causal ? 1 : 0,
+      static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
 }
 
 // BatchNorm statistics of row-major [rows, C] inputs in one dtype: out0 =
@@ -237,9 +295,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
         "Flash-attention forward, bf16 lazy/twopass, on wgmma and TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
-        "Flash-attention backward, dq, for sm_90a");
+        "Flash-attention backward, dq, fp32 on the CUDA cores");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
-        "Flash-attention backward, dk and dv, for sm_90a");
+        "Flash-attention backward, dk and dv, fp32 on the CUDA cores");
+  m.def("flash_bwd_sm90_dq", &flash_bwd_sm90_dq,
+        "Flash-attention backward, dq, bf16 on wgmma and TMA");
+  m.def("flash_bwd_sm90_dkv", &flash_bwd_sm90_dkv,
+        "Flash-attention backward, dk and dv, bf16 on wgmma and TMA");
   m.def("bn_moments", &bn_moments,
         "BatchNorm statistics (sum, sum of squares or of products) for "
         "sm_90a");

@@ -1,9 +1,9 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu and, for the constants, bf16 packing, quad reductions and
-// the shared-memory opt-in, flash_fwd_sm90.cu): the tile shape, cp.async
-// copies into shared memory, mma.sync m16n8k16 bf16 fragments, quad
-// reductions over a fragment row, and the once-per-device dynamic
-// shared-memory opt-in.
+// the shared-memory opt-in, the wgmma kernels through flash_sm90.cuh): the
+// tile shape, cp.async copies into shared memory, mma.sync m16n8k16 bf16
+// fragments, quad reductions over a fragment row, and the once-per-device
+// dynamic shared-memory opt-in.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4*g + t):
 //   A 16x16 row-major: a0 = A[g][2t,2t+1]   a1 = A[g+8][2t,2t+1]

@@ -89,10 +89,7 @@
 // takes it per block: a row whose max did not rise gets alpha = 1 exactly
 // either way, so the two are bit-identical.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached
-                    // through cudaGetDriverEntryPoint, so no -lcuda
-
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -102,18 +99,12 @@ constexpr int kKeys = 128;      // keys per k tile
 constexpr int kStages = 3;      // K/V stages in the ring
 constexpr int kWgRows = 64;     // query rows per consumer warpgroup
 
-// Shared-memory plan for head dim D and NWG consumer warpgroups. A row of
-// a tile is D bf16; it is stored as kHalves boxes of kBoxCols columns, one
-// swizzle span each, so a tile is [kHalves][rows][kSwBytes] bytes.
+// Shared-memory plan for head dim D and NWG consumer warpgroups; each
+// tile in the swizzled layout of flash_sm90.cuh.
 template <int D, int NWG>
 struct Plan {
   static constexpr int kQRows = kWgRows * NWG;
   static constexpr int kThreads = 128 * (NWG + 1);
-  static constexpr int kSwBytes = D * 2 < 128 ? D * 2 : 128;
-  static constexpr int kBoxCols = kSwBytes / 2;
-  static constexpr int kHalves = D * 2 / kSwBytes;
-  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
-  static constexpr int kLayout = kSwBytes == 128 ? 1 : kSwBytes == 64 ? 2 : 3;
   static constexpr int kQBytes = kQRows * D * 2;
   static constexpr int kKVBytes = kKeys * D * 2;
   // Q | K stages | V stages | barriers; every tile a multiple of 1024 B
@@ -132,205 +123,6 @@ struct Sm90Params {
   int sk;
   float scale2;   // softmax scale * log2(e)
   int causal;
-};
-
-// ---------------------------------------------------------------------------
-// barriers, TMA, register allocation
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// box at (c0 = column, c1 = row, c2 = b*h) of a 3-D tensor map into shared
-// memory, completing `bytes` on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-
-// 2^x on the SFU, subnormal results flushed to 0 (exp2f adds a range
-// fix-up around the same instruction)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout type; base offset 0, as
-// every tile starts on a 1024-byte boundary.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until at most N of this warpgroup's committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keep the compiler from touching a wgmma operand register between the
-// asynchronous instruction and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-#define HVD_R0_7 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define HVD_R0_15 HVD_R0_7 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define HVD_R0_31 \
-  HVD_R0_15 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
-            "%24, %25, %26, %27, %28, %29, %30, %31"
-#define HVD_R0_63 \
-  HVD_R0_31 ", %32, %33, %34, %35, %36, %37, %38, %39, " \
-            "%40, %41, %42, %43, %44, %45, %46, %47, " \
-            "%48, %49, %50, %51, %52, %53, %54, %55, " \
-            "%56, %57, %58, %59, %60, %61, %62, %63"
-#define HVD_F8(d, i)                                                  \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S[64 x 128] (+)= Q[64 x 16] K[128 x 16]^T, both K-major in shared
-// memory; accumulate = 0 overwrites S
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" HVD_R0_63 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24),
-        HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O[64 x N] += P[64 x 16] V[16 x N]: P in registers (the mma.sync A
-// fragment of each warp's 16 rows), V in shared memory with rows along K
-// and N contiguous, hence the B-transpose bit.
-template <int N>
-struct WgmmaPv;
-
-template <>
-struct WgmmaPv<128> {
-  static __device__ __forceinline__ void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" HVD_R0_63 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24),
-          HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPv<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" HVD_R0_31 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPv<32> {
-  static __device__ __forceinline__ void run(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{" HVD_R0_15 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : HVD_F8(d, 0), HVD_F8(d, 8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPv<16> {
-  static __device__ __forceinline__ void run(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{" HVD_R0_7 "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : HVD_F8(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -392,26 +184,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if constexpr (NWG == 2) setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(full_q, P::kQBytes);
-#pragma unroll
-      for (int h = 0; h < P::kHalves; ++h)
-        tma_load(sQ + h * P::kQRows * P::kSwBytes, &tq, full_q,
-                 h * P::kBoxCols, qt * P::kQRows, bh);
+      tma_tile<D, P::kQRows>(sQ, &tq, full_q, qt * P::kQRows, bh);
       for (int i = 0; i < n_items; ++i) {
         const int st = i % kStages;
         // the stage's previous item has been released by every consumer
         mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
         const int row = tile_of(i) * kKeys;
         mbar_expect_tx(full_k(st), P::kKVBytes);
-#pragma unroll
-        for (int h = 0; h < P::kHalves; ++h)
-          tma_load(sK + st * P::kKVBytes + h * kKeys * P::kSwBytes, &tk,
-                   full_k(st), h * P::kBoxCols, row, bh);
+        tma_tile<D, kKeys>(sK + st * P::kKVBytes, &tk, full_k(st), row, bh);
         if (with_v(i)) {
           mbar_expect_tx(full_v(st), P::kKVBytes);
-#pragma unroll
-          for (int h = 0; h < P::kHalves; ++h)
-            tma_load(sV + st * P::kKVBytes + h * kKeys * P::kSwBytes, &tv,
-                     full_v(st), h * P::kBoxCols, row, bh);
+          tma_tile<D, kKeys>(sV + st * P::kKVBytes, &tv, full_v(st), row,
+                             bh);
         } else {
           mbar_arrive(full_v(st));   // keeps the V phases in step with K's
         }
@@ -429,25 +213,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = wg_row0 + warp * 16 + g;   // this thread's rows: row0, +8
 
     constexpr int kSteps = D / 16;                 // k-steps of Q K^T
-    constexpr int kStepsPerBox = P::kSwBytes / 32;
-    constexpr uint32_t kSbo = 8 * P::kSwBytes;     // next 8 rows
-    // Q and K are K-major (D contiguous): k-step kk is 32 bytes into its box
+    // Q and K are K-major (D contiguous), V MN-major (keys along K)
     auto q_desc = [&](int kk) {
-      return gmma_desc(sQ + (kk / kStepsPerBox) * P::kQRows * P::kSwBytes +
-                           cw * kWgRows * P::kSwBytes + (kk % kStepsPerBox) * 32,
-                       16, kSbo, P::kLayout);
+      return kmajor_desc<D, P::kQRows>(sQ, cw * kWgRows, kk);
     };
     auto k_desc = [&](int st, int kk) {
-      return gmma_desc(sK + st * P::kKVBytes +
-                           (kk / kStepsPerBox) * kKeys * P::kSwBytes +
-                           (kk % kStepsPerBox) * 32,
-                       16, kSbo, P::kLayout);
+      return kmajor_desc<D, kKeys>(sK + st * P::kKVBytes, 0, kk);
     };
-    // V is MN-major (D contiguous, keys along K): key-step kk is 16 rows
-    // down; the next box of D columns is the leading byte offset away
     auto v_desc = [&](int st, int kk) {
-      return gmma_desc(sV + st * P::kKVBytes + kk * 16 * P::kSwBytes,
-                       kKeys * P::kSwBytes, kSbo, P::kLayout);
+      return mnmajor_desc<D, kKeys>(sV + st * P::kKVBytes, kk);
     };
 
     float m[2] = {kNegInf, kNegInf};
@@ -469,7 +243,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk)
-        wgmma_qk(s, q_desc(kk), k_desc(st, kk), kk > 0);
+        WgmmaSS<kKeys>::run(s, q_desc(kk), k_desc(st, kk), kk > 0);
       wgmma_commit();
     };
 
@@ -483,7 +257,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
-        WgmmaPv<D>::run(o, pa[kk], v_desc(st, kk));
+        WgmmaRS<D>::run(o, pa[kk], v_desc(st, kk));
       wgmma_commit();
     };
 
@@ -563,13 +337,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int j = 0; j < 64; ++j) l[(j >> 1) & 1] += s[j];
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        pa[kk][0] = pack_f2(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_f2(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_f2(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_f2(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      acc_to_frags(pa, s);
     };
 
     // Two consumer warpgroups take turns to issue their products (named
@@ -667,71 +435,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                              cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// 3-D map over a contiguous bf16 [bh, s, d]: boxes of box_cols x box_rows
-// of one head, rows past s zero-filled
-template <int D, int NWG>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int bh,
-                     int box_rows) {
-  using P = Plan<D, NWG>;
-  EncodeTiled encode = encoder();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(s) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(P::kBoxCols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      P::kSwBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : P::kSwBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                      const_cast<void*>(ptr), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, int W, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, int bh,
                    const Sm90Params& p, cudaStream_t stream) {
   using P = Plan<D, NWG>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map<D, NWG>(&tq, q, p.sq, bh, P::kQRows);
-  if (err == cudaSuccess) err = make_map<D, NWG>(&tk, k, p.sk, bh, kKeys);
-  if (err == cudaSuccess) err = make_map<D, NWG>(&tv, v, p.sk, bh, kKeys);
+  cudaError_t err = make_map<D>(&tq, q, p.sq, bh, P::kQRows);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, p.sk, bh, kKeys);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, p.sk, bh, kKeys);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_sm90_kernel<D, W, NWG>;
   static std::atomic<uint32_t> opted_in{0};

@@ -4,7 +4,8 @@ The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
 backward. A CUDA tensor goes to the hand-written Hopper kernels: the bf16
 lazy and twopass forward on wgmma and TMA in ``csrc/flash_fwd_sm90.cu``,
 the bf16 online forward and every fp32 forward in ``csrc/flash_fwd.cu``,
-the backward's dq and dk/dv kernels in ``csrc/flash_bwd.cu``. A CPU tensor
+the bf16 backward's dq and dk/dv kernels on wgmma and TMA in
+``csrc/flash_bwd_sm90.cu``, the fp32 ones in ``csrc/flash_bwd.cu``. A CPU tensor
 goes to their plain PyTorch versions in ``flash_attention_ref.py``, which
 walk the same tiles. Nothing on a CUDA tensor ever takes the plain
 version: if a kernel cannot build or launch, the call raises.
@@ -18,10 +19,12 @@ The public tile is 64 rows of Q by 64 rows of K/V: a sequence shorter
 than a tile is one partial tile; a longer one must be a tile multiple,
 except causal self-attention, which is end-padded (the padded keys sit
 after every real query, so the causal mask discards them exactly). The
-mma.sync kernels walk those tiles. The wgmma kernel walks its own: 128
-keys per k tile and 64 or 128 query rows per CTA (``sm90_cta_rows``),
-masking a partial last tile itself; ``kernel_blocks`` names the walk of
-the kernel a call reaches, so its plain version can walk the same.
+mma.sync and CUDA-core kernels walk those tiles. The wgmma kernels walk
+their own, masking a partial last tile themselves: the forward and the
+backward's dq take 128 keys per k tile and 64 or 128 query rows per CTA
+(``sm90_cta_rows``), dk/dv 128 keys per CTA and 64 queries per q tile.
+``kernel_blocks`` and ``bwd_kernel_blocks`` name the walks of the kernels
+a call reaches, so their plain versions can walk the same.
 
 ``decode_attention`` — one query against the KV cache — stays plain
 torch, as the JAX package keeps it plain XLA: a GEMV per (batch, head)
@@ -54,8 +57,12 @@ BLOCK = 64
 #: The variants that run on the wgmma/TMA kernel in bf16.
 SM90_VARIANTS = ("lazy", "twopass")
 
-#: Keys per k tile of the wgmma/TMA kernel.
+#: Keys per k tile of the wgmma/TMA kernels (forward, dq; dk/dv's keys
+#: per CTA).
 SM90_BLOCK_K = 128
+
+#: Queries per q tile of the wgmma/TMA dk/dv kernel.
+SM90_DKV_BLOCK_Q = 64
 
 #: Kernel launches by kernel name, counted where each launch is made.
 launch_counts = collections.Counter()
@@ -161,9 +168,26 @@ def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
     return out, lse
 
 
-def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
+def bwd_kernel_blocks(qf, kf, cta_rows=None):
+    """((block_q, block_k) of dq, (block_q, block_k) of dk/dv): the tile
+    walks that the backward kernels a ``[b·h, s, d]`` call reaches take,
+    the counterpart of ``kernel_blocks``. bf16 runs the wgmma kernels (dq
+    over 64 or 128 query rows × 128 keys, ``cta_rows`` forcing the rows;
+    dk/dv over 128 keys × 64 queries), fp32 the CUDA-core ones at the
+    public tile."""
+    if qf.dtype == torch.bfloat16:
+        rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
+                                         _sm_count(qf.device))
+        return (rows, SM90_BLOCK_K), (SM90_DKV_BLOCK_Q, SM90_BLOCK_K)
+    blocks = fit_block(qf.shape[1]), fit_block(kf.shape[1])
+    return blocks, blocks
+
+
+def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
     """Launch the backward kernels on ``[b·h, s, d]`` operands (dO like
-    q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv)."""
+    q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv). bf16 runs
+    on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces dq's CTA
+    shape), fp32 on the CUDA-core ones."""
     _check_operands(qf, kf, vf)
     if dof.shape != qf.shape or dof.dtype != qf.dtype:
         raise ValueError(f"dO {tuple(dof.shape)} {dof.dtype} does not fit "
@@ -175,18 +199,29 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     ext = extension()
     args = (bool(causal), float(scale * LOG2E), float(scale))
-    ext.flash_bwd_dq(qf, kf, vf, dof, lse, delta, dq, *args)
-    launch_counts["flash_bwd_dq"] += 1
-    ext.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
-    launch_counts["flash_bwd_dkv"] += 1
+    if qf.dtype == torch.bfloat16:
+        (rows, _), _ = bwd_kernel_blocks(qf, kf, cta_rows)
+        ext.flash_bwd_sm90_dq(qf, kf, vf, dof, lse, delta, dq, *args, rows)
+        launch_counts["flash_bwd_sm90_dq"] += 1
+        ext.flash_bwd_sm90_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
+        launch_counts["flash_bwd_sm90_dkv"] += 1
+    else:
+        ext.flash_bwd_dq(qf, kf, vf, dof, lse, delta, dq, *args)
+        launch_counts["flash_bwd_dq"] += 1
+        ext.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
+        launch_counts["flash_bwd_dkv"] += 1
     return dq, dk, dv
 
 
-def _check_kernel_blocks(block_q, block_k, sq, sk):
-    if (block_q, block_k) != (fit_block(sq), fit_block(sk)):
+def _check_kernel_blocks(block_q, block_k, sq, sk, walks=()):
+    """Raise unless (block_q, block_k) is the public tile of (sq, sk) or
+    one of ``walks``, the tiles the kernel itself walks."""
+    if (block_q, block_k) != (fit_block(sq), fit_block(sk)) and \
+            (block_q, block_k) not in walks:
         raise ValueError(
-            f"the CUDA kernel walks {BLOCK}-row tiles; got blocks "
-            f"({block_q}, {block_k}) for seq ({sq}, {sk})")
+            f"the CUDA kernel walks {BLOCK}-row tiles or its own "
+            f"{list(walks)}; got blocks ({block_q}, {block_k}) for seq "
+            f"({sq}, {sk})")
 
 
 def _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant):
@@ -194,7 +229,8 @@ def _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant):
     the plain version on the CPU."""
     scale = qf.shape[-1] ** -0.5
     if qf.is_cuda:
-        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1])
+        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1],
+                             (kernel_blocks(qf, kf, variant),))
         return _kernel_fwd(qf.contiguous(), kf.contiguous(),
                            vf.contiguous(), causal, scale, variant)
     if qf.device.type == "cpu":
@@ -208,7 +244,8 @@ def _bwd_flat(qf, kf, vf, of, lse, dof, causal, block_q, block_k):
     scale = qf.shape[-1] ** -0.5
     delta = ref.flash_delta(of, dof)
     if qf.is_cuda:
-        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1])
+        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1],
+                             bwd_kernel_blocks(qf, kf))
         return _kernel_bwd(qf.contiguous(), kf.contiguous(),
                            vf.contiguous(), dof.contiguous(), lse, delta,
                            causal, scale)

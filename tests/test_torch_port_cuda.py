@@ -204,11 +204,19 @@ def _assert_grad_close(got, want, dtype):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
-def _plain_grads(qf, kf, vf, gf, lse, delta, causal):
-    block = fa.fit_block(qf.shape[1])
-    dq = ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta, causal, block, block)
-    return (dq, *ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, causal, block,
-                                   block))
+def _plain_grads(qf, kf, vf, gf, lse, delta, causal, cta_rows=None):
+    """The plain backward at the tiles the kernels walk (the wgmma/TMA
+    pair's own in bf16, the public tile in fp32)."""
+    dq_walk, dkv_walk = fa.bwd_kernel_blocks(qf, kf, cta_rows)
+    dq = ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta, causal, *dq_walk)
+    return (dq, *ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, causal,
+                                   *dkv_walk))
+
+
+def _bwd_names(dtype):
+    if dtype == torch.bfloat16:
+        return "flash_bwd_sm90_dq", "flash_bwd_sm90_dkv"
+    return "flash_bwd_dq", "flash_bwd_dkv"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,7 +233,7 @@ def test_backward_kernels_match_plain(card, dtype, causal, s, d):
     delta = ref.flash_delta(out, gf)
     fa.reset_launch_counts()
     got = fa._kernel_bwd(qf, kf, vf, gf, lse, delta, causal, d ** -0.5)
-    assert dict(fa.launch_counts) == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert dict(fa.launch_counts) == dict.fromkeys(_bwd_names(dtype), 1)
     for a, w in zip(got, _plain_grads(qf, kf, vf, gf, lse, delta, causal)):
         assert a.dtype == dtype
         _assert_grad_close(a, w, dtype)
@@ -244,11 +252,11 @@ def test_autograd_through_the_kernels_matches_plain_path(card, dtype, s):
         return [t.grad for t in ts]
     fa.reset_launch_counts()
     got = grads()
-    assert fa.launch_counts["flash_bwd_dq"] == 1
-    block = fa.fit_block(s)
+    assert [fa.launch_counts[n] for n in _bwd_names(dtype)] == [1, 1]
 
     def plain_fwd(qf, kf, vf, causal, scale, variant):
-        return ref.FWD[variant](qf, kf, vf, causal, block, block, scale)
+        return ref.FWD[variant](qf, kf, vf, causal,
+                                *fa.kernel_blocks(qf, kf, variant), scale)
 
     def plain_bwd(qf, kf, vf, dof, lse, delta, causal, scale):
         return _plain_grads(qf, kf, vf, dof, lse, delta, causal)
@@ -260,6 +268,79 @@ def test_autograd_through_the_kernels_matches_plain_path(card, dtype, s):
         fa._kernel_fwd, fa._kernel_bwd = saved
     for a, w in zip(got, want):
         _assert_grad_close(a, w, dtype)
+
+
+def _check_sm90_bwd(seed, bh, sq, sk, d, causal, device, cta_rows=None,
+                    k_ramp=None):
+    """The bf16 wgmma/TMA backward pair on ``[b·h, s, d]`` operands (dq's
+    CTA shape forced when ``cta_rows`` is given) against the plain walks
+    at the kernels' own tiles; lse and delta from the plain forward."""
+    g = torch.Generator().manual_seed(seed)
+    qf, gf = (torch.randn(bh, sq, d, generator=g) for _ in range(2))
+    kf, vf = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
+    if k_ramp is not None:
+        kf = kf * k_ramp[None, :, None]
+    qf, kf, vf, gf = (t.to(device, torch.bfloat16) for t in (qf, kf, vf, gf))
+    out, lse = ref.flash_fwd_online(qf, kf, vf, causal, 64, 64)
+    delta = ref.flash_delta(out, gf)
+    fa.reset_launch_counts()
+    got = fa._kernel_bwd(qf, kf, vf, gf, lse, delta, causal, d ** -0.5,
+                         cta_rows=cta_rows)
+    assert dict(fa.launch_counts) == {"flash_bwd_sm90_dq": 1,
+                                      "flash_bwd_sm90_dkv": 1}
+    for a, w in zip(got, _plain_grads(qf, kf, vf, gf, lse, delta, causal,
+                                      cta_rows)):
+        assert a.dtype == torch.bfloat16
+        _assert_grad_close(a, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_sm90_backward_every_head_dim(card, causal, d):
+    """Each head dim's swizzle at s 192: a 128-key tile and a partial one,
+    three 64-query tiles, b·h = 3."""
+    _check_sm90_bwd(60 + d, 3, 192, 192, d, causal, card)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cta_rows", [64, 128])
+def test_sm90_backward_both_dq_cta_shapes(card, causal, cta_rows):
+    """One and two dq consumer warpgroups, forced, at s 384: with 128 query
+    rows the causal diagonal splits the CTA's tile between the two."""
+    _check_sm90_bwd(61, 2, 384, 384, 128, causal, card, cta_rows)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(960, 128), (1000, 64)])
+def test_sm90_backward_partial_last_tile_per_head(card, causal, s, d):
+    """s 960 ends in half a 128-key tile, s 1000 in partial 128-key and
+    64-query tiles, at b·h >= 2: a flat tensor map would read the next
+    head's rows, and a padded query's lse must not leak into dk."""
+    _check_sm90_bwd(62, 6 if s == 960 else 2, s, s, d, causal, card)
+
+
+@pytest.mark.parametrize("cta_rows", [64, 128])
+@pytest.mark.parametrize("sq,sk,d", [(192, 320, 64), (320, 200, 32)])
+def test_sm90_backward_non_causal_sq_not_sk(card, cta_rows, sq, sk, d):
+    _check_sm90_bwd(63, 4, sq, sk, d, False, card, cta_rows)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("ramp", ["down", "up"])
+@pytest.mark.parametrize("cta_rows", [64, 128])
+def test_sm90_backward_rising_max(card, causal, ramp, cta_rows):
+    """Keys ramped so the logits' scale changes across every k tile, in
+    either order."""
+    k_ramp = torch.linspace(4.0, 0.5, 512)
+    if ramp == "up":
+        k_ramp = k_ramp.flip(0)
+    _check_sm90_bwd(64, 6, 512, 512, 128, causal, card, cta_rows, k_ramp)
+
+
+def test_sm90_backward_training_shape(card):
+    """The flagship's b16 h6 s1024 d128 causal, at the CTA shape the host
+    picks there (128 query rows)."""
+    _check_sm90_bwd(65, 96, 1024, 1024, 128, True, card)
 
 
 def test_backward_refuses_what_it_cannot_take(card):
@@ -291,8 +372,8 @@ def test_training_step_launches_the_kernels(card):
         assert losses[-1] < losses[0]
         n = 4 * cfg.num_layers
         assert dict(fa.launch_counts) == {"flash_fwd_lazy": n,
-                                          "flash_bwd_dq": n,
-                                          "flash_bwd_dkv": n}
+                                          "flash_bwd_sm90_dq": n,
+                                          "flash_bwd_sm90_dkv": n}
         x = torch.arange(5.0, device=card)
         assert torch.equal(mpi_ops.allreduce(x, average=False), x)
     finally:

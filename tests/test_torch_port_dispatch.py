@@ -1,11 +1,15 @@
-"""Which hand-written kernel each forward call of horovod_tpu_torch reaches.
+"""Which hand-written kernel each flash call of horovod_tpu_torch reaches.
 
 The compiled extension is replaced by a stub that records its calls, so
-the dispatch in ``ops/flash_attention.py`` runs here on the CPU: bf16 lazy
-and twopass go to the wgmma/TMA entry point (``flash_fwd_sm90``, with the
-CTA shape the host picks or the caller forces), bf16 online and every
-fp32 variant to ``flash_fwd``, and the launch counts keep one name per
-variant. The stub's outputs are never read: on the card the kernels
+the dispatch in ``ops/flash_attention.py`` runs here on the CPU. Forward:
+bf16 lazy and twopass go to the wgmma/TMA entry point (``flash_fwd_sm90``,
+with the CTA shape the host picks or the caller forces), bf16 online and
+every fp32 variant to ``flash_fwd``, and the launch counts keep one name
+per variant. Backward: bf16 goes to the wgmma/TMA pair
+(``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
+forces, ``flash_bwd_sm90_dkv``), fp32 to ``flash_bwd_dq`` and
+``flash_bwd_dkv``, each counted under its own name. The stub's outputs
+are never read: on the card the kernels
 themselves are held against their plain versions
 (tests/test_torch_port_cuda.py, chip_smoke.py).
 """
@@ -33,6 +37,24 @@ class _Recorder:
     def flash_fwd_sm90(self, q, k, v, out, lse, variant, causal, scale2,
                        cta_rows):
         self.calls.append(("flash_fwd_sm90", variant, causal, cta_rows))
+
+    def flash_bwd_dq(self, q, k, v, dout, lse, delta, dq, causal, scale2,
+                     scale):
+        self.calls.append(("flash_bwd_dq", causal, scale2, scale, None))
+
+    def flash_bwd_dkv(self, q, k, v, dout, lse, delta, dk, dv, causal,
+                      scale2, scale):
+        self.calls.append(("flash_bwd_dkv", causal, scale2, scale, None))
+
+    def flash_bwd_sm90_dq(self, q, k, v, dout, lse, delta, dq, causal,
+                          scale2, scale, cta_rows):
+        self.calls.append(("flash_bwd_sm90_dq", causal, scale2, scale,
+                           cta_rows))
+
+    def flash_bwd_sm90_dkv(self, q, k, v, dout, lse, delta, dk, dv, causal,
+                           scale2, scale):
+        self.calls.append(("flash_bwd_sm90_dkv", causal, scale2, scale,
+                           None))
 
 
 @pytest.fixture
@@ -101,12 +123,81 @@ def test_unsupported_operands_raise_before_any_launch(stub):
     assert stub.calls == [] and not fa.launch_counts
 
 
+def _bwd_operands(bh, s, d, dtype):
+    qf, kf, vf = _flat(bh, s, d, dtype)
+    stat = torch.zeros(bh, s)
+    return qf, kf, vf, qf.clone(), stat, stat.clone()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_reaches_its_entry_points(stub, dtype, causal):
+    ops = _bwd_operands(6, 192, 64, dtype)
+    dq, dk, dv = fa._kernel_bwd(*ops, causal, 0.125)
+    sm90 = dtype == torch.bfloat16
+    names = (("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv") if sm90
+             else ("flash_bwd_dq", "flash_bwd_dkv"))
+    assert [c[0] for c in stub.calls] == list(names)
+    for call in stub.calls:
+        assert call[1:4] == (causal, 0.125 * fa.LOG2E, 0.125)
+    # b·h 6 x ⌈192/128⌉ = 12 CTAs leave SMs idle: one consumer warpgroup
+    assert stub.calls[0][4] == (64 if sm90 else None)
+    assert dict(fa.launch_counts) == {names[0]: 1, names[1]: 1}
+    for got, like in zip((dq, dk, dv), ops[:3]):
+        assert got.shape == like.shape and got.dtype == dtype
+
+
+@pytest.mark.parametrize("bh,sq,rows", [(96, 1024, 128), (6, 1024, 64),
+                                        (66, 256, 128), (131, 128, 64)])
+def test_backward_host_picks_the_dq_cta_shape(stub, bh, sq, rows):
+    """The flagship's b16 h6 s1024 fills the SMs with 128-row dq CTAs; the
+    walks name the dq CTA shape and dk/dv's fixed 64 x 128."""
+    ops = _bwd_operands(bh, sq, 16, torch.bfloat16)
+    assert fa.bwd_kernel_blocks(ops[0], ops[1]) == (
+        (rows, fa.SM90_BLOCK_K), (fa.SM90_DKV_BLOCK_Q, fa.SM90_BLOCK_K))
+    fa._kernel_bwd(*ops, True, 0.25)
+    assert stub.calls[0] == ("flash_bwd_sm90_dq", True, 0.25 * fa.LOG2E,
+                             0.25, rows)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_caller_may_force_the_dq_cta_shape(stub, rows):
+    ops = _bwd_operands(2, 192, 32, torch.bfloat16)
+    fa._kernel_bwd(*ops, False, 0.2, cta_rows=rows)
+    assert stub.calls[0][-1] == rows
+    assert fa.bwd_kernel_blocks(ops[0], ops[1], rows)[0] == (rows, 128)
+
+
+def test_unsupported_backward_operands_raise_before_any_launch(stub):
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._kernel_bwd(*_bwd_operands(2, 64, 96, torch.bfloat16), True, 0.1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._kernel_bwd(*_bwd_operands(2, 64, 64, torch.float16), True, 0.1)
+    qf, kf, vf, dof, lse, delta = _bwd_operands(2, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="dO"):
+        fa._kernel_bwd(qf, kf, vf, dof.float(), lse, delta, True, 0.1)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa._kernel_bwd(qf, kf, vf, dof, lse[:, :32], delta, True, 0.1)
+    assert stub.calls == [] and not fa.launch_counts
+
+
+def test_kernel_blocks_check_accepts_the_public_tile_and_the_walks():
+    walks = ((128, 128), (64, 128))
+    fa._check_kernel_blocks(64, 64, 1024, 1024, walks)
+    fa._check_kernel_blocks(48, 48, 48, 48, walks)
+    for blocks in walks:
+        fa._check_kernel_blocks(*blocks, 1024, 1024, walks)
+    with pytest.raises(ValueError, match="64-row tiles"):
+        fa._check_kernel_blocks(32, 32, 1024, 1024, walks)
+
+
 def test_build_lists_every_cuda_source():
     on_disk = {f for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
     listed = set(_build.SOURCES)
     assert on_disk <= listed
     assert {f for f in listed if f.endswith(".cu")} == on_disk
-    assert "bindings.cpp" in listed
+    assert {"bindings.cpp", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu"} <= \
+        listed
 
 
 _PTXAS = """\
@@ -118,6 +209,10 @@ ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3c4d_12flash_fwd_cu_3
 ptxas info    : Function properties for _ZN50_GLOBAL__N__3c4d
     16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 100 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__5e6f_17_flash_bwd_sm90_cu_74caf55f24flash_bwd_sm90_dq_kernelILi128ELi2EEEv14CUtensorMap_stS1_S1_S1_NS_13BwdSm90ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__5e6f
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 576 bytes cmem[0]
 """
 
 
@@ -126,7 +221,8 @@ def test_ptxas_report_names_kernels_and_reads_spills():
     from horovod_tpu_torch.ops import flash_fwd_ab
     assert flash_fwd_ab.ptxas_report(_PTXAS) == {
         "flash_fwd_sm90_kernel<128,1,2>": (168, 0, 0),
-        "flash_fwd_bf16_kernel<64>": (100, 8, 4)}
+        "flash_fwd_bf16_kernel<64>": (100, 8, 4),
+        "flash_bwd_sm90_dq_kernel<128,2>": (168, 0, 0)}
     cmd = flash_fwd_ab.nvcc_cmd(["a.cu"], "a.cubin", cubin=True)
     assert "-cubin" in cmd and "-v" in cmd and cmd[-1] == "a.cu"
     assert "-gencode=arch=compute_90a,code=sm_90a" in cmd

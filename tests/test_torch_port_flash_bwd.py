@@ -12,6 +12,15 @@ package's own: fp32 rtol 1e-4 / atol 1e-5 (tests/test_flash_attention.py),
 bf16 5e-2 (tests/test_flash_variants.py). The CUDA kernels are held to
 the same plain versions on the card by ``chip_smoke.py`` and
 tests/test_torch_port_cuda.py.
+
+The bf16 wgmma/TMA kernels walk their own tiles (``bwd_kernel_blocks``:
+dq over 64 or 128 query rows × 128 keys, dk/dv over 64 queries × 128
+keys), so the plain walks are also held to ``_flash_bwd`` run at those
+walks (``block_q/block_k`` for dq, ``block_q_dkv/block_k_dkv`` for dk/dv)
+at fp32 2e-5 and bf16 5e-2; the JAX grid needs tile multiples, so a
+partial last tile of the new walks is held instead, in fp32 at 2e-5, to
+the plain walk at 64-row tiles, which differs from it only in the order
+of summation.
 """
 
 import numpy as np
@@ -83,6 +92,77 @@ class TestPlainBackwardAgainstPallas:
         for a, b in zip(base, moved):
             torch.testing.assert_close(a[:, 64:], b[:, 64:], rtol=0, atol=0)
             assert not torch.equal(a[:, :64], b[:, :64])
+
+
+def _walk_tensors(arrs, dtype):
+    """numpy [b, s, h, d] -> torch [b·h, s, d] in ``dtype``."""
+    return [torch.from_numpy(a).transpose(1, 2).reshape(
+        -1, a.shape[1], a.shape[3]).to(getattr(torch, dtype)).contiguous()
+        for a in arrs]
+
+
+class TestPlainBackwardAtKernelWalks:
+    """The plain dq and dk/dv at the walks of the wgmma/TMA kernels."""
+
+    def test_bwd_kernel_blocks_names_the_walks(self):
+        bf = torch.zeros(2, 256, 32, dtype=torch.bfloat16)
+        for rows in (64, 128):
+            assert tfa.bwd_kernel_blocks(bf, bf, rows) == (
+                (rows, tfa.SM90_BLOCK_K),
+                (tfa.SM90_DKV_BLOCK_Q, tfa.SM90_BLOCK_K))
+        f32 = torch.zeros(2, 48, 32)
+        assert tfa.bwd_kernel_blocks(f32, f32) == ((48, 48), (48, 48))
+
+    @pytest.mark.parametrize("rows", [64, 128])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_against_pallas_at_the_walks(self, hvd, rows, dtype, causal):
+        from horovod_tpu.ops import flash_attention as jfa
+        arrs = _arrays(12, b=1, s=256, h=2, d=32, scale=1.0)
+        jq, jk, jv, jg = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, causal, 64, 64, True)
+        want = jfa._flash_bwd(jq, jk, jv, j_out, j_lse, jg, causal, rows,
+                              128, True, block_q_dkv=64, block_k_dkv=128)
+        q, k, v, g = _walk_tensors(arrs, dtype)
+        out = _walk_tensors([np.array(j_out, np.float32)], dtype)[0]
+        lse = torch.from_numpy(np.asarray(j_lse)[:, 0, :].copy())
+        delta = tref.flash_delta(out, g)
+        dq_walk, dkv_walk = tfa.bwd_kernel_blocks(
+            q.to(torch.bfloat16), k.to(torch.bfloat16), rows)
+        got = (tref.flash_bwd_dq(q, k, v, g, lse, delta, causal, *dq_walk),
+               *tref.flash_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                   *dkv_walk))
+        tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "float32"
+               else _TOL["bfloat16"])
+        for t, w in zip(got, want):
+            assert t.dtype == q.dtype
+            w = np.asarray(w, np.float32).transpose(0, 2, 1, 3).reshape(
+                t.shape)
+            np.testing.assert_allclose(t.float().numpy(), w, **tol)
+
+    @pytest.mark.parametrize("rows", [64, 128])
+    @pytest.mark.parametrize("sq,sk,causal", [(200, 200, True),
+                                              (200, 200, False),
+                                              (200, 320, False),
+                                              (320, 136, False)])
+    def test_partial_last_tile_matches_the_64_row_walk(self, rows, sq, sk,
+                                                       causal):
+        r = np.random.RandomState(13)
+        q, g = (torch.from_numpy(r.randn(3, sq, 32).astype(np.float32))
+                for _ in range(2))
+        k, v = (torch.from_numpy(r.randn(3, sk, 32).astype(np.float32))
+                for _ in range(2))
+        out, lse = tref.flash_fwd_online(q, k, v, causal, 64, 64)
+        delta = tref.flash_delta(out, g)
+        dq_walk, dkv_walk = tfa.bwd_kernel_blocks(
+            q.to(torch.bfloat16), k.to(torch.bfloat16), rows)
+        got = (tref.flash_bwd_dq(q, k, v, g, lse, delta, causal, *dq_walk),
+               *tref.flash_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                   *dkv_walk))
+        want = (tref.flash_bwd_dq(q, k, v, g, lse, delta, causal, 64, 64),
+                *tref.flash_bwd_dkv(q, k, v, g, lse, delta, causal, 64, 64))
+        for t, w in zip(got, want):
+            torch.testing.assert_close(t, w, rtol=2e-5, atol=2e-5)
 
 
 def _jax_grads(arrs, dtype, causal=True):
