@@ -10,31 +10,38 @@ on failure:
   1. the card's name and power limit, then the build of every kernel
      source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu,
      flash_bwd_sm90.cu, batch_norm.cu) and its time, and beside it the
-     wgmma/TMA sources (forward B2, B3; backward B4, B5) each alone through
-     nvcc -Xptxas -v: each instantiation's registers and spills, where any
-     spill fails the run, and ptxas's performance warnings (C7514/C7520,
-     "wgmma serialized"), printed;
+     wgmma/TMA sources (forward B1, B2, B3: 24 instantiations; backward
+     B4, B5: 12) each alone through nvcc -Xptxas -v: each instantiation's
+     registers and spills, where any spill fails the run, and ptxas's
+     performance warnings (C7514/C7520, "wgmma serialized"), printed;
   2. every flash-attention forward kernel (online, lazy, twopass) held
      against its plain PyTorch version walking the same tiles on the card,
      on O and lse, in bf16 and fp32, causal and not, on unit-scale inputs
      at the serving shape (b=1, h=6, d=128, s=128 and 1024), at b=2 h=12
-     d=64 s=512, on a ragged causal s=1000 and on rising-max adversaries
-     (b=1 h=6 d=128 s=512, keys ramped so every k tile raises the row max
-     in lazy's diagonal-first walk, or in the ascending one); then the
-     bf16 wgmma/TMA kernel (lazy, twopass) at every head dim (16/32/64/128,
-     b·h 3, s 192), at s 960 and 192 (multiples of 64, not of 128) with
-     b·h >= 2, non-causal sk != sq, both CTA shapes forced (64 and 128
-     query rows) with the adversaries at its 128-key tiles, and at the
-     training shape (b=16 h=6 d=128 s=1024, causal). fp32 is held to 2e-5;
+     d=64 s=512, on a ragged causal s=1000 (unpadded) and on rising-max
+     adversaries (b=1 h=6 d=128 s=512, keys ramped so every k tile raises
+     the row max in lazy's diagonal-first walk, or in the ascending one);
+     then the bf16 wgmma/TMA kernel (online, lazy, twopass) at every head
+     dim (16/32/64/128, b·h 3, s 192), at s 960 and 192 (multiples of 64,
+     not of 128) with b·h >= 2, non-causal sk != sq, both CTA shapes
+     forced (64 and 128 query rows) with the adversaries at its 128-key
+     tiles, at s 16, 64, 100 and 1000 and sq 100 x sk 300 (partial last
+     tiles; causal and not, both CTA shapes), and at the training shape
+     (b=16 h=6 d=128 s=1024, causal); then the fp32 CUDA-core forward and
+     backward at partial-tile lengths (s 100, sq 100 x sk 300), and both
+     dtypes at head dims 80 and 96 (zero-padded to 128 on the host) through
+     the public autograd path against the plain walks at the true head
+     dim. fp32 is held to 2e-5;
      bf16 O to two bf16 ulps plus 1 % of its largest value, bf16 lse to
      1e-3. Then the backward kernels (dq, dk/dv: bf16 on wgmma/TMA, fp32
      on the CUDA cores) on dq, dk and dv against their plain versions at
      the kernels' own tiles (fa.bwd_kernel_blocks), on unit-scale inputs
      and dO, in bf16 and fp32, causal and not, at the same shapes, a
      partial tile (s=48), the rising-max adversaries, the training shape
-     (b=16 h=6 d=128 s=1024, bf16, causal), and the ragged s=1000 through
-     the autograd path; then the bf16 wgmma/TMA pair alone at every head
-     dim, both dq CTA shapes forced (with the adversaries), partial last
+     (b=16 h=6 d=128 s=1024, bf16, causal), and the ragged s=1000
+     (unpadded) through the autograd path; then the bf16 wgmma/TMA pair
+     alone at every head dim, both dq CTA shapes forced (with the
+     adversaries), partial last
      tiles with b·h >= 2 (s 960, 1000), non-causal sq != sk both ways and
      the training shape; fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
      plus 1 % of that gradient's largest magnitude. Then the
@@ -46,7 +53,8 @@ on failure:
   3. the serving path: ServeEngine over GPT-2-small (gpt2_small_tpu, 6 x
      128 heads, full width, bf16, seeded weights) answers requests with
      prompts of 16-960 tokens, so prefill runs both the one-tile (online)
-     and the multi-tile (lazy) kernel; a second short run under
+     and the multi-tile (lazy) walk of the wgmma kernel; a second short
+     run under
      HVD_FLASH_VARIANT=twopass drives the twopass kernel. Launch counts
      are zeroed just before each run and read just after. Every request
      must complete with no KV block leaked; first-token logits of the
@@ -78,14 +86,17 @@ on failure:
      (SDPA forward and backward; the backward pair, its sum and SDPA's
      backward by CUDA events over 50 back-to-back calls and by profiler,
      the event figure kept where the profiler reads under 0.8 of it; the
-     lazy forward also at the training
-     shape, and the host time of a forward launch on each kernel;
+     lazy and online forwards also at the training shape, the online one
+     at s 16 and 960 too; an empty kernel launched back to back, the
+     floor under every launch; the cost of a head dim padded on the host,
+     d 96 against d 128 at the training shape, forward and backward; and
+     the host time of a forward launch;
      batch_norm_stats and
      batch_norm_backward_reduce for B6 and B7), the training step
      (ms/step, tokens/s, MFU, and where its device time goes), the
      synthetic-benchmark protocol on ResNet-50 at batch 32 for both norm
-     impls (img/s, device time, busy share, top kernels), prefill and
-     decode.
+     impls (img/s, device time, busy share, top kernels), prefill (at
+     prompts 16, 40, 64, 128, 512 and 960) and decode.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -133,7 +144,6 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
-SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
 SM90_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90.cu"
 BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd_sm90.cu"
 BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
@@ -403,7 +413,8 @@ def check_kernels(card, dev):
                 if what == "lse":
                     lse_err[dt] = max(lse_err[dt], err)
                 n_cmp += 1
-    # ragged causal tail: the public entry end-pads 1000 -> 1024
+    # ragged causal tail: the public entry runs 1000 unpadded, the kernels
+    # masking their partial last tiles
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
         q, k, v = qkv(50, b=1, s=1000, h=6, d=128, dtype=dtype, device=dev)
@@ -412,9 +423,6 @@ def check_kernels(card, dev):
         for variant in fa.VARIANTS:
             out = fa.flash_attention(q, k, v, causal=True, variant=variant,
                                      device=dev)
-            # the kernel walks the end-padded 1024; the padded keys come
-            # after every real query, so the unpadded walk at its blocks
-            # is the same
             p_out, _ = ref.FWD[variant](qf, kf, vf, True,
                                         *fa.kernel_blocks(qf, kf, variant))
             p_out = p_out.reshape(1, 6, 1000, 128).transpose(1, 2)
@@ -431,12 +439,14 @@ def check_kernels(card, dev):
 
 
 def check_sm90_kernel(card, dev, errs):
-    """The bf16 wgmma/TMA forward (lazy, twopass) on ``[b·h, s, d]``
-    operands against its plain version at the kernel's own tiles: every
-    head dim, sequences that are multiples of 64 but not of 128 with
+    """The bf16 wgmma/TMA forward (online, lazy, twopass) on ``[b·h, s,
+    d]`` operands against its plain version at the kernel's own tiles:
+    every head dim, sequences that are multiples of 64 but not of 128 with
     b·h >= 2 (where a flat tensor map would read the next head's keys),
     non-causal sk != sq, both CTA shapes forced with the rising-max
-    adversaries at 128-key tiles, and the training shape. Folds the
+    adversaries at 128-key tiles, one partial tile (s 16, 64, 100: the
+    serving prompts' nk = 1), partial last tiles (s 1000, sq 100 x sk 300)
+    at both CTA shapes, causal and not, and the training shape. Folds the
     largest O error into ``errs``."""
     ramp = {"down": torch.linspace(4.0, 0.5, 512),
             "up": torch.linspace(0.5, 4.0, 512)}
@@ -451,6 +461,10 @@ def check_sm90_kernel(card, dev, errs):
                 cases.append((6, 512, 512, 128, causal, rows, name))
     for rows in (64, 128):
         cases.append((4, 192, 320, 64, False, rows, None))
+        for causal in (True, False):
+            for s in (16, 64, 100, 1000):
+                cases.append((6, s, s, 128, causal, rows, None))
+            cases.append((4, 100, 300, 128, causal, rows, None))
     cases.append((TRAIN_BATCH * 6, TRAIN_SEQ, TRAIN_SEQ, 128, True, None,
                   None))
     share = 0.0
@@ -462,7 +476,7 @@ def check_sm90_kernel(card, dev, errs):
         if name:
             kf = kf * ramp[name][None, :, None]
         qf, kf, vf = (t.to(dev, torch.bfloat16) for t in (qf, kf, vf))
-        for variant in fa.SM90_VARIANTS:
+        for variant in fa.VARIANTS:
             blocks = fa.kernel_blocks(qf, kf, variant, rows)
             before = fa.launch_counts[f"flash_fwd_{variant}"]
             out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
@@ -479,9 +493,10 @@ def check_sm90_kernel(card, dev, errs):
                     errs[variant] = max(errs[variant], err)
                 n_cmp += 1
     log(card, f"phase 2: {n_cmp} wgmma/TMA forward kernel/plain comparisons "
-              f"(bf16 lazy and twopass, O and lse; d 16/32/64/128, s 192 and "
-              f"960 at b·h >= 2, sq 192 x sk 320, CTA rows 64 and 128, "
-              f"rising-max adversaries, the training shape) passed; largest "
+              f"(bf16 online, lazy and twopass, O and lse; d 16/32/64/128, s "
+              f"192 and 960 at b·h >= 2, sq 192 x sk 320, CTA rows 64 and "
+              f"128, rising-max adversaries, s 16/64/100/1000 and sq 100 x sk "
+              f"300 causal and not, the training shape) passed; largest "
               f"error as a share of its tolerance {share:.3f}")
 
 
@@ -489,7 +504,7 @@ def check_bwd_kernels(card, dev):
     """The backward kernels against their plain versions on dq, dk and
     dv: the forward checks' shapes, a partial tile, the rising-max
     adversaries, the training shape, and the ragged causal s=1000
-    through the autograd path (end-padded to 1024, the pad rows' dO 0)."""
+    through the autograd path (unpadded)."""
     errs = {"dq": 0.0, "dkv": 0.0}   # bf16, the wgmma/TMA kernels
     share = {f"{k} {dt}": 0.0 for k in errs
              for dt in ("bfloat16", "float32")}
@@ -615,6 +630,86 @@ def check_sm90_bwd(card, dev, errs):
               f"2, sq 192 x sk 320 and 320 x 200, dq CTA rows 64 and 128, "
               f"rising-max adversaries, the training shape) passed; largest "
               f"error as a share of its tolerance {share:.3f}")
+
+
+def check_partial_tiles_and_head_dims(card, dev, errs):
+    """The repaired lengths and head dims: the fp32 CUDA-core forward (each
+    variant) and backward at partial-tile lengths (s 100, sq 100 x sk 300,
+    causal and not) against the plain walks at their 64-row tiles; then
+    both dtypes at head dims 80 and 96 through the public autograd path
+    (zero-padded to 128 on the host, the true d's scale) against the plain
+    walks at the true d and the kernels' tiles, forward and gradients.
+    Folds the largest bf16 errors into ``errs``."""
+    share = {"fp32 partial": 0.0, "float32 d": 0.0, "bfloat16 d": 0.0}
+    n_cmp = 0
+    for n, (sq, sk, causal) in enumerate(((100, 100, True),
+                                          (100, 100, False),
+                                          (100, 300, True),
+                                          (100, 300, False))):
+        g = torch.Generator().manual_seed(1300 + n)
+        qf, dof = (torch.randn(6, sq, 128, generator=g) for _ in range(2))
+        kf, vf = (torch.randn(6, sk, 128, generator=g) for _ in range(2))
+        qf, kf, vf, dof = (t.to(dev) for t in (qf, kf, vf, dof))
+        scale = 128 ** -0.5
+        label = f"fp32 sq={sq} sk={sk} causal={causal}"
+        for variant in fa.VARIANTS:
+            out, lse = fa._kernel_fwd(qf, kf, vf, causal, scale, variant)
+            p_out, p_lse = plain_fwd(qf, kf, vf, causal, scale, variant)
+            for got, want, what in ((out, p_out, "O"), (lse, p_lse, "lse")):
+                share["fp32 partial"] = max(share["fp32 partial"], hold(
+                    got, want, what, torch.float32, f"{variant} {label}")[1])
+                n_cmp += 1
+        delta = ref.flash_delta(p_out, dof)
+        got = fa._kernel_bwd(qf, kf, vf, dof, p_lse, delta, causal, scale)
+        want = plain_bwd(qf, kf, vf, dof, p_lse, delta, causal, scale)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            share["fp32 partial"] = max(share["fp32 partial"], hold_grad(
+                a, w, torch.float32, f"{name} {label}")[1])
+            n_cmp += 1
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for d in (80, 96):
+            for causal in (True, False):
+                q, k, v = qkv(1310 + d, b=2, s=300, h=3, d=d, dtype=dtype,
+                              device=dev)
+                g = torch.randn(q.shape, generator=torch.Generator()
+                                .manual_seed(d)).to(dev, dtype)
+                ts = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                fa.reset_launch_counts()
+                out = fa.flash_attention(*ts, causal=causal, device=dev)
+                out.backward(g)
+                if sum(fa.launch_counts.values()) != 3:
+                    raise AssertionError(f"d={d} {dt} launched "
+                                         f"{dict(fa.launch_counts)}")
+                variant = fa.resolve_variant("auto", nk=-(-300 // fa.BLOCK))
+                qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
+                p_out, p_lse = plain_fwd(qf, kf, vf, causal, d ** -0.5,
+                                         variant)
+                delta = ref.flash_delta(p_out, gf)
+                want = (p_out, *plain_bwd(qf, kf, vf, gf, p_lse, delta,
+                                          causal, d ** -0.5))
+                label = f"{dt} d={d} causal={causal} (padded to 128)"
+                err, frac = hold(flat(out.detach()), want[0], "O", dtype,
+                                 f"{variant} {label}")
+                share[f"{dt} d"] = max(share[f"{dt} d"], frac)
+                if dtype == torch.bfloat16:
+                    errs[variant] = max(errs[variant], err)
+                n_cmp += 1
+                for name, t, w in zip(("dq", "dk", "dv"), ts, want[1:]):
+                    err, frac = hold_grad(flat(t.grad), w, dtype,
+                                          f"{name} {label}")
+                    share[f"{dt} d"] = max(share[f"{dt} d"], frac)
+                    kernel = "dq" if name == "dq" else "dkv"
+                    if dtype == torch.bfloat16:
+                        errs[kernel] = max(errs[kernel], err)
+                    n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} comparisons of the repaired lengths and "
+              f"head dims (fp32 forward and backward at s 100 and sq 100 x "
+              f"sk 300; bf16 and fp32 at d 80 and 96 through the public "
+              f"autograd path) passed; largest error as a share of its "
+              f"tolerance {share}")
 
 
 def vision_bn_shapes(model, images):
@@ -1041,20 +1136,18 @@ def time_bwd_kernels(card, dev, launches, errs):
     return entries
 
 
-def time_fwd_training(card, dev):
-    """The lazy forward (B2, wgmma/TMA) at the training shape (b=16, h=6,
-    d=128, causal s=1024, bf16): device ms against its bound, its plain
-    version at the same tiles and SDPA's forward; returns the keys added
-    to flash_fwd_lazy's JSON entry."""
-    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 6, 128
-    qf, kf, vf = (flat(t) for t in qkv(82, b=b, s=s, h=h, d=d,
+def time_fwd(card, dev, variant, b, s, h, d, seed):
+    """One causal bf16 forward shape: device ms per call (profiler; the
+    CUDA-event figure where it records nothing) of the kernel, its plain
+    version at the kernel's tiles and SDPA's forward, and the bound;
+    returns (ms by call, bound ms, what bounds it)."""
+    qf, kf, vf = (flat(t) for t in qkv(seed, b=b, s=s, h=h, d=d,
                                        dtype=torch.bfloat16, device=dev))
     scale = d ** -0.5
-    blocks = fa.kernel_blocks(qf, kf, "lazy")
+    blocks = fa.kernel_blocks(qf, kf, variant)
     calls = {
-        "kernel": lambda: fa._kernel_fwd(qf, kf, vf, True, scale, "lazy"),
-        "plain": lambda: ref.flash_fwd_lazy(qf, kf, vf, True, *blocks,
-                                            scale),
+        "kernel": lambda: fa._kernel_fwd(qf, kf, vf, True, scale, variant),
+        "plain": lambda: ref.FWD[variant](qf, kf, vf, True, *blocks, scale),
         "library": lambda: torch.nn.functional.scaled_dot_product_attention(
             *(t.view(b, h, s, d) for t in (qf, kf, vf)), is_causal=True)}
     ev = {k_: time_ms(fn, *((2, 1) if k_ == "plain" else ()))
@@ -1064,20 +1157,28 @@ def time_fwd_training(card, dev):
     ms = {k_: dvc[k_] if dvc[k_] is not None else ev[k_] for k_ in ev}
     ops, nbytes = attention_work(b * h, s, d, True, 2)
     b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
-    log(card, f"phase 4: lazy bf16 causal b={b} h={h} d={d} s={s} (the "
-              f"training shape; CTA {blocks[0]} query rows, {blocks[1]}-key "
-              f"tiles): device ms (profiler) {dvc}, event ms per call {ev}, "
-              f"bound {b_ms:.5f} ms ({b_by}; {ops} operations, {nbytes} "
-              f"bytes); {b_ms / ms['kernel']:.1%} of the bound, "
+    log(card, f"phase 4: {variant} bf16 causal b={b} h={h} d={d} s={s} "
+              f"(CTA {blocks[0]} query rows, {blocks[1]}-key tiles): device "
+              f"ms (profiler) {dvc}, event ms per call {ev}, bound "
+              f"{b_ms:.6f} ms ({b_by}; {ops} operations, {nbytes} bytes); "
+              f"{b_ms / ms['kernel']:.1%} of the bound, "
               f"{ms['kernel'] / ms['library']:.2f}x SDPA's forward")
+    return ms, b_ms, b_by
+
+
+def time_fwd_training(card, dev, variant):
+    """A forward variant at the training shape (b=16, h=6, d=128, causal
+    s=1024, bf16); returns the keys added to its JSON entry."""
+    ms, b_ms, _ = time_fwd(card, dev, variant, TRAIN_BATCH, TRAIN_SEQ, 6,
+                           128, 82)
     return {"train_ms": ms["kernel"], "train_plain_ms": ms["plain"],
             "train_bound_ms": b_ms, "train_library_ms": ms["library"]}
 
 
 def time_fwd_host(card, dev, h, d):
-    """Host time per forward launch (no synchronisation), on the wgmma/TMA
-    kernel (lazy, which encodes three TMA tensor maps per launch) and on
-    the mma.sync kernel (online), at a shape whose device time is a few
+    """Host time per forward launch (no synchronisation) of the online and
+    lazy walks, both on the wgmma/TMA kernel, which encodes three TMA
+    tensor maps per launch, at a shape whose device time is a few
     microseconds."""
     qf, kf, vf = (flat(t) for t in qkv(83, b=1, s=128, h=h, d=d,
                                        dtype=torch.bfloat16, device=dev))
@@ -1093,9 +1194,47 @@ def time_fwd_host(card, dev, h, d):
         torch.cuda.synchronize()
     log(card, f"phase 4: host us per forward launch through _kernel_fwd "
               f"(b=1 h={h} d={d} s=128, 500 launches, no sync): "
-              f"{ {k_: round(v_, 2) for k_, v_ in us.items()} }; the "
-              f"difference is the three tensor maps the wgmma kernel "
-              f"encodes per launch")
+              f"{ {k_: round(v_, 2) for k_, v_ in us.items()} } (both walks "
+              f"on the wgmma kernel)")
+
+
+def time_launch_floor(card):
+    """An empty kernel launched back to back: the floor under any launch's
+    device time per call."""
+    ev, prof = fwd_ab.launch_floor()
+    log(card, f"phase 4: empty kernel launched back to back (200 launches): "
+              f"event ms per launch {ev:.6f}, profiler ms per launch "
+              f"{prof:.6f}")
+
+
+def time_head_dim_cost(card, dev):
+    """What a head dim between the compiled ones costs: the public
+    flash_attention at d 96 (zero-padded to 128 on the host, and the
+    output and gradients sliced back) against d 128, at the training shape
+    (b=16, h=6, causal s=1024, bf16), forward alone and forward with
+    backward, device ms by profiler and by CUDA events."""
+    row = {}
+    for d in (128, 96):
+        q, k, v = (t.requires_grad_(True) for t in qkv(
+            84, b=TRAIN_BATCH, s=TRAIN_SEQ, h=6, d=d, dtype=torch.bfloat16,
+            device=dev))
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            85)).to(dev, torch.bfloat16)
+
+        def fwd():
+            with torch.no_grad():
+                return fa.flash_attention(q, k, v, causal=True, device=dev)
+
+        def fwd_bwd():
+            torch.autograd.grad(fa.flash_attention(q, k, v, causal=True,
+                                                   device=dev), (q, k, v), g)
+        for name, fn in (("fwd", fwd), ("fwd+bwd", fwd_bwd)):
+            row[f"d{d} {name}"] = (device_ms(fn, 10), time_ms(fn, 10))
+    log(card, f"phase 4: flash_attention bf16 causal b={TRAIN_BATCH} h=6 "
+              f"s={TRAIN_SEQ}, d 96 padded to 128 against d 128, (device ms "
+              f"by profiler, event ms) per call: {row}; d 96 / d 128: fwd "
+              f"{row['d96 fwd'][0] / row['d128 fwd'][0]:.3f}, fwd+bwd "
+              f"{row['d96 fwd+bwd'][0] / row['d128 fwd+bwd'][0]:.3f}")
 
 
 def time_training(card, dev, model, opt, batch, cfg):
@@ -1277,9 +1416,9 @@ def main():
     _build.extension()
     log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s")
-    # 16 forward instantiations (d x walk x warpgroups), 12 backward (dq:
+    # 24 forward instantiations (d x walk x warpgroups), 12 backward (dq:
     # d x warpgroups; dk/dv: d)
-    for name, n_kernels in (("flash_fwd_sm90", 16), ("flash_bwd_sm90", 12)):
+    for name, n_kernels in (("flash_fwd_sm90", 24), ("flash_bwd_sm90", 12)):
         out, _ = ptxas[name].communicate(timeout=900)
         report = fwd_ab.ptxas_report(out)
         if ptxas[name].returncode or len(report) != n_kernels:
@@ -1302,6 +1441,7 @@ def main():
     check_sm90_kernel(card, dev, errs)
     errs.update(check_bwd_kernels(card, dev))
     check_sm90_bwd(card, dev, errs)
+    check_partial_tiles_and_head_dims(card, dev, errs)
     # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
     step_shapes = vision_bn_shapes(
         models.build("resnet50", norm_impl="tpu", device=dev).train(),
@@ -1418,44 +1558,26 @@ def main():
               "twopass": -(-max(plen_pad[6:9]) // fa.BLOCK) * fa.BLOCK}
     h, d = cfg.num_heads, cfg.head_dim
     for variant in fa.VARIANTS:
-        s = main_s[variant]
-        qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in qkv(
-            70, b=1, s=s, h=h, d=d, dtype=torch.bfloat16, device=dev))
-        blocks = fa.kernel_blocks(qf, kf, variant)
-        scale = d ** -0.5
-
-        def kernel():
-            return fa._kernel_fwd(qf, kf, vf, True, scale, variant)
-
-        def plain():
-            return ref.FWD[variant](qf, kf, vf, True, *blocks, scale)
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qf[None], kf[None], vf[None], is_causal=True)
-        ev = {"kernel": time_ms(kernel), "plain": time_ms(plain, 3, 1),
-              "library": time_ms(library)}
-        dv = {"kernel": device_ms(kernel), "plain": device_ms(plain, 3),
-              "library": device_ms(library)}
-        ms = {k_: dv[k_] if dv[k_] is not None else ev[k_] for k_ in ev}
-        ops, nbytes = attention_work(h, s, d, True, 2)
-        b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+        ms, b_ms, b_by = time_fwd(card, dev, variant, 1, main_s[variant], h,
+                                  d, 70)
         kernels.append({
             "name": f"flash_fwd_{variant}", "route": "cuda",
-            "source": SM90_SOURCE if variant in fa.SM90_VARIANTS else SOURCE,
-            "replaces": REPLACES[variant],
+            "source": SM90_SOURCE, "replaces": REPLACES[variant],
             "launches": launches.get(f"flash_fwd_{variant}", 0),
             "max_abs_err": errs[variant], "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": ms["library"]})
-        log(card, f"phase 4: {variant} bf16 causal b=1 h={h} d={d} s={s}: "
-                  f"device ms (profiler) {dv}, event ms per call {ev}, "
-                  f"bound {b_ms:.5f} ms ({b_by}; {ops} operations, "
-                  f"{nbytes} bytes)")
-    kernels[fa.VARIANTS.index("lazy")].update(
-        time_fwd_training(card, dev),
-        train_launches=train_launches.get("flash_fwd_lazy", 0))
+    # B1 also at the shortest prompt, the longest one and the training
+    # shape (variant="online")
+    for s in (16, 960):
+        time_fwd(card, dev, "online", 1, s, h, d, 70)
+    for variant in ("lazy", "online"):
+        kernels[fa.VARIANTS.index(variant)].update(
+            time_fwd_training(card, dev, variant),
+            train_launches=train_launches.get(f"flash_fwd_{variant}", 0))
+    time_launch_floor(card)
     time_fwd_host(card, dev, h, d)
+    time_head_dim_cost(card, dev)
     kernels.extend(time_bwd_kernels(card, dev, launches, errs))
     time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
     kernels.extend(time_bn_kernels(card, dev, step_shapes, launches, errs))
@@ -1482,7 +1604,7 @@ def main():
                   f"ms: {row}")
     # prefill and decode: wall time per call (host-driven, CUDA events)
     # beside the device's kernel time; their ratio is the busy share
-    for s in (16, 128, 512, 960):
+    for s in (16, 40, 64, 128, 512, 960):
         toks = torch.arange(1, s + 1, device=dev)[None] % cfg.vocab_size
 
         def prefill():

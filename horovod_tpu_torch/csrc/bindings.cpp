@@ -8,9 +8,9 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <cuda_runtime.h>
 
-extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
-                                     const void* v, void* o, float* lse,
-                                     int bh, int sq, int sk, int d, int dtype,
+extern "C" cudaError_t hvd_flash_fwd(const float* q, const float* k,
+                                     const float* v, float* o, float* lse,
+                                     int bh, int sq, int sk, int d,
                                      int variant, int causal, float scale2,
                                      cudaStream_t stream);
 extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
@@ -87,21 +87,26 @@ void check_fwd(const char* which, const torch::Tensor& q,
               ": lse must be fp32");
 }
 
+// The fp32 forward (variant 0 online, 1 lazy, 2 twopass) on the CUDA
+// cores (flash_fwd.cu).
 void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, torch::Tensor& out, torch::Tensor& lse,
                int64_t variant, bool causal, double scale2) {
   check_fwd("flash_fwd", q, k, v, out, lse);
-  int dtype = kernel_dtype(q, "flash_fwd");
+  for (const auto& t : {q, k, v, out})
+    TORCH_CHECK(t.scalar_type() == torch::kFloat32,
+                "flash_fwd: q, k, v and out must be float32");
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_fwd", hvd_flash_fwd(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-      lse.data_ptr<float>(), static_cast<int>(q.size(0)),
-      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), dtype, static_cast<int>(variant),
-      causal ? 1 : 0, static_cast<float>(scale2), stream_of(q)));
+      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      out.data_ptr<float>(), lse.data_ptr<float>(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      static_cast<int>(variant), causal ? 1 : 0, static_cast<float>(scale2),
+      stream_of(q)));
 }
 
-// The bf16 lazy (variant 1) and twopass (2) forward on wgmma and TMA
+// The bf16 forward (variant 0 online, 1 lazy, 2 twopass) on wgmma and TMA
 // (flash_fwd_sm90.cu), with cta_rows (64 or 128) query rows per CTA.
 void flash_fwd_sm90(const torch::Tensor& q, const torch::Tensor& k,
                     const torch::Tensor& v, torch::Tensor& out,
@@ -290,10 +295,11 @@ void bn_moments(const torch::Tensor& a, const torch::Tensor& b,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "Flash-attention forward (bf16 online; fp32 online/lazy/twopass) "
-        "for sm_90a");
+        "Flash-attention forward, fp32 online/lazy/twopass, on the CUDA "
+        "cores");
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
-        "Flash-attention forward, bf16 lazy/twopass, on wgmma and TMA");
+        "Flash-attention forward, bf16 online/lazy/twopass, on wgmma and "
+        "TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
         "Flash-attention backward, dq, fp32 on the CUDA cores");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,

@@ -1,13 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a) on wgmma, TMA and a
-// producer/consumer pipeline: the bf16 lazy and twopass walks.
+// producer/consumer pipeline: every bf16 walk.
 //
 // Replaces the Pallas TPU kernels behind pl.pallas_call in
 // horovod_tpu/ops/flash_attention.py (_flash_fwd), in bf16:
+//   online  -> _fwd_kernel           (:129; k tiles ascending, m, l and O
+//                                     rescaled on every tile)
 //   lazy    -> _fwd_kernel_lazy      (:220; rescale only when a tile raises
 //                                     the row max; k tiles diagonal-first)
 //   twopass -> _fwd_kernel_twopass   (:312; pass 1 row max over K alone,
 //                                     pass 2 accumulates against it)
-// The online walk and every fp32 variant stay in flash_fwd.cu.
+// The fp32 variants stay on the CUDA cores in flash_fwd.cu.
 //
 // Contract (flash_fwd.cu's): q/k/v are [b*h, s, d] contiguous bf16,
 // d in {16, 32, 64, 128}; O is bf16; lse is the natural-log row
@@ -40,16 +42,20 @@
 //  3. Copy and softmax overlap the products. One producer thread issues
 //     the TMA loads of Q once and of K/V into a ring of three stages ahead
 //     of the consumers, with a full barrier per operand and an empty
-//     barrier per stage, walking the consumers' order (descending for
-//     lazy; K alone, then K and V, for twopass). No __syncthreads after the
-//     roles split. Inside a consumer warpgroup, tile i's Q K^T is issued
-//     ahead of tile i-1's P@V, so tile i's softmax runs while that P@V is
-//     on the tensor cores; the first tile is peeled so that every wgmma
-//     wait is unconditional (ptxas serializes the products when the O
-//     rescale sits behind a branch it cannot tie to the wait). Two
-//     consumer warpgroups take turns to issue (named barriers), so one's
-//     softmax runs under the other's products. exp2 is one ex2.approx.ftz
-//     with the logit scale folded into an FFMA.
+//     barrier per stage, walking the consumers' order (ascending for
+//     online; descending for lazy; K alone, then K and V, for twopass).
+//     No __syncthreads after the roles split. Inside a consumer
+//     warpgroup, tile i's Q K^T is issued ahead of tile i-1's P@V, so tile
+//     i's softmax runs while that P@V is on the tensor cores; the first
+//     tile is peeled so that every wgmma wait is unconditional (ptxas
+//     serializes the products when the O rescale sits behind a branch it
+//     cannot tie to the wait). The online walk's rescale of O by
+//     alpha = exp2(m_old - m_new) has no branch at all: it runs on every
+//     tile in the slot where lazy's runs after its vote, after tile i-1's
+//     P@V has completed and before tile i's is issued. Two consumer
+//     warpgroups take turns to issue (named barriers), so one's softmax
+//     runs under the other's products. exp2 is one ex2.approx.ftz with the
+//     logit scale folded into an FFMA.
 //  4. Larger CTAs where the grid allows: 2 consumer warpgroups (128 query
 //     rows) when b*h*ceil(sq/128) fills the SMs (the training shape gives
 //     768 CTAs), 1 (64 rows) otherwise (serving at b1 h6 s960 gives 90).
@@ -57,9 +63,12 @@
 //     may force either. K and V are re-read from L2 once per 128 query
 //     rows instead of once per 64.
 //  5. The thin serving grid is not solved here: a CTA still walks its k
-//     tiles in series (split-KV is queued in ROADMAP.md); what changes is
+//     tiles in series (split-KV is deferred in ROADMAP.md); what changes is
 //     that each tile costs a wgmma pair fed by TMA instead of ~640 shared
-//     loads and mma.sync.
+//     loads and mma.sync. A serving prompt of 64 tokens or fewer is one
+//     partial k tile (the online walk with nk = 1: the peeled first tile
+//     and the last P@V, nothing to pipeline) over b*h CTAs of one consumer
+//     warpgroup; its time is the launch and one tile's latency.
 //
 // Tile choice. 128 keys per k tile: S is then m64n128 (64 fp32 registers
 // per consumer thread), O is m64nD (64 at d = 128) and P 32 bf16 pairs,
@@ -73,17 +82,22 @@
 // 65,536). With one consumer warpgroup (256 threads) every thread may
 // already take 255 registers, and setmaxnreg is not used.
 // Registers and spills (nvcc 12.9 -Xptxas -v, sm_90a; chip_smoke.py phase
-// 1 prints them and fails on a spill): one consumer warpgroup 189 / 188
-// registers at d = 128 (lazy / twopass), 155 / 154 at 64, 138 at 32, 130
-// at 16; two consumer warpgroups 168 at entry (the launch bound), the
-// consumers running at up to 240 after setmaxnreg; 0 bytes of spill
-// stores and loads in all 16 instantiations.
+// 1 prints them and fails on a spill): one consumer warpgroup 190 / 189 /
+// 188 registers at d = 128 (online / lazy / twopass), 154-155 at 64,
+// 138-139 at 32, 130 at 16; two consumer warpgroups 168 at entry (the
+// launch bound), the consumers running at up to 240 after setmaxnreg; 0
+// bytes of spill stores and loads and no ptxas warning in all 24
+// instantiations.
 //
 // Masks. TMA zero-fills rows past the end of a head (the tensor maps are
 // 3-D, [b*h, s, d], so a partial tile never reads the next head's rows),
 // and a zero key gives a logit of 0, not -1e30: the col < sk mask stays.
 // Tiles that cross the causal diagonal or the end of the keys take the
-// masked path; the others skip it.
+// masked path; the others skip it. The predicate is a branch over register
+// arithmetic with no wgmma wait inside, so it costs nothing to ptxas's
+// scheduling wherever the masked tiles fall in the walk: last in the
+// online walk, first in lazy's. Query rows past sq read zeros and are not
+// stored, so any sq and sk run unpadded.
 //
 // The lazy predicate is taken per warp (16 rows) where the TPU kernel
 // takes it per block: a row whose max did not rise gets alpha = 1 exactly
@@ -93,7 +107,8 @@
 
 namespace {
 
-enum Walk { kLazyWalk = 1, kTwopassWalk = 2 };   // flash_fwd.cu's numbers
+// flash_fwd.cu's variant numbers
+enum Walk { kOnlineWalk = 0, kLazyWalk = 1, kTwopassWalk = 2 };
 
 constexpr int kKeys = 128;      // keys per k tile
 constexpr int kStages = 3;      // K/V stages in the ring
@@ -160,13 +175,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nk = p.causal
                      ? min(((qt + 1) * P::kQRows + kKeys - 1) / kKeys, nk_total)
                      : nk_total;
-  // items of the walk: lazy visits k tiles nk-1 .. 0 with V; twopass
-  // visits 0 .. nk-1 with K alone, then 0 .. nk-1 with K and V
+  // items of the walk: online visits k tiles 0 .. nk-1 with V, lazy
+  // nk-1 .. 0 with V; twopass visits 0 .. nk-1 with K alone, then
+  // 0 .. nk-1 with K and V
   const int n_items = W == kTwopassWalk ? 2 * nk : nk;
   auto tile_of = [&](int i) {
     return W == kLazyWalk ? nk - 1 - i : (i < nk ? i : i - nk);
   };
-  auto with_v = [&](int i) { return W == kLazyWalk || i >= nk; };
+  auto with_v = [&](int i) { return W != kTwopassWalk || i >= nk; };
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -291,12 +307,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       return mx * p.scale2;
     };
 
-    // logits to p = exp2(s - m) in place, after the lazy walk's vote on
-    // raising m (per warp); returns whether o and l need alpha
+    // logits to p = exp2(s - m) in place, after raising m: on every tile
+    // in the online walk, after the lazy walk's vote (per warp); returns
+    // whether o and l need alpha
     auto probs = [&](int i, float (&s)[64], float (&alpha)[2]) {
       mask(i, s);
       bool rescale = false;
-      if constexpr (W == kLazyWalk) {
+      if constexpr (W == kOnlineWalk) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], quad_max(row_max(s, r)));
+          alpha[r] = exp2f(m[r] - mn);
+          m[r] = mn;
+        }
+        rescale = true;
+      } else if constexpr (W == kLazyWalk) {
         float mt[2];
         bool rises = false;
 #pragma unroll
@@ -324,7 +349,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // p rounded to bf16 as the next P@V's A fragments
     auto fold = [&](const float (&s)[64], bool rescale,
                     const float (&alpha)[2]) {
-      if (rescale) {
+      if (W == kOnlineWalk || rescale) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l[r] *= alpha[r];
@@ -395,7 +420,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     };
 
     mbar_wait(full_q, 0);
-    if constexpr (W == kLazyWalk) {
+    if constexpr (W != kTwopassWalk) {
       accumulate(0);
     } else {
       // pass 1: row max only, K stream alone
@@ -457,6 +482,9 @@ template <int D>
 cudaError_t dispatch(const void* q, const void* k, const void* v, int bh,
                      int walk, int nwg, const Sm90Params& p,
                      cudaStream_t stream) {
+  if (walk == kOnlineWalk)
+    return nwg == 2 ? launch<D, kOnlineWalk, 2>(q, k, v, bh, p, stream)
+                    : launch<D, kOnlineWalk, 1>(q, k, v, bh, p, stream);
   if (walk == kLazyWalk)
     return nwg == 2 ? launch<D, kLazyWalk, 2>(q, k, v, bh, p, stream)
                     : launch<D, kLazyWalk, 1>(q, k, v, bh, p, stream);
@@ -466,14 +494,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int bh,
 
 bool valid_shape(int d, int walk, int cta_rows) {
   return (d == 16 || d == 32 || d == 64 || d == 128) &&
-         (walk == kLazyWalk || walk == kTwopassWalk) &&
+         (walk == kOnlineWalk || walk == kLazyWalk ||
+          walk == kTwopassWalk) &&
          (cta_rows == 64 || cta_rows == 128);
 }
 
 }  // namespace
 
 // Plain C entry point (no PyTorch headers here: they stay in bindings.cpp).
-// bf16 only. variant: 1 lazy, 2 twopass (flash_fwd.cu's numbering).
+// bf16 only. variant: 0 online, 1 lazy, 2 twopass (flash_fwd.cu's
+// numbering).
 // cta_rows: query rows per CTA, 64 (one consumer warpgroup) or 128 (two).
 // q, k, v, o must be contiguous and 16-byte aligned (the tensor maps need
 // it; the caller checks). Returns a configuration error; the launch itself

@@ -44,8 +44,9 @@ class TransformerConfig:
     # fp32 logits from the head matmul's accumulator; False keeps them in
     # ``dtype``
     logits_fp32: bool = True
-    # 'full' or 'flash' in this slice; 'ring', 'ring_flash' and 'ulysses'
-    # come with the tensor/sequence-parallel slice
+    # 'full', 'flash', 'ring', 'ring_flash' or 'ulysses'; with the whole
+    # sequence on one worker the last three run as the reference runs them
+    # without an sp axis (flash for ring_flash, full for the others)
     attention_impl: str = "full"
     # flash forward variant: 'auto' | 'online' | 'lazy' | 'twopass'
     flash_variant: str = "auto"
@@ -83,21 +84,21 @@ _ATTENTION_IMPLS = ("full", "ring", "ring_flash", "ulysses", "flash")
 
 
 def _dispatch_attention(cfg, q, k, v, device):
-    """Causal attention on ``[b, s, h, d]`` by ``cfg.attention_impl``."""
+    """Causal attention on ``[b, s, h, d]`` by ``cfg.attention_impl``, as
+    the reference picks it with no sequence-sharding axis bound: the port
+    has no sp mesh axis yet, so the whole sequence is on this worker and
+    ring_flash is the flash kernel (the single-block ring), ring and
+    ulysses exact full attention. The sequence-sharded case comes with
+    the tensor/sequence-parallel slice (ROADMAP.md)."""
     if cfg.attention_impl not in _ATTENTION_IMPLS:
         raise ValueError(
             f"Unknown attention_impl={cfg.attention_impl!r}; "
             f"expected one of {_ATTENTION_IMPLS}.")
-    if cfg.attention_impl == "flash":
+    if cfg.attention_impl in ("flash", "ring_flash"):
         from ..ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=True,
                                variant=cfg.flash_variant, device=device)
-    if cfg.attention_impl == "full":
-        return ring.full_attention(q, k, v, causal=True)
-    raise NotImplementedError(
-        f"attention_impl={cfg.attention_impl!r} needs sequence "
-        f"parallelism, which the port brings in its tensor/sequence-"
-        f"parallel slice (ROADMAP.md); use 'full' or 'flash'")
+    return ring.full_attention(q, k, v, causal=True)
 
 
 def _rope(x, positions):

@@ -1,30 +1,40 @@
 """Fused (flash) attention for the port: public side and dispatch.
 
 The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
-backward. A CUDA tensor goes to the hand-written Hopper kernels: the bf16
-lazy and twopass forward on wgmma and TMA in ``csrc/flash_fwd_sm90.cu``,
-the bf16 online forward and every fp32 forward in ``csrc/flash_fwd.cu``,
-the bf16 backward's dq and dk/dv kernels on wgmma and TMA in
-``csrc/flash_bwd_sm90.cu``, the fp32 ones in ``csrc/flash_bwd.cu``. A CPU tensor
-goes to their plain PyTorch versions in ``flash_attention_ref.py``, which
-walk the same tiles. Nothing on a CUDA tensor ever takes the plain
-version: if a kernel cannot build or launch, the call raises.
+backward. A CUDA tensor goes to the hand-written Hopper kernels: every
+bf16 forward (online, lazy, twopass) on wgmma and TMA in
+``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels on
+wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the fp32 forward and
+backward on the CUDA cores in ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``. A CPU tensor goes to their plain PyTorch versions
+in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
+CUDA tensor takes the plain version unless the caller asks for it with
+``interpret=True`` (the port's counterpart of Pallas interpret mode): if
+a kernel cannot build or launch, the call raises.
 
 ``flash_attention`` is differentiable through a ``torch.autograd.Function``
 (the counterpart of the JAX package's ``custom_vjp``): the forward saves
 q, k, v, O and lse; the backward computes delta = rowsum(dO∘O) as plain
 torch, as the JAX package does, and launches the two backward kernels.
 
-The public tile is 64 rows of Q by 64 rows of K/V: a sequence shorter
-than a tile is one partial tile; a longer one must be a tile multiple,
-except causal self-attention, which is end-padded (the padded keys sit
-after every real query, so the causal mask discards them exactly). The
-mma.sync and CUDA-core kernels walk those tiles. The wgmma kernels walk
-their own, masking a partial last tile themselves: the forward and the
-backward's dq take 128 keys per k tile and 64 or 128 query rows per CTA
-(``sm90_cta_rows``), dk/dv 128 keys per CTA and 64 queries per q tile.
-``kernel_blocks`` and ``bwd_kernel_blocks`` name the walks of the kernels
-a call reaches, so their plain versions can walk the same.
+Lengths. ``flash_attention`` accepts exactly what the reference accepts:
+its ``block_q``/``block_k`` (default 512) are fitted to the sequence by
+the reference's ``fit_block``, and a length the fitted block does not
+divide is refused unless the call is causal self-attention. The kernels
+need no such blocks: each masks a partial last q tile and a partial last
+k tile itself, so every accepted length runs unpadded. The fp32 CUDA-core
+kernels walk 64-row tiles; the wgmma kernels walk 128 keys per k tile and
+64 or 128 query rows per CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA
+and 64 queries per q tile). ``kernel_blocks`` and ``bwd_kernel_blocks``
+name the walks of the kernels a call reaches, so their plain versions
+can walk the same. On the CPU, and under ``interpret=True``, the plain
+walks take the fitted blocks.
+
+Head dims. The kernels are compiled for d in {16, 32, 64, 128}; on the
+card any other d up to 128 is zero-padded on the host to the next of
+those (``pad_head_dim``), with the softmax scale of the true d: a zero
+column adds nothing to any dot product, and the padded output columns
+are sliced off.
 
 ``decode_attention`` — one query against the KV cache — stays plain
 torch, as the JAX package keeps it plain XLA: a GEMV per (batch, head)
@@ -50,12 +60,17 @@ LOG2E = ref.LOG2E
 #: same natural-log lse.
 VARIANTS = ("online", "lazy", "twopass")
 
-#: Rows of Q and of K/V per tile — the public tile, which the mma.sync
-#: kernels walk.
+#: Rows of Q and of K/V per tile of the fp32 CUDA-core kernels; the
+#: forward variant is picked by the number of these tiles along k.
 BLOCK = 64
 
-#: The variants that run on the wgmma/TMA kernel in bf16.
-SM90_VARIANTS = ("lazy", "twopass")
+#: ``block_q``/``block_k`` of ``flash_attention`` when the caller gives
+#: none: the reference's defaults, which decide what it accepts.
+DEFAULT_BLOCK = 512
+
+#: The head dims the kernels are compiled for; on the card any other
+#: d ≤ 128 is zero-padded to the next of these (``pad_head_dim``).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 #: Keys per k tile of the wgmma/TMA kernels (forward, dq; dk/dv's keys
 #: per CTA).
@@ -90,11 +105,68 @@ def resolve_variant(variant, nk=1):
 
 
 def fit_block(s):
-    """Tile rows for a sequence of ``s``: the full tile, or one partial
-    tile when the whole sequence is shorter. No halving: the kernels are
-    compiled for one tile shape, so a longer sequence that the tile does
-    not divide is end-padded (causal) or refused."""
+    """Tile rows of the fp32 CUDA-core kernels for a sequence of ``s``:
+    the full 64-row tile, or one partial tile when the whole sequence is
+    shorter. A longer sequence ends in a partial tile, which the kernels
+    mask."""
     return min(BLOCK, s)
+
+
+def fit_block_ref(block, s):
+    """The reference's ``fit_block`` (horovod_tpu/ops/flash_attention.py):
+    the largest block ≤ ``block`` that divides ``s``, halving no further
+    than 128. It decides which lengths ``flash_attention`` accepts, and
+    the plain walks' tiles on the CPU; the kernels walk their own."""
+    b = min(block, s)
+    while b > 128 and s % b:
+        b //= 2
+    return b
+
+
+def accepted_blocks(sq, sk, causal, block_q=DEFAULT_BLOCK,
+                    block_k=DEFAULT_BLOCK):
+    """The fitted (block_q, block_k) of a call, raising as the reference
+    does for a length they do not divide unless it is causal
+    self-attention."""
+    bq, bk = fit_block_ref(block_q, sq), fit_block_ref(block_k, sk)
+    if (sq % bq or sk % bk) and not (causal and sq == sk):
+        raise ValueError(
+            f"flash_attention needs seq divisible by block sizes unless "
+            f"causal self-attention: q {sq}%{bq}, k {sk}%{bk}")
+    return bq, bk
+
+
+def dkv_blocks(sq, sk, blocks, block_q_dkv=None, block_k_dkv=None):
+    """The dk/dv walk's (block_q, block_k) as the reference takes them:
+    each given block fitted to its sequence, the dq walk's where none is
+    given or the fitted one does not divide."""
+    bq2 = fit_block_ref(block_q_dkv, sq) if block_q_dkv else blocks[0]
+    bk2 = fit_block_ref(block_k_dkv, sk) if block_k_dkv else blocks[1]
+    return (blocks[0] if sq % bq2 else bq2, blocks[1] if sk % bk2 else bk2)
+
+
+def kernel_head_dim(d):
+    """The compiled head dim a head dim of ``d`` runs at on the card."""
+    for kd in KERNEL_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"the flash kernels take head_dim up to "
+                     f"{KERNEL_HEAD_DIMS[-1]} on the card, got {d}")
+
+
+def pad_head_dim(fn, tensors, n_sliced):
+    """``fn(*tensors)`` with every tensor zero-padded along its last dim to
+    ``kernel_head_dim(d)``, and the first ``n_sliced`` outputs sliced back
+    to d. A zero column adds nothing to any dot product, so the result is
+    the unpadded one as long as ``fn`` takes the softmax scale of the true
+    d, which the callers pass."""
+    d = tensors[0].shape[-1]
+    pad = kernel_head_dim(d) - d
+    if not pad:
+        return fn(*tensors)
+    outs = fn(*(F.pad(t, (0, pad)) for t in tensors))
+    return tuple(o[..., :d].contiguous() if i < n_sliced else o
+                 for i, o in enumerate(outs))
 
 
 def _check_operands(qf, kf, vf):
@@ -104,7 +176,7 @@ def _check_operands(qf, kf, vf):
                         f"{qf.dtype}")
     if not (qf.dtype == kf.dtype == vf.dtype):
         raise TypeError("q, k and v must share a dtype")
-    if qf.shape[2] not in (16, 32, 64, 128):
+    if qf.shape[2] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel head_dim must be 16/32/64/128, got "
                          f"{qf.shape[2]}")
     if kf.shape != vf.shape or kf.shape[0] != qf.shape[0] or \
@@ -133,15 +205,11 @@ def sm90_cta_rows(bh, sq, sm_count):
     return 128 if bh * -(-sq // 128) >= sm_count else 64
 
 
-def _on_sm90(dtype, variant):
-    return dtype == torch.bfloat16 and variant in SM90_VARIANTS
-
-
 def kernel_blocks(qf, kf, variant, cta_rows=None):
-    """(block_q, block_k) of the tile walk that the kernel a ``[b·h, s, d]``
-    call reaches takes: the plain version walks the same tiles at these
-    blocks."""
-    if _on_sm90(qf.dtype, variant):
+    """(block_q, block_k) of the tile walk that the forward kernel a
+    ``[b·h, s, d]`` call reaches takes: the plain version walks the same
+    tiles at these blocks."""
+    if qf.dtype == torch.bfloat16:
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return rows, SM90_BLOCK_K
@@ -149,14 +217,14 @@ def kernel_blocks(qf, kf, variant, cta_rows=None):
 
 
 def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
-    """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 lazy and
-    twopass on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
-    shape), everything else on the mma.sync/CUDA-core one."""
+    """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 on the
+    wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA shape), fp32
+    on the CUDA-core one."""
     _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
     scale2 = float(scale * LOG2E)
-    if _on_sm90(qf.dtype, variant):
+    if qf.dtype == torch.bfloat16:
         rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
         extension().flash_fwd_sm90(qf, kf, vf, out, lse,
                                    VARIANTS.index(variant), bool(causal),
@@ -213,48 +281,43 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
     return dq, dk, dv
 
 
-def _check_kernel_blocks(block_q, block_k, sq, sk, walks=()):
-    """Raise unless (block_q, block_k) is the public tile of (sq, sk) or
-    one of ``walks``, the tiles the kernel itself walks."""
-    if (block_q, block_k) != (fit_block(sq), fit_block(sk)) and \
-            (block_q, block_k) not in walks:
-        raise ValueError(
-            f"the CUDA kernel walks {BLOCK}-row tiles or its own "
-            f"{list(walks)}; got blocks ({block_q}, {block_k}) for seq "
-            f"({sq}, {sk})")
-
-
-def _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant):
-    """(out, lse) of ``[b·h, s, d]`` operands: the kernel on the card,
-    the plain version on the CPU."""
+def _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret=False):
+    """(out, lse) of ``[b·h, s, d]`` operands: the kernel on the card
+    (at the kernel head dim), the plain version at ``blocks`` on the CPU
+    or when ``interpret`` asks for it."""
     scale = qf.shape[-1] ** -0.5
+    if interpret or qf.device.type == "cpu":
+        return ref.FWD[variant](qf, kf, vf, causal, *blocks, scale)
     if qf.is_cuda:
-        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1],
-                             (kernel_blocks(qf, kf, variant),))
-        return _kernel_fwd(qf.contiguous(), kf.contiguous(),
-                           vf.contiguous(), causal, scale, variant)
-    if qf.device.type == "cpu":
-        return ref.FWD[variant](qf, kf, vf, causal, block_q, block_k, scale)
+        return pad_head_dim(
+            lambda q, k, v: _kernel_fwd(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal, scale,
+                                        variant),
+            (qf, kf, vf), 1)
     raise ValueError(f"flash attention runs on cuda or cpu, not {qf.device}")
 
 
-def _bwd_flat(qf, kf, vf, of, lse, dof, causal, block_q, block_k):
+def _bwd_flat(qf, kf, vf, of, lse, dof, causal, blocks, dkv_walk=None,
+              interpret=False):
     """(dq, dk, dv) of ``[b·h, s, d]`` operands given the forward's out
-    and lse and the output gradient dO."""
+    and lse and the output gradient dO: the kernels on the card (at the
+    kernel head dim), the plain versions on the CPU or when ``interpret``
+    asks for it, dq at ``blocks`` and dk/dv at ``dkv_walk`` (default
+    ``blocks``)."""
     scale = qf.shape[-1] ** -0.5
     delta = ref.flash_delta(of, dof)
-    if qf.is_cuda:
-        _check_kernel_blocks(block_q, block_k, qf.shape[1], kf.shape[1],
-                             bwd_kernel_blocks(qf, kf))
-        return _kernel_bwd(qf.contiguous(), kf.contiguous(),
-                           vf.contiguous(), dof.contiguous(), lse, delta,
-                           causal, scale)
-    if qf.device.type == "cpu":
-        dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, block_q,
-                              block_k, scale)
+    if interpret or qf.device.type == "cpu":
+        dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, *blocks,
+                              scale)
         dk, dv = ref.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, causal,
-                                   block_q, block_k, scale)
+                                   *(dkv_walk or blocks), scale)
         return dq, dk, dv
+    if qf.is_cuda:
+        return pad_head_dim(
+            lambda q, k, v, do: _kernel_bwd(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                do.contiguous(), lse, delta, causal, scale),
+            (qf, kf, vf, dof), 3)
     raise ValueError(f"flash attention runs on cuda or cpu, not {qf.device}")
 
 
@@ -281,15 +344,6 @@ def _unflat(t, b, h, layout):
     return t if layout == "bhsd" else t.transpose(1, 2)
 
 
-def _blocks(sq, sk, block_q, block_k):
-    block_q, block_k = min(block_q, sq), min(block_k, sk)
-    if sq % block_q or sk % block_k:
-        raise ValueError(
-            f"flash_attention needs seq divisible by block sizes: "
-            f"q {sq}%{block_q}, k {sk}%{block_k}")
-    return block_q, block_k
-
-
 def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
               variant="online"):
     """Forward on ``q, k, v`` in ``layout`` ('bshd' [b, s, h, d] or 'bhsd'
@@ -298,13 +352,13 @@ def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
 
     CUDA tensors launch the kernel, which walks its own tiles (see
     ``kernel_blocks``); CPU tensors run the plain version at the given
-    blocks."""
+    blocks, a partial last tile where they do not divide the sequence."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r}")
     b, h, sq, sk, _ = _layout_dims(q, k, layout)
-    block_q, block_k = _blocks(sq, sk, block_q, block_k)
     out, lse = _fwd_flat(_flat(q, layout), _flat(k, layout),
-                         _flat(v, layout), causal, block_q, block_k, variant)
+                         _flat(v, layout), causal,
+                         (min(block_q, sq), min(block_k, sk)), variant)
     return _unflat(out, b, h, layout), lse
 
 
@@ -316,9 +370,9 @@ def flash_bwd(q, k, v, out, lse, g, causal, block_q=BLOCK, block_k=BLOCK,
     package's ``_flash_bwd``. CUDA tensors launch the dq and dk/dv
     kernels; CPU tensors run their plain versions at the given blocks."""
     b, h, sq, sk, _ = _layout_dims(q, k, layout)
-    block_q, block_k = _blocks(sq, sk, block_q, block_k)
     dq, dk, dv = _bwd_flat(*(_flat(t, layout) for t in (q, k, v, out)), lse,
-                           _flat(g, layout), causal, block_q, block_k)
+                           _flat(g, layout), causal,
+                           (min(block_q, sq), min(block_k, sk)))
     return tuple(_unflat(t, b, h, layout) for t in (dq, dk, dv))
 
 
@@ -326,59 +380,55 @@ class _FlashAttention(torch.autograd.Function):
     """Attention on ``[b·h, s, d]`` operands with the flash backward."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, causal, block_q, block_k, variant):
-        out, lse = _fwd_flat(qf, kf, vf, causal, block_q, block_k, variant)
+    def forward(ctx, qf, kf, vf, causal, blocks, dkv_walk, variant,
+                interpret):
+        out, lse = _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret)
         ctx.save_for_backward(qf, kf, vf, out, lse)
-        ctx.walk = (causal, block_q, block_k)
+        ctx.walk = (causal, blocks, dkv_walk, interpret)
         return out
 
     @staticmethod
     def backward(ctx, g):
         qf, kf, vf, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd_flat(qf, kf, vf, out, lse, g, *ctx.walk)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, layout="bshd", variant="auto",
+def flash_attention(q, k, v, causal=True, block_q=DEFAULT_BLOCK,
+                    block_k=DEFAULT_BLOCK, interpret=None, block_q_dkv=None,
+                    block_k_dkv=None, layout="bshd", variant="auto",
                     device=None):
     """Fused attention; q/k/v ``[b, s, h, d]`` (or ``[b, h, s, d]`` with
-    ``layout="bhsd"``). Causal mask in global positions; exact softmax
-    with fp32 statistics, matching ``parallel.ring.full_attention``.
-    Differentiable: gradients come from the flash backward (the kernels
-    on the card, their plain versions on the CPU), the same for every
-    forward variant.
+    ``layout="bhsd"``), the reference's signature. Causal mask in global
+    positions; exact softmax with fp32 statistics, matching
+    ``parallel.ring.full_attention``. Differentiable: gradients come from
+    the flash backward (the kernels on the card, their plain versions on
+    the CPU), the same for every forward variant.
 
     ``device`` is where the caller means to run (CUDA unless it says
-    ``"cpu"``); the tensors must lie there. A sequence the tile does not
-    divide is end-padded for causal self-attention and refused otherwise;
-    the padded rows get a zero output gradient, so they add nothing to
-    dk and dv. ``variant`` is 'auto' or one of VARIANTS
+    ``"cpu"``); the tensors must lie there. ``block_q``/``block_k`` decide
+    which lengths are accepted, as in the reference (``accepted_blocks``:
+    a length the fitted block does not divide is refused unless the call
+    is causal self-attention), and the plain walks' tiles; the kernels
+    walk their own tiles and mask partial ones, so nothing is padded.
+    ``block_q_dkv``/``block_k_dkv`` are fitted as the reference fits them
+    and set the plain dk/dv walk's tiles. ``interpret=True`` runs the
+    plain walks on the tensors' device, the port's interpret mode; it
+    launches no kernel. ``variant`` is 'auto' or one of VARIANTS
     (HVD_FLASH_VARIANT overrides both)."""
     device = resolve_device(device)
     check_on(device, q, k, v)
     b, h, sq, sk, _ = _layout_dims(q, k, layout)
-    seq_axis = 2 if layout == "bhsd" else 1
-    bq, bk = fit_block(sq), fit_block(sk)
-    pad_q, pad_k = -sq % bq, -sk % bk
-    if (pad_q or pad_k) and not (causal and sq == sk):
-        raise ValueError(
-            f"flash_attention needs seq divisible by block sizes unless "
-            f"causal self-attention: q {sq}%{bq}, k {sk}%{bk}")
-    if pad_q or pad_k:
-        def seq_pad(t, p):
-            # F.pad lists pads from the last dim backwards
-            return F.pad(t, [0, 0] * (3 - seq_axis) + [0, p])
-        q, k, v = seq_pad(q, pad_q), seq_pad(k, pad_k), seq_pad(v, pad_k)
-    variant = resolve_variant(variant, nk=(sk + pad_k) // bk)
+    blocks = accepted_blocks(sq, sk, causal, block_q, block_k)
+    dkv_walk = dkv_blocks(sq, sk, blocks, block_q_dkv, block_k_dkv)
+    variant = resolve_variant(variant, nk=-(-sk // BLOCK))
     qf, kf, vf = (_flat(t, layout).contiguous() for t in (q, k, v))
-    out = _unflat(_FlashAttention.apply(qf, kf, vf, causal, bq, bk, variant),
-                  b, h, layout)
-    if pad_q:
-        out = out[:, :, :sq] if layout == "bhsd" else out[:, :sq]
-    return out
+    out = _FlashAttention.apply(qf, kf, vf, causal, blocks, dkv_walk,
+                                variant, bool(interpret))
+    return _unflat(out, b, h, layout)
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, scale=None):
     """Single-query attention against a cached K/V prefix — the decode
     step of the serving plane.
 
@@ -386,6 +436,11 @@ def decode_attention(q, k, v, lengths):
     k, v     [batch, s_max, heads, head_dim] — the KV cache; only the
              first ``lengths[b]`` positions of row b are real
     lengths  [batch] int — valid prefix length per row
+    scale    optional softmax scale (default head_dim ** -0.5, matching
+             flash_attention)
+
+    The reference's ``head_sharding`` (the head axis of a tensor-parallel
+    serving mesh) comes with the port's mesh slice.
 
     Plain torch on purpose (see the module docstring). Numerics as the
     JAX version: fp32 logits from the input-dtype values, fp32 softmax,
@@ -394,9 +449,8 @@ def decode_attention(q, k, v, lengths):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_attention wants q [b, 1, h, d], got "
                          f"{tuple(q.shape)}")
-    d = q.shape[-1]
     s_max = k.shape[1]
-    scale = d ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     # [b, h, d] x [b, s, h, d] -> [b, h, s]
     logits = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), k.float())
     logits = logits * scale

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the flash-attention kernels.
 
 Forward: one function per variant, each walking the same tiles in the
-same order as its CUDA kernel (``csrc/flash_fwd.cu``) and its TPU original
+same order as its CUDA kernels (``csrc/flash_fwd_sm90.cu`` in bf16,
+``csrc/flash_fwd.cu`` in fp32) and its TPU original
 (``horovod_tpu/ops/flash_attention.py``): the causal k loop stops at the
 diagonal tile; ``lazy`` walks k tiles diagonal-first and rescales only
 when ``any(m_tile > m)`` over the q tile; ``twopass`` takes the row max
@@ -12,7 +13,8 @@ rounded to V's dtype before P@V, and lse = (m + log2 l)·ln2 with l
 clipped at 1e-30.
 
 Backward: ``flash_bwd_dq`` and ``flash_bwd_dkv``, the counterparts of the
-CUDA kernels in ``csrc/flash_bwd.cu`` and of the TPU's ``_dq_kernel`` and
+CUDA kernels in ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` and
+of the TPU's ``_dq_kernel`` and
 ``_dkv_kernel``, with ``flash_delta`` the plain rowsum(dO∘O) the JAX
 package also leaves outside any kernel. dq walks q tiles, each over its k
 tiles up to the causal diagonal; dk/dv walk k tiles, each over its q
@@ -22,7 +24,8 @@ to dO's dtype before pᵀ@dO, accumulates in fp32 and applies the softmax
 scale once, after the loop, to dq and dk (never to dv).
 
 The CPU path of ``flash_attention`` runs these, and so do the tests;
-on the card they are only the yardstick the kernels are held against.
+on the card they are the yardstick the kernels are held against, and
+run only when a caller asks for them with ``interpret=True``.
 Operands are ``[b·h, s, d]``; each function returns ``(out [b·h, sq, d]
 in q's dtype, lse [b·h, sq] fp32)``. The tiles need not divide the
 sequence: a partial last tile holds only the rows up to the end, where

@@ -12,14 +12,18 @@ shared library per tree with ``nvcc -Xptxas -v``, loaded with ctypes, and
 prints each kernel's registers and spills: seconds per tree instead of
 the full extension build.
 
-Forward: ``--check`` holds each tree's bf16 lazy and twopass kernel
-against the plain walks (``flash_attention_ref``) at the kernel's tiles
-(bf16 O two ulps + 1 % of its largest value, lse 1e-3); ``--time`` prints
-torch.profiler device ms per call, side by side in one process, at the
-training shape (b16 h6 s1024 d128 causal) and serving shapes (b1 h6
-s640/960/1024), beside SDPA's forward, and the host µs per launch. A tree
-without ``flash_fwd_sm90.cu`` runs bf16 lazy and twopass on its
-``flash_fwd.cu``.
+Forward: ``--check`` holds each tree's bf16 online, lazy and twopass
+kernels against the plain walks (``flash_attention_ref``) at the kernel's
+tiles (bf16 O two ulps + 1 % of its largest value, lse 1e-3), partial
+last tiles and sq != sk among the cases; ``--time`` prints device ms per
+call by torch.profiler and by CUDA events over 50 back-to-back calls,
+side by side in one process, at the training shape (b16 h6 s1024 d128
+causal) and serving shapes (b1 h6 s16/64/640/960/1024), beside the bound,
+SDPA's forward and (for the online walk) its plain version; then an empty
+kernel's time launched back to back (the launch floor) and the host µs
+per launch. A tree whose ``flash_fwd_sm90.cu`` has no online walk runs
+bf16 online on its ``flash_fwd.cu`` (mma.sync), and a tree without
+``flash_fwd_sm90.cu`` runs every bf16 walk there.
 
 Backward (``--bwd``): ``--check`` holds each tree's bf16 dq and dk/dv
 against the plain walks at the kernels' tiles (two bf16 ulps + 1 % of each
@@ -48,6 +52,19 @@ NVCC = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                     "nvcc")
 LOG2E = 1.4426950408889634
 WALKS = {"online": 0, "lazy": 1, "twopass": 2}
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12
+H100_SMS = 132
+
+# An empty kernel and its launcher: the floor under any launch's device time
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void hvd_empty_kernel() {}
+extern "C" cudaError_t hvd_launch_empty(cudaStream_t stream) {
+  hvd_empty_kernel<<<1, 32, 0, stream>>>();
+  return cudaGetLastError();
+}
+"""
 
 
 def nvcc_cmd(sources, out, cubin=False):
@@ -108,17 +125,31 @@ class Tree:
         self.label = label
         csrc = os.path.join(root, "horovod_tpu_torch", "csrc")
         sources = [os.path.join(csrc, "flash_fwd.cu")]
-        self.sm90 = os.path.exists(os.path.join(csrc, "flash_fwd_sm90.cu"))
-        if self.sm90:
-            sources.append(os.path.join(csrc, "flash_fwd_sm90.cu"))
+        sm90 = os.path.join(csrc, "flash_fwd_sm90.cu")
+        # the bf16 walks this tree runs on the wgmma kernel; the others run
+        # on its flash_fwd.cu (mma.sync, 64-row tiles)
+        self.sm90_walks = ()
+        if os.path.exists(sm90):
+            sources.append(sm90)
+            with open(sm90) as f:
+                online = "kOnlineWalk" in f.read()
+            self.sm90_walks = (("online",) if online else ()) + (
+                "lazy", "twopass")
         lib, self.build_s, self.report, self.warnings = build(sources, label)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
-        lib.hvd_flash_fwd.restype = i
-        if self.sm90:
+        if len(self.sm90_walks) < len(WALKS):
+            # bf16 (dtype 1) on flash_fwd.cu
+            lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
+            lib.hvd_flash_fwd.restype = i
+        if self.sm90_walks:
             lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
             lib.hvd_flash_fwd_sm90.restype = i
         self.lib = lib
+
+    def cta_rows(self, variant, rows):
+        """The CTA rows a call walks: ``rows`` on the wgmma kernel (the
+        host's pick when None), 64 on the mma.sync one."""
+        return (rows or 64) if variant in self.sm90_walks else 64
 
     def forward(self, q, k, v, causal, variant, cta_rows=64):
         """(O, lse) of bf16 ``[b·h, s, d]`` operands."""
@@ -129,7 +160,7 @@ class Tree:
                 lse.data_ptr(), bh, sq, k.shape[1], d)
         stream = torch.cuda.current_stream().cuda_stream
         scale2 = d ** -0.5 * LOG2E
-        if self.sm90 and variant != "online":
+        if variant in self.sm90_walks:
             err = self.lib.hvd_flash_fwd_sm90(*args, WALKS[variant],
                                               int(causal), scale2, cta_rows,
                                               stream)
@@ -142,8 +173,7 @@ class Tree:
         return o, lse
 
     def blocks(self, variant, cta_rows):
-        return (cta_rows, 128) if self.sm90 and variant != "online" else \
-            (64, 64)
+        return (cta_rows, 128) if variant in self.sm90_walks else (64, 64)
 
 
 def operands(seed, bh, sq, sk, d, k_ramp=None):
@@ -161,14 +191,16 @@ def check(tree):
              "up": torch.linspace(0.5, 4.0, 512)}
     cases = [(3, 192, 192, d, c, None) for d in (16, 32, 64, 128)
              for c in (True, False)]
-    cases += [(6, 960, 960, 128, c, None) for c in (True, False)]
+    cases += [(6, s, s, 128, c, None) for s in (16, 64, 100, 960, 1000)
+              for c in (True, False)]
+    cases += [(4, 100, 300, 128, c, None) for c in (True, False)]
     cases += [(4, 192, 320, 128, False, None), (2, 40, 40, 128, True, None)]
     cases += [(6, 512, 512, 128, c, r) for c in (True, False) for r in ramps]
     bad = []
     for n, (bh, sq, sk, d, causal, ramp) in enumerate(cases):
         q, k, v = operands(n, bh, sq, sk, d, ramps.get(ramp))
-        for variant in ("lazy", "twopass"):
-            for rows in ((64, 128) if tree.sm90 else (64,)):
+        for variant in WALKS:
+            for rows in ((64, 128) if variant in tree.sm90_walks else (64,)):
                 o, lse = tree.forward(q, k, v, causal, variant, rows)
                 torch.cuda.synchronize()
                 p_o, p_lse = ref.FWD[variant](q, k, v, causal,
@@ -181,8 +213,8 @@ def check(tree):
                 if not (o_ok and lse_err <= 1e-3):
                     bad.append((bh, sq, sk, d, causal, ramp, variant, rows,
                                 lse_err))
-    print(f"{tree.label}: {2 * len(cases)} cases x CTA shapes checked, "
-          f"failures {bad}", flush=True)
+    print(f"{tree.label}: {len(WALKS) * len(cases)} cases x CTA shapes "
+          f"checked, failures {bad}", flush=True)
     return bad
 
 
@@ -199,20 +231,66 @@ def device_ms(fn, iters=20):
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
+def forward_bound_ms(bh, s, d):
+    """The least time of a causal bf16 forward on the card: 4·d operations
+    per visible (q, k) pair at the dense bf16 peak, or q, k, v read and O
+    and lse written once at the memory rate, whichever is longer."""
+    ops = 4 * d * s * (s + 1) // 2 * bh
+    nbytes = (4 * s * d * 2 + 4 * s) * bh
+    return max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def launch_floor():
+    """(event ms, profiler ms) per launch of an empty kernel launched back
+    to back through ctypes: the floor under any kernel's time per call."""
+    out_dir = os.path.join(_ROOT, "build", "flash_fwd_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "empty.cu")
+    with open(src, "w") as f:
+        f.write(EMPTY_KERNEL)
+    so = os.path.join(out_dir, "lib_empty.so")
+    r = subprocess.run(nvcc_cmd([src], so), capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"empty kernel: nvcc failed\n{r.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    lib.hvd_launch_empty.argtypes = [ctypes.c_void_p]
+    lib.hvd_launch_empty.restype = ctypes.c_int
+
+    def launch():
+        if lib.hvd_launch_empty(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the empty kernel did not launch")
+    return event_ms(launch, 200, 20), device_ms(launch, 200)
+
+
 def timings(trees):
-    for b, s in ((16, 1024), (1, 960), (1, 640), (1, 1024)):
-        q, k, v = operands(9, b * 6, s, s, 128)
-        row = {"sdpa": device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                *(t.view(b, 6, s, 128) for t in (q, k, v)), is_causal=True))}
+    """Device ms per call of each tree's bf16 walks (causal, d 128), by
+    profiler and by CUDA events, beside the bound, SDPA's forward and the
+    plain online walk at the wgmma kernel's tiles."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, s in ((16, 1024), (1, 16), (1, 64), (1, 640), (1, 960), (1, 1024)):
+        bh = b * 6
+        q, k, v = operands(9, bh, s, s, 128)
+        rows = 128 if bh * -(-s // 128) >= sms else 64
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        calls = {"sdpa": lambda: sdpa(
+            *(t.view(b, 6, s, 128) for t in (q, k, v)), is_causal=True)}
         for tree in trees:
-            for variant in ("lazy", "twopass"):
-                for rows in ((64, 128) if tree.sm90 else (64,)):
-                    row[f"{tree.label} {variant} {rows}"] = device_ms(
-                        lambda: tree.forward(q, k, v, True, variant, rows))
-        print(f"device ms b{b} h6 s{s} d128 causal bf16: "
-              f"{json.dumps({k_: round(x, 5) for k_, x in row.items()})}",
-              flush=True)
+            for variant in WALKS:
+                r = tree.cta_rows(variant, rows)
+                calls[f"{tree.label} {variant} ({r} rows)"] = (
+                    lambda tree=tree, variant=variant, r=r:
+                    tree.forward(q, k, v, True, variant, r))
+        row = {name: (round(device_ms(fn), 6), round(event_ms(fn), 6))
+               for name, fn in calls.items()}
+        plain = (lambda: ref.flash_fwd_online(q, k, v, True, rows, 128))
+        row["plain online"] = (round(device_ms(plain, 3), 5),
+                               round(event_ms(plain, 3, 1), 5))
+        print(f"device ms (profiler, events) b{b} h6 s{s} d128 causal bf16, "
+              f"bound {forward_bound_ms(bh, s, 128):.6f} ms: "
+              f"{json.dumps(row)}", flush=True)
+    ev, prof = launch_floor()
+    print(f"empty kernel launched back to back: event ms {ev:.6f}, profiler "
+          f"ms {prof:.6f}", flush=True)
     q, k, v = operands(10, 6, 128, 128, 128)
     for tree in trees:
         for variant in ("online", "lazy"):

@@ -113,7 +113,7 @@ def test_kernel_matches_plain_on_rising_max(card, variant, dtype, causal,
            dtype)
 
 
-@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_sm90_kernel_every_head_dim(card, variant, causal, d):
@@ -122,7 +122,7 @@ def test_sm90_kernel_every_head_dim(card, variant, causal, d):
     _check_sm90(40 + d, 3, 192, 192, d, causal, variant, card)
 
 
-@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_sm90_kernel_partial_last_tile_per_head(card, variant, causal):
     """s 960 (a multiple of 64, not of 128) at b·h 6: a tensor map over the
@@ -131,13 +131,13 @@ def test_sm90_kernel_partial_last_tile_per_head(card, variant, causal):
     _check_sm90(41, 6, 960, 960, 128, causal, variant, card)
 
 
-@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("cta_rows", [64, 128])
 def test_sm90_kernel_non_causal_sk_not_sq(card, variant, cta_rows):
     _check_sm90(42, 4, 192, 320, 64, False, variant, card, cta_rows)
 
 
-@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("cta_rows", [64, 128])
 def test_sm90_kernel_both_cta_shapes(card, variant, causal, cta_rows):
@@ -146,7 +146,7 @@ def test_sm90_kernel_both_cta_shapes(card, variant, causal, cta_rows):
     _check_sm90(43, 2, 384, 384, 128, causal, variant, card, cta_rows)
 
 
-@pytest.mark.parametrize("variant", fa.SM90_VARIANTS)
+@pytest.mark.parametrize("variant", fa.VARIANTS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("ramp", ["down", "up"])
 @pytest.mark.parametrize("cta_rows", [64, 128])
@@ -166,12 +166,98 @@ def test_kernel_refuses_what_it_cannot_take(card):
     q, k, v = _qkv(13, 1, 64, 2, 128, torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v, True)
-    q, k, v = _qkv(13, 1, 64, 2, 96, torch.bfloat16, card)
-    with pytest.raises(ValueError, match="head_dim"):
+    q, k, v = _qkv(13, 1, 64, 2, 160, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="up to 128"):
         fa.flash_fwd(q, k, v, True)
-    q, k, v = _qkv(13, 1, 128, 2, 64, torch.bfloat16, card)
-    with pytest.raises(ValueError, match="64-row tiles"):
-        fa.flash_fwd(q, k, v, True, block_q=32, block_k=32)
+
+
+def _flat_bshd(t):
+    b, s, h, d = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _public_fwd_bwd(q, k, v, g, causal, device, variant="auto", **kw):
+    """(out, dq, dk, dv) of the public flash_attention and its backward,
+    flattened to [b·h, s, d]."""
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal, variant=variant,
+                             device=device, **kw)
+    out.backward(g)
+    return [_flat_bshd(t) for t in (out.detach(), *(t.grad for t in ts))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [80, 96])
+def test_head_dims_between_the_compiled_ones(card, dtype, causal, d):
+    """d 80 and 96 run through the kernels zero-padded to 128, forward and
+    backward, and agree with the plain walks at the true d (its scale,
+    the kernels' tiles)."""
+    q, k, v = _qkv(15 + d, 1, 200, 3, d, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
+        card, dtype)
+    fa.reset_launch_counts()
+    got = _public_fwd_bwd(q, k, v, g, causal, card, variant="online")
+    assert dict(fa.launch_counts) == {"flash_fwd_online": 1,
+                                      **dict.fromkeys(_bwd_names(dtype), 1)}
+    qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
+    out, lse = ref.flash_fwd_online(qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, "online"))
+    delta = ref.flash_delta(out, gf)
+    _assert_kernel_close(got[0], out, "O", dtype)
+    for a, w in zip(got[1:], _plain_grads(qf, kf, vf, gf, lse, delta,
+                                          causal)):
+        assert a.shape == w.shape
+        _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interpret_runs_the_plain_walk_on_the_card(card, dtype):
+    """interpret=True: the plain walks at the caller's blocks on the card's
+    tensors, forward and backward, and no kernel launch."""
+    q, k, v = _qkv(16, 1, 192, 2, 64, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(17)).to(
+        card, dtype)
+    fa.reset_launch_counts()
+    got = _public_fwd_bwd(q, k, v, g, True, card, variant="lazy",
+                          block_q=64, block_k=64, interpret=True)
+    assert not fa.launch_counts
+    qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
+    out, lse = ref.flash_fwd_lazy(qf, kf, vf, True, 64, 64)
+    delta = ref.flash_delta(out, gf)
+    want = (out, ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta, True, 64, 64),
+            *ref.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, True, 64, 64))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
+                                          (100, 100, False),
+                                          (100, 300, True),
+                                          (100, 300, False),
+                                          (1000, 1000, True),
+                                          (16, 16, False)])
+def test_partial_tiles_forward_and_backward(card, dtype, sq, sk, causal):
+    """Lengths that end in a partial q tile and a partial k tile of every
+    kernel (64-row tiles in fp32, 128-key tiles and 64/128-row CTAs in
+    bf16), run unpadded: each forward variant and the backward pair
+    against the plain walks at the kernels' tiles."""
+    g = torch.Generator().manual_seed(sq + sk)
+    qf, gf = (torch.randn(2, sq, 64, generator=g) for _ in range(2))
+    kf, vf = (torch.randn(2, sk, 64, generator=g) for _ in range(2))
+    qf, kf, vf, gf = (t.to(card, dtype) for t in (qf, kf, vf, gf))
+    for variant in fa.VARIANTS:
+        out, lse = fa._kernel_fwd(qf, kf, vf, causal, 0.125, variant)
+        p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                        *fa.kernel_blocks(qf, kf, variant))
+        _assert_kernel_close(out, p_out, "O", dtype)
+        _assert_kernel_close(lse, p_lse, "lse", dtype)
+    delta = ref.flash_delta(p_out, gf)
+    got = fa._kernel_bwd(qf, kf, vf, gf, p_lse, delta, causal, 0.125)
+    for a, w in zip(got, _plain_grads(qf, kf, vf, gf, p_lse, delta,
+                                      causal)):
+        _assert_grad_close(a, w, dtype)
 
 
 def test_engine_prefills_through_the_kernels(card):

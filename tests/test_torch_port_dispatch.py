@@ -2,10 +2,11 @@
 
 The compiled extension is replaced by a stub that records its calls, so
 the dispatch in ``ops/flash_attention.py`` runs here on the CPU. Forward:
-bf16 lazy and twopass go to the wgmma/TMA entry point (``flash_fwd_sm90``,
-with the CTA shape the host picks or the caller forces), bf16 online and
-every fp32 variant to ``flash_fwd``, and the launch counts keep one name
-per variant. Backward: bf16 goes to the wgmma/TMA pair
+every bf16 variant goes to the wgmma/TMA entry point (``flash_fwd_sm90``,
+with the CTA shape the host picks or the caller forces), every fp32
+variant to ``flash_fwd``, and the launch counts keep one name per
+variant; a head dim between the compiled ones reaches the kernel
+zero-padded, with the true d's scale. Backward: bf16 goes to the wgmma/TMA pair
 (``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
 forces, ``flash_bwd_sm90_dkv``), fp32 to ``flash_bwd_dq`` and
 ``flash_bwd_dkv``, each counted under its own name. The stub's outputs
@@ -30,13 +31,16 @@ class _Recorder:
 
     def __init__(self):
         self.calls = []
+        self.head_dims = []   # (q's d, scale2) of each forward call
 
     def flash_fwd(self, q, k, v, out, lse, variant, causal, scale2):
         self.calls.append(("flash_fwd", variant, causal, None))
+        self.head_dims.append((q.shape[2], scale2))
 
     def flash_fwd_sm90(self, q, k, v, out, lse, variant, causal, scale2,
                        cta_rows):
         self.calls.append(("flash_fwd_sm90", variant, causal, cta_rows))
+        self.head_dims.append((q.shape[2], scale2))
 
     def flash_bwd_dq(self, q, k, v, dout, lse, delta, dq, causal, scale2,
                      scale):
@@ -78,7 +82,7 @@ def _flat(bh, s, d, dtype):
 def test_each_variant_reaches_its_entry_point(stub, variant, dtype, causal):
     qf, kf, vf = _flat(6, 192, 64, dtype)
     out, lse = fa._kernel_fwd(qf, kf, vf, causal, 0.125, variant)
-    sm90 = dtype == torch.bfloat16 and variant in ("lazy", "twopass")
+    sm90 = dtype == torch.bfloat16
     entry, code, got_causal, rows = stub.calls[0]
     assert len(stub.calls) == 1
     assert entry == ("flash_fwd_sm90" if sm90 else "flash_fwd")
@@ -98,9 +102,10 @@ def test_host_picks_the_cta_shape_from_the_grid(stub, bh, sq, rows):
     not."""
     assert fa.sm90_cta_rows(bh, sq, H100_SMS) == rows
     qf, kf, vf = _flat(bh, sq, 16, torch.bfloat16)
-    assert fa.kernel_blocks(qf, kf, "lazy") == (rows, fa.SM90_BLOCK_K)
-    assert fa.kernel_blocks(qf, kf, "online") == (fa.fit_block(sq),
-                                                  fa.fit_block(sq))
+    for variant in fa.VARIANTS:
+        assert fa.kernel_blocks(qf, kf, variant) == (rows, fa.SM90_BLOCK_K)
+    assert fa.kernel_blocks(qf.float(), kf.float(), "online") == (
+        fa.fit_block(sq), fa.fit_block(sq))
     fa._kernel_fwd(qf, kf, vf, True, 0.25, "lazy")
     assert stub.calls[-1][-1] == rows
 
@@ -181,14 +186,29 @@ def test_unsupported_backward_operands_raise_before_any_launch(stub):
     assert stub.calls == [] and not fa.launch_counts
 
 
-def test_kernel_blocks_check_accepts_the_public_tile_and_the_walks():
-    walks = ((128, 128), (64, 128))
-    fa._check_kernel_blocks(64, 64, 1024, 1024, walks)
-    fa._check_kernel_blocks(48, 48, 48, 48, walks)
-    for blocks in walks:
-        fa._check_kernel_blocks(*blocks, 1024, 1024, walks)
-    with pytest.raises(ValueError, match="64-row tiles"):
-        fa._check_kernel_blocks(32, 32, 1024, 1024, walks)
+@pytest.mark.parametrize("d,padded", [(80, 128), (96, 128), (24, 32),
+                                      (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dim_reaches_the_kernel_padded(stub, d, padded, dtype):
+    """The card path's helper around the launch: q, k, v zero-padded to
+    the compiled head dim, the scale of the true d, O sliced back."""
+    qf, kf, vf = _flat(2, 192, d, dtype)
+    scale = d ** -0.5
+    out, lse = fa.pad_head_dim(
+        lambda q, k, v: fa._kernel_fwd(q, k, v, True, scale, "online"),
+        (qf, kf, vf), 1)
+    assert stub.head_dims == [(padded, pytest.approx(scale * fa.LOG2E))]
+    assert out.shape == qf.shape and out.is_contiguous()
+    assert lse.shape == (2, 192)
+    assert dict(fa.launch_counts) == {"flash_fwd_online": 1}
+
+
+def test_head_dim_beyond_128_raises_before_any_launch(stub):
+    qf, kf, vf = _flat(2, 64, 160, torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.pad_head_dim(lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"),
+                        (qf, kf, vf), 1)
+    assert stub.calls == [] and not fa.launch_counts
 
 
 def test_build_lists_every_cuda_source():
@@ -205,7 +225,7 @@ ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__1a2b_17_flash_fwd_sm9
 ptxas info    : Function properties for _ZN50_GLOBAL__N__1a2b
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers, 448 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3c4d_12flash_fwd_cu_3f6ff79121flash_fwd_bf16_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__3c4d_12flash_fwd_cu_3f6ff79120flash_fwd_f32_kernelILi64ELi0EEEvNS_6ParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN50_GLOBAL__N__3c4d
     16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 100 registers, used 1 barriers, 448 bytes cmem[0]
@@ -221,7 +241,7 @@ def test_ptxas_report_names_kernels_and_reads_spills():
     from horovod_tpu_torch.ops import flash_fwd_ab
     assert flash_fwd_ab.ptxas_report(_PTXAS) == {
         "flash_fwd_sm90_kernel<128,1,2>": (168, 0, 0),
-        "flash_fwd_bf16_kernel<64>": (100, 8, 4),
+        "flash_fwd_f32_kernel<64,0>": (100, 8, 4),
         "flash_bwd_sm90_dq_kernel<128,2>": (168, 0, 0)}
     cmd = flash_fwd_ab.nvcc_cmd(["a.cu"], "a.cubin", cubin=True)
     assert "-cubin" in cmd and "-v" in cmd and cmd[-1] == "a.cu"

@@ -206,8 +206,8 @@ class TestAutogradAgainstJaxGrad:
     @pytest.mark.parametrize("s", [100, 48])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_ragged_and_partial_tiles(self, hvd, s, dtype):
-        """s=100: causal end-padding to 128, whose padded rows get dO = 0
-        and must add nothing to dk/dv; s=48: one partial tile."""
+        """s=100: no 64-row tile divides it (the default 512 block fits
+        to one 100-row tile, unpadded); s=48: one partial tile."""
         arrs = _arrays(7, s=s)
         want = _jax_grads(arrs, dtype)
         got = _port_grads(arrs, dtype)

@@ -4,8 +4,9 @@ The same flax checkpoint (``horovod_tpu.models.transformer.init_params``,
 brought over by ``params_from_flax``) and the same numpy-seeded tokens
 go through the JAX package and the port; logits, prefill K/V and the
 decode step's cache update must agree within fp32 1e-4 on the tiny
-config. Both attention paths are covered: "full", and "flash" (the
-port's plain tile walk against the Pallas kernel in interpret mode).
+config. Every attention impl is covered: "full", "flash" (the port's
+plain tile walk against the Pallas kernel in interpret mode), and
+"ring", "ring_flash" and "ulysses" on one worker.
 """
 
 import dataclasses
@@ -130,11 +131,19 @@ class TestLayers:
 
     @pytest.mark.parametrize("impl", ["ring", "ring_flash", "ulysses"])
     def test_sequence_parallel_impls_name_their_slice(self, impl):
-        cfg = ttr.TransformerConfig.tiny(dtype=torch.float32,
-                                         attention_impl=impl)
-        model = ttr.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
-            model(torch.zeros((1, 8), dtype=torch.long))
+        """With the whole sequence on one worker (no sp axis bound) the
+        reference runs ring_flash as flash and ring/ulysses as full
+        attention; the port, which used to refuse these impls, agrees on
+        the logits. The sequence-sharded case comes with the
+        tensor/sequence-parallel slice."""
+        jcfg, params, _, model = _pair(impl)
+        tokens = _tokens(8)
+        want = jtr.TransformerLM(jcfg).apply({"params": params},
+                                             jnp.asarray(tokens))
+        got = model(torch.from_numpy(tokens).long())
+        assert got.shape == (2, 64, 256)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
 
     def test_unknown_impl_raises(self):
         cfg = ttr.TransformerConfig.tiny(attention_impl="sparse")
