@@ -31,7 +31,13 @@ on failure:
      backward at partial-tile lengths (s 100, sq 100 x sk 300), and both
      dtypes at head dims 80 and 96 (zero-padded to 128 on the host) through
      the public autograd path against the plain walks at the true head
-     dim. fp32 is held to 2e-5;
+     dim; then head dims 160, 192 and 256 on the CUDA-core kernels, fp32
+     and bf16, forward and backward, at partial-tile lengths, every
+     forward walk at d 256, and a ring pair's call patterns (non-causal
+     forward; the backward under a merged lse with +1e30 rows, those
+     rows' dq exactly 0; a wholly future pair with 1e3-offset keys
+     exactly 0) at b4 h6 d128 s1024 bf16, fp32 and d 256. fp32 is held to
+     2e-5;
      bf16 O to two bf16 ulps plus 1 % of its largest value, bf16 lse to
      1e-3. Then the backward kernels (dq, dk/dv: bf16 on wgmma/TMA, fp32
      on the CUDA cores) on dq, dk and dv against their plain versions at
@@ -81,6 +87,30 @@ on failure:
      plain path (bf16: the loss within 5 %, each gradient within 0.25 of
      its L2 norm; fp32: every element within 1e-4 of that gradient's
      largest magnitude, TF32 off, cuDNN deterministic);
+  3d. the parallel path on one card: the flagship through
+     make_gspmd_multi_step on a one-card mesh (its DeviceMesh over NCCL,
+     parameters placed by param_specs), 10 steps on phase 3b's batch from
+     the same seed: 12+12+12 launches every step, the loss falling and
+     equal to make_multi_step's within 2^-8; ring_flash_attention at the
+     model's attention width (h 6, d 128, bf16, causal), global s 4096
+     over W = 4 ranks as threads of this process on the one card (NCCL
+     refuses two ranks on one device), b 4, forward and backward, against
+     flash_attention on the whole sequence and the plain ring;
+     ring_attention (W = 4) and ulysses_attention (W = 2: 6 heads do not
+     split over 4, which is refused) forward against exact attention;
+     chunked_softmax_cross_entropy (vocab 50304, chunk 8192) against the
+     full loss, value and gradients;
+  3e. head dim 256 on the CUDA-core kernels through the user's entry
+     points: the flagship's width (d_model 768, vocab 50304) over 3 heads
+     of 256, depth cut to 2 layers, serves four requests (prompts 16-100:
+     the online and lazy walks) and one more under
+     HVD_FLASH_VARIANT=twopass, then trains 4 steps at batch 16 x seq 1024
+     through make_gspmd_multi_step on the one-card mesh. Launch counts
+     are zeroed just before and read just after: each of the five
+     CUDA-core kernels (flash_fwd_cc_{online,lazy,twopass},
+     flash_bwd_cc_{dq,dkv}) must have launched and nothing else; the
+     loss must fall, and the first batch's loss on the kernel path must
+     equal the plain path's within 2^-8;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -96,7 +126,12 @@ on failure:
      (ms/step, tokens/s, MFU, and where its device time goes), the
      synthetic-benchmark protocol on ResNet-50 at batch 32 for both norm
      impls (img/s, device time, busy share, top kernels), prefill (at
-     prompts 16, 40, 64, 128, 512 and 960) and decode.
+     prompts 16, 40, 64, 128, 512 and 960) and decode; the GSPMD step's
+     ms/step beside make_multi_step's, the flagship's peak memory with
+     vocab_chunk 0 and 8192 and with remat off and on (with ms/step over
+     20 steps after 3 warm-up steps, each setting timed twice, in turn),
+     ring_flash W = 4 forward and backward beside flash on the whole
+     sequence, and the d-256 kernels beside d 128.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -110,6 +145,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # the port beside this script, never an installed copy
@@ -133,6 +169,8 @@ from horovod_tpu_torch.ops import batch_norm_ref as bn_ref  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention_ref as ref  # noqa: E402
 from horovod_tpu_torch.ops import flash_fwd_ab as fwd_ab  # noqa: E402
+from horovod_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from horovod_tpu_torch.parallel import ring  # noqa: E402
 from horovod_tpu_torch.serving.decode import (  # noqa: E402
     decode_step, prefill_forward)
 from horovod_tpu_torch.serving.engine import ServeEngine  # noqa: E402
@@ -146,6 +184,8 @@ PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
 SM90_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90.cu"
 BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd_sm90.cu"
+CC_FWD_SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
+CC_BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
 BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
 REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "lazy": "horovod_tpu/ops/flash_attention.py:220",
@@ -155,6 +195,10 @@ REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "bn_moments": "horovod_tpu/ops/batch_norm.py:78",
             "bn_moments2": "horovod_tpu/ops/batch_norm.py:95"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+# phase 3e: the flagship's d_model 768 over 3 heads of 256, depth cut
+WIDE_HEADS, WIDE_LAYERS, WIDE_STEPS = 3, 2, 4
+CC_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy", "twopass")
+                 ) + ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
 VISION_BATCH, VISION_SIZE, VISION_STEPS = 32, 224, 10
 BN_PER_STEP = 53   # BatchNorm layers of ResNet-50
 
@@ -191,15 +235,18 @@ def device_profile(fn, iters=20):
     nothing was recorded; {kernel name: ms})."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0) +
-                               e.time_range.elapsed_us() / 1e3 / iters)
+    for _ in range(2):   # a trace that recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0) +
+                                   e.time_range.elapsed_us() / 1e3 / iters)
+        if by_name:
+            break
     return sum(by_name.values()) or None, by_name
 
 
@@ -712,6 +759,144 @@ def check_partial_tiles_and_head_dims(card, dev, errs):
               f"tolerance {share}")
 
 
+WIDE_DIMS = (160, 192, 256)
+
+
+def check_wide_head_dims(card, dev, errs):
+    """Head dims above 128 on the CUDA-core kernels: d 160, 192 and 256
+    (zero-padded to 256 on the host below it) through the public autograd
+    path at s 200 (a partial 64-row tile and a partial 32-key tile), fp32
+    and bf16, causal and not, against the plain walks at the true d and
+    the kernels' tiles, O and dq, dk, dv; then every forward walk at d 256
+    through the launch wrapper at sq 130 causal and sq 64 x sk 200, O and
+    lse. Folds the largest bf16 errors into ``errs`` (fwd_d256, dq_d256,
+    dkv_d256)."""
+    for key in ("fwd_d256", "dq_d256", "dkv_d256"):
+        errs.setdefault(key, 0.0)
+    share, n_cmp = {"bfloat16": 0.0, "float32": 0.0}, 0
+    want_launches = {"flash_fwd_cc_online": 1, "flash_bwd_cc_dq": 1,
+                     "flash_bwd_cc_dkv": 1}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for d in WIDE_DIMS:
+            for causal in (True, False):
+                q, k, v = qkv(1400 + d, b=2, s=200, h=3, d=d, dtype=dtype,
+                              device=dev)
+                g = torch.randn(q.shape, generator=torch.Generator()
+                                .manual_seed(d + 1)).to(dev, dtype)
+                ts = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                fa.reset_launch_counts()
+                out = fa.flash_attention(*ts, causal=causal,
+                                         variant="online", device=dev)
+                out.backward(g)
+                if dict(fa.launch_counts) != want_launches:
+                    raise AssertionError(f"d={d} {dt} launched "
+                                         f"{dict(fa.launch_counts)}")
+                qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
+                p_out, p_lse = plain_fwd(qf, kf, vf, causal, d ** -0.5,
+                                         "online")
+                delta = ref.flash_delta(p_out, gf)
+                want = (p_out, *plain_bwd(qf, kf, vf, gf, p_lse, delta,
+                                          causal, d ** -0.5))
+                label = f"{dt} d={d} causal={causal}"
+                err, frac = hold(flat(out.detach()), want[0], "O", dtype,
+                                 label)
+                share[dt] = max(share[dt], frac)
+                if dtype == torch.bfloat16:
+                    errs["fwd_d256"] = max(errs["fwd_d256"], err)
+                n_cmp += 1
+                for name, t, w in zip(("dq", "dk", "dv"), ts, want[1:]):
+                    err, frac = hold_grad(flat(t.grad), w, dtype,
+                                          f"{name} {label}")
+                    share[dt] = max(share[dt], frac)
+                    key = "dq_d256" if name == "dq" else "dkv_d256"
+                    if dtype == torch.bfloat16:
+                        errs[key] = max(errs[key], err)
+                    n_cmp += 1
+        for variant in fa.VARIANTS:
+            for sq, sk, causal in ((130, 130, True), (64, 200, False)):
+                g = torch.Generator().manual_seed(sq + sk)
+                qf = torch.randn(2, sq, 256, generator=g).to(dev, dtype)
+                kf, vf = (torch.randn(2, sk, 256, generator=g).to(dev, dtype)
+                          for _ in range(2))
+                out, lse = fa._kernel_fwd(qf, kf, vf, causal, 256 ** -0.5,
+                                          variant)
+                p_out, p_lse = plain_fwd(qf, kf, vf, causal, 256 ** -0.5,
+                                         variant)
+                for got, w, what in ((out, p_out, "O"), (lse, p_lse, "lse")):
+                    err, frac = hold(got, w, what, dtype,
+                                     f"{variant} {dt} d=256 sq={sq} sk={sk}")
+                    share[dt] = max(share[dt], frac)
+                    if dtype == torch.bfloat16 and what == "O":
+                        errs["fwd_d256"] = max(errs["fwd_d256"], err)
+                    n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} comparisons of head dims 160/192/256 on the "
+              f"CUDA-core kernels (public autograd path at s 200, fp32 and "
+              f"bf16, causal and not; each walk at d 256 at partial tiles) "
+              f"passed; largest error as a share of its tolerance {share}; "
+              f"largest bf16 |error| fwd {errs['fwd_d256']:.3e}, dq "
+              f"{errs['dq_d256']:.3e}, dk/dv {errs['dkv_d256']:.3e}")
+
+
+def check_ring_pairs(card, dev, errs):
+    """The call patterns of a ring_flash pair after the first: at the
+    model's attention width (b 4, h 6, d 128, s 1024, bf16, the wgmma
+    kernels), at fp32 (b 1) and at d 256 (b 1, bf16; the CUDA-core
+    kernels). The forward non-causal at sq = sk against the plain walk;
+    the backward under a merged lse (the pair's own plus another block of
+    equal mass) whose odd rows are +1e30 (a future pair for those rows),
+    against the plain walks, those rows' dq exactly 0; and a wholly future
+    pair whose keys are offset by 1e3 (logits in the thousands): dq, dk
+    and dv exactly 0."""
+    n_cmp, share = 0, 0.0
+    for dt, b, d in (("bfloat16", 4, 128), ("float32", 1, 128),
+                     ("bfloat16", 1, 256)):
+        dtype = getattr(torch, dt)
+        q, k, v = qkv(1500 + d + b, b=b, s=1024, h=6, d=d, dtype=dtype,
+                      device=dev)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            1501)).to(dev, dtype)
+        qf, kf, vf, dof = (flat(t) for t in (q, k, v, g))
+        scale = d ** -0.5
+        label = f"ring pair {dt} b={b} d={d}"
+        out, lse = fa._kernel_fwd(qf, kf, vf, False, scale, "online")
+        p_out, p_lse = plain_fwd(qf, kf, vf, False, scale, "online")
+        for got, w, what in ((out, p_out, "O"), (lse, p_lse, "lse")):
+            share = max(share, hold(got, w, what, dtype, label)[1])
+            n_cmp += 1
+        future = torch.arange(1024, device=dev) % 2 == 1
+        merged = torch.where(future, torch.full_like(lse, 1e30),
+                             lse + math.log(2.0)).contiguous()
+        delta = ref.flash_delta(out, dof)
+        got = fa._kernel_bwd(qf, kf, vf, dof, merged, delta, False, scale)
+        want = plain_bwd(qf, kf, vf, dof, merged, delta, False, scale)
+        if torch.count_nonzero(got[0][:, future]):
+            raise AssertionError(f"{label}: a +1e30 row's dq is not 0")
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err, frac = hold_grad(a, w, dtype, f"{name} {label} merged lse")
+            share = max(share, frac)
+            if dt == "bfloat16" and d == 128:
+                kernel = "dq" if name == "dq" else "dkv"
+                errs[kernel] = max(errs[kernel], err)
+            n_cmp += 1
+        kbig = (kf.float() + 1e3).to(dtype)
+        for name, t in zip(("dq", "dk", "dv"), fa._kernel_bwd(
+                qf, kbig, vf, dof, torch.full_like(lse, 1e30), delta, False,
+                scale)):
+            if torch.count_nonzero(t):
+                raise AssertionError(f"{label}: a wholly future pair with "
+                                     f"1e3-offset keys gives {name} != 0")
+            n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} ring-pair comparisons (non-causal forward; "
+              f"backward under a merged lse with +1e30 rows; a wholly future "
+              f"pair with 1e3-offset keys exactly 0) at b4 h6 d128 s1024 "
+              f"bf16, fp32 and d 256 passed; largest error as a share of its "
+              f"tolerance {share:.3f}")
+
+
 def vision_bn_shapes(model, images):
     """The (rows, C) each BatchNorm of ``model`` reduces in one training
     forward on ``images`` (one entry per layer, in call order)."""
@@ -1048,6 +1233,294 @@ def check_vision_grads(card, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the parallel path on one card
+
+RING_W, RING_S_LOC, RING_B = 4, 1024, 4
+
+
+def train_gspmd(card, dev, cfg, batch, want_losses):
+    """The flagship through ``trainer.make_gspmd_multi_step`` on a one-card
+    mesh (dp = pp = tp = sp = ep = 1, its DeviceMesh over NCCL), its
+    parameters placed by ``param_specs``: 10 calls of one step each on the
+    batch of phase 3b, from the same seed, launch counts read at every
+    step (12 lazy forwards, 12 dq, 12 dk/dv). The loss must fall and equal
+    ``make_multi_step``'s (phase 3b) within 2^-8 of its value, one bf16
+    rounding. Returns (model, optimizer, multi-step, launches)."""
+    mesh = mesh_lib.build_mesh(dp=1)
+    model, opt, step, toks = train_lm.build_gspmd_step(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, mesh)
+    if not torch.equal(toks[0], batch):
+        raise AssertionError("the GSPMD run's batch is not phase 3b's")
+    groups = {a: torch.distributed.get_backend(mesh.group(a))
+              for a in mesh.axis_names}
+    per_step = {"flash_fwd_lazy": cfg.num_layers,
+                "flash_bwd_sm90_dq": cfg.num_layers,
+                "flash_bwd_sm90_dkv": cfg.num_layers}
+    losses = []
+    fa.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = dict(fa.launch_counts)
+        losses.append(step(model, opt, toks)[2].item())
+        got = {k: v - before.get(k, 0) for k, v in fa.launch_counts.items()}
+        if got != per_step:
+            raise AssertionError(f"GSPMD step {i} launched {got}, expected "
+                                 f"{per_step}")
+    launches = dict(fa.launch_counts)
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"GSPMD losses {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    if max(rel) > 2 ** -8:
+        raise AssertionError(f"GSPMD losses {losses} differ from "
+                             f"make_multi_step's {want_losses}")
+    log(card, f"phase 3d: trained gpt2_small_tpu (flash, tied, bf16 logits) "
+              f"through make_gspmd_multi_step on a one-card mesh "
+              f"{mesh_lib.mesh_layout(mesh)} (process groups {groups}), "
+              f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps: "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; largest |loss - "
+              f"make_multi_step's| / loss {max(rel):.3e} (bound 2^-8); "
+              f"launches {launches} ({per_step} every step)")
+    return model, opt, step, launches
+
+
+def run_thread_ranks(world_size, job):
+    """``job(r, ring)`` for every rank r of a ThreadRing, each on its own
+    thread against this one card; returns the results in rank order and
+    raises the first failure."""
+    world = ring.ThreadRing(world_size)
+    out, errors = [None] * world_size, []
+
+    def rank(r):
+        try:
+            out[r] = job(r, world.rank(r))
+        except Exception:  # noqa: BLE001 — re-raised below
+            import traceback
+            errors.append(traceback.format_exc())
+            world._barrier.abort()
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(world_size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a thread rank failed: {errors[:1]}")
+    return out
+
+
+def ring_operands(dev, seed=1600):
+    """The ring's operands at the model's attention width: q, k, v and dO
+    [b 4, global s 4096, h 6, d 128], bf16, unit scale."""
+    s = RING_W * RING_S_LOC
+    q, k, v = qkv(seed, b=RING_B, s=s, h=6, d=128, dtype=torch.bfloat16,
+                  device=dev)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to(dev, torch.bfloat16)
+    return q, k, v, g
+
+
+def ring_flash_ranks(q, k, v, g, backward=True):
+    """ring_flash forward (and backward) of every rank's shard, each rank
+    a thread driving ``ring_flash_fwd``/``ring_flash_bwd`` itself; the
+    whole-sequence out (and dq, dk, dv), shards concatenated."""
+    d = q.shape[-1]
+    blocks = (ring._fit_block(512, RING_S_LOC),) * 2
+
+    def job(r, rk):
+        sl = slice(r * RING_S_LOC, (r + 1) * RING_S_LOC)
+        qr, kr, vr, gr = (t[:, sl].contiguous() for t in (q, k, v, g))
+        out, lse = ring.ring_flash_fwd(qr, kr, vr, rk, True, d ** -0.5,
+                                       blocks)
+        if not backward:
+            return (out,)
+        return (out, *ring.ring_flash_bwd(qr, kr, vr, out, lse, gr, rk,
+                                          True, d ** -0.5, blocks))
+    parts = run_thread_ranks(RING_W, job)
+    return [torch.cat([p[i] for p in parts], dim=1)
+            for i in range(len(parts[0]))]
+
+
+def check_ring_flash(card, dev):
+    """ring_flash_attention at the model's attention width (h 6, d 128,
+    bf16, causal), global s 4096 over W = 4 thread ranks of 1024, b 4,
+    forward and backward through the kernels (B1 per pair, causal on the
+    diagonal pair and non-causal after; B4/B5 per pair against the merged
+    lse, +1e30 on future pairs): held against flash_attention on the whole
+    sequence on the card and against the same ring on the plain walks,
+    O to two bf16 ulps + 1 % of its largest value, each gradient to two
+    ulps + 1 % of its largest magnitude. Returns the run's launches."""
+    q, k, v, g = ring_operands(dev)
+    fa.reset_launch_counts()
+    got = ring_flash_ranks(q, k, v, g)
+    launches = dict(fa.launch_counts)
+    pairs = RING_W * RING_W
+    want_launches = {"flash_fwd_online": pairs, "flash_bwd_sm90_dq": pairs,
+                     "flash_bwd_sm90_dkv": pairs}
+    if launches != want_launches:
+        raise AssertionError(f"ring_flash launched {launches}, expected "
+                             f"{want_launches}")
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    whole = fa.flash_attention(*ts, causal=True, device=dev)
+    whole.backward(g)
+    with plain_path():
+        plain = ring_flash_ranks(q, k, v, g)
+    fa.reset_launch_counts()
+    share = {}
+    for label, want in (("whole-sequence flash",
+                         [whole.detach()] + [t.grad for t in ts]),
+                        ("plain ring", plain)):
+        frac = hold(flat(got[0]), flat(want[0]), "O", torch.bfloat16,
+                    f"ring_flash vs {label}")[1]
+        for name, a, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            frac = max(frac, hold_grad(flat(a), flat(w), torch.bfloat16,
+                                       f"ring_flash {name} vs {label}")[1])
+        share[label] = round(frac, 4)
+    log(card, f"phase 3d: ring_flash_attention W={RING_W} thread ranks x "
+              f"s {RING_S_LOC} (global 4096), b {RING_B} h 6 d 128 bf16 "
+              f"causal, forward and backward: launches {launches}; O, dq, "
+              f"dk, dv agree with the whole sequence's flash_attention and "
+              f"with the plain ring (largest error as a share of its "
+              f"tolerance {share})")
+    return launches
+
+
+def check_seq_parallel_fwd(card, dev):
+    """ring_attention over W = 4 thread ranks and ulysses_attention over
+    W = 2 (6 heads do not split over 4: that W is refused, as the
+    reference refuses it) at the same shapes, forward, against exact
+    attention over the whole sequence (bf16 O tolerance)."""
+    q, k, v, _ = ring_operands(dev, 1610)
+    want = ring.full_attention(q, k, v, causal=True)
+    share = {}
+    for name, w in (("ring", RING_W), ("ulysses", 2)):
+        s_loc = q.shape[1] // w
+        fn = getattr(ring, f"{name}_attention")
+
+        def job(r, rk, fn=fn, s_loc=s_loc):
+            sl = slice(r * s_loc, (r + 1) * s_loc)
+            with torch.no_grad():
+                return fn(*(t[:, sl].contiguous() for t in (q, k, v)),
+                          axis_name=rk, causal=True)
+        got = torch.cat(run_thread_ranks(w, job), dim=1)
+        share[f"{name} W={w}"] = round(hold(
+            flat(got), flat(want), "O", torch.bfloat16, name)[1], 4)
+    try:
+        ring.ulysses_attention(q, q, q, axis_name=ring.ThreadRing(4).rank(0))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("ulysses took 6 heads over 4 ranks")
+    log(card, f"phase 3d: ring_attention (W=4) and ulysses_attention (W=2) "
+              f"at b {RING_B} s 4096 h 6 d 128 bf16 causal, forward, agree "
+              f"with exact attention over the whole sequence (largest error "
+              f"as a share of its tolerance {share}); W=4 refused: "
+              f"{refused!r}")
+
+
+def check_chunked_ce(card, dev, cfg):
+    """chunked_softmax_cross_entropy at the flagship's head (vocab 50304,
+    d_model 768, bf16 hidden states, fp32 head weight) at b16 x s1024,
+    chunk 8192, against the full loss (bf16 logits, the port's
+    softmax_cross_entropy): the value within 2^-8 of it (the full loss
+    rounds every logit, and logit - max, to bf16), the gradients of the
+    hidden states and the head weight within two bf16 ulps + 1 % of each
+    one's largest magnitude."""
+    g = torch.Generator().manual_seed(1700)
+    hidden = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                         generator=g).to(dev, cfg.dtype)
+    weight = (torch.randn(cfg.vocab_size, cfg.d_model, generator=g) *
+              cfg.d_model ** -0.5).to(dev)
+    targets = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                            generator=g).to(dev)
+    weights = torch.ones(targets.shape, device=dev)
+    weights[:, -1] = 0.0
+    out = {}
+    for name in ("full", "chunked"):
+        h, w = (t.detach().clone().requires_grad_(True)
+                for t in (hidden, weight))
+        if name == "full":
+            loss = trainer.softmax_cross_entropy(
+                tr.head_logits(cfg, h, w), targets, weights)
+        else:
+            loss = tr.chunked_softmax_cross_entropy(h, w.t(), targets, 8192,
+                                                    weights)
+        loss.backward()
+        out[name] = (loss.item(), h.grad, w.grad)
+    rel = abs(out["chunked"][0] - out["full"][0]) / abs(out["full"][0])
+    if rel > 2 ** -8:
+        raise AssertionError(f"chunked loss {out['chunked'][0]} vs full "
+                             f"{out['full'][0]}")
+    share = max(hold_grad(a, w, torch.bfloat16, f"chunked CE d{name}")[1]
+                for name, a, w in zip(("hidden", "weight"),
+                                      out["chunked"][1:], out["full"][1:]))
+    log(card, f"phase 3d: chunked_softmax_cross_entropy vocab "
+              f"{cfg.vocab_size} chunk 8192 at b{TRAIN_BATCH} x "
+              f"s{TRAIN_SEQ}: loss {out['chunked'][0]:.6f} vs full "
+              f"{out['full'][0]:.6f} (|diff| / loss {rel:.3e}, bound 2^-8); "
+              f"gradients agree (largest error as a share of its tolerance "
+              f"{share:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: head dim 256 through the user's entry points
+
+
+def run_wide_heads(card, dev, train_cfg, requests):
+    """The flagship's width (d_model 768, vocab 50304, d_ff 3072) over
+    WIDE_HEADS heads of 256, depth cut to WIDE_LAYERS: the serving engine
+    answers requests[:4] (prompts 16-100: the online and lazy walks) and
+    requests[3] again under HVD_FLASH_VARIANT=twopass, then the model
+    trains WIDE_STEPS steps on one batch of TRAIN_BATCH x TRAIN_SEQ
+    through make_gspmd_multi_step on a one-card mesh. The counts are
+    zeroed just before and read just after: each of the five CUDA-core
+    kernels must have launched, and no other kernel. The loss must fall,
+    and the training batch's loss through the kernels must equal the
+    plain path's within 2^-8 (launches of that comparison not counted).
+    Returns the run's launches."""
+    cfg = dataclasses.replace(train_cfg, num_heads=WIDE_HEADS,
+                              num_layers=WIDE_LAYERS)
+    if cfg.head_dim != 256:
+        raise AssertionError(f"head dim {cfg.head_dim}, expected 256")
+    serve_model = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    mesh = mesh_lib.build_mesh(dp=1)
+    model, opt, step, toks = train_lm.build_gspmd_step(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, mesh)
+    fa.reset_launch_counts()
+    serve(cfg, serve_model, requests[:4], dev)
+    os.environ["HVD_FLASH_VARIANT"] = "twopass"
+    try:
+        serve(cfg, serve_model, requests[3:4], dev)
+    finally:
+        del os.environ["HVD_FLASH_VARIANT"]
+    losses = [step(model, opt, toks)[2].item() for _ in range(WIDE_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    missing = [n for n in CC_NAMES if not launches.get(n)]
+    if missing or set(launches) - set(CC_NAMES):
+        raise AssertionError(f"the head-dim-256 run launched {launches}; "
+                             f"missing {missing}")
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"head-dim-256 losses {losses}")
+    loss_fn = tr.lm_loss_fn(serve_model)
+    with torch.no_grad():
+        got = loss_fn(serve_model, toks[0]).item()
+        with plain_path():
+            want = loss_fn(serve_model, toks[0]).item()
+    rel = abs(got - want) / abs(want)
+    if not math.isfinite(got) or rel > 2 ** -8:
+        raise AssertionError(f"head-dim-256 loss {got} vs plain {want}")
+    fa.reset_launch_counts()
+    log(card, f"phase 3e: d_model {cfg.d_model} over {cfg.num_heads} heads "
+              f"of {cfg.head_dim}, {cfg.num_layers} layers: served 5 "
+              f"requests (one under twopass), trained {WIDE_STEPS} GSPMD "
+              f"steps at b{TRAIN_BATCH} x s{TRAIN_SEQ}: loss "
+              f"{[round(x, 4) for x in losses]}; launches {launches}; loss "
+              f"through the kernels {got:.6f} vs plain path {want:.6f} "
+              f"(|diff| / loss {rel:.3e}, bound 2^-8)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings of the training path
 
 
@@ -1230,11 +1703,16 @@ def time_head_dim_cost(card, dev):
                                                    device=dev), (q, k, v), g)
         for name, fn in (("fwd", fwd), ("fwd+bwd", fwd_bwd)):
             row[f"d{d} {name}"] = (device_ms(fn, 10), time_ms(fn, 10))
+    # the ratio of profiler figures, of event figures where the profiler
+    # recorded nothing for either
+    ratio = {n: (row[f"d96 {n}"][0] / row[f"d128 {n}"][0]
+                 if row[f"d96 {n}"][0] and row[f"d128 {n}"][0]
+                 else row[f"d96 {n}"][1] / row[f"d128 {n}"][1])
+             for n in ("fwd", "fwd+bwd")}
     log(card, f"phase 4: flash_attention bf16 causal b={TRAIN_BATCH} h=6 "
               f"s={TRAIN_SEQ}, d 96 padded to 128 against d 128, (device ms "
               f"by profiler, event ms) per call: {row}; d 96 / d 128: fwd "
-              f"{row['d96 fwd'][0] / row['d128 fwd'][0]:.3f}, fwd+bwd "
-              f"{row['d96 fwd+bwd'][0] / row['d128 fwd+bwd'][0]:.3f}")
+              f"{ratio['fwd']:.3f}, fwd+bwd {ratio['fwd+bwd']:.3f}")
 
 
 def time_training(card, dev, model, opt, batch, cfg):
@@ -1294,6 +1772,203 @@ def time_training(card, dev, model, opt, batch, cfg):
               f"{cfg.num_layers} layers, head) {busy - loss_ms - opt_ms:.3f}; "
               f"by aten operator (self time): " +
         "; ".join(f"{k} {v:.3f}" for k, v in by_op[:12]))
+    return m
+
+
+def time_gspmd(card, dev, model, opt, step, batch, multi):
+    """ms/step of the GSPMD flagship step (``make_gspmd_multi_step``, one
+    call of 10 steps per window, one warm-up window and three timed ones,
+    each ending in a read of the loss), beside ``make_multi_step``'s
+    figures from ``time_training`` (``multi``)."""
+    stacked = batch.expand(TRAIN_STEPS, *batch.shape)
+    step(model, opt, stacked)[2].item()
+    window_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(model, opt, stacked)[2].item()
+        window_s.append((time.perf_counter() - t0) / TRAIN_STEPS)
+    meta = {"batch_per_chip": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "cfg": model.cfg, "model": "gpt2-small-tpu-flash"}
+    m = train_lm.transformer_lm_metrics(window_s, meta,
+                                        train_lm.peak_bf16_flops(dev))
+    busy = device_ms(lambda: step(model, opt, batch[None]), iters=2)
+    log(card, f"phase 4: GSPMD step (make_gspmd_multi_step, one-card mesh) "
+              f"b={TRAIN_BATCH} s={TRAIN_SEQ}: {m['ms_per_step']:.3f} "
+              f"ms/step best of 3 windows (mean {m['ms_per_step_mean']:.3f}, "
+              f"+- {m['ms_per_step_pm']:.3f}), "
+              f"{m['tokens_per_sec_per_chip']:.1f} tokens/s, one step "
+              f"{busy:.3f} ms device; make_multi_step in this run: "
+              f"{multi['ms_per_step']:.3f} ms/step (mean "
+              f"{multi['ms_per_step_mean']:.3f}), GSPMD / make_multi_step "
+              f"{m['ms_per_step'] / multi['ms_per_step']:.3f}")
+
+
+def time_ring(card, dev):
+    """ring_flash W = 4 on thread ranks (global s 4096, b 4, h 6, d 128,
+    bf16, causal), forward alone and forward + backward, beside
+    flash_attention on the whole sequence: the device ms of every kernel
+    the call runs (profiler) and the events' span over the call. The ring
+    runs every pair, the future ones too (as the reference does): 14 of
+    its 16 pairs carry work against the whole sequence's 8 causal
+    blocks' worth."""
+    q, k, v, g = ring_operands(dev, 1620)
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def whole_fwd():
+        with torch.no_grad():
+            return fa.flash_attention(q, k, v, causal=True, device=dev)
+
+    def whole_fwd_bwd():
+        torch.autograd.grad(fa.flash_attention(*ts, causal=True,
+                                               device=dev), ts, g)
+    calls = {"ring fwd": lambda: ring_flash_ranks(q, k, v, g, False),
+             "ring fwd+bwd": lambda: ring_flash_ranks(q, k, v, g),
+             "whole fwd": whole_fwd, "whole fwd+bwd": whole_fwd_bwd}
+    row, families = {}, {}
+    for name, fn in calls.items():
+        busy, by_name = device_profile(fn, 3)
+        row[name] = (busy, time_ms(fn, 3, 1))
+        families[name] = {}
+        for kname, ms in by_name.items():
+            fam = kernel_class(kname)
+            families[name][fam] = round(families[name].get(fam, 0.0) + ms, 4)
+    fa.reset_launch_counts()
+    log(card, f"phase 4: ring_flash W={RING_W} thread ranks, b {RING_B} "
+              f"global s 4096 h 6 d 128 bf16 causal, (device ms by profiler, "
+              f"event span ms) per call: "
+              f"{ {k_: (round(a, 4), round(b, 4)) for k_, (a, b) in row.items()} }; "
+              f"ring / whole: fwd {row['ring fwd'][0] / row['whole fwd'][0]:.3f}, "
+              f"fwd+bwd {row['ring fwd+bwd'][0] / row['whole fwd+bwd'][0]:.3f}; "
+              f"device ms by kernel family {families}")
+
+
+def time_memory_and_remat(card, dev, model, opt, cfg, batch):
+    """The flagship's peak device memory (torch.cuda.max_memory_allocated
+    over one loss forward and backward, the weights, their gradients and
+    the optimizer's state included) with vocab_chunk 0 and 8192; then
+    ms/step (CUDA events over 5 steps after one warm-up step) and the
+    peak of a training step with remat off and on (cfg.remat, no policy:
+    every block recomputed in the backward)."""
+    peak = {}
+    for chunk in (0, 8192):
+        loss_fn = tr.lm_loss_fn(model, vocab_chunk=chunk)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss_fn(model, batch).backward()
+        torch.cuda.synchronize()
+        peak[f"vocab_chunk {chunk}"] = torch.cuda.max_memory_allocated() / 2**30
+    model.zero_grad(set_to_none=True)
+    rows = {}
+    for window in (1, 2):
+        for remat in (False, True):
+            model.cfg = dataclasses.replace(cfg, remat=remat)
+            step = trainer.make_train_step(model, opt, tr.lm_loss_fn(model))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: step(batch), iters=20, warmup=3)
+            rows[f"remat {remat} #{window}"] = (round(ms, 3), round(
+                torch.cuda.max_memory_allocated() / 2**30, 3))
+    model.cfg = cfg
+    ratios = [rows[f"remat True #{w}"][0] / rows[f"remat False #{w}"][0]
+              for w in (1, 2)]
+    log(card, f"phase 4: flagship b={TRAIN_BATCH} s={TRAIN_SEQ} peak device "
+              f"memory of a loss forward+backward (GiB): "
+              f"{ {k_: round(v_, 3) for k_, v_ in peak.items()} }; training "
+              f"step (ms/step by events over 20 steps after 3 warm-up "
+              f"steps, peak GiB; two windows each, in turn): {rows}; remat "
+              f"on / off: {ratios[0]:.3f}, {ratios[1]:.3f}")
+
+
+def time_wide_kernels(card, dev, errs, launches):
+    """The CUDA-core kernels at d 256 beside the wgmma ones at d 128 (bf16,
+    causal, b 4 h 6 s 1024): device ms per call of each forward walk
+    (online, lazy, twopass), dq and dk/dv, against the bound (operations
+    at the bf16 peak, or the bytes), their plain versions at the kernels'
+    tiles and SDPA's forward and backward; returns the CUDA-core kernels'
+    JSON entries, each with its launches in phase 3e's run
+    (``launches``)."""
+    b, s, h = 4, 1024, 6
+    entries, rows = [], {}
+    for d in (128, 256):
+        q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=torch.bfloat16,
+                      device=dev)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            d)).to(dev, torch.bfloat16)
+        qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
+        scale = d ** -0.5
+        out, lse = fa._kernel_fwd(qf, kf, vf, True, scale, "online")
+        delta = ref.flash_delta(out, gf)
+        ext = fa.extension()
+        args = (True, float(scale * fa.LOG2E), float(scale))
+        dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+        dq_walk, dkv_walk = fa.bwd_kernel_blocks(qf, kf)
+        if fa.on_sm90(qf):
+            k_dq = lambda: ext.flash_bwd_sm90_dq(qf, kf, vf, gf, lse, delta,
+                                                 dq, *args, dq_walk[0])
+            k_dkv = lambda: ext.flash_bwd_sm90_dkv(qf, kf, vf, gf, lse,
+                                                   delta, dk, dv, *args)
+        else:
+            k_dq = lambda: ext.flash_bwd_dq(qf, kf, vf, gf, lse, delta, dq,
+                                            *args)
+            k_dkv = lambda: ext.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, dk,
+                                              dv, *args)
+        qs, ks, vs = (t.reshape(b, h, s, d).detach().requires_grad_(True)
+                      for t in (qf, kf, vf))
+        o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                             is_causal=True)
+        go = gf.reshape(b, h, s, d)
+        library = {
+            "fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs.detach(), ks.detach(), vs.detach(), is_causal=True),
+            "bwd": lambda: torch.autograd.grad(o, (qs, ks, vs), go,
+                                               retain_graph=True)}
+        lib = {n_: time_pair(fn) for n_, fn in library.items()}
+        calls = {
+            variant: (lambda variant=variant: fa._kernel_fwd(
+                qf, kf, vf, True, scale, variant),
+                lambda variant=variant: plain_fwd(qf, kf, vf, True, scale,
+                                                  variant),
+                attention_work(b * h, s, d, True, 2), lib["fwd"])
+            for variant in fa.VARIANTS}
+        calls.update({
+            "dq": (k_dq, lambda: ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta,
+                                                  True, *dq_walk, scale),
+                   bwd_work(b * h, s, d, True, 2, "dq"), lib["bwd"]),
+            "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(
+                qf, kf, vf, gf, lse, delta, True, *dkv_walk, scale),
+                bwd_work(b * h, s, d, True, 2, "dkv"), lib["bwd"])})
+        for name, (kernel, plain, (ops, nbytes), lib_t) in calls.items():
+            kt = time_pair(kernel, iters=20)
+            plain_ms = device_ms(plain, 2) or time_ms(plain, 2, 1)
+            b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+            rows[f"d{d} {name}"] = (round(kt[2], 5), round(b_ms, 5),
+                                    round(plain_ms, 3), round(lib_t[2], 5))
+            if d == 256:
+                fwd = name in fa.VARIANTS
+                counter = f"flash_{'fwd' if fwd else 'bwd'}_cc_{name}"
+                entries.append({
+                    "name": counter, "head_dim": d,
+                    "route": "cuda",
+                    "source": CC_FWD_SOURCE if fwd else CC_BWD_SOURCE,
+                    "replaces": REPLACES[name],
+                    "launches": launches.get(counter, 0),
+                    "max_abs_err": errs["fwd_d256" if fwd else
+                                        f"{name}_d256"],
+                    "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_t[2]})
+        del o, qs, ks, vs
+    fa.reset_launch_counts()
+    log(card, f"phase 4: bf16 causal b={b} h={h} s={s}, d 256 on the "
+              f"CUDA-core kernels beside d 128 on the wgmma ones, (kernel "
+              f"ms, bound ms, plain ms, SDPA ms; bwd: SDPA's whole "
+              f"backward): {rows}; d256 / d128: online "
+              f"{rows['d256 online'][0] / rows['d128 online'][0]:.2f}, lazy "
+              f"{rows['d256 lazy'][0] / rows['d128 lazy'][0]:.2f}, twopass "
+              f"{rows['d256 twopass'][0] / rows['d128 twopass'][0]:.2f}, dq "
+              f"{rows['d256 dq'][0] / rows['d128 dq'][0]:.2f}, dk/dv "
+              f"{rows['d256 dkv'][0] / rows['d128 dkv'][0]:.2f}")
+    return entries
 
 
 def bn_work(rows, c, inputs, itemsize):
@@ -1442,6 +2117,8 @@ def main():
     errs.update(check_bwd_kernels(card, dev))
     check_sm90_bwd(card, dev, errs)
     check_partial_tiles_and_head_dims(card, dev, errs)
+    check_wide_head_dims(card, dev, errs)
+    check_ring_pairs(card, dev, errs)
     # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
     step_shapes = vision_bn_shapes(
         models.build("resnet50", norm_impl="tpu", device=dev).train(),
@@ -1538,7 +2215,7 @@ def main():
     hvd.init()
     check_nccl(card, dev)
     train_cfg = train_lm.flagship_config(True)
-    t_model, t_opt, t_batch, train_launches, _ = train_flagship(
+    t_model, t_opt, t_batch, train_launches, train_losses = train_flagship(
         card, dev, train_cfg)
     launches.update({k: train_launches[k]
                      for k in ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")})
@@ -1547,6 +2224,18 @@ def main():
     # ---- phase 3c: train ResNet-50 through the BatchNorm kernels
     launches.update(train_vision(card, dev))
     check_vision_grads(card, dev)
+
+    # ---- phase 3d: the parallel path on one card
+    g_model, g_opt, g_step, gspmd_launches = train_gspmd(
+        card, dev, train_cfg, t_batch, train_losses)
+    ring_launches = check_ring_flash(card, dev)
+    check_seq_parallel_fwd(card, dev)
+    check_chunked_ce(card, dev, train_cfg)
+    log(card, f"phase 3d: launches of this slice's paths: GSPMD flagship "
+              f"{gspmd_launches}, ring_flash W={RING_W} {ring_launches}")
+
+    # ---- phase 3e: head dim 256 on the CUDA-core kernels
+    wide_launches = run_wide_heads(card, dev, train_cfg, requests)
 
     # ---- phase 4: timings
     kernels = []
@@ -1579,10 +2268,15 @@ def main():
     time_fwd_host(card, dev, h, d)
     time_head_dim_cost(card, dev)
     kernels.extend(time_bwd_kernels(card, dev, launches, errs))
-    time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
+    multi = time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
+    time_gspmd(card, dev, g_model, g_opt, g_step, t_batch, multi)
+    del g_model, g_opt, g_step
+    time_memory_and_remat(card, dev, t_model, t_opt, train_cfg, t_batch)
     kernels.extend(time_bn_kernels(card, dev, step_shapes, launches, errs))
     del t_model, t_opt
     torch.cuda.empty_cache()
+    time_ring(card, dev)
+    kernels.extend(time_wide_kernels(card, dev, errs, wide_launches))
     # the three variants side by side at the serving max_len
     for dt in (torch.bfloat16, torch.float32):
         qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in qkv(

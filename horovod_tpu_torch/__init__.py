@@ -17,7 +17,12 @@ InceptionV3; ``models.mnist.MnistCNN``), ``SGD`` with momentum,
 ``trainer.make_data_parallel_step`` and ``synthetic_benchmark`` — whose
 ``norm_impl="tpu"`` BatchNorm reduces through the statistics kernels
 (``ops.batch_norm``). Every Pallas kernel of the JAX package now has a
-hand-written Hopper counterpart. See ROADMAP.md for what comes next.
+hand-written Hopper counterpart. Tensor and sequence parallelism:
+``parallel.mesh`` (the dp/pp/tp/sp/ep mesh, PartitionSpecs placed as
+DTensors), ``parallel.ring`` (ring, ring-flash and Ulysses attention),
+Megatron tensor parallelism in ``models.transformer`` (``param_specs``,
+``batch_spec``) and ``trainer.make_gspmd_step`` /
+``make_gspmd_multi_step``. See ROADMAP.md for what comes next.
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -31,7 +36,7 @@ from .mpi_ops import (  # noqa: F401
     init, shutdown, is_initialized, mpi_threads_supported,
     size, local_size, rank, local_rank, process_rank, process_count,
     allreduce, allreduce_, allreduce_async, allreduce_async_,
-    grouped_allreduce, allgather, allgather_async,
+    grouped_allreduce, allgather, allgather_async, reducescatter, alltoall,
     broadcast, broadcast_, broadcast_async, broadcast_async_,
     poll, synchronize)
 from .ops.compression import Compression  # noqa: F401

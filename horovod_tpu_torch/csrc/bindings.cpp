@@ -8,28 +8,29 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <cuda_runtime.h>
 
-extern "C" cudaError_t hvd_flash_fwd(const float* q, const float* k,
-                                     const float* v, float* o, float* lse,
+extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
+                                     const void* v, void* o, float* lse,
                                      int bh, int sq, int sk, int d,
-                                     int variant, int causal, float scale2,
-                                     cudaStream_t stream);
+                                     int dtype, int variant, int causal,
+                                     float scale2, cudaStream_t stream);
 extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int bh, int sq, int sk, int d,
                                           int variant, int causal,
                                           float scale2, int cta_rows,
                                           cudaStream_t stream);
-extern "C" cudaError_t hvd_flash_bwd_dq(const float* q, const float* k,
-                                        const float* v, const float* dout,
+extern "C" cudaError_t hvd_flash_bwd_dq(const void* q, const void* k,
+                                        const void* v, const void* dout,
                                         const float* lse, const float* delta,
-                                        float* dq, int bh, int sq, int sk,
-                                        int d, int causal, float scale2,
-                                        float scale, cudaStream_t stream);
-extern "C" cudaError_t hvd_flash_bwd_dkv(const float* q, const float* k,
-                                         const float* v, const float* dout,
+                                        void* dq, int bh, int sq, int sk,
+                                        int d, int dtype, int causal,
+                                        float scale2, float scale,
+                                        cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_dkv(const void* q, const void* k,
+                                         const void* v, const void* dout,
                                          const float* lse, const float* delta,
-                                         float* dk, float* dv, int bh, int sq,
-                                         int sk, int d, int causal,
+                                         void* dk, void* dv, int bh, int sq,
+                                         int sk, int d, int dtype, int causal,
                                          float scale2, float scale,
                                          cudaStream_t stream);
 extern "C" cudaError_t hvd_flash_bwd_sm90_dq(
@@ -87,23 +88,23 @@ void check_fwd(const char* which, const torch::Tensor& q,
               ": lse must be fp32");
 }
 
-// The fp32 forward (variant 0 online, 1 lazy, 2 twopass) on the CUDA
-// cores (flash_fwd.cu).
+// The forward (variant 0 online, 1 lazy, 2 twopass) on the CUDA cores
+// (flash_fwd.cu): fp32 at every compiled head dim, bf16 at d 256.
 void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, torch::Tensor& out, torch::Tensor& lse,
                int64_t variant, bool causal, double scale2) {
   check_fwd("flash_fwd", q, k, v, out, lse);
-  for (const auto& t : {q, k, v, out})
-    TORCH_CHECK(t.scalar_type() == torch::kFloat32,
-                "flash_fwd: q, k, v and out must be float32");
+  int dtype = kernel_dtype(q, "flash_fwd");
+  for (const auto& t : {k, v, out})
+    TORCH_CHECK(t.scalar_type() == q.scalar_type(),
+                "flash_fwd: q, k, v and out must share a dtype");
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_fwd", hvd_flash_fwd(
-      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
-      out.data_ptr<float>(), lse.data_ptr<float>(),
-      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
-      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
-      static_cast<int>(variant), causal ? 1 : 0, static_cast<float>(scale2),
-      stream_of(q)));
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), dtype, static_cast<int>(variant),
+      causal ? 1 : 0, static_cast<float>(scale2), stream_of(q)));
 }
 
 // The bf16 forward (variant 0 online, 1 lazy, 2 twopass) on wgmma and TMA
@@ -150,8 +151,9 @@ void check_bwd(const char* which, std::initializer_list<torch::Tensor> ts,
               which, ": lse and delta must be [b*h, sq]");
 }
 
-// Every backward operand in one dtype: fp32 for the CUDA-core kernels
-// (flash_bwd.cu), bf16 for the wgmma/TMA ones (flash_bwd_sm90.cu).
+// Every backward operand in one dtype: fp32 (or bf16 at d 256) for the
+// CUDA-core kernels (flash_bwd.cu), bf16 for the wgmma/TMA ones
+// (flash_bwd_sm90.cu).
 void check_dtype(const char* which, std::initializer_list<torch::Tensor> ts,
                  torch::ScalarType dtype) {
   for (const auto& t : ts)
@@ -183,40 +185,42 @@ void check_dkv(const char* which, const torch::Tensor& q,
   check_dtype(which, {q, k, v, dout, dk, dv}, dtype);
 }
 
-// fp32 dq on the CUDA cores
+// dq on the CUDA cores: fp32 at every compiled head dim, bf16 at d 256
 void flash_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
                   const torch::Tensor& v, const torch::Tensor& dout,
                   const torch::Tensor& lse, const torch::Tensor& delta,
                   torch::Tensor& dq, bool causal, double scale2,
                   double scale) {
-  check_dq("flash_bwd_dq", q, k, v, dout, lse, delta, dq, torch::kFloat32);
+  int dtype = kernel_dtype(q, "flash_bwd_dq");
+  check_dq("flash_bwd_dq", q, k, v, dout, lse, delta, dq, q.scalar_type());
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_bwd_dq", hvd_flash_bwd_dq(
-      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
-      dout.data_ptr<float>(), lse.data_ptr<float>(), delta.data_ptr<float>(),
-      dq.data_ptr<float>(), static_cast<int>(q.size(0)),
-      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), causal ? 1 : 0,
-      static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), dtype,
+      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
+      stream_of(q)));
 }
 
-// fp32 dk and dv on the CUDA cores
+// dk and dv on the CUDA cores: fp32 at every compiled head dim, bf16 at
+// d 256
 void flash_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v, const torch::Tensor& dout,
                    const torch::Tensor& lse, const torch::Tensor& delta,
                    torch::Tensor& dk, torch::Tensor& dv, bool causal,
                    double scale2, double scale) {
+  int dtype = kernel_dtype(q, "flash_bwd_dkv");
   check_dkv("flash_bwd_dkv", q, k, v, dout, lse, delta, dk, dv,
-            torch::kFloat32);
+            q.scalar_type());
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_bwd_dkv", hvd_flash_bwd_dkv(
-      q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
-      dout.data_ptr<float>(), lse.data_ptr<float>(), delta.data_ptr<float>(),
-      dk.data_ptr<float>(), dv.data_ptr<float>(),
-      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
-      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
-      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
-      stream_of(q)));
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
+      dv.data_ptr(), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), dtype, causal ? 1 : 0,
+      static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
 }
 
 // bf16 dq on wgmma and TMA, with cta_rows (64 or 128) query rows per CTA
@@ -295,15 +299,17 @@ void bn_moments(const torch::Tensor& a, const torch::Tensor& b,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "Flash-attention forward, fp32 online/lazy/twopass, on the CUDA "
-        "cores");
+        "Flash-attention forward, online/lazy/twopass, on the CUDA cores "
+        "(fp32, and bf16 at d 256)");
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
         "Flash-attention forward, bf16 online/lazy/twopass, on wgmma and "
         "TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
-        "Flash-attention backward, dq, fp32 on the CUDA cores");
+        "Flash-attention backward, dq, on the CUDA cores (fp32, and bf16 "
+        "at d 256)");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
-        "Flash-attention backward, dk and dv, fp32 on the CUDA cores");
+        "Flash-attention backward, dk and dv, on the CUDA cores (fp32, "
+        "and bf16 at d 256)");
   m.def("flash_bwd_sm90_dq", &flash_bwd_sm90_dq,
         "Flash-attention backward, dq, bf16 on wgmma and TMA");
   m.def("flash_bwd_sm90_dkv", &flash_bwd_sm90_dkv,

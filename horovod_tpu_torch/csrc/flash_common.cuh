@@ -1,6 +1,6 @@
-// Helpers shared by the flash-attention kernels: the fp32 CUDA-core
-// kernels (flash_fwd.cu, flash_bwd.cu) take the tile shape and the fp32
-// tile loads; the wgmma kernels (through flash_sm90.cuh) take the
+// Helpers shared by the flash-attention kernels: the CUDA-core kernels
+// (flash_fwd.cu, flash_bwd.cu) take the tile shape, the conversions of
+// their fp32 or bf16 inputs and the tile loads; the wgmma kernels (through flash_sm90.cuh) take the
 // constants, bf16 packing and the quad reductions over an accumulator row
 // (the four threads 4g .. 4g+3 that hold one row's columns); both take the
 // once-per-device dynamic shared-memory opt-in.
@@ -16,7 +16,6 @@
 namespace {
 
 constexpr int kBlock = 64;      // rows per q tile and per k tile
-constexpr int kThreads = 128;   // 4 warps
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -37,22 +36,46 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// fp32 tiles: rows padded by one float
+// value conversions of the CUDA-core kernels' input types (fp32 or bf16;
+// the intrinsics, since the build forbids implicit bf16 conversions)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T (nearest even) and widened back: what an operand cast to
+// the input dtype before a product holds
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// fp32 tiles in shared memory: rows padded by one float
 template <int D>
 struct F32Tile {
   static constexpr int kStride = D + 1;
   static constexpr int kElems = kBlock * kStride;
 };
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int rows, int tid) {
-  constexpr int kStride = F32Tile<D>::kStride;
-  for (int i = tid; i < kBlock * D; i += kThreads) {
+// ROWS rows of a [rows, D] T matrix from row0 into an fp32 tile, by NT
+// threads; rows past the end are zero-filled
+template <typename T, int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int rows, int tid) {
+  constexpr int kStride = D + 1;
+  for (int i = tid; i < ROWS * D; i += NT) {
     int r = i / D;
     int c = i % D;
     int gr = row0 + r;
-    dst[r * kStride + c] = gr < rows ? src[static_cast<size_t>(gr) * D + c] : 0.f;
+    dst[r * kStride + c] =
+        gr < rows ? to_f32(src[static_cast<size_t>(gr) * D + c]) : 0.f;
   }
 }
 

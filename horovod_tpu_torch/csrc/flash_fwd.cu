@@ -1,39 +1,45 @@
-// Flash-attention forward for Hopper (sm_90a) in fp32, on the CUDA cores:
-// the fp32 variants of horovod_tpu/ops/flash_attention.py. Every bf16
-// forward runs on wgmma and TMA in flash_fwd_sm90.cu.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: every
+// fp32 forward, and the bf16 forward at head dims above 128. The bf16
+// forward up to d 128 runs on wgmma and TMA in flash_fwd_sm90.cu.
 //
 // Replaces the Pallas TPU kernels behind pl.pallas_call in
-// horovod_tpu/ops/flash_attention.py (_flash_fwd), in fp32:
+// horovod_tpu/ops/flash_attention.py (_flash_fwd):
 //   online  -> _fwd_kernel           (rescale every k tile)
 //   lazy    -> _fwd_kernel_lazy      (rescale only when a tile raises the
 //                                     row max; k tiles diagonal-first)
 //   twopass -> _fwd_kernel_twopass   (pass 1 row max, pass 2 accumulate)
 //
 // Contract (same as the TPU kernels): q/k/v are [b*h, s, d] contiguous
-// fp32; O is fp32; lse is the natural-log row log-sum-exp, fp32, [b*h, sq]
-// (one row per query, not the TPU's 8-sublane replicated layout). The
-// softmax runs in the exp2 domain with log2(e) folded into the logit
-// scale; masked logits take the finite sentinel -1e30, never -inf: a row
-// whose first tile is fully masked accumulates exp2(0) = 1 garbage that
-// the next tile's alpha = exp2(-1e30 - m) = 0 wipes, where -inf would give
-// NaN. The causal k loop stops at the diagonal tile.
+// fp32 or bf16; O is in their dtype; lse is the natural-log row
+// log-sum-exp, fp32, [b*h, sq] (one row per query, not the TPU's 8-sublane
+// replicated layout). Logits are fp32 products of the input-dtype values;
+// P is rounded to V's dtype before P@V (a no-op in fp32) while the row sum
+// l takes it unrounded; O accumulates in fp32. The softmax runs in the
+// exp2 domain with log2(e) folded into the logit scale; masked logits take
+// the finite sentinel -1e30, never -inf: a row whose first tile is fully
+// masked accumulates exp2(0) = 1 garbage that the next tile's
+// alpha = exp2(-1e30 - m) = 0 wipes, where -inf would give NaN. The causal
+// k loop stops at the diagonal tile.
 //
 // Lengths. Any sq and sk: a partial last q tile is zero-filled on load and
 // its rows past sq are never stored; a partial last k tile is zero-filled
 // and its columns past sk are masked (col < sk), since a zero key's logit
 // is 0, not -1e30.
 //
-// Design. One CTA of 4 warps per (b*h, 64-row q tile); each pair of
-// threads owns one query row. K/V tiles of 64 rows go through shared
-// memory, and the products run in full fp32 (no TF32) through a
-// probabilities tile in shared memory.
+// Design. One CTA per (b*h, 64-row q tile), TPR threads per query row
+// (2 up to d 128, 4 at d 256: 128 or 256 threads); each thread computes
+// the logits of every TPR-th key and owns D/TPR output columns. K/V tiles
+// of 64 rows go through shared memory as fp32, and the products run in
+// full fp32 (no TF32) through a probabilities tile in shared memory. At
+// d 256 the Q, K and V tiles take 197 KB of the 227 KB a block may use.
 //
 // What bounds it: 4*d operations per visible (q, k) pair against q, k, v
 // read once and O written once; at 67 TFLOP/s of fp32 the CUDA cores are
-// the bound at every shape the port runs. The fp32 variants are on no
-// main path: they are the reference-precision path.
+// the bound at every shape the port runs. These kernels are on no main
+// path: they are the reference-precision path and the head dims the
+// wgmma kernels do not take; a simple kernel that is right.
 //
-// The lazy predicate is taken per warp (16 rows) where the TPU kernel
+// The lazy predicate is taken per warp (32/TPR rows) where the TPU kernel
 // takes it per 64-row block: a row whose max did not rise gets
 // alpha = exp2(m - m) = 1 exactly either way, so the two are bit-identical
 // and the narrower predicate skips more work.
@@ -45,10 +51,10 @@ namespace {
 enum Variant { kOnline = 0, kLazy = 1, kTwopass = 2 };
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   float* lse;
   int sq;
   int sk;
@@ -63,27 +69,31 @@ __device__ __forceinline__ int k_tiles(const Params& p, int qi) {
   return p.causal ? min(qi + 1, nk) : nk;
 }
 
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores, full fp32
-
-// Q, K, V tiles + the probabilities tile
+// threads per query row: more at d 256, so that a thread holds D/TPR
+// accumulators
 template <int D>
-struct F32Layout {
+constexpr int fwd_tpr() { return D > 128 ? 4 : 2; }
+
+// Q, K, V tiles + the probabilities tile, fp32
+template <int D>
+struct FwdLayout {
   static constexpr int kStride = F32Tile<D>::kStride;   // floats per row
   static constexpr int kTile = F32Tile<D>::kElems;
   static constexpr int kPStride = kBlock + 1;
   static constexpr int kSmemBytes = (3 * kTile + kBlock * kPStride) * 4;
 };
 
-// Each pair of threads owns one query row: thread `half` computes the
-// logits of keys half, half+2, ... and the output columns
-// [half*D/2, (half+1)*D/2). Row statistics are shared within the pair.
-template <int D, int V>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(Params p) {
-  using L = F32Layout<D>;
+// TPR threads own one query row: thread `part` computes the logits of
+// keys part, part+TPR, ... and the output columns
+// [part*D/TPR, (part+1)*D/TPR). Row statistics are shared among them.
+template <typename T, int D, int V, int TPR>
+__global__ void __launch_bounds__(kBlock * TPR)
+flash_fwd_cc_kernel(Params p) {
+  using L = FwdLayout<D>;
+  constexpr int kNT = kBlock * TPR;
   constexpr int kStride = L::kStride;
-  constexpr int kHalfD = D / 2;
+  constexpr int kCols = D / TPR;
+  constexpr int kKeys = kBlock / TPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sK = sQ + L::kTile;
@@ -91,37 +101,45 @@ flash_fwd_f32_kernel(Params p) {
   float* sP = sV + L::kTile;
 
   const int tid = threadIdx.x;
-  const int r = tid >> 1;
-  const int half = tid & 1;
+  const int r = tid / TPR;
+  const int part = tid % TPR;
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
-  const float* q = p.q + static_cast<size_t>(bh) * p.sq * D;
-  const float* k = p.k + static_cast<size_t>(bh) * p.sk * D;
-  const float* v = p.v + static_cast<size_t>(bh) * p.sk * D;
+  const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.sq * D;
+  const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(bh) * p.sk * D;
+  const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(bh) * p.sk * D;
   const int row = qi * kBlock + r;
 
-  load_tile_f32<D>(sQ, q, qi * kBlock, p.sq, tid);
+  load_tile<T, D, kBlock, kNT>(sQ, q, qi * kBlock, p.sq, tid);
 
   float m = kNegInf;
   float l = 0.f;      // partial: this thread's keys
-  float acc[kHalfD];
+  float acc[kCols];
 #pragma unroll
-  for (int i = 0; i < kHalfD; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
   const int nk = k_tiles(p, qi);
   const float* qrow = sQ + r * kStride;
   float* prow = sP + r * L::kPStride;
 
+  // the TPR threads of a row are adjacent lanes: reduce over them
+  auto row_reduce_max = [&](float x) {
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1)
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+  };
+
   auto load = [&](int kb, bool with_v) {
     __syncthreads();
-    load_tile_f32<D>(sK, k, kb * kBlock, p.sk, tid);
-    if (with_v) load_tile_f32<D>(sV, v, kb * kBlock, p.sk, tid);
+    load_tile<T, D, kBlock, kNT>(sK, k, kb * kBlock, p.sk, tid);
+    if (with_v) load_tile<T, D, kBlock, kNT>(sV, v, kb * kBlock, p.sk, tid);
     __syncthreads();
   };
 
-  auto logits = [&](int kb, float (&s)[kBlock / 2]) {
+  auto logits = [&](int kb, float (&s)[kKeys]) {
 #pragma unroll 4
-    for (int c = 0; c < kBlock / 2; ++c) {
-      int j = 2 * c + half;
+    for (int c = 0; c < kKeys; ++c) {
+      int j = TPR * c + part;
       const float* krow = sK + j * kStride;
       float dot = 0.f;
 #pragma unroll 16
@@ -132,41 +150,43 @@ flash_fwd_f32_kernel(Params p) {
     }
   };
 
-  auto row_max = [&](const float (&s)[kBlock / 2]) {
+  auto row_max = [&](const float (&s)[kKeys]) {
     float mx = kNegInf;
 #pragma unroll
-    for (int c = 0; c < kBlock / 2; ++c) mx = fmaxf(mx, s[c]);
-    return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    for (int c = 0; c < kKeys; ++c) mx = fmaxf(mx, s[c]);
+    return row_reduce_max(mx);
   };
 
   auto rescale = [&](float alpha) {
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < kHalfD; ++i) acc[i] *= alpha;
+    for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
   };
 
-  // p = exp2(s - m) into the shared probabilities row, then l and P@V
-  auto accumulate = [&](const float (&s)[kBlock / 2]) {
+  // p = exp2(s - m): l takes it as computed, the shared probabilities row
+  // (the P@V operand) rounded to V's dtype
+  auto accumulate = [&](const float (&s)[kKeys]) {
 #pragma unroll
-    for (int c = 0; c < kBlock / 2; ++c) {
+    for (int c = 0; c < kKeys; ++c) {
       float pv = exp2f(s[c] - m);
       l += pv;
-      prow[2 * c + half] = pv;
+      prow[TPR * c + part] = round_to<T>(pv);
     }
     __syncwarp();
-    const float* vcol = sV + half * kHalfD;
+    const float* vcol = sV + part * kCols;
     for (int j = 0; j < kBlock; ++j) {
       float pj = prow[j];
       const float* vrow = vcol + j * kStride;
 #pragma unroll
-      for (int i = 0; i < kHalfD; ++i) acc[i] = fmaf(pj, vrow[i], acc[i]);
+      for (int i = 0; i < kCols; ++i) acc[i] = fmaf(pj, vrow[i], acc[i]);
     }
+    __syncwarp();
   };
 
   if constexpr (V == kOnline) {
     for (int kb = 0; kb < nk; ++kb) {
       load(kb, true);
-      float s[kBlock / 2];
+      float s[kKeys];
       logits(kb, s);
       float mx = fmaxf(m, row_max(s));
       rescale(exp2f(m - mx));
@@ -177,7 +197,7 @@ flash_fwd_f32_kernel(Params p) {
     for (int it = 0; it < nk; ++it) {
       int kb = nk - 1 - it;
       load(kb, true);
-      float s[kBlock / 2];
+      float s[kKeys];
       logits(kb, s);
       float mt = row_max(s);
       if (__any_sync(0xffffffffu, mt > m)) {
@@ -190,25 +210,29 @@ flash_fwd_f32_kernel(Params p) {
   } else {
     for (int kb = 0; kb < nk; ++kb) {
       load(kb, false);
-      float s[kBlock / 2];
+      float s[kKeys];
       logits(kb, s);
       m = fmaxf(m, row_max(s));
     }
     for (int kb = 0; kb < nk; ++kb) {
       load(kb, true);
-      float s[kBlock / 2];
+      float s[kKeys];
       logits(kb, s);
       accumulate(s);
     }
   }
 
-  float lr = fmaxf(l + __shfl_xor_sync(0xffffffffu, l, 1), 1e-30f);
-  if (row < p.sq) {
-    float* o = p.o + static_cast<size_t>(bh) * p.sq * D +
-               static_cast<size_t>(row) * D + half * kHalfD;
+  float lsum = l;
 #pragma unroll
-    for (int i = 0; i < kHalfD; ++i) o[i] = acc[i] / lr;
-    if (half == 0)
+  for (int o = 1; o < TPR; o <<= 1)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+  float lr = fmaxf(lsum, 1e-30f);
+  if (row < p.sq) {
+    T* o = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D +
+           static_cast<size_t>(row) * D + part * kCols;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) o[i] = from_f32<T>(acc[i] / lr);
+    if (part == 0)
       p.lse[static_cast<size_t>(bh) * p.sq + row] = (m + log2f(lr)) * kLn2;
   }
 }
@@ -216,25 +240,26 @@ flash_fwd_f32_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-template <int D, int V>
+template <typename T, int D, int V>
 cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
-  auto kernel = flash_fwd_f32_kernel<D, V>;
-  constexpr int smem = F32Layout<D>::kSmemBytes;
+  constexpr int kTpr = fwd_tpr<D>();
+  auto kernel = flash_fwd_cc_kernel<T, D, V, kTpr>;
+  constexpr int smem = FwdLayout<D>::kSmemBytes;
   static std::atomic<uint32_t> opted_in{0};
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
   dim3 grid((p.sq + kBlock - 1) / kBlock, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kBlock * kTpr, smem, stream>>>(p);
   return cudaSuccess;   // launch errors are read by the caller
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t dispatch(int variant, int bh, const Params& p,
                      cudaStream_t stream) {
   switch (variant) {
-    case kOnline: return launch<D, kOnline>(bh, p, stream);
-    case kLazy: return launch<D, kLazy>(bh, p, stream);
-    case kTwopass: return launch<D, kTwopass>(bh, p, stream);
+    case kOnline: return launch<T, D, kOnline>(bh, p, stream);
+    case kLazy: return launch<T, D, kLazy>(bh, p, stream);
+    case kTwopass: return launch<T, D, kTwopass>(bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -242,22 +267,27 @@ cudaError_t dispatch(int variant, int bh, const Params& p,
 }  // namespace
 
 // Plain C entry point (no PyTorch headers here: they stay in bindings.cpp).
-// fp32 only (bf16 runs on hvd_flash_fwd_sm90). variant: 0 online, 1 lazy,
-// 2 twopass. scale2 is the softmax scale times log2(e), rounded once by the
-// caller. Returns a configuration error; the launch itself is checked by
-// the caller with cudaGetLastError.
-extern "C" cudaError_t hvd_flash_fwd(const float* q, const float* k,
-                                     const float* v, float* o, float* lse,
+// dtype 0: fp32 at d 16/32/64/128/256; dtype 1: bf16 at d 256 (bf16 up to
+// d 128 runs on hvd_flash_fwd_sm90). variant: 0 online, 1 lazy, 2 twopass.
+// scale2 is the softmax scale times log2(e), rounded once by the caller.
+// Returns a configuration error; the launch itself is checked by the
+// caller with cudaGetLastError.
+extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
+                                     const void* v, void* o, float* lse,
                                      int bh, int sq, int sk, int d,
-                                     int variant, int causal, float scale2,
-                                     cudaStream_t stream) {
+                                     int dtype, int variant, int causal,
+                                     float scale2, cudaStream_t stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return cudaErrorInvalidValue;
   Params p{q, k, v, o, lse, sq, sk, scale2, causal};
+  if (dtype == 1)
+    return d == 256 ? dispatch<__nv_bfloat16, 256>(variant, bh, p, stream)
+                    : cudaErrorInvalidValue;
   switch (d) {
-    case 16: return dispatch<16>(variant, bh, p, stream);
-    case 32: return dispatch<32>(variant, bh, p, stream);
-    case 64: return dispatch<64>(variant, bh, p, stream);
-    case 128: return dispatch<128>(variant, bh, p, stream);
+    case 16: return dispatch<float, 16>(variant, bh, p, stream);
+    case 32: return dispatch<float, 32>(variant, bh, p, stream);
+    case 64: return dispatch<float, 64>(variant, bh, p, stream);
+    case 128: return dispatch<float, 128>(variant, bh, p, stream);
+    case 256: return dispatch<float, 256>(variant, bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }

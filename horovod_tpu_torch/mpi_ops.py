@@ -6,6 +6,10 @@ handle-based async collectives on torch tensors, ``poll`` and
 ``synchronize``, and in-place (``_``-suffixed) variants that write the
 result back into the submitted tensor at ``synchronize``.
 
+``reducescatter`` and ``alltoall`` run over every worker or over one axis
+of a mesh (``axis_name``: an axis of ``parallel.mesh.global_mesh()`` or a
+process group), as the JAX package runs them over a mesh axis.
+
 The wire is a ``torch.distributed`` process group, one process per card:
 NCCL when the worker runs on CUDA, gloo on the CPU. An async op launches
 its collective at once (``async_op=True``) on a private copy of the input,
@@ -117,9 +121,8 @@ def init(device=None, rank=None, size=None, init_method=None):
         st.local_rank, st.local_size = local_rank, local_size
         st.backend = dist.get_backend()
         st.device = dev
-        st.config = HorovodConfig.from_env()
         st.owns_group = owns
-        st.initialized = True
+        state_mod.init_state(config=HorovodConfig.from_env())
     atexit.register(shutdown)
 
 
@@ -134,7 +137,7 @@ def shutdown():
         _pending.clear()
         if st.owns_group and dist.is_initialized():
             dist.destroy_process_group()
-        st.initialized = False
+        state_mod.shutdown_state()
         st.owns_group = False
 
 
@@ -221,16 +224,36 @@ def _write_back(target, result):
     return target
 
 
-def _reduced(buf, ctx, compression, average, like):
+def _reduced(buf, ctx, compression, average, like, n=None):
     """The result of a summed wire buffer: the caller's dtype and device,
-    divided by the world size for an average."""
+    divided by ``n`` (the world size by default) for an average."""
     out = compression.decompress(buf, ctx)
     if average:
-        if out.is_floating_point():
-            out = out / size()
-        else:
-            out = torch.div(out, size(), rounding_mode="floor")
+        out = _divide(out, size() if n is None else n)
     return out.to(like.device)
+
+
+def _divide(t, n):
+    if t.is_floating_point():
+        return t / n
+    return torch.div(t, n, rounding_mode="floor")
+
+
+def process_group(axis_name=None):
+    """The process group a collective runs over: None (every worker) for
+    ``axis_name=None``, the group of that axis of the global mesh for an
+    axis name, or ``axis_name`` itself when it is a process group."""
+    if axis_name is None:
+        return None
+    if isinstance(axis_name, str):
+        from .parallel import mesh as mesh_lib
+        return mesh_lib.global_mesh().group(axis_name)
+    return axis_name
+
+
+def group_size(group=None):
+    """Workers in ``group`` (every worker when None)."""
+    return size() if group is None else dist.get_world_size(group)
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +291,13 @@ def allreduce_(tensor, average=True, name=None, compression=Compression.none):
 
 
 def _grouped_allreduce_async(tensors, average, compression,
-                             fusion_threshold):
+                             fusion_threshold, group=None):
     """Start one allreduce per fusion bucket of ``tensors`` (each bucket
-    fused into one flat buffer of the wire dtype); returns ``[(bucket,
-    handle)]``, where ``synchronize(handle)`` gives the bucket's reduced
-    tensors in order, each in its own dtype."""
+    fused into one flat buffer of the wire dtype) over ``group`` (every
+    worker when None); returns ``[(bucket, handle)]``, where
+    ``synchronize(handle)`` gives the bucket's reduced tensors in order,
+    each in its own dtype."""
+    n = group_size(group)
     for t in tensors:
         _check_tensor(t)
     packed = [compression.compress(t.detach()) for t in tensors]
@@ -281,11 +306,11 @@ def _grouped_allreduce_async(tensors, average, compression,
     for b in fusion.plan_buckets(wires, fusion_threshold):
         name = _claim(None, "grouped_allreduce")
         buf = fusion.fuse(wires, b).to(_device())
-        work = dist.all_reduce(buf, async_op=True)
+        work = dist.all_reduce(buf, group=group, async_op=True)
 
         def finish(b=b, buf=buf):
             return [_reduced(part, packed[i][1], compression, average,
-                             tensors[i])
+                             tensors[i], n)
                     for part, i in zip(fusion.unfuse(buf, wires, b),
                                        b.indices)]
         started.append((b, _submit(work, finish, name)))
@@ -293,16 +318,18 @@ def _grouped_allreduce_async(tensors, average, compression,
 
 
 def grouped_allreduce(tensors, average=True, compression=Compression.none,
-                      fusion_threshold=None):
+                      fusion_threshold=None, axis_name=None):
     """Allreduce many tensors at once, fused into buckets of at most
     ``fusion_threshold`` bytes (``HOROVOD_FUSION_THRESHOLD`` by default),
-    one collective per bucket. Returns the reduced tensors in order."""
+    one collective per bucket, over every worker or the workers of
+    ``axis_name``. Returns the reduced tensors in order."""
     tensors = list(tensors)
     if fusion_threshold is None:
         fusion_threshold = state_mod.global_state().config.fusion_threshold
     out = [None] * len(tensors)
     for b, h in _grouped_allreduce_async(tensors, average, compression,
-                                         fusion_threshold):
+                                         fusion_threshold,
+                                         process_group(axis_name)):
         for i, r in zip(b.indices, synchronize(h)):
             out[i] = r
     return out
@@ -336,6 +363,68 @@ def allgather_async(tensor, name=None):
 
 def allgather(tensor, name=None):
     return synchronize(allgather_async(tensor, name))
+
+
+# ---------------------------------------------------------------------------
+# reducescatter / alltoall — the building blocks of hierarchical allreduce
+# and sequence parallelism, over every worker or one mesh axis
+
+
+def _all_gather_into(out, inp, group):
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def _reduce_scatter_into(out, inp, group):
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, inp, group=group)
+
+
+def reducescatter(tensor, average=False, axis_name=None, name=None):
+    """Sum ``tensor`` across the workers (of ``axis_name`` when given) and
+    return this worker's block of the sum along dim 0, which the group
+    size must divide: ``lax.psum_scatter(..., tiled=True)`` of the JAX
+    package. ``average`` divides by the group size."""
+    _check_tensor(tensor)
+    _claim(name, "reducescatter")
+    group = process_group(axis_name)
+    n = group_size(group)
+    if tensor.dim() == 0 or tensor.shape[0] % n:
+        raise ValueError(f"reducescatter: dim 0 of {tuple(tensor.shape)} "
+                         f"does not divide over {n} workers")
+    buf = _wire(tensor)
+    out = buf.new_empty((buf.shape[0] // n,) + tuple(buf.shape[1:]))
+    _reduce_scatter_into(out, buf, group)
+    if average:
+        out = _divide(out, n)
+    return out.to(tensor.device)
+
+
+def alltoall(tensor, axis_name=None, split_axis=0, concat_axis=0,
+             name=None):
+    """Split ``tensor`` along ``split_axis`` into one block per worker (of
+    ``axis_name`` when given), send block j to worker j, and concatenate
+    the blocks received, in worker order, along ``concat_axis``:
+    ``lax.all_to_all(..., tiled=True)`` of the JAX package."""
+    _check_tensor(tensor)
+    _claim(name, "alltoall")
+    group = process_group(axis_name)
+    n = group_size(group)
+    if tensor.shape[split_axis] % n:
+        raise ValueError(f"alltoall: dim {split_axis} of "
+                         f"{tuple(tensor.shape)} does not divide over {n} "
+                         f"workers")
+    # the blocks to send lead, one per worker, contiguous
+    blocks = tensor.detach().to(_device())
+    blocks = blocks.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
+    blocks = blocks.contiguous()
+    got = torch.empty_like(blocks)
+    dist.all_to_all_single(got, blocks, group=group)
+    # got[j] is worker j's block: concatenate them along concat_axis
+    got = got.movedim(0, concat_axis)
+    return got.flatten(concat_axis, concat_axis + 1).to(tensor.device)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,11 @@
 
 The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
 backward. A CUDA tensor goes to the hand-written Hopper kernels: every
-bf16 forward (online, lazy, twopass) on wgmma and TMA in
-``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels on
-wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the fp32 forward and
-backward on the CUDA cores in ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``. A CPU tensor goes to their plain PyTorch versions
+bf16 forward (online, lazy, twopass) up to head dim 128 on wgmma and TMA
+in ``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels
+up to head dim 128 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
+fp32 forward and backward, and bf16 at head dims above 128, on the CUDA
+cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``. A CPU tensor goes to their plain PyTorch versions
 in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
 CUDA tensor takes the plain version unless the caller asks for it with
 ``interpret=True`` (the port's counterpart of Pallas interpret mode): if
@@ -22,19 +22,21 @@ its ``block_q``/``block_k`` (default 512) are fitted to the sequence by
 the reference's ``fit_block``, and a length the fitted block does not
 divide is refused unless the call is causal self-attention. The kernels
 need no such blocks: each masks a partial last q tile and a partial last
-k tile itself, so every accepted length runs unpadded. The fp32 CUDA-core
-kernels walk 64-row tiles; the wgmma kernels walk 128 keys per k tile and
+k tile itself, so every accepted length runs unpadded. The CUDA-core
+kernels walk 64-row tiles (the backward's k tiles are 32 rows at d 256);
+the wgmma kernels walk 128 keys per k tile and
 64 or 128 query rows per CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA
 and 64 queries per q tile). ``kernel_blocks`` and ``bwd_kernel_blocks``
 name the walks of the kernels a call reaches, so their plain versions
 can walk the same. On the CPU, and under ``interpret=True``, the plain
 walks take the fitted blocks.
 
-Head dims. The kernels are compiled for d in {16, 32, 64, 128}; on the
-card any other d up to 128 is zero-padded on the host to the next of
+Head dims. The kernels are compiled for d in {16, 32, 64, 128, 256}
+(the wgmma ones up to 128, the CUDA-core ones at every one of them); on
+the card any other d up to 256 is zero-padded on the host to the next of
 those (``pad_head_dim``), with the softmax scale of the true d: a zero
 column adds nothing to any dot product, and the padded output columns
-are sliced off.
+are sliced off. A d above 256 is refused on the card.
 
 ``decode_attention`` — one query against the KV cache — stays plain
 torch, as the JAX package keeps it plain XLA: a GEMV per (batch, head)
@@ -44,6 +46,7 @@ has no logits matrix to keep out of memory.
 import collections
 import functools
 import os
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -60,17 +63,25 @@ LOG2E = ref.LOG2E
 #: same natural-log lse.
 VARIANTS = ("online", "lazy", "twopass")
 
-#: Rows of Q and of K/V per tile of the fp32 CUDA-core kernels; the
-#: forward variant is picked by the number of these tiles along k.
+#: Rows of Q and of K/V per tile of the CUDA-core kernels; the forward
+#: variant is picked by the number of these tiles along k.
 BLOCK = 64
+
+#: Keys per k tile of the CUDA-core backward kernels at a head dim above
+#: 128, where 64-row fp32 tiles would not fit a block's shared memory.
+BWD_BLOCK_K_WIDE = 32
 
 #: ``block_q``/``block_k`` of ``flash_attention`` when the caller gives
 #: none: the reference's defaults, which decide what it accepts.
 DEFAULT_BLOCK = 512
 
 #: The head dims the kernels are compiled for; on the card any other
-#: d ≤ 128 is zero-padded to the next of these (``pad_head_dim``).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: d ≤ 256 is zero-padded to the next of these (``pad_head_dim``).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+#: The largest head dim of the wgmma/TMA kernels; bf16 above it runs on
+#: the CUDA-core kernels.
+SM90_MAX_HEAD_DIM = 128
 
 #: Keys per k tile of the wgmma/TMA kernels (forward, dq; dk/dv's keys
 #: per CTA).
@@ -79,12 +90,19 @@ SM90_BLOCK_K = 128
 #: Queries per q tile of the wgmma/TMA dk/dv kernel.
 SM90_DKV_BLOCK_Q = 64
 
-#: Kernel launches by kernel name, counted where each launch is made.
+#: Kernel launches by kernel name, counted where each launch is made
+#: (under a lock: ranks that share a card launch from threads).
 launch_counts = collections.Counter()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts():
     launch_counts.clear()
+
+
+def _counted(name):
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def resolve_variant(variant, nk=1):
@@ -177,8 +195,8 @@ def _check_operands(qf, kf, vf):
     if not (qf.dtype == kf.dtype == vf.dtype):
         raise TypeError("q, k and v must share a dtype")
     if qf.shape[2] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head_dim must be 16/32/64/128, got "
-                         f"{qf.shape[2]}")
+        raise ValueError(f"flash kernel head_dim must be one of "
+                         f"{KERNEL_HEAD_DIMS}, got {qf.shape[2]}")
     if kf.shape != vf.shape or kf.shape[0] != qf.shape[0] or \
             kf.shape[2] != qf.shape[2]:
         raise ValueError(f"k/v shape {tuple(kf.shape)} does not fit q "
@@ -205,11 +223,33 @@ def sm90_cta_rows(bh, sq, sm_count):
     return 128 if bh * -(-sq // 128) >= sm_count else 64
 
 
+def on_sm90(qf):
+    """Whether a ``[b·h, s, d]`` call runs on the wgmma/TMA kernels: bf16
+    up to head dim 128. fp32, and bf16 above 128, run on the CUDA-core
+    kernels."""
+    return qf.dtype == torch.bfloat16 and qf.shape[2] <= SM90_MAX_HEAD_DIM
+
+
+def fwd_launch_name(qf, variant):
+    """The launch count a forward call on ``[b·h, s, d]`` operands adds
+    to: ``flash_fwd_{variant}`` on the wgmma/TMA kernel,
+    ``flash_fwd_cc_{variant}`` on the CUDA-core one."""
+    return f"flash_fwd_{variant}" if on_sm90(qf) else \
+        f"flash_fwd_cc_{variant}"
+
+
+def bwd_launch_names(qf):
+    """The launch counts (dq, dk/dv) a backward call on ``[b·h, s, d]``
+    operands adds to, one per kernel family."""
+    family = "sm90" if on_sm90(qf) else "cc"
+    return f"flash_bwd_{family}_dq", f"flash_bwd_{family}_dkv"
+
+
 def kernel_blocks(qf, kf, variant, cta_rows=None):
     """(block_q, block_k) of the tile walk that the forward kernel a
     ``[b·h, s, d]`` call reaches takes: the plain version walks the same
     tiles at these blocks."""
-    if qf.dtype == torch.bfloat16:
+    if on_sm90(qf):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return rows, SM90_BLOCK_K
@@ -217,14 +257,14 @@ def kernel_blocks(qf, kf, variant, cta_rows=None):
 
 
 def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
-    """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 on the
-    wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA shape), fp32
-    on the CUDA-core one."""
+    """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 up to
+    d 128 on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
+    shape), fp32 and bf16 above d 128 on the CUDA-core one."""
     _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
     scale2 = float(scale * LOG2E)
-    if qf.dtype == torch.bfloat16:
+    if on_sm90(qf):
         rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
         extension().flash_fwd_sm90(qf, kf, vf, out, lse,
                                    VARIANTS.index(variant), bool(causal),
@@ -232,30 +272,31 @@ def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
     else:
         extension().flash_fwd(qf, kf, vf, out, lse, VARIANTS.index(variant),
                               bool(causal), scale2)
-    launch_counts[f"flash_fwd_{variant}"] += 1
+    _counted(fwd_launch_name(qf, variant))
     return out, lse
 
 
 def bwd_kernel_blocks(qf, kf, cta_rows=None):
     """((block_q, block_k) of dq, (block_q, block_k) of dk/dv): the tile
     walks that the backward kernels a ``[b·h, s, d]`` call reaches take,
-    the counterpart of ``kernel_blocks``. bf16 runs the wgmma kernels (dq
-    over 64 or 128 query rows × 128 keys, ``cta_rows`` forcing the rows;
-    dk/dv over 128 keys × 64 queries), fp32 the CUDA-core ones at the
-    public tile."""
-    if qf.dtype == torch.bfloat16:
+    the counterpart of ``kernel_blocks``. bf16 up to d 128 runs the wgmma
+    kernels (dq over 64 or 128 query rows × 128 keys, ``cta_rows`` forcing
+    the rows; dk/dv over 128 keys × 64 queries), fp32 and bf16 above d 128
+    the CUDA-core ones at 64-row tiles (32-key tiles above d 128)."""
+    if on_sm90(qf):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return (rows, SM90_BLOCK_K), (SM90_DKV_BLOCK_Q, SM90_BLOCK_K)
-    blocks = fit_block(qf.shape[1]), fit_block(kf.shape[1])
+    bk = BWD_BLOCK_K_WIDE if qf.shape[2] > SM90_MAX_HEAD_DIM else BLOCK
+    blocks = fit_block(qf.shape[1]), min(bk, kf.shape[1])
     return blocks, blocks
 
 
 def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
     """Launch the backward kernels on ``[b·h, s, d]`` operands (dO like
-    q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv). bf16 runs
-    on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces dq's CTA
-    shape), fp32 on the CUDA-core ones."""
+    q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv). bf16 up to
+    d 128 runs on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces
+    dq's CTA shape), fp32 and bf16 above d 128 on the CUDA-core ones."""
     _check_operands(qf, kf, vf)
     if dof.shape != qf.shape or dof.dtype != qf.dtype:
         raise ValueError(f"dO {tuple(dof.shape)} {dof.dtype} does not fit "
@@ -267,25 +308,25 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     ext = extension()
     args = (bool(causal), float(scale * LOG2E), float(scale))
-    if qf.dtype == torch.bfloat16:
+    if on_sm90(qf):
         (rows, _), _ = bwd_kernel_blocks(qf, kf, cta_rows)
         ext.flash_bwd_sm90_dq(qf, kf, vf, dof, lse, delta, dq, *args, rows)
-        launch_counts["flash_bwd_sm90_dq"] += 1
         ext.flash_bwd_sm90_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
-        launch_counts["flash_bwd_sm90_dkv"] += 1
     else:
         ext.flash_bwd_dq(qf, kf, vf, dof, lse, delta, dq, *args)
-        launch_counts["flash_bwd_dq"] += 1
         ext.flash_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
-        launch_counts["flash_bwd_dkv"] += 1
+    for name in bwd_launch_names(qf):
+        _counted(name)
     return dq, dk, dv
 
 
-def _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret=False):
+def _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret=False,
+              scale=None):
     """(out, lse) of ``[b·h, s, d]`` operands: the kernel on the card
     (at the kernel head dim), the plain version at ``blocks`` on the CPU
-    or when ``interpret`` asks for it."""
-    scale = qf.shape[-1] ** -0.5
+    or when ``interpret`` asks for it; ``scale`` is d^-0.5 of the true d
+    unless given."""
+    scale = qf.shape[-1] ** -0.5 if scale is None else scale
     if interpret or qf.device.type == "cpu":
         return ref.FWD[variant](qf, kf, vf, causal, *blocks, scale)
     if qf.is_cuda:
@@ -298,13 +339,15 @@ def _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret=False):
 
 
 def _bwd_flat(qf, kf, vf, of, lse, dof, causal, blocks, dkv_walk=None,
-              interpret=False):
+              interpret=False, scale=None):
     """(dq, dk, dv) of ``[b·h, s, d]`` operands given the forward's out
     and lse and the output gradient dO: the kernels on the card (at the
     kernel head dim), the plain versions on the CPU or when ``interpret``
     asks for it, dq at ``blocks`` and dk/dv at ``dkv_walk`` (default
-    ``blocks``)."""
-    scale = qf.shape[-1] ** -0.5
+    ``blocks``); ``scale`` is d^-0.5 unless given. delta is rowsum(dO∘O)
+    of the ``of`` given, and ``lse`` reaches the kernels unchanged: a
+    ring's merged lse with +1e30 rows makes those rows' p exactly 0."""
+    scale = qf.shape[-1] ** -0.5 if scale is None else scale
     delta = ref.flash_delta(of, dof)
     if interpret or qf.device.type == "cpu":
         dq = ref.flash_bwd_dq(qf, kf, vf, dof, lse, delta, causal, *blocks,
@@ -345,10 +388,13 @@ def _unflat(t, b, h, layout):
 
 
 def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
-              variant="online"):
+              variant="online", scale=None):
     """Forward on ``q, k, v`` in ``layout`` ('bshd' [b, s, h, d] or 'bhsd'
     [b, h, s, d]); returns ``(out, lse)`` with out in q's layout and
-    dtype, lse the natural-log row log-sum-exp, fp32, ``[b·h, sq]``.
+    dtype, lse the natural-log row log-sum-exp, fp32, ``[b·h, sq]``: the
+    counterpart of the JAX package's ``_flash_fwd``, which a ring pair
+    calls (non-causal after the first pair). ``scale`` is the softmax
+    scale, d^-0.5 of the given d by default.
 
     CUDA tensors launch the kernel, which walks its own tiles (see
     ``kernel_blocks``); CPU tensors run the plain version at the given
@@ -358,21 +404,25 @@ def flash_fwd(q, k, v, causal, block_q=BLOCK, block_k=BLOCK, layout="bshd",
     b, h, sq, sk, _ = _layout_dims(q, k, layout)
     out, lse = _fwd_flat(_flat(q, layout), _flat(k, layout),
                          _flat(v, layout), causal,
-                         (min(block_q, sq), min(block_k, sk)), variant)
+                         (min(block_q, sq), min(block_k, sk)), variant,
+                         scale=scale)
     return _unflat(out, b, h, layout), lse
 
 
 def flash_bwd(q, k, v, out, lse, g, causal, block_q=BLOCK, block_k=BLOCK,
-              layout="bshd"):
+              layout="bshd", scale=None):
     """Gradients ``(dq, dk, dv)`` in the operands' layout, given the
     forward's ``out`` (layout like q) and ``lse`` (``[b·h, sq]``) and the
     output gradient ``g`` (like out): the counterpart of the JAX
-    package's ``_flash_bwd``. CUDA tensors launch the dq and dk/dv
-    kernels; CPU tensors run their plain versions at the given blocks."""
+    package's ``_flash_bwd``. ``out`` and ``lse`` may be a ring's merged
+    ones: delta = rowsum(g∘out) uses the ``out`` given, and a row whose
+    lse is +1e30 contributes exactly nothing. CUDA tensors launch the dq
+    and dk/dv kernels; CPU tensors run their plain versions at the given
+    blocks."""
     b, h, sq, sk, _ = _layout_dims(q, k, layout)
     dq, dk, dv = _bwd_flat(*(_flat(t, layout) for t in (q, k, v, out)), lse,
                            _flat(g, layout), causal,
-                           (min(block_q, sq), min(block_k, sk)))
+                           (min(block_q, sq), min(block_k, sk)), scale=scale)
     return tuple(_unflat(t, b, h, layout) for t in (dq, dk, dv))
 
 

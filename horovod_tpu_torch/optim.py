@@ -19,6 +19,13 @@ horovod/torch/__init__.py:42-348):
     optimizer), in optax's order of operations.
   * ``allreduce_gradients``, ``broadcast_parameters``,
     ``broadcast_optimizer_state`` and ``broadcast_object``.
+
+Parameters placed on a mesh (DTensors, ``trainer.place``) are updated on
+this rank's shard: every optimizer works on ``local`` views of the
+parameter, its gradient and its state (which ``init_state`` places like
+the parameter), so an update costs no communication; a
+``DistributedOptimizer`` over such parameters averages their gradients
+over the mesh's dp axis only.
 """
 
 import collections
@@ -29,6 +36,7 @@ from . import mpi_ops
 from .common import state as state_mod
 from .ops import fusion
 from .ops.compression import Compression
+from .parallel.tensor_parallel import local
 
 
 class AdamW(torch.optim.Optimizer):
@@ -52,6 +60,20 @@ class AdamW(torch.optim.Optimizer):
                         weight_decay=weight_decay, mu_dtype=mu_dtype)
         super().__init__(params, defaults)
 
+    @staticmethod
+    def state_keys(group):
+        """(state entries shaped and placed like the parameter, the
+        others)."""
+        return ("mu", "nu"), ("step",)
+
+    @torch.no_grad()
+    def init_state(self, p, group):
+        """Zero moments for ``p``, placed like it (a DTensor's shard)."""
+        state = self.state[p]
+        state["step"] = 0
+        state["mu"] = torch.zeros_like(p, dtype=group["mu_dtype"] or p.dtype)
+        state["nu"] = torch.zeros_like(p)
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -65,17 +87,15 @@ class AdamW(torch.optim.Optimizer):
                     continue
                 state = self.state[p]
                 if not state:
-                    state["step"] = 0
-                    state["mu"] = torch.zeros_like(
-                        p, dtype=group["mu_dtype"] or p.dtype)
-                    state["nu"] = torch.zeros_like(p)
+                    self.init_state(p, group)
                 state["step"] += 1
-                g, mu_dtype = p.grad, state["mu"].dtype
+                g, mu_dtype = local(p.grad), state["mu"].dtype
                 # b1 in mu's dtype times mu, in mu's dtype; the sum with the
                 # fp32 gradient term is fp32 (the uncast new mu)
-                mu = (1 - b1) * g + state["mu"] * torch.tensor(b1,
-                                                               dtype=mu_dtype)
-                nu = (1 - b2) * (g * g) + b2 * state["nu"]
+                mu_old, nu_old, p = (local(state["mu"]), local(state["nu"]),
+                                     local(p))
+                mu = (1 - b1) * g + mu_old * torch.tensor(b1, dtype=mu_dtype)
+                nu = (1 - b2) * (g * g) + b2 * nu_old
                 # 1 - b^t in fp32 with a float exponent: pow correctly
                 # rounded, as optax's jnp.power of the int32 count gives it
                 # (repeated products drift by an ulp at t = 3)
@@ -86,8 +106,8 @@ class AdamW(torch.optim.Optimizer):
                                   group["eps"])
                 u = u + group["weight_decay"] * p
                 p.add_(u * -group["lr"])
-                state["mu"] = mu.to(mu_dtype)
-                state["nu"] = nu
+                mu_old.copy_(mu)   # rounded to mu_dtype
+                nu_old.copy_(nu)
         return loss
 
     def load_state_dict(self, state_dict):
@@ -114,6 +134,18 @@ class SGD(torch.optim.Optimizer):
     def __init__(self, params, lr, momentum=None):
         super().__init__(params, dict(lr=lr, momentum=momentum))
 
+    @staticmethod
+    def state_keys(group):
+        """(state entries shaped and placed like the parameter, the
+        others): the trace, with momentum."""
+        return ("trace",) if group["momentum"] else (), ()
+
+    @torch.no_grad()
+    def init_state(self, p, group):
+        """The zero momentum trace of ``p``, placed like it."""
+        if group["momentum"]:
+            self.state[p]["trace"] = torch.zeros_like(p)
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -125,14 +157,15 @@ class SGD(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                t = p.grad
+                t = local(p.grad)
                 if momentum:
                     state = self.state[p]
                     if not state:
-                        state["trace"] = torch.zeros_like(p)
-                    t = t + momentum * state["trace"]
-                    state["trace"] = t
-                p.add_(t * -group["lr"])
+                        self.init_state(p, group)
+                    trace = local(state["trace"])
+                    t = t + momentum * trace
+                    trace.copy_(t)
+                local(p).add_(t * -group["lr"])
         return loss
 
 
@@ -177,10 +210,11 @@ class _DistributedOptimizer:
     def _start(self, b):
         """Start bucket b's fused allreduce; a parameter without a
         gradient contributes zeros and keeps no gradient."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._buckets[b]]
+        grads = [local(p.grad) if p.grad is not None
+                 else torch.zeros_like(local(p)) for p in self._buckets[b]]
         self._handles[b] = mpi_ops._grouped_allreduce_async(
-            grads, True, self._compression, self._fusion_threshold)
+            grads, True, self._compression, self._fusion_threshold,
+            self._process_group)
 
     def synchronize(self):
         """Join every gradient allreduce (reference torch/__init__.py:
@@ -199,7 +233,7 @@ class _DistributedOptimizer:
                                       mpi_ops.synchronize(handle)):
                     p = self._buckets[b][i]
                     if p.grad is not None:
-                        p.grad.copy_(reduced)
+                        local(p.grad).copy_(reduced)
         self._handles.clear()
         self._ready.clear()
         self._passes.clear()
@@ -216,8 +250,29 @@ class _DistributedOptimizer:
         return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
+def averages_gradients(optimizer):
+    """Whether ``optimizer`` is a ``DistributedOptimizer``, which averages
+    the gradients over its process group itself (the mesh's dp axis when
+    the parameters are placed on one)."""
+    return isinstance(optimizer, _DistributedOptimizer)
+
+
+def _dp_group(optimizer):
+    """The dp axis's process group of the mesh the optimizer's parameters
+    are placed on, or None (every worker) for plain parameters."""
+    from torch.distributed.tensor import DTensor
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if isinstance(p, DTensor):
+                names = p.device_mesh.mesh_dim_names or ()
+                return p.device_mesh.get_group("dp") if "dp" in names \
+                    else None
+    return None
+
+
 def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
-                         backward_passes_per_step=1, fusion_threshold=None):
+                         backward_passes_per_step=1, fusion_threshold=None,
+                         process_group=None):
     """Wrap a constructed ``torch.optim.Optimizer`` so that gradients are
     averaged across workers during backward (reference
     torch/__init__.py:163-198). The wrapper subclasses the optimizer's own
@@ -226,14 +281,17 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
 
     ``compression`` (``Compression.none/fp16/bf16``) and
     ``fusion_threshold`` default to ``HOROVOD_COMPRESSION`` and
-    ``HOROVOD_FUSION_THRESHOLD``. Needs ``init()`` first."""
+    ``HOROVOD_FUSION_THRESHOLD``. ``process_group`` is the workers to
+    average over: every worker by default, and the mesh's dp axis when
+    the parameters are placed on a mesh (their tp and sp shards are no
+    data-parallel replicas). Needs ``init()`` first."""
     config = state_mod.global_state().config
     if config is None:
         raise mpi_ops.NotInitializedError()
     methods = {k: v for k, v in _DistributedOptimizer.__dict__.items()
                if k not in ("__dict__", "__weakref__")}
-    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
-               methods)
+    cls = type(optimizer.__class__.__name__,
+               (optimizer.__class__, _DistributedOptimizer), methods)
     wrapped = cls.__new__(cls)
     wrapped.__dict__.update(optimizer.__dict__)
     wrapped._compression = (Compression.from_name(config.compression)
@@ -242,6 +300,8 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
                                  if fusion_threshold is None
                                  else fusion_threshold)
     wrapped.backward_passes_per_step = backward_passes_per_step
+    wrapped._process_group = (_dp_group(optimizer) if process_group is None
+                              else process_group)
     named = list(named_parameters) if named_parameters is not None else []
     dups = [n for n, c in collections.Counter(n for n, _ in named).items()
             if c > 1]
@@ -253,7 +313,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
     wrapped._passes = collections.defaultdict(int)
     wrapped._hook_handles = []
     wrapped._buckets = []
-    if mpi_ops.size() > 1:
+    if mpi_ops.group_size(wrapped._process_group) > 1:
         wrapped._register_hooks()
     return wrapped
 

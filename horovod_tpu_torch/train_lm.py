@@ -1,18 +1,27 @@
 """Train the flagship transformer LM through the port: the bench LM leg.
 
     python -m horovod_tpu_torch.train_lm [--device cuda|cpu] [--windows 3]
+        [--size tiny|gpt2-small|gpt2-small-tpu|llama-1b] [--dp N] [--tp N]
+        [--sp N] [--attention full|flash|ring|ring_flash|ulysses]
+        [--seq-len S] [--vocab-chunk C] [--remat] [--remat-policy P]
+
+    # 2-way tp x 2-way sp with ring-flash attention on 4 CPU workers
+    torchrun --nproc_per_node 4 -m horovod_tpu_torch.train_lm \
+        --device cpu --size tiny --tp 2 --sp 2 --attention ring_flash
 
 The port of the JAX package's LM benchmark recipe
 (``examples/bench_common.py``: ``build_transformer_step``,
 ``setup_transformer_lm``, ``transformer_lm_metrics``) with the CLI of
-``examples/transformer_lm.py``: ``init()``, the flagship
+``examples/transformer_lm.py``: ``init()``, the mesh (the flags, else
+``HOROVOD_MESH``; dp absorbs the workers tp·sp leaves), the flagship
 ``gpt2_small_tpu`` config (flash attention, tied embeddings, bf16
-logits) with seeded fp32 master weights, ``DistributedOptimizer`` around
-``AdamW(3e-4, mu_dtype=bfloat16)``, ``broadcast_parameters``, and
-``make_multi_step`` over a stacked ``[inner, batch, seq]`` token array
-from ``numpy.random.RandomState(0)`` (each worker takes its slice of the
-global batch). One warm-up window, then ``--windows`` timed windows of
-``inner`` optimizer steps each, every window ending in a read of the loss.
+logits) with seeded fp32 master weights placed by ``param_specs``,
+``DistributedOptimizer`` (over the mesh's dp axis) around ``AdamW(3e-4,
+mu_dtype=bfloat16)``, and ``make_gspmd_multi_step`` over a stacked
+``[inner, batch · dp, seq]`` token array from
+``numpy.random.RandomState(0)``, placed by ``batch_spec``. One warm-up
+window, then ``--windows`` timed windows of ``inner`` optimizer steps
+each, every window ending in a read of the loss.
 
 Prints one JSON line: tokens/s per card and ms/step from the best window
 (mean and half-spread beside it), MFU against the card's dense-bf16 peak
@@ -36,13 +45,19 @@ from . import mpi_ops, optim, trainer
 from .common import state as state_mod
 from .models import transformer as tr
 from .ops import flash_attention as fa
+from .parallel import mesh as mesh_lib
 
 # NVIDIA's published dense bf16 tensor-core peaks, by H100 variant
 H100_PEAK_BF16 = {"sxm": 989e12, "pcie": 756e12}
 
-# (batch per card, seq, inner steps): the flagship on the card, a smoke
+# (batch per dp way, seq, inner steps): the flagship on the card, a smoke
 # run on the CPU
 DEFAULTS = {"cuda": (16, 1024, 10), "cpu": (2, 64, 2)}
+
+SIZES = {"tiny": tr.TransformerConfig.tiny,
+         "gpt2-small": tr.TransformerConfig.gpt2_small,
+         "gpt2-small-tpu": tr.TransformerConfig.gpt2_small_tpu,
+         "llama-1b": tr.TransformerConfig.llama_1b}
 
 
 def peak_bf16_flops(device):
@@ -68,13 +83,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_config(on_card):
+def flagship_config(on_card, size=None, **overrides):
     """gpt2_small_tpu with flash attention, tied embeddings and bf16
-    logits on the card; the tiny config on the CPU."""
+    logits on the card; the tiny config on the CPU; ``size`` (a key of
+    SIZES) picks another, ``overrides`` replace fields."""
     kw = dict(attention_impl="flash", tie_embeddings=True, logits_fp32=False)
-    if on_card:
-        return tr.TransformerConfig.gpt2_small_tpu(**kw)
-    return tr.TransformerConfig.tiny(**kw)
+    kw.update(overrides)
+    if size is None:
+        size = "gpt2-small-tpu" if on_card else "tiny"
+    return SIZES[size](**kw)
 
 
 def build_transformer_step(cfg, batch, seq, inner, device, seed=0):
@@ -92,6 +109,38 @@ def build_transformer_step(cfg, batch, seq, inner, device, seed=0):
     toks = rng.randint(0, cfg.vocab_size, (inner, batch * n, seq),
                        dtype=np.int64)[:, r * batch:(r + 1) * batch]
     return model, opt, step, torch.from_numpy(toks.copy()).to(device)
+
+
+def build_gspmd_step(cfg, batch, seq, inner, device, mesh, vocab_chunk=0,
+                     seed=0):
+    """The training model placed on ``mesh`` by ``param_specs``, its
+    wrapped optimizer (averaging over the mesh's dp axis), the GSPMD
+    multi-step and the whole stacked tokens ``[inner, batch · dp, seq]``
+    (every worker the same; the step places them by ``batch_spec``)."""
+    model = tr.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device=device, train=True)
+    specs = tr.param_specs(model)
+    trainer.place(model, mesh, specs)
+    opt = optim.DistributedOptimizer(
+        optim.AdamW(model.parameters(), 3e-4, mu_dtype=torch.bfloat16),
+        named_parameters=model.named_parameters())
+    trainer.init_opt_state(opt, model)
+    step, _, _ = trainer.make_gspmd_multi_step(
+        tr.lm_loss_fn(model, vocab_chunk=vocab_chunk), opt, mesh, specs,
+        tr.batch_spec(sp=mesh_lib.mesh_axis_size(mesh, "sp") > 1))
+    dp = mesh_lib.mesh_axis_size(mesh, "dp")
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            (inner, batch * dp, seq),
+                                            dtype=np.int64)
+    return model, opt, step, torch.from_numpy(toks).to(device)
+
+
+def mesh_of(args):
+    """The mesh of the flags (dp inferred when not given), or of
+    ``HOROVOD_MESH`` and its per-axis knobs when no flag is given."""
+    if args.dp is not None or args.tp != 1 or args.sp != 1:
+        return mesh_lib.build_mesh(dp=args.dp, tp=args.tp, sp=args.sp)
+    return mesh_lib.mesh_from_env()
 
 
 def transformer_lm_metrics(window_s, meta, peak_flops=None):
@@ -119,6 +168,26 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--windows", type=int, default=3,
                    help="timed windows after the warm-up window")
+    p.add_argument("--size", default=None, choices=sorted(SIZES),
+                   help="model (default: gpt2-small-tpu on the card, tiny "
+                        "on the CPU)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ways (default: workers / tp / sp)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ways (ring/ulysses attention)")
+    p.add_argument("--attention", default="flash",
+                   choices=["full", "ring", "ring_flash", "ulysses",
+                            "flash"])
+    p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--vocab-chunk", type=int, default=0,
+                   help="compute the loss blockwise over this many vocab "
+                        "entries instead of materializing [B,S,V] logits")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block in the backward")
+    p.add_argument("--remat-policy", default=None,
+                   choices=["dots", "dots_no_batch"],
+                   help="what --remat saves (default: nothing)")
     return p.parse_args(argv)
 
 
@@ -128,22 +197,34 @@ def main(argv=None):
     device = state_mod.device()
     on_card = device.type == "cuda"
     batch, seq, inner = DEFAULTS[device.type]
-    cfg = flagship_config(on_card)
-    _, _, step, toks = build_transformer_step(cfg, batch, seq, inner, device)
-    losses = [step(toks).item()]   # warm-up window: the kernels build here
+    seq = args.seq_len or seq
+    cfg = flagship_config(on_card, args.size, attention_impl=args.attention,
+                          remat=args.remat, remat_policy=args.remat_policy)
+    mesh = mesh_lib.set_global_mesh(mesh_of(args))
+    model, opt, step, toks = build_gspmd_step(cfg, batch, seq, inner, device,
+                                              mesh, args.vocab_chunk)
+
+    def window():
+        return step(model, opt, toks)[2]
+    losses = [window().item()]   # warm-up window: the kernels build here
     window_s = []
     for w in range(args.windows):
         if w == args.windows - 1:
             fa.reset_launch_counts()
         t0 = time.perf_counter()
-        loss = step(toks)
+        loss = window()
         losses.append(loss.item())   # the sync point
         window_s.append((time.perf_counter() - t0) / inner)
-    meta = {"batch_per_chip": batch, "seq": seq, "cfg": cfg,
+    # a card works on its dp way's batch rows, its sp way's sequence shard,
+    # and shares them with its tp ways: batch / (tp · sp) rows of seq
+    shared = mesh.size // mesh.shape["dp"]
+    meta = {"batch_per_chip": batch if shared == 1 else batch / shared,
+            "seq": seq, "cfg": cfg,
             "model": "gpt2-small-tpu-flash" if on_card else "tiny-smoke"}
     out = transformer_lm_metrics(window_s, meta, peak_bf16_flops(device))
     out.update({
         "inner": inner, "workers": mpi_ops.size(),
+        "mesh": mesh_lib.mesh_layout(mesh), "attention": cfg.attention_impl,
         "loss_first": losses[0], "loss_last": losses[-1],
         "launches_per_step": {k: v / inner
                               for k, v in sorted(fa.launch_counts.items())},
@@ -151,6 +232,7 @@ def main(argv=None):
         "card": card_line() if on_card else None})
     if mpi_ops.rank() == 0:
         print(json.dumps(out), flush=True)
+    mesh_lib.reset_global_mesh()
     mpi_ops.shutdown()
     return out
 

@@ -4,32 +4,60 @@ PyTorch runs eagerly, so a train step is a Python function over a model
 that owns its parameters and an optimizer that owns its state: zero the
 gradients, run the loss forward and backward, step. With a
 ``DistributedOptimizer`` the gradients are averaged across workers
-during the backward, which is what the JAX package's data-parallel and
-GSPMD steps do inside one compiled program.
+during the backward, which is what the JAX package's data-parallel step
+does inside one compiled program.
+
+The GSPMD step (``make_gspmd_step``, ``make_gspmd_multi_step``) takes a
+model placed on a mesh (``place``: its parameters DTensors by
+PartitionSpec, e.g. ``models.transformer.param_specs``) and a batch
+placed by ``batch_spec``, and writes out the collectives the JAX
+package's XLA inserts for dp, tp and sp.
 """
 
 import torch
 
-from . import mpi_ops
+from . import mpi_ops, optim
+from .parallel import mesh as mesh_lib
+from .parallel import tensor_parallel as tpl
+from .parallel.mesh import P
 
 
-def softmax_cross_entropy(logits, labels, weights=None):
+def softmax_cross_entropy(logits, labels, weights=None, norm=None,
+                          tp=None):
     """Mean token-level cross entropy (labels are int ids). ``weights``
-    (same shape as labels) masks positions out of the mean.
+    (same shape as labels) masks positions out of the mean; ``norm``
+    replaces the weights' sum as its denominator (a shard of a sequence
+    divides by the whole sequence's).
 
     As the JAX package computes it: ``nll = lse(logits) - logits[label]``
     with the row max detached (it cancels in the gradient), ``logits - max``
     in the logits' dtype and the sum of exponentials in fp32, so bf16
-    logits round only where they are stored."""
+    logits round only where they are stored.
+
+    ``tp``: the logits are this rank's shard of a vocab split evenly over
+    that tensor-parallel group (rank r holding ids [r·V/tp, (r+1)·V/tp));
+    the max, the sum of exponentials and the label's logit are reduced
+    over its ranks, and every rank gets the same loss."""
     m = logits.amax(dim=-1, keepdim=True).detach()
+    if tp is not None:
+        m = tpl.all_reduce_max(m, tp)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
+    labels = labels[..., None].long()
+    if tp is None:
+        tgt = torch.gather(logits, -1, labels)[..., 0].float()
+    else:
+        sumexp = tpl.reduce_from(sumexp, tp)
+        v = logits.shape[-1]
+        ids = labels - tp.rank * v
+        mine = ((ids >= 0) & (ids < v))[..., 0]
+        tgt = torch.gather(logits, -1, ids.clamp(0, v - 1))[..., 0].float()
+        tgt = tpl.reduce_from(tgt * mine.to(tgt.dtype), tp)
     lse = m[..., 0].float() + torch.log(sumexp)
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - tgt.float()
+    nll = lse - tgt
     if weights is None:
         return nll.mean()
     weights = weights.to(nll.dtype)
-    return (nll * weights).sum() / weights.sum()
+    return (nll * weights).sum() / (weights.sum() if norm is None else norm)
 
 
 def make_train_step(model, optimizer, loss_fn):
@@ -78,3 +106,153 @@ def make_data_parallel_step(model, optimizer, loss_fn, steps_per_call=1):
             loss = mpi_ops.allreduce(loss, average=True)
         return loss
     return step
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD step: parameters and batch placed on a mesh by PartitionSpecs
+
+
+def place(tree, mesh, spec_tree):
+    """Place ``tree`` on the mesh (``mesh=None``: the process-global mesh)
+    by the PartitionSpecs of ``spec_tree``: a module's parameters become
+    DTensors holding this rank's shard (in place; the module is returned),
+    a dict of whole tensors a dict of DTensors. Every rank passes the same
+    whole values (the same seed); no communication."""
+    if isinstance(tree, torch.nn.Module):
+        shardings = mesh_lib.tree_shardings(spec_tree, mesh)
+        for name, p in list(tree.named_parameters()):
+            owner, _, attr = name.rpartition(".")
+            module = tree.get_submodule(owner) if owner else tree
+            setattr(module, attr, torch.nn.Parameter(
+                shardings[name].place(p), requires_grad=p.requires_grad))
+        return tree
+    return mesh_lib.device_put_tree(tree, spec_tree, mesh)
+
+
+def replicate(tree, mesh=None):
+    """``tree`` placed fully replicated (spec ``P()``) on the mesh."""
+    if isinstance(tree, torch.nn.Module):
+        return place(tree, mesh, {n: P() for n, _ in tree.named_parameters()})
+    return mesh_lib.replicate_tree(tree, mesh)
+
+
+def _param_names(tx, params):
+    names = {p: n for n, p in params.named_parameters()}
+    return [(names[p], p, group) for group in tx.param_groups
+            for p in group["params"]]
+
+
+def opt_state_specs(tx, params, param_spec_tree):
+    """PartitionSpec of each optimizer state entry, by parameter name:
+    the entries shaped like the parameter (AdamW's mu and nu, SGD's
+    trace) take its spec, the others (step counts) are replicated."""
+    out = {}
+    for name, _, group in _param_names(tx, params):
+        like, other = tx.state_keys(group)
+        out[name] = {**{k: param_spec_tree[name] for k in like},
+                     **{k: P() for k in other}}
+    return out
+
+
+def init_opt_state(tx, params):
+    """The optimizer's state for every parameter of ``params``, created
+    now and placed as ``opt_state_specs`` says: each entry shaped like a
+    parameter on that parameter's placement (place the parameters first),
+    step counts replicated. Returns ``tx``. Unlike the JAX package's, it
+    takes no mesh or spec tree: each entry takes its parameter's own
+    placement."""
+    for _, p, group in _param_names(tx, params):
+        tx.init_state(p, group)
+    return tx
+
+
+def reduce_gradients(model, mesh, dp=True):
+    """What the JAX package's XLA inserts for a GSPMD step's gradients:
+    the sum over the 'sp' axis (each shard of the sequence contributes a
+    part of every parameter's gradient) and the mean over 'dp' (skipped
+    with ``dp=False``, when a ``DistributedOptimizer`` averages over dp
+    itself). The tp shards' gradients are whole already: the layers'
+    collectives made them so."""
+    grads = [tpl.local(p.grad) for p in model.parameters()
+             if p.grad is not None]
+    for axis, average, on in (("sp", False, True), ("dp", True, dp)):
+        if on and mesh_lib.mesh_axis_size(mesh, axis) > 1:
+            reduced = mpi_ops.grouped_allreduce(
+                grads, average=average, axis_name=mesh.group(axis))
+            for g, r in zip(grads, reduced):
+                g.copy_(r)
+
+
+def _batch_on(batch, sharding):
+    from torch.distributed.tensor import DTensor
+    return batch if isinstance(batch, DTensor) else sharding.place(batch)
+
+
+def _global_loss(loss, mesh):
+    """The step's loss as the JAX package returns it, the mean over the
+    whole batch: this rank's part summed over 'sp', averaged over 'dp'."""
+    loss = loss.detach().float()
+    for axis, average in (("sp", False), ("dp", True)):
+        if mesh_lib.mesh_axis_size(mesh, axis) > 1:
+            loss = mpi_ops.grouped_allreduce(
+                [loss], average=average, axis_name=mesh.group(axis))[0]
+    return loss
+
+
+def _gspmd_shardings(mesh, param_spec_tree, batch_spec):
+    mesh = mesh_lib.global_mesh() if mesh is None else mesh
+    return (mesh, mesh_lib.tree_shardings(param_spec_tree, mesh),
+            mesh_lib.named_sharding(batch_spec, mesh))
+
+
+def make_gspmd_step(loss_fn, tx, mesh, param_spec_tree, batch_spec):
+    """The sharding-annotated train step, port of the JAX package's
+    ``make_gspmd_step``: returns ``(step, param_shardings,
+    batch_sharding)``, where ``step(params, opt_state, batch) -> (params,
+    opt_state, loss)`` takes the model placed by ``param_spec_tree``
+    (``place``), its optimizer and the whole batch (every rank the same;
+    placed by ``batch_spec`` here) or a batch already placed, and makes
+    one update. ``mesh=None`` targets the process-global mesh.
+
+    PyTorch runs eagerly, so the collectives XLA would insert are written
+    out: the layers' tp collectives (``models.transformer``), the
+    sequence's ring, and ``reduce_gradients`` (the sp sum and the dp
+    mean; a ``DistributedOptimizer`` ``tx`` averages over dp itself). The
+    returned loss is the mean over the whole batch, the same on every
+    rank. Unlike the JAX package's, it takes no ``donate`` or ``params``:
+    updates are in place, and the placement is the caller's (``place``)."""
+    mesh, param_shardings, batch_sharding = _gspmd_shardings(
+        mesh, param_spec_tree, batch_spec)
+    dp_by_tx = optim.averages_gradients(tx)
+
+    def step(params, opt_state, batch):
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, _batch_on(batch, batch_sharding))
+        loss.backward()
+        reduce_gradients(params, mesh, dp=not dp_by_tx)
+        opt_state.step()
+        return params, opt_state, _global_loss(loss, mesh)
+    return step, param_shardings, batch_sharding
+
+
+def make_gspmd_multi_step(loss_fn, tx, mesh, param_spec_tree, batch_spec):
+    """Like ``make_gspmd_step``, but the step takes a STACKED batch
+    ``[n_steps, ...]`` and makes one update per entry, returning the last
+    step's loss. The stacked batch is placed as ``P(None, *batch_spec)``:
+    the leading step axis is never split across ranks. (The JAX package
+    scans on the device; the port loops on the host.)"""
+    one, param_shardings, _ = make_gspmd_step(
+        loss_fn, tx, mesh, param_spec_tree, batch_spec)
+    mesh, _, batch_sharding = _gspmd_shardings(
+        mesh, param_spec_tree, P(None, *batch_spec))
+    step_sharding = mesh_lib.named_sharding(batch_spec, mesh)
+
+    def multi_step(params, opt_state, batches):
+        batches = _batch_on(batches, batch_sharding)
+        local = batches.to_local()
+        loss = None
+        for i in range(local.shape[0]):
+            one_batch = step_sharding.wrap(local[i], batches.shape[1:])
+            params, opt_state, loss = one(params, opt_state, one_batch)
+        return params, opt_state, loss
+    return multi_step, param_shardings, batch_sharding

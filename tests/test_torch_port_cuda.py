@@ -166,8 +166,8 @@ def test_kernel_refuses_what_it_cannot_take(card):
     q, k, v = _qkv(13, 1, 64, 2, 128, torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v, True)
-    q, k, v = _qkv(13, 1, 64, 2, 160, torch.bfloat16, card)
-    with pytest.raises(ValueError, match="up to 128"):
+    q, k, v = _qkv(13, 1, 64, 2, 288, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="up to 256"):
         fa.flash_fwd(q, k, v, True)
 
 
@@ -198,7 +198,7 @@ def test_head_dims_between_the_compiled_ones(card, dtype, causal, d):
         card, dtype)
     fa.reset_launch_counts()
     got = _public_fwd_bwd(q, k, v, g, causal, card, variant="online")
-    assert dict(fa.launch_counts) == {"flash_fwd_online": 1,
+    assert dict(fa.launch_counts) == {_fwd_name(dtype, "online"): 1,
                                       **dict.fromkeys(_bwd_names(dtype), 1)}
     qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
     out, lse = ref.flash_fwd_online(qf, kf, vf, causal,
@@ -299,10 +299,21 @@ def _plain_grads(qf, kf, vf, gf, lse, delta, causal, cta_rows=None):
                                    *dkv_walk))
 
 
-def _bwd_names(dtype):
-    if dtype == torch.bfloat16:
+def _on_sm90(dtype, d):
+    return dtype == torch.bfloat16 and d <= fa.SM90_MAX_HEAD_DIM
+
+
+def _fwd_name(dtype, variant, d=128):
+    """The launch count of a forward: the wgmma kernel's, or the CUDA-core
+    kernel's own."""
+    return (f"flash_fwd_{variant}" if _on_sm90(dtype, d)
+            else f"flash_fwd_cc_{variant}")
+
+
+def _bwd_names(dtype, d=128):
+    if _on_sm90(dtype, d):
         return "flash_bwd_sm90_dq", "flash_bwd_sm90_dkv"
-    return "flash_bwd_dq", "flash_bwd_dkv"
+    return "flash_bwd_cc_dq", "flash_bwd_cc_dkv"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -438,6 +449,107 @@ def test_backward_refuses_what_it_cannot_take(card):
         fa._kernel_bwd(qf, kf, vf, qf.float(), lse, lse, True, 0.125)
     with pytest.raises(ValueError, match="lse and delta"):
         fa._kernel_bwd(qf, kf, vf, qf, lse.double(), lse, True, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_wide_head_dims_through_the_kernels(card, dtype, causal, d):
+    """Head dims above 128 run on the CUDA-core kernels (zero-padded to
+    256 on the host below it), forward and backward, at a partial-tile
+    length, and agree with the plain walks at the true d and the kernels'
+    tiles (64-row tiles; 32-key tiles in the backward)."""
+    q, k, v = _qkv(70 + d, 1, 200, 3, d, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
+        card, dtype)
+    fa.reset_launch_counts()
+    got = _public_fwd_bwd(q, k, v, g, causal, card, variant="online")
+    assert dict(fa.launch_counts) == {_fwd_name(dtype, "online", d): 1,
+                                      **dict.fromkeys(_bwd_names(dtype, d),
+                                                      1)}
+    qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
+    assert fa.bwd_kernel_blocks(qf, kf) == ((64, 32), (64, 32))
+    out, lse = ref.flash_fwd_online(qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, "online"))
+    delta = ref.flash_delta(out, gf)
+    _assert_kernel_close(got[0], out, "O", dtype)
+    for a, w in zip(got[1:], _plain_grads(qf, kf, vf, gf, lse, delta,
+                                          causal)):
+        assert a.shape == w.shape
+        _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(130, 130, True), (64, 200, False)])
+def test_d256_forward_every_walk(card, variant, dtype, sq, sk, causal):
+    """Each forward walk at d 256 on the CUDA-core kernel against its
+    plain version at the kernel's 64-row tiles."""
+    g = torch.Generator().manual_seed(sq + sk)
+    qf = torch.randn(2, sq, 256, generator=g)
+    kf, vf = (torch.randn(2, sk, 256, generator=g) for _ in range(2))
+    qf, kf, vf = (t.to(card, dtype) for t in (qf, kf, vf))
+    fa.reset_launch_counts()
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, 256 ** -0.5, variant)
+    assert dict(fa.launch_counts) == {f"flash_fwd_cc_{variant}": 1}
+    p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, variant))
+    _assert_kernel_close(out, p_out, "O", dtype)
+    _assert_kernel_close(lse, p_lse, "lse", dtype)
+
+
+def _ring_pair(dtype, d, card, offset=0.0, seed=90, bh=6, s=256):
+    """A ring's later pair as the backward sees it: q against a non-causal
+    K/V block (keys offset by ``offset``), a merged lse that includes the
+    block's mass for the even rows and is +1e30 (a future pair) for the
+    odd ones, and the merged O and dO."""
+    g = torch.Generator().manual_seed(seed)
+    qf, kf, vf, of, dof = (torch.randn(bh, s, d, generator=g)
+                           for _ in range(5))
+    qf, kf, vf, of, dof = (t.to(card, dtype) for t in (qf, kf + offset, vf,
+                                                       of, dof))
+    logits = torch.matmul(qf.float(), kf.float().transpose(1, 2)) * d ** -0.5
+    lse = torch.logsumexp(logits, dim=-1) + 1.0   # other blocks' mass
+    future = torch.arange(s, device=card) % 2 == 1
+    lse = torch.where(future, torch.full_like(lse, 1e30), lse)
+    return qf, kf, vf, of, dof, lse.contiguous(), future
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_ring_pair_merged_lse_backward(card, dtype, d):
+    """The backward kernels under a caller's merged lse with +1e30 rows:
+    those rows' p is exactly 0 (their dq exactly 0, nothing from them in
+    dk/dv), and every gradient agrees with the plain walks."""
+    qf, kf, vf, of, dof, lse, future = _ring_pair(dtype, d, card)
+    delta = ref.flash_delta(of, dof)
+    dq, dk, dv = fa._kernel_bwd(qf, kf, vf, dof, lse, delta, False,
+                                d ** -0.5)
+    assert torch.count_nonzero(dq[:, future]) == 0
+    for a, w in zip((dq, dk, dv), _plain_grads(qf, kf, vf, dof, lse, delta,
+                                               False)):
+        _assert_grad_close(a, w, dtype)
+    keep = ~future
+    want = _plain_grads(qf[:, keep].contiguous(), kf, vf,
+                        dof[:, keep].contiguous(),
+                        lse[:, keep].contiguous(),
+                        delta[:, keep].contiguous(), False)
+    for a, w in zip((dk, dv), want[1:]):
+        _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_ring_future_pair_with_large_logits_is_exactly_zero(card, dtype, d):
+    """A wholly future pair (every row's lse +1e30) whose keys are offset
+    by 1e3, so its logits reach the thousands: p underflows to exactly 0
+    inside the kernels, with no inf or NaN, and dq, dk and dv are exactly
+    zero."""
+    qf, kf, vf, of, dof, lse, _ = _ring_pair(dtype, d, card, offset=1e3)
+    lse = torch.full_like(lse, 1e30)
+    delta = ref.flash_delta(of, dof)
+    for t in fa._kernel_bwd(qf, kf, vf, dof, lse, delta, False, d ** -0.5):
+        assert torch.count_nonzero(t) == 0
 
 
 def test_training_step_launches_the_kernels(card):

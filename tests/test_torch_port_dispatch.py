@@ -2,11 +2,11 @@
 
 The compiled extension is replaced by a stub that records its calls, so
 the dispatch in ``ops/flash_attention.py`` runs here on the CPU. Forward:
-every bf16 variant goes to the wgmma/TMA entry point (``flash_fwd_sm90``,
-with the CTA shape the host picks or the caller forces), every fp32
-variant to ``flash_fwd``, and the launch counts keep one name per
-variant; a head dim between the compiled ones reaches the kernel
-zero-padded, with the true d's scale. Backward: bf16 goes to the wgmma/TMA pair
+every bf16 variant up to head dim 128 goes to the wgmma/TMA entry point
+(``flash_fwd_sm90``, with the CTA shape the host picks or the caller
+forces), every fp32 variant and bf16 above d 128 to ``flash_fwd``, and
+the launch counts keep one name per variant; a head dim between the
+compiled ones reaches the kernel zero-padded, with the true d's scale. Backward: bf16 goes to the wgmma/TMA pair
 (``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
 forces, ``flash_bwd_sm90_dkv``), fp32 to ``flash_bwd_dq`` and
 ``flash_bwd_dkv``, each counted under its own name. The stub's outputs
@@ -88,7 +88,9 @@ def test_each_variant_reaches_its_entry_point(stub, variant, dtype, causal):
     assert entry == ("flash_fwd_sm90" if sm90 else "flash_fwd")
     assert (code, got_causal) == (fa.VARIANTS.index(variant), causal)
     assert rows == (64 if sm90 else None)
-    assert dict(fa.launch_counts) == {f"flash_fwd_{variant}": 1}
+    name = f"flash_fwd_{variant}" if sm90 else f"flash_fwd_cc_{variant}"
+    assert fa.fwd_launch_name(qf, variant) == name
+    assert dict(fa.launch_counts) == {name: 1}
     assert out.shape == qf.shape and out.dtype == dtype
     assert lse.shape == (6, 192) and lse.dtype == torch.float32
 
@@ -142,12 +144,14 @@ def test_backward_reaches_its_entry_points(stub, dtype, causal):
     sm90 = dtype == torch.bfloat16
     names = (("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv") if sm90
              else ("flash_bwd_dq", "flash_bwd_dkv"))
+    counted = (names if sm90 else ("flash_bwd_cc_dq", "flash_bwd_cc_dkv"))
+    assert fa.bwd_launch_names(ops[0]) == counted
     assert [c[0] for c in stub.calls] == list(names)
     for call in stub.calls:
         assert call[1:4] == (causal, 0.125 * fa.LOG2E, 0.125)
     # b·h 6 x ⌈192/128⌉ = 12 CTAs leave SMs idle: one consumer warpgroup
     assert stub.calls[0][4] == (64 if sm90 else None)
-    assert dict(fa.launch_counts) == {names[0]: 1, names[1]: 1}
+    assert dict(fa.launch_counts) == {counted[0]: 1, counted[1]: 1}
     for got, like in zip((dq, dk, dv), ops[:3]):
         assert got.shape == like.shape and got.dtype == dtype
 
@@ -200,15 +204,49 @@ def test_head_dim_reaches_the_kernel_padded(stub, d, padded, dtype):
     assert stub.head_dims == [(padded, pytest.approx(scale * fa.LOG2E))]
     assert out.shape == qf.shape and out.is_contiguous()
     assert lse.shape == (2, 192)
-    assert dict(fa.launch_counts) == {"flash_fwd_online": 1}
+    assert dict(fa.launch_counts) == {
+        "flash_fwd_online" if dtype == torch.bfloat16 else
+        "flash_fwd_cc_online": 1}
 
 
 def test_head_dim_beyond_128_raises_before_any_launch(stub):
-    qf, kf, vf = _flat(2, 64, 160, torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 128"):
+    """Head dims up to 256 reach a kernel; only one above 256 raises, and
+    before any launch."""
+    qf, kf, vf = _flat(2, 64, 288, torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
         fa.pad_head_dim(lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"),
                         (qf, kf, vf), 1)
     assert stub.calls == [] and not fa.launch_counts
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
+    """d in (128, 256] is zero-padded to 256 with the true d's scale and
+    runs on the CUDA-core kernels in both dtypes (the wgmma ones stop at
+    128): forward on ``flash_fwd``, backward on ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` over 32-key tiles, each counted under its own
+    ``_cc_`` name."""
+    qf, kf, vf = _flat(2, 200, d, dtype)
+    scale = d ** -0.5
+    out, lse = fa.pad_head_dim(
+        lambda q, k, v: fa._kernel_fwd(q, k, v, True, scale, "online"),
+        (qf, kf, vf), 1)
+    assert stub.calls == [("flash_fwd", 0, True, None)]
+    assert stub.head_dims == [(256, pytest.approx(scale * fa.LOG2E))]
+    assert out.shape == qf.shape
+    delta = torch.zeros(2, 200)
+    dq, dk, dv = fa.pad_head_dim(
+        lambda q, k, v, do: fa._kernel_bwd(q, k, v, do, lse, delta, True,
+                                           scale), (qf, kf, vf, qf), 3)
+    assert [c[0] for c in stub.calls[1:]] == ["flash_bwd_dq",
+                                              "flash_bwd_dkv"]
+    assert dq.shape == dk.shape == dv.shape == qf.shape
+    assert fa.bwd_kernel_blocks(qf, kf) == ((64, 32), (64, 32))
+    assert fa.kernel_blocks(qf, kf, "online") == (64, 64)
+    assert dict(fa.launch_counts) == {"flash_fwd_cc_online": 1,
+                                      "flash_bwd_cc_dq": 1,
+                                      "flash_bwd_cc_dkv": 1}
 
 
 def test_build_lists_every_cuda_source():

@@ -275,13 +275,18 @@ class TestHeadDimPadding:
     and must give the unpadded walks' result."""
 
     @pytest.mark.parametrize("d,padded", [(24, 32), (80, 128), (96, 128),
-                                          (120, 128), (64, 64), (8, 16)])
+                                          (120, 128), (64, 64), (8, 16),
+                                          (160, 256), (192, 256),
+                                          (256, 256)])
     def test_kernel_head_dim(self, d, padded):
         assert tfa.kernel_head_dim(d) == padded
 
     def test_beyond_128_is_refused(self):
-        with pytest.raises(ValueError, match="up to 128"):
-            tfa.kernel_head_dim(160)
+        """Head dims up to 256 run on the card (the CUDA-core kernels
+        above 128); only a d above 256 is refused."""
+        assert tfa.kernel_head_dim(160) == 256
+        with pytest.raises(ValueError, match="up to 256"):
+            tfa.kernel_head_dim(260)
 
     @pytest.mark.parametrize("d", [24, 80, 96, 120])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -438,3 +443,34 @@ class TestDecodeAttention:
         x = torch.zeros(1, 2, 1, 8)
         with pytest.raises(ValueError, match="decode_attention"):
             tfa.decode_attention(x, x, x, torch.tensor([2]))
+
+
+class TestWideHeadDims:
+    """Head dims above 128 are taken on the API (the card pads d up to
+    256 for its CUDA-core kernels; the CPU runs the plain walks at the
+    true d): forward and gradients against the JAX package's
+    ``flash_attention`` in interpret mode, fp32 2e-5 forward and rtol
+    1e-4 / atol 1e-5 gradients, and the scale of the true d."""
+
+    @pytest.mark.parametrize("d", [160, 256])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_plain_path_matches_jax_interpret(self, hvd, d, causal):
+        from horovod_tpu.ops import flash_attention as jfa
+        (jq, jk, jv), (tq, tk, tv) = _inputs(40 + d, b=1, s=128, h=2, d=d)
+        g = np.random.RandomState(d).randn(1, 128, 2, d).astype(np.float32)
+
+        def jloss(q, k, v):
+            out = jfa.flash_attention(q, k, v, causal=causal, block_q=64,
+                                      block_k=64, interpret=True)
+            return jnp.sum(out * g), out
+        (_, j_out), j_grads = jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+        ts = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        out = tfa.flash_attention(*ts, causal=causal, block_q=64,
+                                  block_k=64, device="cpu")
+        out.backward(torch.from_numpy(g))
+        assert out.shape == (1, 128, 2, d)
+        _close(out.detach(), j_out, "float32")
+        for t, w in zip(ts, j_grads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                       rtol=1e-4, atol=1e-5)

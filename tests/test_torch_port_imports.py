@@ -72,7 +72,11 @@ def test_scan_sees_every_module():
                  os.path.join("horovod_tpu_torch", "models", "resnet.py"),
                  os.path.join("horovod_tpu_torch", "models", "vgg.py"),
                  os.path.join("horovod_tpu_torch", "models", "inception.py"),
-                 os.path.join("horovod_tpu_torch", "models", "mnist.py")):
+                 os.path.join("horovod_tpu_torch", "models", "mnist.py"),
+                 os.path.join("horovod_tpu_torch", "parallel", "mesh.py"),
+                 os.path.join("horovod_tpu_torch", "parallel", "ring.py"),
+                 os.path.join("horovod_tpu_torch", "parallel",
+                              "tensor_parallel.py")):
         assert want in files
 
 
