@@ -51,6 +51,11 @@ on failure:
      tiles with b·h >= 2 (s 960, 1000), non-causal sq != sk both ways and
      the training shape; fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
      plus 1 % of that gradient's largest magnitude. Then the
+     head dims above 256 on the run-time-d kernels (flash_dyn.cu): d 288,
+     384, 512 and 1024, fp32 and bf16, every forward walk, dq and dk/dv
+     at partial last tiles, sq != sk, causal and not, with the rising-max
+     adversaries, the accumulators in shared memory and in the device
+     workspace, and d 288 through the public autograd path. Then the
      BatchNorm statistics kernels (B6 moments, B7 moments2) against their
      plain versions, both held to a float64 sum on the card within 1e-5
      of the per-channel sum of magnitudes, in bf16 and fp32, on
@@ -110,7 +115,28 @@ on failure:
      CUDA-core kernels (flash_fwd_cc_{online,lazy,twopass},
      flash_bwd_cc_{dq,dkv}) must have launched and nothing else; the
      loss must fall, and the first batch's loss on the kernel path must
-     equal the plain path's within 2^-8;
+     equal the plain path's within 2^-8; then the same over 2 heads of
+     384 on the run-time-d kernels (flash_fwd_dyn_*, flash_bwd_dyn_*);
+  3f. serving on the tensor-parallel mesh: GPT-2-small (bf16, full width
+     and depth) served by tp engines of 2, 3 and 4 ranks, the ranks
+     threads of this process on the one card (at tp 4 the 6 heads do not
+     split: every rank computes all of them, the KV cache replicated),
+     the phase-3 requests and a twopass run, held to the unsharded
+     engine: prefill logits of every request within two bf16 ulps plus
+     1 % of the largest |logit|, token agreement printed, KV bytes per
+     rank (at least 1.9x below at tp 2), resharding_report empty, a
+     decode step's collectives exactly 2 · layers activation all-reduces
+     and one logits gather, the prefill kernels each rank launched; the
+     tiny fp32 model at tp 2 token for token;
+  3g. the collective backends on 4 thread ranks as slices 2 x chips 2:
+     hierarchical_allreduce, ring_all_reduce and the flat sum of the
+     flagship's gradient set (151.9M fp32 elements), exact on
+     integer-valued inputs and within 1e-6 of the magnitudes' sum on
+     unit-scale ones, each timed; one DistributedOptimizer(AdamW)
+     flagship step per rank under no flag, HOROVOD_RING_ALLREDUCE and
+     HOROVOD_HIERARCHICAL_ALLREDUCE, the operation manager's selections
+     counted, the averaged gradients and parameters equal to the
+     flag-less route's;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -131,7 +157,7 @@ on failure:
      vocab_chunk 0 and 8192 and with remat off and on (with ms/step over
      20 steps after 3 warm-up steps, each setting timed twice, in turn),
      ring_flash W = 4 forward and backward beside flash on the whole
-     sequence, and the d-256 kernels beside d 128.
+     sequence, and the d-256 and d-384 kernels beside d 128.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -140,6 +166,7 @@ there is no CUDA device or the port is not beside this script.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -199,6 +226,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
 WIDE_HEADS, WIDE_LAYERS, WIDE_STEPS = 3, 2, 4
 CC_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy", "twopass")
                  ) + ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
+# phase 3e again: the flagship's width over 2 heads of 384, on the
+# run-time-d kernels
+DYN_HEADS = 2
+DYN_NAMES = tuple(f"flash_fwd_dyn_{v}" for v in ("online", "lazy", "twopass")
+                  ) + ("flash_bwd_dyn_dq", "flash_bwd_dyn_dkv")
+DYN_SOURCE = "horovod_tpu_torch/csrc/flash_dyn.cu"
 VISION_BATCH, VISION_SIZE, VISION_STEPS = 32, 224, 10
 BN_PER_STEP = 53   # BatchNorm layers of ResNet-50
 
@@ -840,6 +873,114 @@ def check_wide_head_dims(card, dev, errs):
               f"{errs['dq_d256']:.3e}, dk/dv {errs['dkv_d256']:.3e}")
 
 
+BEYOND_DIMS = (288, 384, 512, 1024)
+
+
+def check_beyond_256(card, dev, errs):
+    """Head dims above 256 on the run-time-d kernels (``flash_dyn.cu``):
+    at d 288, 384, 512 and 1024, fp32 and bf16, every forward walk and dq
+    and dk/dv (from the plain forward's lse) against the plain walks at
+    the kernels' 32-row tiles, at sq 130 causal (a partial last tile),
+    sq 100 x sk 300 non-causal, and sq = sk 256 with the rising-max
+    adversaries (keys ramped down, causal: every tile of lazy's
+    diagonal-first walk raises the row max; ramped up, non-causal: every
+    tile of the ascending walks does); the fp32 accumulators in shared
+    memory and, forced, in the device workspace at d 288 and 512 (at
+    d 1024 dk/dv's are there anyway); then d 288 through the public
+    autograd path at s 200, causal and not. Folds the largest bf16
+    errors into ``errs`` (fwd_dyn, dq_dyn, dkv_dyn)."""
+    for key in ("fwd_dyn", "dq_dyn", "dkv_dyn"):
+        errs.setdefault(key, 0.0)
+    share, n_cmp = {"bfloat16": 0.0, "float32": 0.0}, 0
+    cases = ((130, 130, True, None), (100, 300, False, None),
+             (256, 256, True, "down"), (256, 256, False, "up"))
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for d in BEYOND_DIMS:
+            scale = d ** -0.5
+            spaces = (False, True) if d in (288, 512) else (False,)
+            for sq, sk, causal, ramp in cases:
+                g = torch.Generator().manual_seed(2000 + d + sq + sk)
+                qf, dof = (torch.randn(2, sq, d, generator=g)
+                           for _ in range(2))
+                kf, vf = (torch.randn(2, sk, d, generator=g)
+                          for _ in range(2))
+                if ramp:
+                    r_ = torch.linspace(4.0, 0.5, sk)
+                    kf = kf * (r_ if ramp == "down" else r_.flip(0))[
+                        None, :, None]
+                qf, kf, vf, dof = (t.to(dev, dtype) for t in (qf, kf, vf,
+                                                               dof))
+                label = f"{dt} d={d} sq={sq} sk={sk} causal={causal}"
+                for variant in fa.VARIANTS:
+                    p_out, p_lse = plain_fwd(qf, kf, vf, causal, scale,
+                                             variant)
+                    for ws in spaces:
+                        out, lse = fa._kernel_fwd(qf, kf, vf, causal, scale,
+                                                  variant, workspace=ws)
+                        for got, w, what in ((out, p_out, "O"),
+                                             (lse, p_lse, "lse")):
+                            err, frac = hold(got, w, what, dtype,
+                                             f"{variant} {label} ws={ws}")
+                            share[dt] = max(share[dt], frac)
+                            if dtype == torch.bfloat16 and what == "O":
+                                errs["fwd_dyn"] = max(errs["fwd_dyn"], err)
+                            n_cmp += 1
+                delta = ref.flash_delta(p_out, dof)
+                want = plain_bwd(qf, kf, vf, dof, p_lse, delta, causal,
+                                 scale)
+                for ws in spaces:
+                    got = fa._kernel_bwd(qf, kf, vf, dof, p_lse, delta,
+                                         causal, scale, workspace=ws)
+                    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                        err, frac = hold_grad(a, w, dtype,
+                                              f"{name} {label} ws={ws}")
+                        share[dt] = max(share[dt], frac)
+                        key = "dq_dyn" if name == "dq" else "dkv_dyn"
+                        if dtype == torch.bfloat16:
+                            errs[key] = max(errs[key], err)
+                        n_cmp += 1
+        for causal in (True, False):
+            q, k, v = qkv(2300, b=2, s=200, h=3, d=288, dtype=dtype,
+                          device=dev)
+            g = torch.randn(q.shape, generator=torch.Generator()
+                            .manual_seed(2301)).to(dev, dtype)
+            ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            fa.reset_launch_counts()
+            out = fa.flash_attention(*ts, causal=causal, variant="online",
+                                     device=dev)
+            out.backward(g)
+            want_launches = {"flash_fwd_dyn_online": 1, "flash_bwd_dyn_dq": 1,
+                             "flash_bwd_dyn_dkv": 1}
+            if dict(fa.launch_counts) != want_launches:
+                raise AssertionError(f"d=288 {dt} launched "
+                                     f"{dict(fa.launch_counts)}")
+            qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
+            p_out, p_lse = plain_fwd(qf, kf, vf, causal, 288 ** -0.5,
+                                     "online")
+            delta = ref.flash_delta(p_out, gf)
+            want = (p_out, *plain_bwd(qf, kf, vf, gf, p_lse, delta, causal,
+                                      288 ** -0.5))
+            label = f"public {dt} d=288 causal={causal}"
+            err, frac = hold(flat(out.detach()), want[0], "O", dtype, label)
+            share[dt] = max(share[dt], frac)
+            n_cmp += 1
+            for name, t, w in zip(("dq", "dk", "dv"), ts, want[1:]):
+                err, frac = hold_grad(flat(t.grad), w, dtype,
+                                      f"{name} {label}")
+                share[dt] = max(share[dt], frac)
+                n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} comparisons of head dims "
+              f"{list(BEYOND_DIMS)} on the run-time-d kernels (every walk, "
+              f"dq and dk/dv; partial last tiles, sq != sk, rising-max "
+              f"adversaries; accumulators in shared memory and in the device "
+              f"workspace; d 288 through the public autograd path) passed; "
+              f"largest error as a share of its tolerance {share}; largest "
+              f"bf16 |error| fwd {errs['fwd_dyn']:.3e}, dq "
+              f"{errs['dq_dyn']:.3e}, dk/dv {errs['dkv_dyn']:.3e}")
+
+
 def check_ring_pairs(card, dev, errs):
     """The call patterns of a ring_flash pair after the first: at the
     model's attention width (b 4, h 6, d 128, s 1024, bf16, the wgmma
@@ -994,12 +1135,14 @@ def serving_workload():
     return out
 
 
-def serve(cfg, model, requests, dev):
+def serve(cfg, model, requests, dev, mesh=None, max_len=SERVE_MAX_LEN):
+    """An engine (on ``mesh``'s tp ranks when given) answering
+    ``requests``; returns (results, steps, wall seconds, the engine)."""
     queue = AdmissionQueue(max_depth=len(requests) + 1,
                            admission_timeout_s=1e9)
     engine = ServeEngine(cfg, model, num_slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, kv_block=SERVE_KV_BLOCK,
-                        queue=queue, seed=0, device=dev)
+                        max_len=max_len, kv_block=SERVE_KV_BLOCK,
+                        queue=queue, seed=0, device=dev, mesh=mesh)
     for r in requests:
         if not engine.submit(r):
             raise AssertionError(f"{r.request_id} refused at submit")
@@ -1026,7 +1169,7 @@ def serve(cfg, model, requests, dev):
     if engine.kv.ledger.blocks_in_use:
         raise AssertionError(f"{engine.kv.ledger.blocks_in_use} KV blocks "
                              f"leaked")
-    return results, steps, wall
+    return results, steps, wall, engine
 
 
 # ---------------------------------------------------------------------------
@@ -1464,22 +1607,23 @@ def check_chunked_ce(card, dev, cfg):
 # phase 3e: head dim 256 through the user's entry points
 
 
-def run_wide_heads(card, dev, train_cfg, requests):
+def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
+                   names=CC_NAMES, phase="3e"):
     """The flagship's width (d_model 768, vocab 50304, d_ff 3072) over
-    WIDE_HEADS heads of 256, depth cut to WIDE_LAYERS: the serving engine
-    answers requests[:4] (prompts 16-100: the online and lazy walks) and
-    requests[3] again under HVD_FLASH_VARIANT=twopass, then the model
-    trains WIDE_STEPS steps on one batch of TRAIN_BATCH x TRAIN_SEQ
-    through make_gspmd_multi_step on a one-card mesh. The counts are
-    zeroed just before and read just after: each of the five CUDA-core
-    kernels must have launched, and no other kernel. The loss must fall,
-    and the training batch's loss through the kernels must equal the
-    plain path's within 2^-8 (launches of that comparison not counted).
-    Returns the run's launches."""
-    cfg = dataclasses.replace(train_cfg, num_heads=WIDE_HEADS,
+    ``heads`` heads (WIDE_HEADS: 256 each, on the CUDA-core kernels;
+    DYN_HEADS: 384 each, on the run-time-d ones), depth cut to
+    WIDE_LAYERS: the serving engine answers requests[:4] (prompts 16-100:
+    the online and lazy walks) and requests[3] again under
+    HVD_FLASH_VARIANT=twopass, then the model trains WIDE_STEPS steps on
+    one batch of TRAIN_BATCH x TRAIN_SEQ through make_gspmd_multi_step on
+    a one-card mesh. The counts are zeroed just before and read just
+    after: each of the five kernels ``names`` must have launched, and no
+    other kernel. The loss must fall, and the training batch's loss
+    through the kernels must equal the plain path's within 2^-8
+    (launches of that comparison not counted). Returns the run's
+    launches."""
+    cfg = dataclasses.replace(train_cfg, num_heads=heads,
                               num_layers=WIDE_LAYERS)
-    if cfg.head_dim != 256:
-        raise AssertionError(f"head dim {cfg.head_dim}, expected 256")
     serve_model = tr.init_params(cfg, torch.Generator().manual_seed(0),
                                  device=dev)
     mesh = mesh_lib.build_mesh(dp=1)
@@ -1495,12 +1639,12 @@ def run_wide_heads(card, dev, train_cfg, requests):
     losses = [step(model, opt, toks)[2].item() for _ in range(WIDE_STEPS)]
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)
-    missing = [n for n in CC_NAMES if not launches.get(n)]
-    if missing or set(launches) - set(CC_NAMES):
-        raise AssertionError(f"the head-dim-256 run launched {launches}; "
-                             f"missing {missing}")
+    missing = [n for n in names if not launches.get(n)]
+    if missing or set(launches) - set(names):
+        raise AssertionError(f"the head-dim-{cfg.head_dim} run launched "
+                             f"{launches}; missing {missing}")
     if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
-        raise AssertionError(f"head-dim-256 losses {losses}")
+        raise AssertionError(f"head-dim-{cfg.head_dim} losses {losses}")
     loss_fn = tr.lm_loss_fn(serve_model)
     with torch.no_grad():
         got = loss_fn(serve_model, toks[0]).item()
@@ -1508,9 +1652,11 @@ def run_wide_heads(card, dev, train_cfg, requests):
             want = loss_fn(serve_model, toks[0]).item()
     rel = abs(got - want) / abs(want)
     if not math.isfinite(got) or rel > 2 ** -8:
-        raise AssertionError(f"head-dim-256 loss {got} vs plain {want}")
+        raise AssertionError(f"head-dim-{cfg.head_dim} loss {got} vs plain "
+                             f"{want}")
     fa.reset_launch_counts()
-    log(card, f"phase 3e: d_model {cfg.d_model} over {cfg.num_heads} heads "
+    log(card, f"phase {phase}: d_model {cfg.d_model} over {cfg.num_heads} "
+              f"heads "
               f"of {cfg.head_dim}, {cfg.num_layers} layers: served 5 "
               f"requests (one under twopass), trained {WIDE_STEPS} GSPMD "
               f"steps at b{TRAIN_BATCH} x s{TRAIN_SEQ}: loss "
@@ -1518,6 +1664,412 @@ def run_wide_heads(card, dev, train_cfg, requests):
               f"through the kernels {got:.6f} vs plain path {want:.6f} "
               f"(|diff| / loss {rel:.3e}, bound 2^-8)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: serving on the tensor-parallel mesh, phase 3g: the collective
+# backends; the ranks of both are threads of this process on the one card
+# (NCCL refuses two ranks on one device)
+
+TP_SIZES = (2, 3, 4)
+HIER_SLICES = 2
+BACKEND_RANKS = 4
+BACKEND_BATCH = 2   # rows of TRAIN_SEQ tokens each thread rank trains on
+ODD_SHAPES = ((1,), (5,), (7, 3), (1001,), (2 ** 20 + 3,))
+# prefill logits under tp against the unsharded engine's: two bf16 ulps
+# of each logit (2 · 2^(floor(log2 |logit|) - 7)) plus 1 % of the largest
+# |logit|. The tp ranks' row-parallel partial sums are added in fp32 and
+# rounded once, as the unsharded product rounds its accumulator, but in
+# another order: an element now and then rounds the other way, and the
+# flip is carried through the 12 layers into the fp32 head
+TP_LOGITS_ATOL_SHARE = 1e-2
+# The prefill logits are held to that bound on the model at full width
+# cut to TP_CHECK_LAYERS layers: at the full 12 layers the bf16 roundings
+# that any change of a product's summation order flips are carried into
+# deviations above the bound, in the unsharded engine itself as much as
+# under tp, so there the tp engine is held to TP_FLOOR_FACTOR times the
+# unsharded engine's own deviation when every product's fp32 sum is taken
+# in another order (both printed)
+TP_CHECK_LAYERS = 2
+TP_FLOOR_FACTOR = 2.0
+# an fp32 sum of 4 values taken in another order: each element within
+# 1e-6 of the sum of the values' magnitudes (3 roundings of 2^-24 each)
+SUM_ORDER_TOL = 1e-6
+
+
+def bf16_ulps(w, n):
+    """``n`` bf16 ulps of each value of ``w``: n · 2^(floor(log2 |w|) - 7)
+    (8 significant bits)."""
+    e = torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
+    return n * torch.exp2(e - 7)
+
+
+def logit_deviation(cfg, weights, requests, want, dev):
+    """(largest |diff|, largest share of the bound) of every request's
+    prefill logits, all positions, through ``weights`` against ``want``
+    (request id -> (logits, 1 % of their largest |value|))."""
+    worst, share = 0.0, 0.0
+    for q in requests:
+        got = prefill_forward(cfg, weights, torch.tensor([q.prompt],
+                                                         device=dev))[0][0]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{q.request_id}: logits not finite")
+        w, atol = want[q.request_id]
+        err = (got - w).abs()
+        worst = max(worst, err.max().item())
+        share = max(share, (err / (atol + bf16_ulps(w, 2))).max().item())
+    return worst, share
+
+
+def unsharded_logits(cfg, model, requests, dev):
+    """Request id -> (prefill logits, 1 % of their largest |value|)."""
+    out = {}
+    for q in requests:
+        logits = prefill_forward(cfg, model, torch.tensor([q.prompt],
+                                                          device=dev))[0][0]
+        out[q.request_id] = (logits, TP_LOGITS_ATOL_SHARE *
+                             logits.abs().max().item())
+    return out
+
+
+def run_mesh_ranks(views, job):
+    """``job(r, view)`` for every rank of a mesh of thread ranks
+    (``mesh_lib.thread_meshes``), each on its own thread with its view as
+    its global mesh (``use_mesh``), against this one card; returns the
+    results in rank order and raises the first failure, aborting every
+    rank's exchanges."""
+    out, errors = [None] * len(views), []
+
+    def rank(r):
+        try:
+            with mesh_lib.use_mesh(views[r]):
+                out[r] = job(r, views[r])
+        except Exception:  # noqa: BLE001 — re-raised below
+            import traceback
+            errors.append(traceback.format_exc())
+            for v in views:
+                for c in list(v._comms.values()) + [v._world]:
+                    c.world._barrier.abort()
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(len(views))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a thread rank failed: {errors[:1]}")
+    return out
+
+
+def serve_on(cfg, model, requests, dev, mesh=None, max_len=SERVE_MAX_LEN):
+    """``serve``'s engine and its tokens by request id."""
+    results, _, _, engine = serve(cfg, model, requests, dev, mesh, max_len)
+    return engine, {r.request_id: list(r.tokens) for r in results}
+
+
+def tp_views(tp):
+    return mesh_lib.thread_meshes(mesh_lib.build_mesh(
+        tp=tp, devices=list(range(tp))))
+
+
+def check_serving_mesh(card, dev, cfg, model, requests):
+    """GPT-2-small (bf16, 6 heads of 128, full width and depth) served by
+    tp engines of 2, 3 and 4 thread ranks (at tp 4 the heads do not split:
+    every rank computes all of them, the KV cache replicated) on the
+    phase-3 requests, then requests[6:9] again under
+    HVD_FLASH_VARIANT=twopass; each held to the unsharded engine: every
+    request's prefill logits (all positions) within two bf16 ulps plus 1 %
+    of the largest |logit|, the generated tokens' agreement printed, KV
+    bytes per rank (at least 1.9x below at tp 2), ``resharding_report``
+    empty, one decode step's collectives exactly 2 · layers activation
+    all-reduces and one logits gather (no weight collective), and the
+    prefill kernels each rank launched (online and lazy; twopass in its
+    run). The logits bound is asserted on the model cut to
+    TP_CHECK_LAYERS layers at full width; at full depth the tp logits are
+    held to TP_FLOOR_FACTOR times the unsharded engine's deviation under
+    another summation order of every product (see TP_CHECK_LAYERS). Then
+    the tiny fp32 model at tp 2, token for token equal to the unsharded
+    engine."""
+    from horovod_tpu_torch.serving.decode import ServingWeights
+    base_engine, base = serve_on(cfg, model, requests, dev)
+    base_bytes = base_engine.kv.per_chip_bytes()
+    del base_engine
+    want = unsharded_logits(cfg, model, requests, dev)
+    # the noise floor: every dense product's fp32 sum in another order
+    # (the exact products of the bf16 operands through an fp32 GEMM)
+    reordered = ServingWeights(cfg, model)
+    reordered.dense = lambda x, w: torch.nn.functional.linear(
+        x.to(cfg.dtype).float(), w.to(cfg.dtype).float()).to(cfg.dtype)
+    floor = logit_deviation(cfg, reordered, requests, want, dev)
+    cut = dataclasses.replace(cfg, num_layers=TP_CHECK_LAYERS)
+    cut_model = tr.init_params(cut, torch.Generator().manual_seed(0),
+                               device=dev)
+    cut_want = unsharded_logits(cut, cut_model, requests, dev)
+    log(card, f"phase 3f: the unsharded engine's own prefill logits with "
+              f"every product's fp32 sum in another order: max |diff| "
+              f"{floor[0]:.3e}, {floor[1]:.3f} of the bound (two bf16 ulps "
+              f"+ 1 % of the largest |logit|) at {cfg.num_layers} layers")
+    expect_counts = {"activation_all_reduce": 2 * cfg.num_layers,
+                     "logits_gather": 1}
+    n_tokens = sum(len(t) for t in base.values())
+    for tp in TP_SIZES:
+        def job(r, view):
+            fa.thread_launch_counts().clear()
+            t0 = time.perf_counter()
+            engine, tokens = serve_on(cfg, model, requests, dev, view)
+            wall = time.perf_counter() - t0
+            launches = dict(fa.thread_launch_counts())
+            engine.params.counts.clear()
+            report = engine.resharding_report()
+            counts = dict(engine.params.counts)
+            worst, share = logit_deviation(cfg, engine.params, requests,
+                                           want, dev)
+            cut_worst, cut_share = logit_deviation(
+                cut, ServingWeights(cut, cut_model, view), requests,
+                cut_want, dev)
+            return {"tokens": tokens, "wall": wall, "launches": launches,
+                    "report": report, "counts": counts,
+                    "kv_bytes": engine.kv.per_chip_bytes(),
+                    "worst": worst, "share": share, "cut_worst": cut_worst,
+                    "cut_share": cut_share}
+        views = tp_views(tp)
+        ranks = run_mesh_ranks(views, job)
+        os.environ["HVD_FLASH_VARIANT"] = "twopass"
+        try:
+            def twopass(r, view):
+                fa.thread_launch_counts().clear()
+                serve_on(cfg, model, requests[6:9], dev, view)
+                return dict(fa.thread_launch_counts())
+            tp_twopass = run_mesh_ranks(tp_views(tp), twopass)
+        finally:
+            del os.environ["HVD_FLASH_VARIANT"]
+        for r, got in enumerate(ranks):
+            where = f"tp {tp} rank {r}"
+            if got["tokens"] != ranks[0]["tokens"]:
+                raise AssertionError(f"{where}: tokens differ from rank 0's")
+            if got["report"]:
+                raise AssertionError(f"{where}: resharding {got['report']}")
+            if got["counts"] != expect_counts:
+                raise AssertionError(f"{where}: a decode step's collectives "
+                                     f"{got['counts']}, want {expect_counts}")
+            if set(got["launches"]) != {"flash_fwd_online",
+                                        "flash_fwd_lazy"} or \
+                    set(tp_twopass[r]) != {"flash_fwd_twopass"}:
+                raise AssertionError(f"{where}: launched {got['launches']}, "
+                                     f"under twopass {tp_twopass[r]}")
+            if got["cut_share"] > 1.0:
+                raise AssertionError(f"{where}: prefill logits at "
+                                     f"{TP_CHECK_LAYERS} layers off by "
+                                     f"{got['cut_worst']:.3e}, "
+                                     f"{got['cut_share']:.2f} of the bound")
+            if got["share"] > TP_FLOOR_FACTOR * floor[1]:
+                raise AssertionError(f"{where}: prefill logits off by "
+                                     f"{got['worst']:.3e}, {got['share']:.2f}"
+                                     f" of the bound, over {TP_FLOOR_FACTOR}"
+                                     f" x the floor {floor[1]:.2f}")
+        ratio = base_bytes / ranks[0]["kv_bytes"]
+        if tp == 2 and ratio < 1.9:
+            raise AssertionError(f"tp 2 KV bytes per rank only {ratio:.2f}x "
+                                 f"below the unsharded engine's")
+        agree = sum(a == b for rid, toks in ranks[0]["tokens"].items()
+                    for a, b in zip(toks, base[rid]))
+        log(card, f"phase 3f: tp {tp} ({len(views)} thread ranks, "
+                  f"{cfg.num_heads} heads: "
+                  f"{'split' if cfg.num_heads % tp == 0 else 'replicated'}"
+                  f"): served {len(requests)} requests in "
+                  f"{max(g['wall'] for g in ranks):.3f} s; KV bytes per rank "
+                  f"{ranks[0]['kv_bytes']} ({ratio:.2f}x below the "
+                  f"unsharded {base_bytes}); prefill logits of every request "
+                  f"(all positions) at {TP_CHECK_LAYERS} layers max |diff| "
+                  f"{max(g['cut_worst'] for g in ranks):.3e} "
+                  f"({max(g['cut_share'] for g in ranks):.3f} of the bound), "
+                  f"at {cfg.num_layers} layers "
+                  f"{max(g['worst'] for g in ranks):.3e} "
+                  f"({max(g['share'] for g in ranks):.3f} of the bound, "
+                  f"the floor {floor[1]:.3f}); "
+                  f"generated tokens equal to the unsharded engine's "
+                  f"{agree}/{n_tokens}; resharding_report empty on every "
+                  f"rank; one decode step's collectives {expect_counts}, no "
+                  f"weight collective; launches per rank "
+                  f"{[g['launches'] for g in ranks]}, under twopass "
+                  f"{tp_twopass}")
+    # fp32: token for token at tp 2
+    cfg32 = tr.TransformerConfig.tiny(dtype=torch.float32,
+                                      attention_impl="flash")
+    model32 = tr.init_params(cfg32, torch.Generator().manual_seed(0),
+                             device=dev)
+    short = [Request(f"t{i}", tuple((7 * i + 13 * j) % 256 for j in
+                                    range(plen)), max_new_tokens=16)
+             for i, plen in enumerate((5, 17, 40, 70))]
+    _, want32 = serve_on(cfg32, model32, short, dev, max_len=128)
+    got32 = run_mesh_ranks(tp_views(2), lambda r, view: serve_on(
+        cfg32, model32, short, dev, view, max_len=128)[1])
+    if any(g != want32 for g in got32):
+        raise AssertionError(f"tiny fp32 at tp 2: {got32} != {want32}")
+    log(card, f"phase 3f: tiny fp32 at tp 2: {len(short)} requests, "
+              f"{sum(len(t) for t in want32.values())} tokens equal to the "
+              f"unsharded engine's on both ranks")
+
+
+def _rank_inputs(shapes, r, integer, dev):
+    g = torch.Generator(device=dev).manual_seed(3100 + r + 10 * integer)
+    if integer:
+        return [torch.randint(-64, 64, s, generator=g, device=dev).float()
+                for s in shapes]
+    return [torch.randn(s, generator=g, device=dev) for s in shapes]
+
+
+def check_collective_backends(card, dev, base_model, vocab):
+    """4 thread ranks as slices 2 x chips 2. ``hierarchical_allreduce``,
+    ``ring_all_reduce`` and the flat sum (the world group's own
+    all-reduce) of the flagship's whole gradient set (one tensor per
+    parameter, 151.9M fp32 elements) and ODD_SHAPES (sizes 4 does not
+    divide), each rank's own values: exactly the sum taken on one rank of
+    integer-valued inputs, and within SUM_ORDER_TOL of the magnitudes'
+    sum on unit-scale ones; each timed (the slowest rank, host clock
+    after a device sync). Then one DistributedOptimizer(AdamW(3e-4,
+    mu_dtype=bf16)) flagship step per rank (its own batch of
+    BACKEND_BATCH x TRAIN_SEQ) with no flag, HOROVOD_RING_ALLREDUCE and
+    HOROVOD_HIERARCHICAL_ALLREDUCE: the manager's selections counted
+    (only the flag's backend), the averaged gradients equal the flag-less
+    route's within SUM_ORDER_TOL of the ranks' gradient magnitudes, and
+    the parameters equal too, except where the averaged gradient is so
+    near 0 that Adam's first, sign-like update turns a rounding into a
+    step."""
+    import copy
+    from horovod_tpu_torch import optim
+    from horovod_tpu_torch.common import state as state_mod
+    from horovod_tpu_torch.ops import collective_ops as cops
+    from horovod_tpu_torch.ops import operation_manager as om
+    from horovod_tpu_torch.parallel import hierarchical, ring_collectives
+    views = mesh_lib.thread_meshes(mesh_lib.build_hierarchical_mesh(
+        HIER_SLICES, devices=list(range(BACKEND_RANKS))))
+    # the flagship's gradients all have sizes 4 divides: a few more that
+    # it does not, as a model with odd widths gives
+    shapes = [tuple(p.shape) for p in base_model.parameters()] + list(
+        ODD_SHAPES)
+    n_el = sum(math.prod(s) for s in shapes)
+    odd = sum(math.prod(s) % BACKEND_RANKS != 0 for s in shapes)
+    routes = {"hierarchical": hierarchical.hierarchical_allreduce,
+              "ring": ring_collectives.ring_all_reduce,
+              "flat": lambda t: cops.comm_of("hvd").all_reduce(t)}
+    timing = {}
+    for integer in (True, False):
+        inputs = [_rank_inputs(shapes, r, integer, dev)
+                  for r in range(BACKEND_RANKS)]
+        total = [sum(x[i] for x in inputs) for i in range(len(shapes))]
+        mags = None if integer else [
+            sum(x[i].abs() for x in inputs) for i in range(len(shapes))]
+        for name, fn in routes.items():
+            def job(r, view, fn=fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = [fn(x) for x in inputs[r]]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                share = 0.0
+                for i, o in enumerate(outs):
+                    if integer:
+                        if not torch.equal(o, total[i]):
+                            raise AssertionError(
+                                f"{name} rank {r} tensor {i}: not exact")
+                    else:
+                        share = max(share, ((o - total[i]).abs() / (
+                            SUM_ORDER_TOL * mags[i] + 1e-30)).max().item())
+                return ms, share
+            got = run_mesh_ranks(views, job)
+            share = max(g[1] for g in got)
+            if share > 1.0:
+                raise AssertionError(f"{name}: unit-scale sum off by "
+                                     f"{share:.2f} of the tolerance")
+            timing[(name, integer)] = (max(g[0] for g in got), share)
+        del inputs, total, mags
+        torch.cuda.empty_cache()
+    shares = {k[0]: round(v[1], 4) for k, v in timing.items() if not k[1]}
+    ms = {k[0] + ("/int" if k[1] else "/unit"): round(v[0], 3)
+          for k, v in timing.items()}
+    log(card, f"phase 3g: slices {HIER_SLICES} x chips "
+              f"{BACKEND_RANKS // HIER_SLICES} thread ranks, the flagship's "
+              f"gradient tensors and {len(ODD_SHAPES)} more ({len(shapes)} "
+              f"tensors, {n_el} fp32 elements, {odd} of sizes 4 does not "
+              f"divide): hierarchical, ring and flat "
+              f"sums exact on integer-valued inputs; on unit-scale inputs "
+              f"the largest error as a share of its tolerance {shares}; ms "
+              f"per pass over the set (slowest rank; thread ranks on one "
+              f"card share its stream and the interpreter lock) {ms}")
+
+    # one flagship step per route through DistributedOptimizer
+    rng = torch.Generator().manual_seed(3200)
+    toks = torch.randint(0, vocab, (BACKEND_RANKS, BACKEND_BATCH, TRAIN_SEQ),
+                         generator=rng).to(dev)
+    config = state_mod.global_state().config
+    manager = om.get_operation_manager()
+    want, mags, report = None, None, {}
+    for flag in (None, "ring_allreduce", "hierarchical_allreduce"):
+        if flag:
+            setattr(config, flag, True)
+        manager.selected.clear()
+        try:
+            def job(r, view):
+                model = copy.deepcopy(base_model)
+                params = [p for p in model.parameters()]
+                for p in params:
+                    p.grad = None
+                opt = optim.DistributedOptimizer(
+                    optim.AdamW(params, 3e-4, mu_dtype=torch.bfloat16),
+                    named_parameters=model.named_parameters(),
+                    process_group=view.world_comm())
+                loss = tr.lm_loss_fn(model)(model, toks[r])
+                loss.backward()
+                local = torch.cat([p.grad.reshape(-1) for p in params])
+                opt.step()
+                out = (loss.item(),
+                       torch.cat([p.grad.reshape(-1) for p in params]),
+                       torch.cat([p.detach().reshape(-1) for p in params]),
+                       local.abs() if flag is None else None)
+                del model, opt, params
+                return out
+            got = run_mesh_ranks(views, job)
+        finally:
+            if flag:
+                setattr(config, flag, False)
+        selected = dict(manager.selected)
+        backend = {None: "nccl", "ring_allreduce": "ring",
+                   "hierarchical_allreduce": "hierarchical"}[flag]
+        if set(selected) != {backend}:
+            raise AssertionError(f"flag {flag}: manager selected {selected}")
+        if flag is None:
+            want = [(g[1], g[2]) for g in got]
+            mags = sum(g[3] for g in got) / BACKEND_RANKS
+            report[backend] = (selected, [round(g[0], 6) for g in got])
+            continue
+        worst, moved, moved_g = 0.0, 0, 0.0
+        for r, (loss, grads, params, _) in enumerate(got):
+            w_g, w_p = want[r]
+            worst = max(worst, ((grads - w_g).abs() / (
+                SUM_ORDER_TOL * mags + 1e-30)).max().item())
+            off = (params - w_p).abs() > 1e-6 * w_p.abs().max()
+            moved += int(off.sum())
+            if off.any():
+                moved_g = max(moved_g, w_g[off].abs().max().item())
+        if worst > 1.0 or moved_g > 1e-6 * mags.max().item():
+            raise AssertionError(f"flag {flag}: averaged gradients off by "
+                                 f"{worst:.2f} of the tolerance; {moved} "
+                                 f"parameters moved, their |grad| up to "
+                                 f"{moved_g:.3e}")
+        report[backend] = (selected, [round(g[0], 6) for g in got],
+                           round(worst, 4), moved)
+        del got
+        # free the ranks' models and optimizers before the next route (and
+        # phase 4, whose peak-memory readings count every live allocation)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(card, f"phase 3g: one DistributedOptimizer(AdamW) flagship step per "
+              f"rank (b{BACKEND_BATCH} x s{TRAIN_SEQ} each) under each route "
+              f"(selections, losses per rank, then the averaged gradients' "
+              f"largest error as a share of the tolerance and the count of "
+              f"parameters differing from the NCCL route's by more than "
+              f"1e-6 of their largest): {report}")
 
 
 # ---------------------------------------------------------------------------
@@ -1881,16 +2433,18 @@ def time_memory_and_remat(card, dev, model, opt, cfg, batch):
 
 
 def time_wide_kernels(card, dev, errs, launches):
-    """The CUDA-core kernels at d 256 beside the wgmma ones at d 128 (bf16,
-    causal, b 4 h 6 s 1024): device ms per call of each forward walk
-    (online, lazy, twopass), dq and dk/dv, against the bound (operations
-    at the bf16 peak, or the bytes), their plain versions at the kernels'
-    tiles and SDPA's forward and backward; returns the CUDA-core kernels'
-    JSON entries, each with its launches in phase 3e's run
-    (``launches``)."""
+    """The CUDA-core kernels at d 256 and the run-time-d ones at d 384
+    beside the wgmma ones at d 128 (bf16, causal, b 4 h 6 s 1024): device
+    ms per call of each forward walk (online, lazy, twopass), dq and
+    dk/dv, against the bound (operations at the bf16 peak, or the bytes),
+    their plain versions at the kernels' tiles and SDPA's forward and
+    backward (whichever backend SDPA takes at that d); returns the
+    CUDA-core and run-time-d kernels' JSON entries, each with its
+    launches in phase 3e's runs (``launches``)."""
     b, s, h = 4, 1024, 6
+    dyn_d = 768 // DYN_HEADS
     entries, rows = [], {}
-    for d in (128, 256):
+    for d in (128, 256, dyn_d):
         q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=torch.bfloat16,
                       device=dev)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
@@ -1908,6 +2462,13 @@ def time_wide_kernels(card, dev, errs, launches):
                                                  dq, *args, dq_walk[0])
             k_dkv = lambda: ext.flash_bwd_sm90_dkv(qf, kf, vf, gf, lse,
                                                    delta, dk, dv, *args)
+        elif fa.on_dyn(d):
+            ws_q = fa._workspace("dq", qf, s, False)
+            ws_k = fa._workspace("dkv", qf, s, False)
+            k_dq = lambda: ext.flash_bwd_dyn_dq(qf, kf, vf, gf, lse, delta,
+                                                dq, ws_q, *args)
+            k_dkv = lambda: ext.flash_bwd_dyn_dkv(qf, kf, vf, gf, lse, delta,
+                                                  dk, dv, ws_k, *args)
         else:
             k_dq = lambda: ext.flash_bwd_dq(qf, kf, vf, gf, lse, delta, dq,
                                             *args)
@@ -1944,25 +2505,33 @@ def time_wide_kernels(card, dev, errs, launches):
             b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
             rows[f"d{d} {name}"] = (round(kt[2], 5), round(b_ms, 5),
                                     round(plain_ms, 3), round(lib_t[2], 5))
-            if d == 256:
+            if d > 128:
                 fwd = name in fa.VARIANTS
-                counter = f"flash_{'fwd' if fwd else 'bwd'}_cc_{name}"
+                family = "dyn" if d == dyn_d else "cc"
+                counter = f"flash_{'fwd' if fwd else 'bwd'}_{family}_{name}"
+                suffix = "dyn" if d == dyn_d else "d256"
                 entries.append({
                     "name": counter, "head_dim": d,
                     "route": "cuda",
-                    "source": CC_FWD_SOURCE if fwd else CC_BWD_SOURCE,
+                    "source": DYN_SOURCE if d == dyn_d else (
+                        CC_FWD_SOURCE if fwd else CC_BWD_SOURCE),
                     "replaces": REPLACES[name],
                     "launches": launches.get(counter, 0),
-                    "max_abs_err": errs["fwd_d256" if fwd else
-                                        f"{name}_d256"],
+                    "max_abs_err": errs[f"fwd_{suffix}" if fwd else
+                                        f"{name}_{suffix}"],
                     "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib_t[2]})
         del o, qs, ks, vs
     fa.reset_launch_counts()
     log(card, f"phase 4: bf16 causal b={b} h={h} s={s}, d 256 on the "
-              f"CUDA-core kernels beside d 128 on the wgmma ones, (kernel "
+              f"CUDA-core kernels and d {dyn_d} on the run-time-d ones "
+              f"beside d 128 on the wgmma ones, (kernel "
               f"ms, bound ms, plain ms, SDPA ms; bwd: SDPA's whole "
-              f"backward): {rows}; d256 / d128: online "
+              f"backward): {rows}; d{dyn_d} / d256: online "
+              f"{rows[f'd{dyn_d} online'][0] / rows['d256 online'][0]:.2f}, "
+              f"dq {rows[f'd{dyn_d} dq'][0] / rows['d256 dq'][0]:.2f}, dk/dv "
+              f"{rows[f'd{dyn_d} dkv'][0] / rows['d256 dkv'][0]:.2f}; "
+              f"d256 / d128: online "
               f"{rows['d256 online'][0] / rows['d128 online'][0]:.2f}, lazy "
               f"{rows['d256 lazy'][0] / rows['d128 lazy'][0]:.2f}, twopass "
               f"{rows['d256 twopass'][0] / rows['d128 twopass'][0]:.2f}, dq "
@@ -2080,7 +2649,7 @@ def main():
     # the register reports of the wgmma/TMA sources: each alone through
     # nvcc -Xptxas -v, all started beside the extension's build
     ptxas = {}
-    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dyn"):
         cubin = os.path.join(ROOT, "build", "flash_fwd_ab", f"{name}.cubin")
         os.makedirs(os.path.dirname(cubin), exist_ok=True)
         ptxas[name] = subprocess.Popen(
@@ -2092,8 +2661,10 @@ def main():
     log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s")
     # 24 forward instantiations (d x walk x warpgroups), 12 backward (dq:
-    # d x warpgroups; dk/dv: d)
-    for name, n_kernels in (("flash_fwd_sm90", 24), ("flash_bwd_sm90", 12)):
+    # d x warpgroups; dk/dv: d); the run-time-d kernels: 6 forward (dtype
+    # x walk), 4 backward
+    for name, n_kernels in (("flash_fwd_sm90", 24), ("flash_bwd_sm90", 12),
+                            ("flash_dyn", 10)):
         out, _ = ptxas[name].communicate(timeout=900)
         report = fwd_ab.ptxas_report(out)
         if ptxas[name].returncode or len(report) != n_kernels:
@@ -2105,11 +2676,13 @@ def main():
             raise AssertionError(f"{name}.cu spills: {spilled}")
         serialized = [ln.strip() for ln in out.splitlines()
                       if "C7514" in ln or "C7520" in ln]
+        note = ("CTAs of 384 threads then move registers to the consumers "
+                "with setmaxnreg (producer 24, consumers 240); "
+                if "sm90" in name else "")
         log(card, f"phase 1: nvcc -Xptxas -v, {name}.cu: (registers at "
                   f"entry, spill store bytes, spill load bytes) {report}; "
-                  f"CTAs of 384 threads then move registers to the "
-                  f"consumers with setmaxnreg (producer 24, consumers 240); "
-                  f"ptxas 'wgmma serialized' warnings: {serialized or 'none'}")
+                  f"{note}ptxas 'wgmma serialized' warnings: "
+                  f"{serialized or 'none'}")
 
     # ---- phase 2: kernels vs plain versions
     errs = check_kernels(card, dev)
@@ -2118,6 +2691,7 @@ def main():
     check_sm90_bwd(card, dev, errs)
     check_partial_tiles_and_head_dims(card, dev, errs)
     check_wide_head_dims(card, dev, errs)
+    check_beyond_256(card, dev, errs)
     check_ring_pairs(card, dev, errs)
     # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
     step_shapes = vision_bn_shapes(
@@ -2133,7 +2707,7 @@ def main():
                            device=dev)
     requests = serving_workload()
     fa.reset_launch_counts()
-    results, steps, wall = serve(cfg, model, requests, dev)
+    results, steps, wall, _ = serve(cfg, model, requests, dev)
     launches = dict(fa.launch_counts)
     for name in ("flash_fwd_online", "flash_fwd_lazy"):
         if not launches.get(name):
@@ -2234,8 +2808,17 @@ def main():
     log(card, f"phase 3d: launches of this slice's paths: GSPMD flagship "
               f"{gspmd_launches}, ring_flash W={RING_W} {ring_launches}")
 
-    # ---- phase 3e: head dim 256 on the CUDA-core kernels
+    # ---- phase 3e: head dim 256 on the CUDA-core kernels, 384 on the
+    # run-time-d ones
     wide_launches = run_wide_heads(card, dev, train_cfg, requests)
+    wide_launches.update(run_wide_heads(card, dev, train_cfg, requests,
+                                        heads=DYN_HEADS, names=DYN_NAMES))
+
+    # ---- phase 3f: serving on the tensor-parallel mesh
+    check_serving_mesh(card, dev, cfg, model, requests)
+
+    # ---- phase 3g: the collective backends
+    check_collective_backends(card, dev, t_model, cfg.vocab_size)
 
     # ---- phase 4: timings
     kernels = []

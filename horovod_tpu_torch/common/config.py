@@ -58,6 +58,15 @@ ENV_REGISTRY = (
      "quantized int8/fp8 codecs are not ported yet)."),
     ("HOROVOD_FUSION_THRESHOLD", True, "67108864", "common/config.py",
      "Fusion-buffer byte threshold for bucketing collectives."),
+    ("HOROVOD_HIERARCHICAL_ALLREDUCE", True, "0", "ops/operation_manager.py",
+     "Two-level allreduce (reduce-scatter over 'chips', allreduce over "
+     "'slices', all-gather over 'chips') for reductions spanning both "
+     "hierarchy axes."),
+    ("HOROVOD_HIERARCHICAL_ALLGATHER", True, "0", "common/config.py",
+     "Two-level allgather (parsed; no port path reads it yet)."),
+    ("HOROVOD_RING_ALLREDUCE", True, "0", "ops/operation_manager.py",
+     "The explicit ring allreduce (N-1 neighbour exchanges of "
+     "reduce-scatter, then of all-gather) over one axis."),
 )
 
 
@@ -70,6 +79,11 @@ class HorovodConfig:
     fusion_threshold: int = 64 * 1024 * 1024
     # Default wire codec of DistributedOptimizer's gradient allreduces.
     compression: str = "none"
+    # Hierarchical (two-level 'chips' / 'slices') collectives.
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # The explicit ring allreduce backend (ops/operation_manager.py).
+    ring_allreduce: bool = False
 
     @classmethod
     def from_env(cls):
@@ -77,4 +91,7 @@ class HorovodConfig:
             fusion_threshold=env_int("FUSION_THRESHOLD", 64 * 1024 * 1024),
             compression=(env_str("COMPRESSION", "none") or "none")
             .strip().lower(),
+            hierarchical_allreduce=env_bool("HIERARCHICAL_ALLREDUCE", False),
+            hierarchical_allgather=env_bool("HIERARCHICAL_ALLGATHER", False),
+            ring_allreduce=env_bool("RING_ALLREDUCE", False),
         )

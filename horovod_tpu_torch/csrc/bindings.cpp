@@ -43,6 +43,22 @@ extern "C" cudaError_t hvd_flash_bwd_sm90_dkv(
     const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
     int sk, int d, int causal, float scale2, float scale,
     cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_fwd_dyn(const void* q, const void* k,
+                                         const void* v, void* o, float* lse,
+                                         float* ws, int bh, int sq, int sk,
+                                         int d, int dtype, int variant,
+                                         int causal, float scale2,
+                                         cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_dyn_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, float* ws, int bh,
+    int sq, int sk, int d, int dtype, int causal, float scale2, float scale,
+    cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_bwd_dyn_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, float* ws,
+    int bh, int sq, int sk, int d, int dtype, int causal, float scale2,
+    float scale, cudaStream_t stream);
 extern "C" long long hvd_bn_moments_scratch(long long rows, int c);
 extern "C" cudaError_t hvd_bn_moments(const void* a, const void* b,
                                       float* out0, float* out1, float* part,
@@ -259,6 +275,80 @@ void flash_bwd_sm90_dkv(const torch::Tensor& q, const torch::Tensor& k,
       static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
 }
 
+// The fp32 workspace of a run-time-d kernel (flash_dyn.cu): null when it
+// is empty (the accumulators then live in shared memory); the Python
+// wrapper sizes it.
+float* workspace_of(const char* which, const torch::Tensor& ws,
+                    const torch::Tensor& q) {
+  if (ws.numel() == 0) return nullptr;
+  TORCH_CHECK(ws.is_cuda() && ws.is_contiguous() &&
+                  ws.scalar_type() == torch::kFloat32 &&
+                  ws.device() == q.device(),
+              which, ": the workspace must be contiguous fp32 on q's device");
+  return ws.data_ptr<float>();
+}
+
+// The forward (variant 0 online, 1 lazy, 2 twopass) at a run-time head dim
+// (flash_dyn.cu: d > 256), fp32 or bf16.
+void flash_fwd_dyn(const torch::Tensor& q, const torch::Tensor& k,
+                   const torch::Tensor& v, torch::Tensor& out,
+                   torch::Tensor& lse, const torch::Tensor& ws,
+                   int64_t variant, bool causal, double scale2) {
+  check_fwd("flash_fwd_dyn", q, k, v, out, lse);
+  int dtype = kernel_dtype(q, "flash_fwd_dyn");
+  for (const auto& t : {k, v, out})
+    TORCH_CHECK(t.scalar_type() == q.scalar_type(),
+                "flash_fwd_dyn: q, k, v and out must share a dtype");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_fwd_dyn", hvd_flash_fwd_dyn(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), workspace_of("flash_fwd_dyn", ws, q),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), dtype,
+      static_cast<int>(variant), causal ? 1 : 0, static_cast<float>(scale2),
+      stream_of(q)));
+}
+
+// dq at a run-time head dim (flash_dyn.cu), fp32 or bf16
+void flash_bwd_dyn_dq(const torch::Tensor& q, const torch::Tensor& k,
+                      const torch::Tensor& v, const torch::Tensor& dout,
+                      const torch::Tensor& lse, const torch::Tensor& delta,
+                      torch::Tensor& dq, const torch::Tensor& ws, bool causal,
+                      double scale2, double scale) {
+  int dtype = kernel_dtype(q, "flash_bwd_dyn_dq");
+  check_dq("flash_bwd_dyn_dq", q, k, v, dout, lse, delta, dq,
+           q.scalar_type());
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_bwd_dyn_dq", hvd_flash_bwd_dyn_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
+      workspace_of("flash_bwd_dyn_dq", ws, q), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), dtype, causal ? 1 : 0,
+      static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
+}
+
+// dk and dv at a run-time head dim (flash_dyn.cu), fp32 or bf16
+void flash_bwd_dyn_dkv(const torch::Tensor& q, const torch::Tensor& k,
+                       const torch::Tensor& v, const torch::Tensor& dout,
+                       const torch::Tensor& lse, const torch::Tensor& delta,
+                       torch::Tensor& dk, torch::Tensor& dv,
+                       const torch::Tensor& ws, bool causal, double scale2,
+                       double scale) {
+  int dtype = kernel_dtype(q, "flash_bwd_dyn_dkv");
+  check_dkv("flash_bwd_dyn_dkv", q, k, v, dout, lse, delta, dk, dv,
+            q.scalar_type());
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_bwd_dyn_dkv", hvd_flash_bwd_dyn_dkv(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
+      dv.data_ptr(), workspace_of("flash_bwd_dyn_dkv", ws, q),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), dtype,
+      causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
+      stream_of(q)));
+}
+
 // BatchNorm statistics of row-major [rows, C] inputs in one dtype: out0 =
 // sum a and out1 = sum a*a (two = false, b ignored) or sum a*b (two =
 // true), fp32 [C], allocated by the Python wrapper (ops/batch_norm.py),
@@ -314,6 +404,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Flash-attention backward, dq, bf16 on wgmma and TMA");
   m.def("flash_bwd_sm90_dkv", &flash_bwd_sm90_dkv,
         "Flash-attention backward, dk and dv, bf16 on wgmma and TMA");
+  m.def("flash_fwd_dyn", &flash_fwd_dyn,
+        "Flash-attention forward, online/lazy/twopass, at a run-time head "
+        "dim (d > 256) on the CUDA cores, fp32 and bf16");
+  m.def("flash_bwd_dyn_dq", &flash_bwd_dyn_dq,
+        "Flash-attention backward, dq, at a run-time head dim");
+  m.def("flash_bwd_dyn_dkv", &flash_bwd_dyn_dkv,
+        "Flash-attention backward, dk and dv, at a run-time head dim");
   m.def("bn_moments", &bn_moments,
         "BatchNorm statistics (sum, sum of squares or of products) for "
         "sm_90a");

@@ -224,13 +224,47 @@ def _dense(d_in, d_out, cfg, param_dtype, device):
     return Dense(d_in, d_out, cfg.dtype, param_dtype, device)
 
 
-def _head_rows(cfg, tp, device):
+def heads_split(cfg, tp_size):
+    """Whether the heads split over ``tp_size`` ranks. When they do not
+    (6 heads over tp 4), every rank computes every head from the whole
+    qkv weight, as the JAX package's GSPMD does with the column-sharded
+    kernel, and the row-parallel ``out`` takes this rank's
+    ``d_model / tp`` columns of the attention output."""
+    return cfg.num_heads % tp_size == 0
+
+
+def head_rows(cfg, tp_size, tp_rank, device=None):
     """The rows of the fused ``[3·d_model, d_model]`` qkv weight that hold
-    q, k and v of tp rank ``tp.rank``'s heads, in q | k | v order."""
-    width = cfg.d_model // tp.size
-    mine = torch.arange(tp.rank * width, (tp.rank + 1) * width,
+    q, k and v of tp rank ``tp_rank``'s heads, in q | k | v order: every
+    row when the heads do not split over ``tp_size``."""
+    if not heads_split(cfg, tp_size):
+        return torch.arange(3 * cfg.d_model, device=device)
+    width = cfg.d_model // tp_size
+    mine = torch.arange(tp_rank * width, (tp_rank + 1) * width,
                         device=device)
     return torch.cat([mine + i * cfg.d_model for i in range(3)])
+
+
+def attention_columns(cfg, out, tp_size, tp_rank):
+    """This rank's input of the row-parallel ``out`` projection: its heads'
+    attention output ``[..., d_model / tp]`` as it is, or, when the heads
+    do not split and every rank holds all of them, its ``d_model / tp``
+    columns of the whole output."""
+    if heads_split(cfg, tp_size):
+        return out
+    width = cfg.d_model // tp_size
+    return out[..., tp_rank * width:(tp_rank + 1) * width]
+
+
+def split_heads(cfg, qkv, positions):
+    """q, k and v ``[..., heads, head_dim]`` of a fused qkv product
+    ``[..., 3 · heads · head_dim]`` (q | k | v), q and k rotated."""
+    width = qkv.shape[-1] // 3
+    heads = width // cfg.head_dim
+    q, k, v = qkv.split(width, dim=-1)
+    shape = qkv.shape[:-1] + (heads, cfg.head_dim)
+    q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
+    return _rope(q, positions), _rope(k, positions), v
 
 
 class Attention(nn.Module):
@@ -244,25 +278,15 @@ class Attention(nn.Module):
     def project(self, x, positions, tp=None):
         """Rotated q, k and v, each ``[b, s, heads, head_dim]``: every
         head, or under tensor parallelism (``tp``) this rank's
-        ``num_heads / tp`` heads, from their rows of the gathered qkv
-        weight."""
+        ``num_heads / tp`` heads (every head when they do not split),
+        from their rows of the gathered qkv weight."""
         cfg = self.cfg
-        heads = cfg.num_heads
         if tp is None:
-            qkv = self.qkv(x)
-        else:
-            if cfg.num_heads % tp.size:
-                raise ValueError(f"num_heads {cfg.num_heads} does not split "
-                                 f"over tp {tp.size}")
-            heads //= tp.size
-            w = tpl.gather_rows(
-                tpl.local(self.qkv.weight).to(cfg.dtype), tp,
-                _head_rows(cfg, tp, x.device))
-            qkv = F.linear(x.to(cfg.dtype), w)
-        q, k, v = qkv.split(heads * cfg.head_dim, dim=-1)
-        shape = x.shape[:-1] + (heads, cfg.head_dim)
-        q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
-        return _rope(q, positions), _rope(k, positions), v
+            return split_heads(cfg, self.qkv(x), positions)
+        w = tpl.gather_rows(
+            tpl.local(self.qkv.weight).to(cfg.dtype), tp,
+            head_rows(cfg, tp.size, tp.rank, x.device))
+        return split_heads(cfg, F.linear(x.to(cfg.dtype), w), positions)
 
     def forward(self, x, positions, sp=None, sp_gather=False):
         tp = tpl.tp_of(self.qkv.weight)
@@ -271,8 +295,11 @@ class Attention(nn.Module):
         q, k, v = self.project(x, positions, tp)
         out = _dispatch_attention(self.cfg, q, k, v, x.device, sp,
                                   sp_gather)
-        out = self.out(out.reshape(out.shape[:2] + (-1,)))
-        return out if tp is None else tpl.reduce_from(out, tp)
+        out = out.reshape(out.shape[:2] + (-1,))
+        if tp is None:
+            return self.out(out)
+        out = attention_columns(self.cfg, out, tp.size, tp.rank)
+        return tpl.reduce_from(self.out(out), tp)
 
 
 class MLP(nn.Module):

@@ -11,7 +11,12 @@ of a mesh (``axis_name``: an axis of ``parallel.mesh.global_mesh()`` or a
 process group), as the JAX package runs them over a mesh axis.
 
 The wire is a ``torch.distributed`` process group, one process per card:
-NCCL when the worker runs on CUDA, gloo on the CPU. An async op launches
+NCCL when the worker runs on CUDA, gloo on the CPU. Allreduces route
+through the operation manager (``ops/operation_manager.py``), as the JAX
+package's route through its backends: the process group's own all-reduce
+unless ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or ``HOROVOD_RING_ALLREDUCE``
+selects the two-level or the explicit ring allreduce, which run to their
+end when started. An async op launches
 its collective at once (``async_op=True``) on a private copy of the input,
 so the caller may reuse the tensor while it is in flight; ``synchronize``
 waits for it, restores the dtype a compressor changed, and divides by the
@@ -21,6 +26,7 @@ world size for an average.
 import atexit
 import dataclasses
 import itertools
+import threading
 from typing import Callable
 
 import torch
@@ -30,7 +36,9 @@ from .common import state as state_mod
 from .common.config import HorovodConfig
 from .common.device import resolve_device
 from .common.exceptions import DuplicateNameError, NotInitializedError
+from .ops import collective_ops as cops
 from .ops import fusion
+from .ops import operation_manager as om
 from .ops.compression import Compression
 
 # re-exported identity API (reference common/basics.py)
@@ -161,6 +169,8 @@ class _Pending:
 
 
 _pending = {}
+# ranks that are threads of one process (ThreadRing) share the table
+_pending_lock = threading.Lock()
 _handle_ids = itertools.count(1)
 _name_ids = itertools.count()
 
@@ -169,14 +179,16 @@ def _claim(name, op):
     """The name of a collective about to start: ``name``, or a generated
     one; raises if another collective in flight holds it."""
     name = name if name is not None else f"{op}.noname.{next(_name_ids)}"
-    if any(p.name == name for p in _pending.values()):
-        raise DuplicateNameError(name)
+    with _pending_lock:
+        if any(p.name == name for p in _pending.values()):
+            raise DuplicateNameError(name)
     return name
 
 
 def _submit(work, finish, name):
     handle = next(_handle_ids)
-    _pending[handle] = _Pending(work, finish, name)
+    with _pending_lock:
+        _pending[handle] = _Pending(work, finish, name)
     return handle
 
 
@@ -190,16 +202,19 @@ def synchronize(handle):
     submitted tensor itself, updated, for the in-place variants)."""
     entry = _entry(handle)
     entry.work.wait()
-    del _pending[handle]
+    with _pending_lock:
+        del _pending[handle]
     return entry.finish()
 
 
 def _entry(handle):
-    if handle not in _pending:
+    with _pending_lock:
+        entry = _pending.get(handle)
+    if entry is None:
         raise ValueError(
             f"handle {handle} was not created by this API or has already "
             f"been synchronized")
-    return _pending[handle]
+    return entry
 
 
 def _device():
@@ -252,21 +267,45 @@ def process_group(axis_name=None):
 
 
 def group_size(group=None):
-    """Workers in ``group`` (every worker when None)."""
-    return size() if group is None else dist.get_world_size(group)
+    """Workers in ``group`` (every worker when None; a group object's
+    ranks)."""
+    if group is None:
+        return size()
+    if hasattr(group, "all_reduce"):
+        return group.size
+    return dist.get_world_size(group)
 
 
 # ---------------------------------------------------------------------------
 # allreduce
+
+def _route(axis_name):
+    """(axis, backend) of an allreduce over ``axis_name`` (every worker
+    for None): the axis resolved as ``ops.collective_ops`` resolves it,
+    the backend the operation manager selects for it now."""
+    axis = cops.resolve_axis(axis_name, prefer_hierarchy=True)
+    return axis, om.get_operation_manager().select(axis)
+
+
+def launches_async(axis_name=None):
+    """Whether an allreduce over ``axis_name`` returns before it is done
+    (the process group's own all-reduce over a process group); the
+    others run on the caller's thread when started."""
+    axis = cops.resolve_axis(axis_name, prefer_hierarchy=True)
+    return om.get_operation_manager().select(axis, count=False) \
+        .asynchronous(axis)
+
 
 def _allreduce_async(tensor, average, name, compression, target):
     _check_tensor(tensor)
     name = _claim(name, "allreduce")
     wire, ctx = compression.compress(tensor.detach())
     buf = _wire(wire)
-    work = dist.all_reduce(buf, async_op=True)
+    axis, backend = _route(None)
+    work = backend.start(buf, axis)
     return _submit(work, lambda: _write_back(target, _reduced(
-        buf, ctx, compression, average, tensor)), name)
+        buf, ctx, compression, average, tensor, cops.axis_size(axis))),
+        name)
 
 
 def allreduce_async(tensor, average=True, name=None,
@@ -294,10 +333,10 @@ def _grouped_allreduce_async(tensors, average, compression,
                              fusion_threshold, group=None):
     """Start one allreduce per fusion bucket of ``tensors`` (each bucket
     fused into one flat buffer of the wire dtype) over ``group`` (every
-    worker when None); returns ``[(bucket, handle)]``, where
-    ``synchronize(handle)`` gives the bucket's reduced tensors in order,
-    each in its own dtype."""
-    n = group_size(group)
+    worker when None; an axis name, a process group or a group object),
+    each on the backend the operation manager selects; returns
+    ``[(bucket, handle)]``, where ``synchronize(handle)`` gives the
+    bucket's reduced tensors in order, each in its own dtype."""
     for t in tensors:
         _check_tensor(t)
     packed = [compression.compress(t.detach()) for t in tensors]
@@ -306,9 +345,11 @@ def _grouped_allreduce_async(tensors, average, compression,
     for b in fusion.plan_buckets(wires, fusion_threshold):
         name = _claim(None, "grouped_allreduce")
         buf = fusion.fuse(wires, b).to(_device())
-        work = dist.all_reduce(buf, group=group, async_op=True)
+        axis, backend = _route(group)
+        n = cops.axis_size(axis)
+        work = backend.start(buf, axis)
 
-        def finish(b=b, buf=buf):
+        def finish(b=b, buf=buf, n=n):
             return [_reduced(part, packed[i][1], compression, average,
                              tensors[i], n)
                     for part, i in zip(fusion.unfuse(buf, wires, b),
@@ -328,8 +369,7 @@ def grouped_allreduce(tensors, average=True, compression=Compression.none,
         fusion_threshold = state_mod.global_state().config.fusion_threshold
     out = [None] * len(tensors)
     for b, h in _grouped_allreduce_async(tensors, average, compression,
-                                         fusion_threshold,
-                                         process_group(axis_name)):
+                                         fusion_threshold, axis_name):
         for i, r in zip(b.indices, synchronize(h)):
             out[i] = r
     return out

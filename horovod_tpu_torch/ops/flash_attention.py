@@ -6,7 +6,9 @@ bf16 forward (online, lazy, twopass) up to head dim 128 on wgmma and TMA
 in ``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels
 up to head dim 128 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
 fp32 forward and backward, and bf16 at head dims above 128, on the CUDA
-cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``. A CPU tensor goes to their plain PyTorch versions
+cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, and every head
+dim above 256, forward and backward, in ``csrc/flash_dyn.cu``, which takes
+d at run time. A CPU tensor goes to their plain PyTorch versions
 in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
 CUDA tensor takes the plain version unless the caller asks for it with
 ``interpret=True`` (the port's counterpart of Pallas interpret mode): if
@@ -36,7 +38,10 @@ Head dims. The kernels are compiled for d in {16, 32, 64, 128, 256}
 the card any other d up to 256 is zero-padded on the host to the next of
 those (``pad_head_dim``), with the softmax scale of the true d: a zero
 column adds nothing to any dot product, and the padded output columns
-are sliced off. A d above 256 is refused on the card.
+are sliced off. A d above 256 runs unpadded on the run-time-d kernels
+(``flash_dyn.cu``: 32-row tiles, d walked in 64-column chunks, the fp32
+accumulators in shared memory where they fit and in a device workspace
+otherwise), so no head dim is refused.
 
 ``decode_attention`` — one query against the KV cache — stays plain
 torch, as the JAX package keeps it plain XLA: a GEMV per (batch, head)
@@ -83,6 +88,27 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the CUDA-core kernels.
 SM90_MAX_HEAD_DIM = 128
 
+#: Rows per tile of the run-time-d kernels (``csrc/flash_dyn.cu``), which
+#: take every head dim above ``KERNEL_HEAD_DIMS[-1]``; d is walked in
+#: chunks of ``DYN_CHUNK`` columns.
+DYN_BLOCK = 32
+DYN_CHUNK = 64
+
+#: Shared memory of a run-time-d kernel besides its fp32 accumulators
+#: (floats: the chunk tiles of 32 rows of 65 floats, the 32 x 33 score
+#: tiles, dk/dv's lse and delta rows), and its accumulator tiles of
+#: [32, d]: mirrors of ``fixed_floats``/``acc_tiles`` in flash_dyn.cu.
+_DYN_CHUNK_TILE = DYN_BLOCK * (DYN_CHUNK + 1)
+_DYN_SCORE_TILE = DYN_BLOCK * (DYN_BLOCK + 1)
+_DYN_FIXED_FLOATS = {"fwd": 2 * _DYN_CHUNK_TILE + _DYN_SCORE_TILE,
+                     "dq": 4 * _DYN_CHUNK_TILE + _DYN_SCORE_TILE,
+                     "dkv": 4 * _DYN_CHUNK_TILE + 2 * _DYN_SCORE_TILE +
+                     2 * DYN_BLOCK}
+_DYN_ACC_TILES = {"fwd": 1, "dq": 1, "dkv": 2}
+
+#: Bytes of shared memory a block may use on sm_90.
+MAX_SMEM = 232448
+
 #: Keys per k tile of the wgmma/TMA kernels (forward, dq; dk/dv's keys
 #: per CTA).
 SM90_BLOCK_K = 128
@@ -94,15 +120,29 @@ SM90_DKV_BLOCK_Q = 64
 #: (under a lock: ranks that share a card launch from threads).
 launch_counts = collections.Counter()
 _count_lock = threading.Lock()
+_thread = threading.local()
+
+
+def thread_launch_counts():
+    """The launches made on this thread since its last reset: a rank that
+    is a thread of this process reads its own."""
+    counts = getattr(_thread, "counts", None)
+    if counts is None:
+        counts = _thread.counts = collections.Counter()
+    return counts
 
 
 def reset_launch_counts():
-    launch_counts.clear()
+    """Zero the launch counts (and this thread's own)."""
+    with _count_lock:
+        launch_counts.clear()
+    thread_launch_counts().clear()
 
 
 def _counted(name):
     with _count_lock:
         launch_counts[name] += 1
+    thread_launch_counts()[name] += 1
 
 
 def resolve_variant(variant, nk=1):
@@ -163,13 +203,42 @@ def dkv_blocks(sq, sk, blocks, block_q_dkv=None, block_k_dkv=None):
     return (blocks[0] if sq % bq2 else bq2, blocks[1] if sk % bk2 else bk2)
 
 
+def on_dyn(d):
+    """Whether head dim ``d`` runs on the run-time-d kernels
+    (``csrc/flash_dyn.cu``): every d above the largest compiled one."""
+    return d > KERNEL_HEAD_DIMS[-1]
+
+
 def kernel_head_dim(d):
-    """The compiled head dim a head dim of ``d`` runs at on the card."""
+    """The head dim a head dim of ``d`` runs at on the card: the next
+    compiled one up to 256, ``d`` itself above (the run-time-d kernels)."""
     for kd in KERNEL_HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"the flash kernels take head_dim up to "
-                     f"{KERNEL_HEAD_DIMS[-1]} on the card, got {d}")
+    return d
+
+
+def dyn_workspace(kind, bh, rows, d):
+    """Floats of the fp32 device workspace a run-time-d kernel (``kind``
+    'fwd', 'dq' or 'dkv') needs over ``bh`` heads of ``rows`` owned rows
+    (sq for 'fwd' and 'dq', sk for 'dkv'): 0 when its accumulators fit a
+    block's shared memory beside its tiles, else one slice of
+    tiles · 32 · d per CTA."""
+    tiles = _DYN_ACC_TILES[kind]
+    if 4 * (_DYN_FIXED_FLOATS[kind] + tiles * DYN_BLOCK * d) <= MAX_SMEM:
+        return 0
+    return bh * -(-rows // DYN_BLOCK) * tiles * DYN_BLOCK * d
+
+
+def _workspace(kind, qf, rows, force):
+    """The workspace tensor of a run-time-d launch: empty (shared memory)
+    unless the accumulators do not fit it, or ``force`` asks for device
+    memory (a check of that path at a d whose accumulators would fit)."""
+    n = dyn_workspace(kind, qf.shape[0], rows, qf.shape[2])
+    if force and not n:
+        n = (qf.shape[0] * -(-rows // DYN_BLOCK) * _DYN_ACC_TILES[kind] *
+             DYN_BLOCK * qf.shape[2])
+    return torch.empty(n, dtype=torch.float32, device=qf.device)
 
 
 def pad_head_dim(fn, tensors, n_sliced):
@@ -194,9 +263,10 @@ def _check_operands(qf, kf, vf):
                         f"{qf.dtype}")
     if not (qf.dtype == kf.dtype == vf.dtype):
         raise TypeError("q, k and v must share a dtype")
-    if qf.shape[2] not in KERNEL_HEAD_DIMS:
+    if qf.shape[2] not in KERNEL_HEAD_DIMS and not on_dyn(qf.shape[2]):
         raise ValueError(f"flash kernel head_dim must be one of "
-                         f"{KERNEL_HEAD_DIMS}, got {qf.shape[2]}")
+                         f"{KERNEL_HEAD_DIMS} or above "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {qf.shape[2]}")
     if kf.shape != vf.shape or kf.shape[0] != qf.shape[0] or \
             kf.shape[2] != qf.shape[2]:
         raise ValueError(f"k/v shape {tuple(kf.shape)} does not fit q "
@@ -233,15 +303,21 @@ def on_sm90(qf):
 def fwd_launch_name(qf, variant):
     """The launch count a forward call on ``[b·h, s, d]`` operands adds
     to: ``flash_fwd_{variant}`` on the wgmma/TMA kernel,
-    ``flash_fwd_cc_{variant}`` on the CUDA-core one."""
-    return f"flash_fwd_{variant}" if on_sm90(qf) else \
-        f"flash_fwd_cc_{variant}"
+    ``flash_fwd_cc_{variant}`` on the CUDA-core one,
+    ``flash_fwd_dyn_{variant}`` on the run-time-d one."""
+    if on_sm90(qf):
+        return f"flash_fwd_{variant}"
+    return f"flash_fwd_{_cc_family(qf)}_{variant}"
+
+
+def _cc_family(qf):
+    return "dyn" if on_dyn(qf.shape[2]) else "cc"
 
 
 def bwd_launch_names(qf):
     """The launch counts (dq, dk/dv) a backward call on ``[b·h, s, d]``
     operands adds to, one per kernel family."""
-    family = "sm90" if on_sm90(qf) else "cc"
+    family = "sm90" if on_sm90(qf) else _cc_family(qf)
     return f"flash_bwd_{family}_dq", f"flash_bwd_{family}_dkv"
 
 
@@ -253,18 +329,28 @@ def kernel_blocks(qf, kf, variant, cta_rows=None):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return rows, SM90_BLOCK_K
+    if on_dyn(qf.shape[2]):
+        return min(DYN_BLOCK, qf.shape[1]), min(DYN_BLOCK, kf.shape[1])
     return fit_block(qf.shape[1]), fit_block(kf.shape[1])
 
 
-def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None):
+def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None,
+                workspace=False):
     """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 up to
     d 128 on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
-    shape), fp32 and bf16 above d 128 on the CUDA-core one."""
+    shape), fp32 and bf16 above d 128 on the CUDA-core one, every d above
+    256 on the run-time-d one (``workspace=True`` puts its accumulators
+    in device memory even where shared memory would hold them)."""
     _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
     scale2 = float(scale * LOG2E)
-    if on_sm90(qf):
+    if on_dyn(qf.shape[2]):
+        extension().flash_fwd_dyn(
+            qf, kf, vf, out, lse,
+            _workspace("fwd", qf, qf.shape[1], workspace),
+            VARIANTS.index(variant), bool(causal), scale2)
+    elif on_sm90(qf):
         rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
         extension().flash_fwd_sm90(qf, kf, vf, out, lse,
                                    VARIANTS.index(variant), bool(causal),
@@ -282,21 +368,28 @@ def bwd_kernel_blocks(qf, kf, cta_rows=None):
     the counterpart of ``kernel_blocks``. bf16 up to d 128 runs the wgmma
     kernels (dq over 64 or 128 query rows × 128 keys, ``cta_rows`` forcing
     the rows; dk/dv over 128 keys × 64 queries), fp32 and bf16 above d 128
-    the CUDA-core ones at 64-row tiles (32-key tiles above d 128)."""
+    the CUDA-core ones at 64-row tiles (32-key tiles above d 128), above
+    d 256 the run-time-d ones at 32-row tiles."""
     if on_sm90(qf):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return (rows, SM90_BLOCK_K), (SM90_DKV_BLOCK_Q, SM90_BLOCK_K)
+    if on_dyn(qf.shape[2]):
+        blocks = kernel_blocks(qf, kf, "online")
+        return blocks, blocks
     bk = BWD_BLOCK_K_WIDE if qf.shape[2] > SM90_MAX_HEAD_DIM else BLOCK
     blocks = fit_block(qf.shape[1]), min(bk, kf.shape[1])
     return blocks, blocks
 
 
-def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
+def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None,
+                workspace=False):
     """Launch the backward kernels on ``[b·h, s, d]`` operands (dO like
     q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv). bf16 up to
     d 128 runs on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces
-    dq's CTA shape), fp32 and bf16 above d 128 on the CUDA-core ones."""
+    dq's CTA shape), fp32 and bf16 above d 128 on the CUDA-core ones,
+    every d above 256 on the run-time-d ones (``workspace`` as in
+    ``_kernel_fwd``)."""
     _check_operands(qf, kf, vf)
     if dof.shape != qf.shape or dof.dtype != qf.dtype:
         raise ValueError(f"dO {tuple(dof.shape)} {dof.dtype} does not fit "
@@ -308,7 +401,14 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None):
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     ext = extension()
     args = (bool(causal), float(scale * LOG2E), float(scale))
-    if on_sm90(qf):
+    if on_dyn(qf.shape[2]):
+        ext.flash_bwd_dyn_dq(qf, kf, vf, dof, lse, delta, dq,
+                             _workspace("dq", qf, qf.shape[1], workspace),
+                             *args)
+        ext.flash_bwd_dyn_dkv(qf, kf, vf, dof, lse, delta, dk, dv,
+                              _workspace("dkv", qf, kf.shape[1], workspace),
+                              *args)
+    elif on_sm90(qf):
         (rows, _), _ = bwd_kernel_blocks(qf, kf, cta_rows)
         ext.flash_bwd_sm90_dq(qf, kf, vf, dof, lse, delta, dq, *args, rows)
         ext.flash_bwd_sm90_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)
@@ -478,7 +578,7 @@ def flash_attention(q, k, v, causal=True, block_q=DEFAULT_BLOCK,
     return _unflat(out, b, h, layout)
 
 
-def decode_attention(q, k, v, lengths, scale=None):
+def decode_attention(q, k, v, lengths, scale=None, head_sharding=None):
     """Single-query attention against a cached K/V prefix — the decode
     step of the serving plane.
 
@@ -488,9 +588,12 @@ def decode_attention(q, k, v, lengths, scale=None):
     lengths  [batch] int — valid prefix length per row
     scale    optional softmax scale (default head_dim ** -0.5, matching
              flash_attention)
-
-    The reference's ``head_sharding`` (the head axis of a tensor-parallel
-    serving mesh) comes with the port's mesh slice.
+    head_sharding  optional ``parallel.mesh.HeadSharding``
+             (``decode_head_sharding``): under tensor-parallel serving q,
+             k and v are already this rank's heads, and each must hold
+             the sharding's shard of the heads, or the call raises; each
+             rank attends its own heads, with no collective until the
+             output projection's all-reduce
 
     Plain torch on purpose (see the module docstring). Numerics as the
     JAX version: fp32 logits from the input-dtype values, fp32 softmax,
@@ -499,6 +602,14 @@ def decode_attention(q, k, v, lengths, scale=None):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_attention wants q [b, 1, h, d], got "
                          f"{tuple(q.shape)}")
+    if head_sharding is not None:
+        want = head_sharding.local_heads()
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.shape[2] != want:
+                raise ValueError(
+                    f"decode_attention: {name} holds {t.shape[2]} heads, "
+                    f"the head sharding gives this rank {want} of "
+                    f"{head_sharding.num_heads}")
     s_max = k.shape[1]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     # [b, h, d] x [b, s, h, d] -> [b, h, s]

@@ -74,6 +74,10 @@ def nvcc_cmd(sources, out, cubin=False):
             "-Xptxas", "-v", *kind, "-o", out, *sources]
 
 
+# mangled type arguments of the kernels' templates
+_TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
 def ptxas_report(text):
     """{kernel: (registers, spill store bytes, spill load bytes)} from
     nvcc -Xptxas -v output, named by the kernel's template arguments."""
@@ -86,7 +90,10 @@ def ptxas_report(text):
             m2 = re.match(r"(flash_\w*?_kernel)I(\w+?)EEv",
                           name[name.rfind("flash_"):])
             if m2:
-                targs = re.findall(r"Li(\d+)E", m2.group(2) + "E")
+                targs = [t.group(1) or _TYPE_ARGS[t.group(0)]
+                         for t in re.finditer(
+                             r"Li(\d+)E|13__nv_bfloat16|f",
+                             m2.group(2) + "E")]
                 name = f"{m2.group(1)}<{','.join(targs)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

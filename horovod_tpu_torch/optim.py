@@ -29,6 +29,7 @@ over the mesh's dp axis only.
 """
 
 import collections
+import weakref
 
 import torch
 
@@ -186,9 +187,14 @@ class _DistributedOptimizer:
                          fusion.plan_buckets(params, self._fusion_threshold)]
         self._bucket_of = {p: i for i, ps in enumerate(self._buckets)
                            for p in ps}
+        # the hooks hold the optimizer weakly: a parameter keeps its hooks
+        # in autograd's C++ state, where the garbage collector cannot see
+        # a cycle back to it, so a strong reference would keep a dropped
+        # optimizer and its model alive
+        hook = _weak_hook(weakref.ref(self))
         for p in params:
             self._hook_handles.append(
-                p.register_post_accumulate_grad_hook(self._hook))
+                p.register_post_accumulate_grad_hook(hook))
 
     def _name(self, p):
         return self._names.get(p) or f"grad.{id(p)}"
@@ -204,7 +210,11 @@ class _DistributedOptimizer:
                 f"optimizer step; call synchronize() or step() between "
                 f"effective batches.")
         self._ready[b].add(p)
-        if len(self._ready[b]) == len(self._buckets[b]):
+        # a backend that runs to its end when started (the two-level or
+        # the ring allreduce, or ranks that are threads) reduces at
+        # synchronize(), on the caller's thread, not in autograd's
+        if len(self._ready[b]) == len(self._buckets[b]) and \
+                mpi_ops.launches_async(self._process_group):
             self._start(b)
 
     def _start(self, b):
@@ -250,6 +260,14 @@ class _DistributedOptimizer:
         return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
+def _weak_hook(ref):
+    def hook(p):
+        opt = ref()
+        if opt is not None:
+            opt._hook(p)
+    return hook
+
+
 def averages_gradients(optimizer):
     """Whether ``optimizer`` is a ``DistributedOptimizer``, which averages
     the gradients over its process group itself (the mesh's dp axis when
@@ -284,7 +302,10 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
     ``HOROVOD_FUSION_THRESHOLD``. ``process_group`` is the workers to
     average over: every worker by default, and the mesh's dp axis when
     the parameters are placed on a mesh (their tp and sp shards are no
-    data-parallel replicas). Needs ``init()`` first."""
+    data-parallel replicas); a group object of ``parallel.ring`` (ranks
+    that are threads) is taken too. Each bucket's allreduce goes through
+    the operation manager (``HOROVOD_HIERARCHICAL_ALLREDUCE``,
+    ``HOROVOD_RING_ALLREDUCE``). Needs ``init()`` first."""
     config = state_mod.global_state().config
     if config is None:
         raise mpi_ops.NotInitializedError()

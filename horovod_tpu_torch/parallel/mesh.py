@@ -17,8 +17,19 @@ same ranks, built at first use, which gives each axis its process group.
 A ``PartitionSpec`` (``P``, the port's own small tuple) places a tensor on
 the mesh as a DTensor: a dim named by an axis is ``Shard``ed over it, every
 other axis ``Replicate``s.
+
+``comm(axis)`` gives an axis's group object (``parallel.ring``), which the
+tensor-parallel layers, the ring collectives and the hierarchical
+allreduce run over. ``thread_meshes`` gives each rank of a mesh whose ranks
+are threads of one process (sharing one card, where NCCL refuses two
+ranks on one device) a view of its own, ``ThreadMesh``, whose axes are
+``ThreadRing``s; ``use_mesh`` makes a view the global mesh of the thread
+that drives that rank. The two-level ``("slices", "chips")`` mesh of the
+hierarchical allreduce is ``build_hierarchical_mesh``, laid over the
+hosts by ``infer_slice_structure``.
 """
 
+import contextlib
 import os
 import threading
 
@@ -33,6 +44,12 @@ AXES = ("dp", "pp", "tp", "sp", "ep")
 # installation race; readers see a committed mesh or None.
 _GLOBAL_LOCK = threading.Lock()
 _GLOBAL_MESH = None
+# A thread's own global mesh (``use_mesh``): a rank that is a thread of
+# this process sees its view of the mesh, never another rank's.
+_THREAD = threading.local()
+# The ("slices", "chips") mesh of every rank, one slice per host, built at
+# first use by ``hierarchy_mesh`` when the global mesh has no such axes.
+_WORLD_HIERARCHY = None
 
 
 class P(tuple):
@@ -101,6 +118,86 @@ class Mesh:
             raise ValueError(f"rank {rank} is not in {self}")
         return int(where[0][self.axis_names.index(axis)])
 
+    def comm(self, axis):
+        """The group object (``parallel.ring.GroupRing``) of this rank's
+        process group along ``axis``."""
+        from .ring import GroupRing
+        return GroupRing(self.group(axis))
+
+    def world_comm(self):
+        """The group object of every rank of the mesh, which spans the
+        process group's world."""
+        from .ring import GroupRing
+        if self.size != dist.get_world_size():
+            raise ValueError(f"{self} does not span the world of "
+                             f"{dist.get_world_size()} ranks")
+        return GroupRing(None)
+
+
+class ThreadMesh(Mesh):
+    """Rank ``rank``'s view of a mesh whose ranks are threads of this
+    process: each axis is the ``ThreadRing`` of the ranks that share this
+    rank's other coordinates (``thread_meshes`` builds them). There is no
+    DeviceMesh and no DTensor: a rank holds plain shards."""
+
+    def __init__(self, devices, axis_names, rank, comms, world,
+                 device_type=None):
+        super().__init__(devices, axis_names, device_type)
+        self.rank = rank
+        self._comms = comms
+        self._world = world
+
+    def __repr__(self):
+        return f"ThreadMesh({self.shape}, rank={self.rank})"
+
+    @property
+    def device_mesh(self):
+        raise RuntimeError("ranks that are threads of one process have no "
+                           "DeviceMesh; place plain shards (local_slice)")
+
+    def comm(self, axis):
+        return self._comms[axis]
+
+    def world_comm(self):
+        return self._world
+
+    def coordinate(self, axis, rank=None):
+        return super().coordinate(axis, self.rank if rank is None else rank)
+
+
+def thread_meshes(mesh):
+    """Per-rank views of ``mesh`` (ranks 0..n-1) for ranks that are threads
+    of this process: element r is rank r's ``ThreadMesh``, which rank r's
+    thread uses (``use_mesh``)."""
+    from .ring import ThreadRing
+    devices = np.asarray(mesh.devices)
+    n = devices.size
+    if sorted(devices.ravel().tolist()) != list(range(n)):
+        raise ValueError(f"thread ranks are 0..{n - 1}, got {devices}")
+    comms = [{} for _ in range(n)]
+    for i, axis in enumerate(mesh.axis_names):
+        lines = np.moveaxis(devices, i, -1).reshape(-1, devices.shape[i])
+        for line in lines:
+            ring = ThreadRing(len(line))
+            for pos, r in enumerate(line):
+                comms[int(r)][axis] = ring.rank(pos)
+    world = ThreadRing(n)
+    return [ThreadMesh(devices, mesh.axis_names, r, comms[r], world.rank(r),
+                       mesh.device_type) for r in range(n)]
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Within the block, ``mesh`` is this thread's global mesh (what
+    ``global_mesh`` and ``global_mesh_if_set`` return on this thread): a
+    thread rank's ``ThreadMesh`` for its thread."""
+    prev = getattr(_THREAD, "mesh", None)
+    _THREAD.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _THREAD.mesh = prev
+
 
 def _device_type():
     """The device type of this process's ranks: the initialized port's
@@ -140,6 +237,57 @@ def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, devices=None,
             f"Mesh {sizes} needs {total} devices, have {n}")
     shape = tuple(sizes[a] for a in axis_order)
     return Mesh(np.asarray(devices).reshape(shape), axis_order)
+
+
+def build_hierarchical_mesh(num_slices, devices=None,
+                            axis_names=("slices", "chips")):
+    """Two-level mesh: inter-slice x intra-slice, the ranks ``devices``
+    (every rank by default) in ``num_slices`` rows.
+
+    The analogue of the reference's LOCAL/CROSS communicator split:
+    ``chips`` is the fast axis within a host (NVLink), ``slices`` the slow
+    one across hosts. Used by the hierarchical allreduce
+    (``parallel/hierarchical.py``)."""
+    if devices is None:
+        devices = _world_ranks()
+    n = len(devices)
+    if n % num_slices != 0:
+        raise ValueError(f"{n} devices not divisible into {num_slices} slices")
+    arr = np.asarray(devices).reshape(num_slices, n // num_slices)
+    return Mesh(arr, axis_names)
+
+
+def infer_slice_structure(devices=None):
+    """Group the ranks ``devices`` (every rank by default) by host, the
+    ranks of one host being ``local_size`` consecutive ranks (the node of
+    ``rank // local_size``), so the hierarchical path can lay the slow
+    axis across hosts. A single slice when the port is not initialized or
+    every rank is on one host: the TPU groups by slice, a GPU cluster by
+    host."""
+    from ..common import state
+    if devices is None:
+        devices = _world_ranks()
+    local = state.local_size() if state.is_initialized() else len(devices)
+    groups = {}
+    for r in devices:
+        groups.setdefault(int(r) // max(local, 1), []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+def hierarchy_mesh():
+    """The ("slices", "chips") mesh the hierarchical allreduce runs over:
+    the global mesh when it has both axes, else the world's, one slice per
+    host (``infer_slice_structure``), built at first use and kept until
+    ``reset_global_mesh``."""
+    global _WORLD_HIERARCHY
+    mesh = global_mesh_if_set()
+    if mesh is not None and {"slices", "chips"} <= set(mesh.axis_names):
+        return mesh
+    with _GLOBAL_LOCK:
+        if _WORLD_HIERARCHY is None:
+            _WORLD_HIERARCHY = build_hierarchical_mesh(
+                len(infer_slice_structure()))
+        return _WORLD_HIERARCHY
 
 
 def mesh_axis_size(mesh, name):
@@ -226,12 +374,16 @@ def set_global_mesh(mesh):
 
 
 def global_mesh(devices=None):
-    """The process-global mesh, lazily built from the env knobs.
+    """The process-global mesh, lazily built from the env knobs (this
+    thread's ``use_mesh`` mesh first).
 
     First call wins: it builds from ``HOROVOD_MESH`` (or the per-axis
     knobs) over ``devices`` and installs the result; later calls return
     the committed mesh regardless of env changes.
     """
+    mine = getattr(_THREAD, "mesh", None)
+    if mine is not None:
+        return mine
     with _GLOBAL_LOCK:
         if _GLOBAL_MESH is not None:
             return _GLOBAL_MESH
@@ -239,15 +391,19 @@ def global_mesh(devices=None):
 
 
 def global_mesh_if_set():
-    """The committed global mesh, or None — never triggers a lazy build."""
-    return _GLOBAL_MESH
+    """This thread's ``use_mesh`` mesh, else the committed global mesh, or
+    None — never triggers a lazy build."""
+    mine = getattr(_THREAD, "mesh", None)
+    return mine if mine is not None else _GLOBAL_MESH
 
 
 def reset_global_mesh():
-    """Drop the committed global mesh (test isolation between layouts)."""
-    global _GLOBAL_MESH
+    """Drop the committed global mesh and the world's hierarchy (test
+    isolation between layouts)."""
+    global _GLOBAL_MESH, _WORLD_HIERARCHY
     with _GLOBAL_LOCK:
         _GLOBAL_MESH = None
+        _WORLD_HIERARCHY = None
 
 
 def _resolve(mesh):
@@ -392,3 +548,41 @@ def replicate_tree(tree, mesh=None):
         return {k: specs(v) for k, v in t.items()} if isinstance(t, dict) \
             else P()
     return device_put_tree(tree, specs(tree), mesh)
+
+
+def kv_cache_spec(num_heads, mesh=None):
+    """PartitionSpec for the serving KV cache ``[layers, slots, len,
+    heads, head_dim]``: heads sharded over tp when tp divides them,
+    replicated otherwise."""
+    mesh = _resolve(mesh)
+    tp = mesh_axis_size(mesh, "tp")
+    if tp > 1 and num_heads % tp == 0:
+        return P(None, None, None, "tp", None)
+    return P()
+
+
+class HeadSharding(NamedSharding):
+    """``P(None, None, "tp", None)`` over ``[batch, s, heads, head_dim]``
+    activations of ``num_heads`` heads: what ``decode_attention`` holds
+    this rank's q, k and v to."""
+
+    def __init__(self, mesh, num_heads):
+        super().__init__(mesh, P(None, None, "tp", None))
+        self.num_heads = num_heads
+
+    def local_heads(self):
+        return self.shard_shape((1, 1, self.num_heads, 1))[2]
+
+
+def decode_head_sharding(num_heads, mesh=None):
+    """The head sharding (``HeadSharding``) of ``[batch, s, heads,
+    head_dim]`` decode activations when the mesh (the committed global
+    one by default: read only, never built from the environment) has
+    tp > 1 dividing ``num_heads``, else None."""
+    mesh = global_mesh_if_set() if mesh is None else mesh
+    if mesh is None:
+        return None
+    tp = mesh_axis_size(mesh, "tp")
+    if tp > 1 and num_heads % tp == 0:
+        return HeadSharding(mesh, num_heads)
+    return None

@@ -18,14 +18,16 @@ memory runs with O(seq/sp) memory:
   back; needs num_heads % sp == 0.
 
 Where the JAX package names a mesh axis bound by ``shard_map``, the port
-takes a *ring*: an object with ``rank``, ``size`` and the exchanges
-``shift`` (send to the next rank, receive from the previous one),
-``all_to_all``, ``all_gather`` and ``reduce_scatter``. ``GroupRing`` wraps
-a process group (an axis of a mesh: production); ``ThreadRing`` runs the
-ranks as threads of one process, which is how ranks share one card (NCCL
-refuses two ranks on one device). Every function below also takes an
-axis name (default 'sp', of ``parallel.mesh.global_mesh()``) or a process
-group.
+takes a *ring*, the port's group object: an object with ``rank``,
+``size`` and the exchanges ``shift`` (send to the next rank, receive from
+the previous one), ``all_to_all``, ``all_gather``, ``reduce_scatter`` and
+``all_reduce``. ``GroupRing`` wraps a process group (an axis of a mesh:
+production); ``ThreadRing`` runs the ranks as threads of one process,
+which is how ranks share one card (NCCL refuses two ranks on one
+device). The tensor-parallel layers (``parallel.tensor_parallel``), the
+ring collectives and the hierarchical allreduce take the same objects.
+Every function below also takes an axis name (default 'sp', of
+``parallel.mesh.global_mesh()``) or a process group.
 """
 
 import threading
@@ -99,6 +101,13 @@ class GroupRing:
         _reduce_scatter_into(out, src, self.group)
         return out.movedim(0, dim)
 
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """The elementwise sum (or ``op``) of every rank's ``t``, a new
+        tensor: the process group's own all-reduce."""
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=op, group=self.group)
+        return out
+
 
 class ThreadRing:
     """``size`` ranks as threads of one process: ``rank(r)`` is rank r's
@@ -119,38 +128,58 @@ class ThreadRing:
 
 
 class _ThreadRank:
+    """One thread rank's side of a ``ThreadRing``. A collective computes
+    its result from the others' tensors before any rank leaves it, so a
+    rank may overwrite what it contributed as soon as the call returns;
+    ``shift`` alone hands over references, which the sender must not
+    write in place afterwards."""
+
     def __init__(self, world, rank):
         self.world, self.rank, self.size = world, rank, world.size
 
-    def _exchange(self, value):
+    def _exchange(self, value, combine=list):
+        """``combine`` of every rank's ``value`` (rank order), taken while
+        every rank is inside the exchange."""
         w = self.world
         w._slots[self.rank] = value
         w._barrier.wait()
-        got = list(w._slots)
+        out = combine(list(w._slots))
         w._barrier.wait()
-        return got
+        return out
 
     def shift(self, *tensors, reverse=False):
-        got = self._exchange(tensors)
         src = (self.rank + (1 if reverse else -1)) % self.size
-        return list(got[src])
+        return self._exchange(tensors, lambda got: list(got[src]))
 
     def all_to_all(self, t, split_axis, concat_axis):
-        blocks = t.chunk(self.size, dim=split_axis)
-        got = self._exchange(blocks)
-        return torch.cat([got[j][self.rank] for j in range(self.size)],
-                         dim=concat_axis)
+        return self._exchange(
+            t.chunk(self.size, dim=split_axis),
+            lambda got: torch.cat([got[j][self.rank]
+                                   for j in range(self.size)],
+                                  dim=concat_axis))
 
     def all_gather(self, t, dim):
-        return torch.cat(self._exchange(t), dim=dim)
+        return self._exchange(t, lambda got: torch.cat(got, dim=dim))
 
     def reduce_scatter(self, t, dim):
-        got = self._exchange(t)
-        out = None
-        for j in range(self.size):   # rank order: the same sum everywhere
-            part = got[j].chunk(self.size, dim=dim)[self.rank]
-            out = part.clone() if out is None else out + part
-        return out
+        def combine(got):
+            out = None
+            for x in got:   # rank order: the same sum everywhere
+                part = x.chunk(self.size, dim=dim)[self.rank]
+                out = part.clone() if out is None else out + part
+            return out
+        return self._exchange(t, combine)
+
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """The elementwise sum (max for ``ReduceOp.MAX``) of every rank's
+        ``t``, taken in rank order, so every rank holds the same values."""
+        def combine(got):
+            out = got[0].clone()
+            for x in got[1:]:
+                out = torch.maximum(out, x) if op == dist.ReduceOp.MAX \
+                    else out + x
+            return out
+        return self._exchange(t, combine)
 
 
 def as_ring(axis_name="sp"):

@@ -15,11 +15,15 @@ Megatron-LM:
                   this rank uses (all-gather forward, the rows' gradient
                   scattered and reduce-scattered back).
 
+Every collective here runs over a *group object* (``parallel.ring``): a
+``GroupRing`` over the mesh's tp process group in training, or, in
+serving, whatever the engine's mesh gives for its tp axis: a process
+group's ring, or a thread rank of a ``ThreadRing`` where the tp ranks are
+threads sharing one card (NCCL refuses two ranks on one device).
+
 Only plain tensors reach the kernels: ``local`` is the one place a
 parameter leaves its DTensor.
 """
-
-import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -32,18 +36,10 @@ def local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-@dataclasses.dataclass(frozen=True)
-class TpGroup:
-    """The tensor-parallel ranks of this rank: a process group, its size
-    and this rank's place in it."""
-    group: object
-    size: int
-    rank: int
-
-
 def tp_of(weight):
-    """The tp group a weight is sharded over, or None: a DTensor on a mesh
-    whose 'tp' axis has more than one rank and splits the weight."""
+    """The tp group object (a ``GroupRing``) a weight is sharded over, or
+    None: a DTensor on a mesh whose 'tp' axis has more than one rank and
+    splits the weight."""
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(weight, DTensor):
         return None
@@ -54,14 +50,12 @@ def tp_of(weight):
     i = names.index("tp")
     if mesh.size(i) == 1 or not isinstance(weight.placements[i], Shard):
         return None
-    group = mesh.get_group("tp")
-    return TpGroup(group, dist.get_world_size(group), dist.get_rank(group))
+    from .ring import GroupRing
+    return GroupRing(mesh.get_group("tp"))
 
 
 def _all_reduce(t, tp, op=dist.ReduceOp.SUM):
-    t = t.contiguous().clone()
-    dist.all_reduce(t, op=op, group=tp.group)
-    return t
+    return tp.all_reduce(t, op)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -99,11 +93,7 @@ def all_reduce_max(x, tp):
 
 
 def _all_gather_rows(w, tp):
-    from ..mpi_ops import _all_gather_into
-    w = w.contiguous()
-    out = w.new_empty((tp.size * w.shape[0],) + tuple(w.shape[1:]))
-    _all_gather_into(out, w, tp.group)
-    return out
+    return tp.all_gather(w.contiguous(), 0)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -115,13 +105,10 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from ..mpi_ops import _reduce_scatter_into
         tp, rows, shape = ctx.args
         g_full = g.new_zeros(shape)
         g_full[rows] = g
-        out = g.new_empty((shape[0] // tp.size,) + tuple(shape[1:]))
-        _reduce_scatter_into(out, g_full.contiguous(), tp.group)
-        return out, None, None
+        return tp.reduce_scatter(g_full.contiguous(), 0), None, None
 
 
 class _GatherReplicated(torch.autograd.Function):

@@ -12,9 +12,15 @@ Usage:
 
     # CPU, tiny fp32 config, continuous vs static side by side
     python -m horovod_tpu_torch.serve_lm --device cpu --baseline
+
+    # tensor-parallel serving over 2 cards (or 2 CPU workers), one rank
+    # per card; the JSON line (rank 0's) carries the tokens' digest and the
+    # KV bytes per card, to hold against the one-card run
+    torchrun --nproc_per_node 2 -m horovod_tpu_torch.serve_lm --tp 2
 """
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -22,8 +28,10 @@ import time
 import numpy as np
 import torch
 
+from . import mpi_ops
 from .models import transformer as tr
 from .ops import flash_attention as fa
+from .parallel import mesh as mesh_lib
 from .serving.engine import ServeEngine
 from .serving.queue import AdmissionQueue, Request
 
@@ -89,14 +97,16 @@ def run_load(engine, workload, max_steps=100000):
 
 
 def serve_workload(cfg, model, workload, policy, num_slots, max_len,
-                   kv_block=8, seed=0, device=None):
+                   kv_block=8, seed=0, device=None, mesh=None):
     """One arm of the comparison: serve ``workload`` under ``policy``
-    and summarize throughput + latency. A fresh engine per arm."""
+    (on ``mesh``'s tp ranks when given) and summarize throughput +
+    latency, the generated tokens' digest and the KV bytes per card. A
+    fresh engine per arm."""
     queue = AdmissionQueue(max_depth=len(workload) + 1,
                            admission_timeout_s=1e9)
     engine = ServeEngine(cfg, model, num_slots=num_slots, max_len=max_len,
                          kv_block=kv_block, policy=policy, queue=queue,
-                         seed=seed, device=device)
+                         seed=seed, device=device, mesh=mesh)
     results, steps, wall_s = run_load(engine, workload)
     completed = [r for r in results if r.outcome == "completed"]
     decode_tokens = sum(len(r.tokens) for r in completed)
@@ -109,8 +119,12 @@ def serve_workload(cfg, model, workload, policy, num_slots, max_len,
     if engine.kv.ledger.blocks_in_use:
         raise RuntimeError(f"{engine.kv.ledger.blocks_in_use} KV blocks "
                            f"leaked")
+    digest = hashlib.sha256(json.dumps(sorted(
+        (r.request_id, list(r.tokens)) for r in results)).encode())
     return {
         "policy": policy,
+        "tokens_sha256": digest.hexdigest(),
+        "kv_bytes_per_card": engine.kv.per_chip_bytes(),
         "completed": len(completed),
         "failed": len(results) - len(completed),
         "rejected": sum(queue.rejected.values()),
@@ -146,7 +160,14 @@ def main(argv=None):
     ap.add_argument("--baseline", action="store_true",
                     help="also run the drain (static-batch) arm and "
                          "report the speedup")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (launch one process per "
+                         "card, e.g. under torchrun)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.tp > 1:
+        mpi_ops.init(device=args.device)
+        mesh = mesh_lib.build_mesh(tp=args.tp)
 
     cfg = serving_config(args.device)
     max_len, kv_block, prompt_lens = serving_defaults(args.device)
@@ -160,22 +181,26 @@ def main(argv=None):
                              temperature=args.temperature)
     out = {"device": str(model.device), "slots": args.slots,
            "requests": args.requests, "rate": args.rate, "max_len": max_len,
-           "prompt_lens": list(prompt_lens)}
+           "prompt_lens": list(prompt_lens), "tp": args.tp}
     if model.device.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(model.device)
     fa.reset_launch_counts()
     out["continuous"] = serve_workload(
         cfg, model, workload, "continuous", args.slots, max_len,
-        kv_block=kv_block, seed=args.seed, device=args.device)
+        kv_block=kv_block, seed=args.seed, device=args.device, mesh=mesh)
     out["continuous"]["kernel_launches"] = dict(fa.launch_counts)
     if args.baseline:
         out["static"] = serve_workload(
             cfg, model, workload, "drain", args.slots, max_len,
-            kv_block=kv_block, seed=args.seed, device=args.device)
+            kv_block=kv_block, seed=args.seed, device=args.device,
+            mesh=mesh)
         out["speedup_tokens_per_step"] = (
             out["continuous"]["tokens_per_step"] /
             max(out["static"]["tokens_per_step"], 1e-9))
-    print(json.dumps(out))
+    if mesh is None or mpi_ops.rank() == 0:
+        print(json.dumps(out))
+    if mesh is not None:
+        mpi_ops.shutdown()
     return 0
 
 

@@ -15,9 +15,19 @@ retire finishers. As in the JAX engine:
   * exactly one host readback per prefill (the first token) and one per
     decode step (the sampled ids).
 
+Tensor-parallel serving: with a ``mesh`` whose tp axis is above 1 (a
+process mesh, or a thread rank's ``ThreadMesh`` where the tp ranks share
+one card), ``_place_params`` places the weights by the model's
+``param_specs`` once, the KV cache holds this rank's heads, and prefill
+and decode run on them with one activation all-reduce after ``out`` and
+one after ``down`` per layer and one all-gather of the head's logits
+(``serving.decode.ServingWeights``). Every tp rank runs the same engine
+on the same requests, and samples the same tokens.
+
 Left for later slices of the port: the fleet's weight hot swap (and so
-the per-generation decode cohorts), ``ReplicaGroup`` liveness, the
-tensor-parallel mesh, and the metrics, alert, history and memory hooks.
+the per-generation decode cohorts, the generation stays 0),
+``ReplicaGroup`` liveness, and the metrics, alert, history and memory
+hooks.
 """
 
 import time
@@ -27,7 +37,8 @@ import torch
 
 from ..common import config
 from ..common.device import resolve_device
-from .decode import decode_step, prefill_forward
+from ..utils import memory as hvd_memory
+from .decode import ServingWeights, decode_step, prefill_forward
 from .kv_cache import KVCache
 from .queue import AdmissionQueue, RequestResult
 from .sampling import sample_tokens
@@ -51,23 +62,28 @@ class _Active:
 class ServeEngine:
     """Continuous-batching engine over one model replica on ``device``
     (CUDA unless told otherwise). ``model`` is a ``TransformerLM`` on
-    that device. ``policy="drain"`` is the static-batch baseline;
-    everything else about the engine is identical."""
+    that device, whole on every rank; with a ``mesh`` each rank keeps its
+    tensor-parallel shards of it. ``policy="drain"`` is the static-batch
+    baseline; everything else about the engine is identical."""
 
     def __init__(self, cfg, model, num_slots=None, max_len=None,
                  kv_block=None, total_blocks=None, policy="continuous",
-                 queue=None, seed=0, clock=time.monotonic, device=None):
+                 queue=None, seed=0, clock=time.monotonic, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        self.params = self._place_params(model)
+        self._generation = 0
         num_slots = (config.env_int("SERVE_SLOTS", 8)
                      if num_slots is None else num_slots)
         self.kv = KVCache(cfg, num_slots, max_len=max_len,
                           block_size=kv_block, total_blocks=total_blocks,
-                          device=self.device)
+                          device=self.device, mesh=mesh)
         self.scheduler = SlotScheduler(num_slots, policy=policy)
         self.queue = queue if queue is not None else AdmissionQueue()
         self._clock = clock
@@ -117,7 +133,70 @@ class ServeEngine:
     def active_count(self):
         return len(self._active)
 
+    @property
+    def generation(self):
+        """The weight generation newly admitted requests decode on (0
+        until the fleet's hot swap is ported)."""
+        return self._generation
+
+    def load_snapshot(self):
+        """Compact live-load summary, the JAX engine's: queue depth,
+        busy/free slots, outstanding decode work in tokens (queued plus
+        remaining on active slots), free KV blocks, the OOM forecast and
+        the weight generations (the armed one None until the fleet plane
+        is ported)."""
+        ledger = self.kv.ledger
+        work = sum(max(st.request.max_new_tokens - len(st.generated), 0)
+                   for st in self._active.values())
+        queued_tokens = (self.queue.queued_work_tokens()
+                         if hasattr(self.queue, "queued_work_tokens")
+                         else 0)
+        work += queued_tokens
+        snap = {
+            "queue_depth": len(self.queue),
+            "active_slots": len(self._active),
+            "work_tokens": work,
+            "free_slots": self.kv.num_slots - len(self._active),
+            "free_blocks": ledger.total_blocks - ledger.blocks_in_use,
+            "total_blocks": ledger.total_blocks,
+            "predicted_free_blocks": ledger.predicted_free_blocks(
+                queued_tokens),
+            "generation": self._generation,
+            "armed_generation": None,
+        }
+        if self._draining:
+            snap["draining"] = True
+        return snap
+
+    def resharding_report(self):
+        """The resharding sentinel over one decode step at this engine's
+        real shapes (every slot, on a scratch copy of the cache): the
+        collectives it issues, recorded through the serving forwards'
+        own wrappers, held to ``utils.memory.scan_resharding``'s rule.
+        Empty on a clean engine and on one with no mesh. Under tp every
+        rank of the engine must call it together (it issues the step's
+        collectives)."""
+        if self.mesh is None:
+            return []
+        from ..models.transformer import param_specs
+        S = self.kv.num_slots
+        tokens = torch.zeros(S, dtype=torch.int64, device=self.device)
+        positions = torch.zeros_like(tokens)
+        with self.params.recording() as records:
+            decode_step(self.cfg, self.params, tokens, positions,
+                        self.kv.k.clone(), self.kv.v.clone())
+        named = dict(self.model.named_parameters())
+        return hvd_memory.scan_resharding(
+            records, named, param_specs(named), self.mesh.shape,
+            site="serve_decode")
+
     # -- internals ------------------------------------------------------
+
+    def _place_params(self, model):
+        """The weights the forwards read: the model's own without a mesh,
+        this rank's shards placed by ``param_specs`` with one (the fused
+        qkv's heads gathered once, here)."""
+        return ServingWeights(self.cfg, model, self.mesh)
 
     def _pad_len(self, n):
         block = self.kv.ledger.block_size
@@ -152,7 +231,7 @@ class ServeEngine:
         s_pad = self._pad_len(prompt_len)
         tokens = torch.zeros((1, s_pad), dtype=torch.int64)
         tokens[0, :prompt_len] = torch.as_tensor(req.prompt)
-        logits, pk, pv = prefill_forward(self.cfg, self.model,
+        logits, pk, pv = prefill_forward(self.cfg, self.params,
                                          tokens.to(self.device))
         tok = sample_tokens(logits[0, prompt_len - 1][None],
                             [req.temperature], self._generator)
@@ -177,7 +256,7 @@ class ServeEngine:
             positions[slot] = st.next_pos
             temps[slot] = st.request.temperature
         logits, _, _ = decode_step(
-            self.cfg, self.model, torch.from_numpy(tokens).to(self.device),
+            self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(positions).to(self.device), self.kv.k,
             self.kv.v)
         nxt = sample_tokens(logits, temps, self._generator)

@@ -8,8 +8,10 @@ Two halves, deliberately separated:
   * KVCache — the device tensors: dense, preallocated
     [layers, slots, max_len, heads, head_dim] K and V, updated in place
     by prefill and decode. Dense rather than paged because the engine
-    decodes every slot every step at one shape; lengths are data. No
-    mesh or tensor-parallel sharding in this slice.
+    decodes every slot every step at one shape; lengths are data. On a
+    tensor-parallel mesh each rank holds its shard of the heads
+    (``parallel.mesh.kv_cache_spec``: heads over tp when tp divides
+    them, else every head).
 
 The ledger accounts in blocks (HVD_SERVE_KV_BLOCK tokens each) so
 admission can refuse work that would oversubscribe cache capacity
@@ -145,16 +147,28 @@ class KVCache:
     engine, written in place by its single-threaded step loop)."""
 
     def __init__(self, cfg, num_slots, max_len=None, block_size=None,
-                 total_blocks=None, device=None):
+                 total_blocks=None, device=None, mesh=None):
         max_len = cfg.max_seq_len if max_len is None else max_len
         self.ledger = BlockLedger(num_slots, max_len,
                                   block_size=block_size,
                                   total_blocks=total_blocks)
         shape = (cfg.num_layers, num_slots, max_len, cfg.num_heads,
                  cfg.head_dim)
+        if mesh is not None:
+            # this rank's shard: heads/tp of them when tp divides the
+            # heads, all of them (replicated) otherwise
+            from ..parallel import mesh as mesh_lib
+            shape = mesh_lib.spec_shard_shape(
+                shape, mesh_lib.kv_cache_spec(cfg.num_heads, mesh),
+                mesh.shape)
         self.k = torch.zeros(shape, dtype=cfg.dtype, device=device)
         self.v = torch.zeros(shape, dtype=cfg.dtype, device=device)
         self.max_len = max_len
+
+    def per_chip_bytes(self):
+        """Bytes of K+V cache this rank holds on its card: its shard under
+        the cache's sharding, the whole cache when unsharded."""
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v))
 
     @property
     def num_slots(self):

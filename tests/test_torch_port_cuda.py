@@ -163,12 +163,15 @@ def test_sm90_kernel_rising_max_at_its_tiles(card, variant, causal, ramp,
 
 
 def test_kernel_refuses_what_it_cannot_take(card):
+    """fp16 is refused; a head dim above 256 no longer is: d 288 runs on
+    the run-time-d kernel and agrees with the plain walk."""
     q, k, v = _qkv(13, 1, 64, 2, 128, torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v, True)
     q, k, v = _qkv(13, 1, 64, 2, 288, torch.bfloat16, card)
-    with pytest.raises(ValueError, match="up to 256"):
-        fa.flash_fwd(q, k, v, True)
+    fa.reset_launch_counts()
+    _check(q, k, v, True, "online", torch.bfloat16)
+    assert dict(fa.launch_counts) == {"flash_fwd_dyn_online": 1}
 
 
 def _flat_bshd(t):
@@ -303,17 +306,21 @@ def _on_sm90(dtype, d):
     return dtype == torch.bfloat16 and d <= fa.SM90_MAX_HEAD_DIM
 
 
+def _family(d):
+    return "dyn" if fa.on_dyn(d) else "cc"
+
+
 def _fwd_name(dtype, variant, d=128):
     """The launch count of a forward: the wgmma kernel's, or the CUDA-core
-    kernel's own."""
+    or run-time-d kernel's own."""
     return (f"flash_fwd_{variant}" if _on_sm90(dtype, d)
-            else f"flash_fwd_cc_{variant}")
+            else f"flash_fwd_{_family(d)}_{variant}")
 
 
 def _bwd_names(dtype, d=128):
     if _on_sm90(dtype, d):
         return "flash_bwd_sm90_dq", "flash_bwd_sm90_dkv"
-    return "flash_bwd_cc_dq", "flash_bwd_cc_dkv"
+    return f"flash_bwd_{_family(d)}_dq", f"flash_bwd_{_family(d)}_dkv"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -498,6 +505,66 @@ def test_d256_forward_every_walk(card, variant, dtype, sq, sk, causal):
     _assert_kernel_close(lse, p_lse, "lse", dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [288, 384, 512, 1024])
+def test_beyond_256_through_the_kernels(card, dtype, causal, d):
+    """Head dims above 256 run unpadded on the run-time-d kernels through
+    the public autograd path, forward and backward, at a partial-tile
+    length (s 200 = 6 · 32 + 8), and agree with the plain walks at the
+    kernels' 32-row tiles; at d 1024 the dk/dv accumulators are in the
+    device workspace."""
+    q, k, v = _qkv(90 + d, 1, 200, 3, d, dtype, card)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
+        card, dtype)
+    fa.reset_launch_counts()
+    got = _public_fwd_bwd(q, k, v, g, causal, card, variant="online")
+    assert dict(fa.launch_counts) == {_fwd_name(dtype, "online", d): 1,
+                                      **dict.fromkeys(_bwd_names(dtype, d),
+                                                      1)}
+    qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
+    assert fa.bwd_kernel_blocks(qf, kf) == ((32, 32), (32, 32))
+    out, lse = ref.flash_fwd_online(qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, "online"))
+    delta = ref.flash_delta(out, gf)
+    _assert_kernel_close(got[0], out, "O", dtype)
+    for a, w in zip(got[1:], _plain_grads(qf, kf, vf, gf, lse, delta,
+                                          causal)):
+        assert a.shape == w.shape
+        _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [288, 512])
+@pytest.mark.parametrize("sq,sk,causal", [(130, 130, True), (64, 200, False)])
+@pytest.mark.parametrize("workspace", [False, True])
+def test_beyond_256_every_walk(card, variant, dtype, d, sq, sk, causal,
+                               workspace):
+    """Each forward walk, and dq and dk/dv, on the run-time-d kernels with
+    their accumulators in shared memory and forced into the device
+    workspace, against the plain walks at the kernels' tiles; sq != sk,
+    partial last tiles."""
+    g = torch.Generator().manual_seed(sq + sk + d)
+    qf, dof = (torch.randn(2, sq, d, generator=g) for _ in range(2))
+    kf, vf = (torch.randn(2, sk, d, generator=g) for _ in range(2))
+    qf, kf, vf, dof = (t.to(card, dtype) for t in (qf, kf, vf, dof))
+    fa.reset_launch_counts()
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
+                              workspace=workspace)
+    assert dict(fa.launch_counts) == {f"flash_fwd_dyn_{variant}": 1}
+    p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, variant))
+    _assert_kernel_close(out, p_out, "O", dtype)
+    _assert_kernel_close(lse, p_lse, "lse", dtype)
+    delta = ref.flash_delta(p_out, dof)
+    got = fa._kernel_bwd(qf, kf, vf, dof, p_lse, delta, causal, d ** -0.5,
+                         workspace=workspace)
+    for a, w in zip(got, _plain_grads(qf, kf, vf, dof, p_lse, delta,
+                                      causal)):
+        _assert_grad_close(a, w, dtype)
+
+
 def _ring_pair(dtype, d, card, offset=0.0, seed=90, bh=6, s=256):
     """A ring's later pair as the backward sees it: q against a non-causal
     K/V block (keys offset by ``offset``), a merged lse that includes the
@@ -516,7 +583,7 @@ def _ring_pair(dtype, d, card, offset=0.0, seed=90, bh=6, s=256):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 288])
 def test_ring_pair_merged_lse_backward(card, dtype, d):
     """The backward kernels under a caller's merged lse with +1e30 rows:
     those rows' p is exactly 0 (their dq exactly 0, nothing from them in
@@ -539,7 +606,7 @@ def test_ring_pair_merged_lse_backward(card, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 288])
 def test_ring_future_pair_with_large_logits_is_exactly_zero(card, dtype, d):
     """A wholly future pair (every row's lse +1e30) whose keys are offset
     by 1e3, so its logits reach the thousands: p underflows to exactly 0

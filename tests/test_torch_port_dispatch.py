@@ -9,7 +9,11 @@ the launch counts keep one name per variant; a head dim between the
 compiled ones reaches the kernel zero-padded, with the true d's scale. Backward: bf16 goes to the wgmma/TMA pair
 (``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
 forces, ``flash_bwd_sm90_dkv``), fp32 to ``flash_bwd_dq`` and
-``flash_bwd_dkv``, each counted under its own name. The stub's outputs
+``flash_bwd_dkv``, each counted under its own name. Every head dim above
+256 reaches the run-time-d entry points (``flash_fwd_dyn``,
+``flash_bwd_dyn_dq``, ``flash_bwd_dyn_dkv``) unpadded, with a device
+workspace only where the accumulators do not fit shared memory. The
+stub's outputs
 are never read: on the card the kernels
 themselves are held against their plain versions
 (tests/test_torch_port_cuda.py, chip_smoke.py).
@@ -59,6 +63,20 @@ class _Recorder:
                            scale2, scale):
         self.calls.append(("flash_bwd_sm90_dkv", causal, scale2, scale,
                            None))
+
+    def flash_fwd_dyn(self, q, k, v, out, lse, ws, variant, causal, scale2):
+        self.calls.append(("flash_fwd_dyn", variant, causal, ws.numel()))
+        self.head_dims.append((q.shape[2], scale2))
+
+    def flash_bwd_dyn_dq(self, q, k, v, dout, lse, delta, dq, ws, causal,
+                         scale2, scale):
+        self.calls.append(("flash_bwd_dyn_dq", causal, scale2, scale,
+                           ws.numel()))
+
+    def flash_bwd_dyn_dkv(self, q, k, v, dout, lse, delta, dk, dv, ws,
+                          causal, scale2, scale):
+        self.calls.append(("flash_bwd_dyn_dkv", causal, scale2, scale,
+                           ws.numel()))
 
 
 @pytest.fixture
@@ -210,13 +228,68 @@ def test_head_dim_reaches_the_kernel_padded(stub, d, padded, dtype):
 
 
 def test_head_dim_beyond_128_raises_before_any_launch(stub):
-    """Head dims up to 256 reach a kernel; only one above 256 raises, and
-    before any launch."""
+    """No head dim is refused any more: d 288 passes the padding helper
+    unpadded and reaches the run-time-d forward, nothing raising."""
     qf, kf, vf = _flat(2, 64, 288, torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 256"):
-        fa.pad_head_dim(lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"),
-                        (qf, kf, vf), 1)
-    assert stub.calls == [] and not fa.launch_counts
+    out, lse = fa.pad_head_dim(
+        lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"), (qf, kf, vf), 1)
+    assert stub.calls == [("flash_fwd_dyn", 1, True, 0)]
+    assert stub.head_dims == [(288, pytest.approx(0.1 * fa.LOG2E))]
+    assert out.shape == qf.shape and lse.shape == (2, 64)
+    assert dict(fa.launch_counts) == {"flash_fwd_dyn_lazy": 1}
+
+
+@pytest.mark.parametrize("d", [257, 288, 384, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+def test_beyond_256_reaches_the_run_time_d_kernels(stub, d, dtype, variant):
+    """d > 256 goes to the run-time-d kernels with no padding (the true d
+    reaches them, and so does its scale), forward and backward, counted
+    under ``flash_fwd_dyn_{variant}`` and ``flash_bwd_dyn_{dq,dkv}``, and
+    the walks are their 32-row tiles."""
+    qf, kf, vf = _flat(2, 100, d, dtype)
+    scale = d ** -0.5
+    assert fa.kernel_head_dim(d) == d and fa.on_dyn(d)
+    out, lse = fa.pad_head_dim(
+        lambda q, k, v: fa._kernel_fwd(q, k, v, True, scale, variant),
+        (qf, kf, vf), 1)
+    assert stub.head_dims == [(d, pytest.approx(scale * fa.LOG2E))]
+    assert stub.calls[0][:3] == ("flash_fwd_dyn", fa.VARIANTS.index(variant),
+                                 True)
+    delta = torch.zeros(2, 100)
+    dq, dk, dv = fa.pad_head_dim(
+        lambda q, k, v, do: fa._kernel_bwd(q, k, v, do, lse, delta, True,
+                                           scale), (qf, kf, vf, qf), 3)
+    assert [c[0] for c in stub.calls[1:]] == ["flash_bwd_dyn_dq",
+                                              "flash_bwd_dyn_dkv"]
+    for call in stub.calls[1:]:
+        assert call[1:4] == (True, pytest.approx(scale * fa.LOG2E), scale)
+    assert out.shape == dq.shape == dk.shape == dv.shape == qf.shape
+    assert fa.kernel_blocks(qf, kf, variant) == (32, 32)
+    assert fa.bwd_kernel_blocks(qf, kf) == ((32, 32), (32, 32))
+    assert dict(fa.launch_counts) == {f"flash_fwd_dyn_{variant}": 1,
+                                      "flash_bwd_dyn_dq": 1,
+                                      "flash_bwd_dyn_dkv": 1}
+
+
+@pytest.mark.parametrize("d,fwd,dkv", [(288, 0, 0), (512, 0, 0),
+                                       (1024, 0, 2 * 32 * 1024),
+                                       (2048, 32 * 2048, 2 * 32 * 2048)])
+def test_run_time_d_accumulators_leave_shared_memory_only_when_full(
+        stub, d, fwd, dkv):
+    """The fp32 accumulators [32, d] (two in dk/dv) stay in shared memory
+    while they fit 227 KB beside the chunk tiles (the forward and dq up to
+    d 1653, dk/dv up to 826), and otherwise go to a device workspace of
+    one slice per CTA; a caller may force the workspace."""
+    assert fa.dyn_workspace("fwd", 1, 32, d) == fwd
+    assert fa.dyn_workspace("dq", 1, 32, d) == fwd
+    assert fa.dyn_workspace("dkv", 1, 32, d) == dkv
+    assert fa.dyn_workspace("fwd", 3, 100, d) == 3 * 4 * fwd
+    qf, kf, vf = _flat(3, 100, d, torch.bfloat16)
+    fa._kernel_fwd(qf, kf, vf, False, 0.1, "online")
+    fa._kernel_fwd(qf, kf, vf, False, 0.1, "online", workspace=True)
+    assert stub.calls[0][-1] == 3 * 4 * fwd
+    assert stub.calls[1][-1] == 3 * 4 * 32 * d
 
 
 @pytest.mark.parametrize("d", [160, 192, 256])
@@ -284,3 +357,22 @@ def test_ptxas_report_names_kernels_and_reads_spills():
     cmd = flash_fwd_ab.nvcc_cmd(["a.cu"], "a.cubin", cubin=True)
     assert "-cubin" in cmd and "-v" in cmd and cmd[-1] == "a.cu"
     assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
+
+
+def test_ptxas_report_names_type_arguments():
+    """The run-time-d kernels are templates on the element type too: fp32
+    and bf16 instantiations get names of their own."""
+    from horovod_tpu_torch.ops import flash_fwd_ab
+    text = "".join(
+        f"ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__9_"
+        f"12flash_dyn_cu_0a{k}' for 'sm_90a'\n"
+        f"    64 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {r} registers, used 1 barriers\n"
+        for k, r in (("20flash_fwd_dyn_kernelIfLi2EEEvNS_9DynParamsE", 56),
+                     ("20flash_fwd_dyn_kernelI13__nv_bfloat16Li2EEEvNS_9"
+                      "DynParamsE", 56),
+                     ("23flash_bwd_dq_dyn_kernelIfEEvNS_9DynParamsE", 64)))
+    assert flash_fwd_ab.ptxas_report(text) == {
+        "flash_fwd_dyn_kernel<float,2>": (56, 0, 0),
+        "flash_fwd_dyn_kernel<bf16,2>": (56, 0, 0),
+        "flash_bwd_dq_dyn_kernel<float>": (64, 0, 0)}

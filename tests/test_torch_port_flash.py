@@ -281,12 +281,23 @@ class TestHeadDimPadding:
     def test_kernel_head_dim(self, d, padded):
         assert tfa.kernel_head_dim(d) == padded
 
-    def test_beyond_128_is_refused(self):
-        """Head dims up to 256 run on the card (the CUDA-core kernels
-        above 128); only a d above 256 is refused."""
+    def test_beyond_128_is_refused(self, hvd):
+        """No head dim is refused on the card any more: up to 256 it is
+        padded to a compiled one (the CUDA-core kernels above 128), above
+        256 it runs as it is on the run-time-d kernels, whose plain walk
+        at their 32-row tiles equals the reference's at d 260."""
+        from horovod_tpu.ops import flash_attention as jfa
         assert tfa.kernel_head_dim(160) == 256
-        with pytest.raises(ValueError, match="up to 256"):
-            tfa.kernel_head_dim(260)
+        assert tfa.kernel_head_dim(260) == 260 and tfa.on_dyn(260)
+        (jq, jk, jv), (tq, tk, tv) = _inputs(260, b=1, s=40, h=2, d=260)
+        flat = [t.transpose(1, 2).reshape(2, 40, 260) for t in (tq, tk, tv)]
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, True, 40, 40, True,
+                                      variant="online")
+        out, lse = tref.flash_fwd_online(*flat, True, tfa.DYN_BLOCK,
+                                         tfa.DYN_BLOCK)
+        _close(out, np.asarray(j_out).transpose(0, 2, 1, 3).reshape(
+            2, 40, 260), "float32")
+        _close(lse, np.asarray(j_lse)[:, 0, :], "float32")
 
     @pytest.mark.parametrize("d", [24, 80, 96, 120])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

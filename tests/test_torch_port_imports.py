@@ -80,6 +80,26 @@ def test_scan_sees_every_module():
         assert want in files
 
 
+@pytest.mark.parametrize("relpath", [
+    os.path.join("horovod_tpu_torch", "parallel", "ring_collectives.py"),
+    os.path.join("horovod_tpu_torch", "parallel", "hierarchical.py"),
+    os.path.join("horovod_tpu_torch", "ops", "operation_manager.py"),
+    os.path.join("horovod_tpu_torch", "ops", "collective_ops.py"),
+    os.path.join("horovod_tpu_torch", "utils", "memory.py"),
+    os.path.join("horovod_tpu_torch", "serving", "decode.py"),
+    os.path.join("horovod_tpu_torch", "csrc", "flash_dyn.cu")])
+def test_scan_sees_the_serving_mesh_and_backend_modules(relpath):
+    """The modules of the tp serving and collective-backend slice are in
+    the scan (the CUDA source in the build), and import neither jax nor
+    the JAX package."""
+    if relpath.endswith(".cu"):
+        from horovod_tpu_torch.ops import _build
+        assert os.path.basename(relpath) in _build.SOURCES
+        return
+    assert relpath in _port_files()
+    assert not _imported_roots(os.path.join(ROOT, relpath)) & set(FORBIDDEN)
+
+
 def test_build_compiles_every_kernel_source():
     from horovod_tpu_torch.ops import _build
     assert set(_build.SOURCES) == {
