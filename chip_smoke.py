@@ -137,6 +137,24 @@ on failure:
      HOROVOD_HIERARCHICAL_ALLREDUCE, the operation manager's selections
      counted, the averaged gradients and parameters equal to the
      flag-less route's;
+  3h. the eager coordination core: (a) at world 1 over NCCL, two bursts
+     of 64 named allreduces (fp32/bf16/int32, integer valued) produced
+     on a side stream behind a chain of matmuls, fused into exactly the
+     groups plan_buckets predicts, every sum exact, bucket_stats of the
+     fused results equal to the per-tensor stats; allgather, broadcast,
+     broadcast_object, a duplicate name refused, a stalled collective
+     warned and failed at its deadline, a timeline with the NEGOTIATE
+     and ALLREDUCE spans; (b) 2 processes on the one card (gloo data
+     plane over CUDA tensors, HMAC control plane): 16 names submitted in
+     opposite orders, a subset submission reported stalled, a rank that
+     exits unannounced failing the other's pending handle with
+     RanksLostError, every join under a deadline; (c) the --eager-allreduce
+     paths of train_lm (the flagship) and synthetic_benchmark (ResNet-50,
+     norm_impl tpu) 10 steps each: losses falling, 12+12+12 and 53+53
+     launches a step, the parameters after 3 steps equal to the
+     DistributedOptimizer route's within 2e-5 of each tensor's largest
+     magnitude, ms/step, device ms and busy share against that route at
+     HOROVOD_CYCLE_TIME 5 and 0;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -168,6 +186,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2634,6 +2653,459 @@ def time_vision(card, dev, step_shapes):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the eager coordination core on the card (ops/eager.py): (a)
+# world 1 over NCCL, (b) 2 processes on the one card over gloo (NCCL
+# refuses two ranks on one device), (c) the two entry points'
+# --eager-allreduce steps
+
+EAGER_NAMES = 64
+EAGER_STEPS = 10
+EAGER_PARITY_STEPS = 3
+EAGER_PROCS = 2
+EAGER_JOIN_S = 120
+EAGER_LOST_S = 6.0
+
+
+def _stats_of(tensors):
+    """Per-tensor health stats one at a time (the yardstick of
+    fusion.bucket_stats over a fused buffer)."""
+    from horovod_tpu_torch.ops import fusion
+    return torch.cat([fusion.bucket_stats(t.reshape(-1), [t.numel()])
+                      for t in tensors])
+
+
+def check_eager_core(card, dev):
+    """Phase 3h (a): the eager core at world 1 on its NCCL group."""
+    from horovod_tpu_torch.common import hvd_logging, state
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.utils import timeline as timeline_mod
+    coord = state.global_state().coordinator
+    cfg = coord._config
+    # bursts of 64 named allreduces of mixed sizes and dtypes, integer
+    # valued (exact in every dtype), each produced on a side stream behind
+    # a chain of matmuls: a collective that did not wait on it would read
+    # the zeros it was allocated with
+    side = torch.cuda.Stream(dev)
+    g = torch.Generator().manual_seed(7)
+    sizes = torch.randint(1, 300_000, (EAGER_NAMES,), generator=g).tolist()
+    dtypes = [torch.float32, torch.bfloat16, torch.int32] * EAGER_NAMES
+    threshold = 1 << 20
+    prev_threshold, cfg.fusion_threshold = cfg.fusion_threshold, threshold
+    try:
+        for burst in range(2):
+            tensors = [torch.zeros(n, device=dev, dtype=dt)
+                       for n, dt in zip(sizes, dtypes)]
+            with torch.cuda.stream(side):
+                x = torch.randn(4096, 4096, device=dev)
+                for _ in range(20):
+                    x = (x @ x) * 1e-3
+                for i, t in enumerate(tensors):
+                    t.copy_(torch.full_like(t, (i % 50) + 1 + burst) +
+                            (0 * x[0, 0]).to(t.dtype))
+                before = coord.executed_groups
+                with coord.hold_cycle():
+                    handles = [hvd.allreduce_async(
+                        t, average=False, name=f"burst{burst}.{i}")
+                        for i, t in enumerate(tensors)]
+            outs = [hvd.synchronize(h) for h in handles]
+            torch.cuda.synchronize()
+            groups = coord.executed_groups - before
+            want = sum(len(fusion.plan_buckets(
+                [t for t in tensors if t.dtype == dt], threshold))
+                for dt in (torch.float32, torch.bfloat16, torch.int32))
+            if groups != want:
+                raise AssertionError(f"burst {burst}: {groups} fused "
+                                     f"groups, plan_buckets predicts {want}")
+            for i, (t, o) in enumerate(zip(tensors, outs)):
+                if o.dtype != t.dtype or not torch.equal(
+                        o, torch.full_like(t, (i % 50) + 1 + burst)):
+                    raise AssertionError(f"burst {burst} tensor {i} "
+                                         f"({t.dtype}) is not its sum")
+        # the fused buffer's per-slice stats against each tensor's own
+        fp32 = [o for o in outs if o.dtype == torch.float32]
+        got = fusion.bucket_stats(torch.cat([o.reshape(-1) for o in fp32]),
+                                  [o.numel() for o in fp32])
+        torch.testing.assert_close(got, _stats_of(fp32), rtol=1e-5,
+                                   atol=1e-5)
+    finally:
+        cfg.fusion_threshold = prev_threshold
+    # allgather (first dims ragged across calls), broadcast, objects, and
+    # a duplicate name
+    for rows in (1, 7, 300):
+        x = torch.randn(rows, 5, device=dev)
+        if not torch.equal(hvd.allgather(x, name=f"ag.{rows}"), x):
+            raise AssertionError(f"allgather of {rows} rows")
+    x = torch.randn(64, device=dev)
+    if not torch.equal(hvd.broadcast(x, root_rank=0, name="bc"), x):
+        raise AssertionError("broadcast")
+    obj = {"epoch": 3, "ranks": list(range(9))}
+    if hvd.broadcast_object(obj) != obj:
+        raise AssertionError("broadcast_object")
+    with coord.hold_cycle():
+        h = hvd.allreduce_async(x, name="dup")
+        try:
+            hvd.allreduce_async(x, name="dup")
+            raise AssertionError("a duplicate name was accepted")
+        except hvd.DuplicateNameError:
+            pass
+    hvd.synchronize(h)
+    # a stalled submission warns, then raises at the shutdown deadline
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    handler = Capture()
+    hvd_logging.get_logger().addHandler(handler)
+    saved = (cfg.stall_warning_time_seconds, cfg.stall_shutdown_time_seconds)
+    cfg.stall_warning_time_seconds, cfg.stall_shutdown_time_seconds = 0.2, 1.0
+    t0 = time.perf_counter()
+    try:
+        with coord.hold_cycle():
+            h = hvd.allreduce_async(x, name="stalled")
+            time.sleep(0.4)
+            coord._check_stalled()
+            try:
+                hvd.synchronize(h)
+                raise AssertionError("a stalled collective completed")
+            except hvd.StalledError:
+                pass
+    finally:
+        cfg.stall_warning_time_seconds, cfg.stall_shutdown_time_seconds = \
+            saved
+        hvd_logging.get_logger().removeHandler(handler)
+    stall_s = time.perf_counter() - t0
+    if not any("stalled" in m and "subset of ranks" in m for m in records):
+        raise AssertionError(f"no stall warning: {records}")
+    # the timeline: NEGOTIATE_ALLREDUCE and ALLREDUCE spans of a cycle
+    path = os.path.join(ROOT, "build", "chip_smoke_timeline.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prev_tl, coord.timeline = coord.timeline, timeline_mod.NativeTimeline(
+        path, mark_cycles=True)
+    try:
+        hvd.grouped_allreduce([torch.ones(8, device=dev),
+                               torch.ones(3, device=dev)])
+    finally:
+        tl, coord.timeline = coord.timeline, prev_tl
+        tl.close()
+    names = {e.get("name") for e in json.load(open(path))}
+    if not {"NEGOTIATE_ALLREDUCE", "ALLREDUCE",
+            "MEMCPY_IN_FUSION_BUFFER"} <= names:
+        raise AssertionError(f"timeline spans {sorted(filter(None, names))}")
+    log(card, f"phase 3h (a): world 1 over NCCL: 2 bursts of "
+              f"{EAGER_NAMES} allreduces (fp32/bf16/int32, 1-300k "
+              f"elements, produced on a side stream behind 20 matmuls) "
+              f"fused into {want} groups each at a 1 MiB threshold, as "
+              f"plan_buckets predicts, every sum exact; bucket_stats of "
+              f"the fused fp32 results equal the per-tensor stats; "
+              f"allgather, broadcast, broadcast_object exact; duplicate "
+              f"name refused; a stalled collective warned and raised "
+              f"StalledError after {stall_s:.2f} s (1.0 s deadline); the "
+              f"timeline holds {sorted(n for n in names if n and n.isupper())}")
+
+
+def _eager_rank(r, port, cport, results):
+    """Phase 3h (b): one of two processes on the one card; its core's data
+    plane is gloo (over CUDA tensors), its control plane the
+    authenticated TCP wire."""
+    import base64
+    import torch.distributed as dist
+    os.environ["HVD_CONTROL_ADDR"] = f"localhost:{cport}"
+    os.environ["HVD_SECRET_KEY"] = base64.b64encode(b"chip" * 8).decode()
+    os.environ["HOROVOD_STALL_CHECK_TIME_SECONDS"] = "0.5"
+    os.environ["HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"] = "2.0"
+    # the liveness deadline outlasts any collective the background thread
+    # blocks in (gloo over CUDA tensors blocks it, and blocked it sends
+    # no heartbeat)
+    os.environ["HOROVOD_RANK_LOST_TIMEOUT_SECONDS"] = str(EAGER_LOST_S)
+    report = {}
+
+    def say(msg):
+        print(f"phase 3h (b) rank {r}: {msg}", file=sys.stderr, flush=True)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=r, world_size=EAGER_PROCS)
+        hvd.init(device="cuda")
+        from horovod_tpu_torch.common import hvd_logging, state
+        coord = state.global_state().coordinator
+        report["negotiated"] = coord.negotiated
+        say("initialized")
+        hvd.allreduce(torch.ones(4, device=dev), name="warmup")
+        say("warm-up allreduce done")
+        # the same 16 names, in opposite orders
+        names = [f"t{i}" for i in range(16)]
+        order = names if r == 0 else names[::-1]
+        handles = {n: hvd.allreduce_async(
+            torch.full((1000 + 37 * int(n[1:]),), float(int(n[1:]) + 10 * r),
+                       device=dev), average=False, name=n) for n in order}
+        report["opposite"] = {n: hvd.synchronize(h).unique().tolist()
+                              for n, h in handles.items()}
+        say("opposite orders done")
+        # a subset submission is reported stalled rather than hanging
+        records = []
+
+        class Capture(logging.Handler):
+            def emit(self, record):
+                records.append(record.getMessage())
+        hvd_logging.get_logger().addHandler(Capture())
+        hvd.allreduce(torch.ones(4, device=dev), name="common")
+        if r == 0:
+            try:
+                hvd.allreduce(torch.ones(4, device=dev), name="only0")
+                report["subset"] = "completed"
+            except hvd.StalledError:
+                report["subset"] = "stalled"
+            report["warned"] = any("only0" in m and "missing ranks" in m
+                                   for m in records)
+        else:
+            time.sleep(3.0)
+        hvd.allreduce(torch.ones(4, device=dev), name="after")
+        say("subset done")
+        # rank 1 leaves without a word; rank 0's pending handle fails
+        # with RanksLostError when the coordinator's liveness ledger
+        # declares it lost
+        if r == 1:
+            results.put((r, report))
+            results.close()
+            results.join_thread()   # the report is in the pipe
+            os._exit(0)
+        coord._config.stall_shutdown_time_seconds = 0.0   # liveness only
+        t0 = time.perf_counter()
+        try:
+            hvd.allreduce(torch.ones(4, device=dev), name="orphan")
+            report["lost"] = "completed"
+        except hvd.RanksLostError as exc:
+            report["lost"] = list(exc.ranks)
+        report["lost_s"] = time.perf_counter() - t0
+        hvd.shutdown()
+    except Exception:  # noqa: BLE001 — reported to the parent, fatal there
+        import traceback
+        report["error"] = traceback.format_exc()
+    results.put((r, report))
+
+
+def check_eager_processes(card):
+    """Phase 3h (b): 2 processes on the one card through the eager core,
+    every join under a deadline."""
+    import multiprocessing
+    import socket
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+
+    def free():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+    port, cport = free(), free()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_eager_rank, args=(r, port, cport, results))
+             for r in range(EAGER_PROCS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(EAGER_PROCS):
+            r, report = results.get(timeout=EAGER_JOIN_S)
+            got[r] = report
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    for r in range(EAGER_PROCS):
+        if "error" in got.get(r, {"error": "no report"}):
+            raise AssertionError(f"eager rank {r}:\n{got.get(r)}")
+        if got[r]["negotiated"] is not True:
+            raise AssertionError(f"rank {r} ran without negotiation")
+        want = {f"t{i}": [float(2 * i + 10)] for i in range(16)}
+        if got[r]["opposite"] != want:
+            raise AssertionError(f"rank {r} opposite-order sums "
+                                 f"{got[r]['opposite']}")
+    if got[0]["subset"] != "stalled" or not got[0]["warned"]:
+        raise AssertionError(f"subset submission: {got[0]}")
+    if got[0]["lost"] != [1]:
+        raise AssertionError(f"rank 1's exit: {got[0]['lost']}")
+    log(card, f"phase 3h (b): {EAGER_PROCS} processes on the one card "
+              f"(gloo data plane over CUDA tensors, HMAC control plane): "
+              f"16 names submitted in opposite orders, every result the "
+              f"sum over ranks; a rank-0-only submission warned with its "
+              f"missing rank and raised StalledError; rank 1 exited "
+              f"unannounced and rank 0's pending allreduce failed with "
+              f"RanksLostError([1]) after {got[0]['lost_s']:.2f} s "
+              f"({EAGER_LOST_S:g} s liveness deadline); {wall:.1f} s wall "
+              f"in all")
+
+
+def _max_rel(a_params, b_params):
+    worst = 0.0
+    for a, b in zip(a_params, b_params):
+        scale = b.detach().float().abs().max().item() or 1.0
+        worst = max(worst, (a.detach().float() - b.detach().float())
+                    .abs().max().item() / scale)
+    return worst
+
+
+def _groups_per_step(coord, one_step, model, threshold):
+    """The fused groups one eager step executes (the gradients' grouped
+    allreduce at world 1), held to plan_buckets over the model's
+    gradients."""
+    from horovod_tpu_torch.ops import fusion
+    before = coord.executed_groups
+    one_step().item()
+    got = coord.executed_groups - before
+    want = len(fusion.plan_buckets(
+        [p for p in model.parameters() if p.requires_grad], threshold))
+    if got != want:
+        raise AssertionError(f"an eager step ran {got} fused groups, "
+                             f"plan_buckets predicts {want}")
+    return got
+
+
+def _timed(step, batch, steps, sync):
+    """(ms/step over ``steps`` steps on ``batch``, ending in a read of the
+    loss; device ms of one step; busy share)."""
+    step(batch)
+    sync(step(batch))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(batch)
+    sync(loss)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    dev_ms = device_ms(lambda: step(batch), iters=2)
+    return ms, dev_ms, (dev_ms / ms if dev_ms else None)
+
+
+def run_eager_entry_points(card, dev, train_cfg):
+    """Phase 3h (c): both entry points' --eager-allreduce paths at world
+    1: 10 steps each through B2/B4/B5 and B6/B7, the parameters after 3
+    steps against the DistributedOptimizer route's, and ms/step against
+    that route at HOROVOD_CYCLE_TIME 5 and 0."""
+    from horovod_tpu_torch.common import state
+    coord = state.global_state().coordinator
+    cfg = coord._config
+    out = {}
+    sync = (lambda loss: loss.item())
+    # ---- the flagship through train_lm --eager-allreduce
+    args = train_lm.parse_args(["--device", "cuda", "--eager-allreduce"])
+    window, _ = train_lm.build_eager(args, train_cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     1, dev)
+    per_step = {"flash_fwd_lazy": train_cfg.num_layers,
+                "flash_bwd_sm90_dq": train_cfg.num_layers,
+                "flash_bwd_sm90_dkv": train_cfg.num_layers}
+    losses = []
+    fa.reset_launch_counts()
+    for i in range(EAGER_STEPS):
+        before = dict(fa.launch_counts)
+        losses.append(window().item())
+        got = {k: v - before.get(k, 0) for k, v in fa.launch_counts.items()}
+        if got != per_step:
+            raise AssertionError(f"eager LM step {i} launched {got}")
+    lm_launches = dict(fa.launch_counts)
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"eager LM losses {losses}")
+    # 3 steps against DistributedOptimizer's, same seed and batch
+    e_step, e_model, _, e_toks = trainer.build_eager_lm_step(
+        train_cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    d_model, d_opt, _, d_toks = train_lm.build_transformer_step(
+        train_cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)
+    d_step = trainer.make_train_step(d_model, d_opt, tr.lm_loss_fn(d_model))
+    for _ in range(EAGER_PARITY_STEPS):
+        e_step(e_toks[0])
+        d_step(d_toks[0])
+    lm_dev = _max_rel(e_model.parameters(), d_model.parameters())
+    lm_groups = _groups_per_step(coord, lambda: e_step(e_toks[0]),
+                                 e_model, cfg.fusion_threshold)
+    if lm_dev > 2e-5:
+        raise AssertionError(f"eager LM parameters after 3 steps differ "
+                             f"from DistributedOptimizer's by {lm_dev:.3e} "
+                             f"of their largest magnitude")
+    timing = {}
+    for label, step, batch in (("pr8", d_step, d_toks[0]),
+                               ("eager", e_step, e_toks[0])):
+        for cycle in ((5.0, 0.0) if label == "eager" else (None,)):
+            prev = cfg.cycle_time_ms
+            if cycle is not None:
+                cfg.cycle_time_ms = cycle
+            try:
+                timing[(label, cycle)] = _timed(step, batch, EAGER_STEPS,
+                                                sync)
+            finally:
+                cfg.cycle_time_ms = prev
+    del e_model, d_model, d_opt, e_step, d_step
+    out["lm"] = timing
+    log(card, f"phase 3h (c): train_lm --eager-allreduce (gpt2_small_tpu "
+              f"flash, b{TRAIN_BATCH} x s{TRAIN_SEQ}, AdamW mu bf16, "
+              f"world 1) {EAGER_STEPS} steps: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; launches {lm_launches} ({per_step} every "
+              f"step); after {EAGER_PARITY_STEPS} steps the parameters "
+              f"within {lm_dev:.2e} of the DistributedOptimizer route's "
+              f"(largest magnitude; bound 2e-5); {lm_groups} fused groups "
+              f"a step at the {cfg.fusion_threshold}-byte threshold, as "
+              f"plan_buckets predicts; " + "; ".join(
+                  f"{k[0]}{'' if k[1] is None else f' cycle {k[1]:g} ms'}: "
+                  f"{v[0]:.3f} ms/step, device {v[1]:.3f} ms, busy "
+                  f"{v[2]:.1%}" for k, v in timing.items()))
+    # ---- ResNet-50 through synthetic_benchmark --eager-allreduce
+    step, _, _, _ = synthetic_benchmark.build_eager_step(
+        "resnet50", VISION_BATCH, VISION_SIZE, dev, norm_impl="tpu")
+    batch = vision_batch(dev, VISION_BATCH)
+    per_step = {"bn_moments": BN_PER_STEP, "bn_moments2": BN_PER_STEP}
+    losses = []
+    bn.reset_counts()
+    for i in range(EAGER_STEPS):
+        before = dict(bn.launch_counts)
+        losses.append(step(batch).item())
+        got = {k: v - before.get(k, 0) for k, v in bn.launch_counts.items()}
+        if got != per_step:
+            raise AssertionError(f"eager ResNet-50 step {i} launched {got}")
+    bn_launches = dict(bn.launch_counts)
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"eager ResNet-50 losses {losses}")
+    e_step, e_model, _, _ = synthetic_benchmark.build_eager_step(
+        "resnet50", VISION_BATCH, VISION_SIZE, dev, norm_impl="tpu")
+    d_step, d_model, _, _ = synthetic_benchmark.build_step(
+        "resnet50", VISION_BATCH, VISION_SIZE, dev, norm_impl="tpu")
+    for _ in range(EAGER_PARITY_STEPS):
+        e_step(batch)
+        d_step(batch)
+    vis_dev = _max_rel(e_model.parameters(), d_model.parameters())
+    vis_groups = _groups_per_step(coord, lambda: e_step(batch), e_model,
+                                  cfg.fusion_threshold)
+    if vis_dev > 2e-5:
+        raise AssertionError(f"eager ResNet-50 parameters after 3 steps "
+                             f"differ from DistributedOptimizer's by "
+                             f"{vis_dev:.3e}")
+    timing = {}
+    for label, st in (("pr8", d_step), ("eager", e_step)):
+        for cycle in ((5.0, 0.0) if label == "eager" else (None,)):
+            prev = cfg.cycle_time_ms
+            if cycle is not None:
+                cfg.cycle_time_ms = cycle
+            try:
+                timing[(label, cycle)] = _timed(st, batch, EAGER_STEPS, sync)
+            finally:
+                cfg.cycle_time_ms = prev
+    out["vision"] = timing
+    log(card, f"phase 3h (c): synthetic_benchmark --eager-allreduce "
+              f"(ResNet-50 norm_impl tpu, b{VISION_BATCH} x {VISION_SIZE}, "
+              f"bf16, SGD, world 1) {EAGER_STEPS} steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {bn_launches} "
+              f"({per_step} every step); after {EAGER_PARITY_STEPS} steps "
+              f"the parameters within {vis_dev:.2e} of the "
+              f"DistributedOptimizer route's; {vis_groups} fused groups a "
+              f"step, as plan_buckets predicts; " + "; ".join(
+                  f"{k[0]}{'' if k[1] is None else f' cycle {k[1]:g} ms'}: "
+                  f"{v[0]:.3f} ms/step ({VISION_BATCH / v[0] * 1e3:.1f} "
+                  f"img/s), device {v[1]:.3f} ms, busy {v[2]:.1%}"
+                  for k, v in timing.items()))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2819,6 +3291,13 @@ def main():
 
     # ---- phase 3g: the collective backends
     check_collective_backends(card, dev, t_model, cfg.vocab_size)
+
+    # ---- phase 3h: the eager coordination core
+    t3h = time.perf_counter()
+    check_eager_core(card, dev)
+    check_eager_processes(card)
+    run_eager_entry_points(card, dev, train_cfg)
+    log(card, f"phase 3h: {time.perf_counter() - t3h:.1f} s in all")
 
     # ---- phase 4: timings
     kernels = []

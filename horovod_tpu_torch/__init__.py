@@ -22,7 +22,12 @@ hand-written Hopper counterpart. Tensor and sequence parallelism:
 DTensors), ``parallel.ring`` (ring, ring-flash and Ulysses attention),
 Megatron tensor parallelism in ``models.transformer`` (``param_specs``,
 ``batch_spec``) and ``trainer.make_gspmd_step`` /
-``make_gspmd_multi_step``. See ROADMAP.md for what comes next.
+``make_gspmd_multi_step``. The eager coordination core (``ops.eager``:
+the tensor table, rank-0 negotiation over the authenticated TCP wire of
+``ops.negotiation`` and ``run.network``, fusion and the plan cache in
+the native host core, CUDA stream/event completion) carries every
+collective over the workers, ``allreduce_gradients`` and the
+``--eager-allreduce`` steps. See ROADMAP.md for what comes next.
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -36,10 +41,14 @@ from .mpi_ops import (  # noqa: F401
     init, shutdown, is_initialized, mpi_threads_supported,
     size, local_size, rank, local_rank, process_rank, process_count,
     allreduce, allreduce_, allreduce_async, allreduce_async_,
-    grouped_allreduce, allgather, allgather_async, reducescatter, alltoall,
+    grouped_allreduce, grouped_allreduce_async, allgather, allgather_async,
+    reducescatter, alltoall,
     broadcast, broadcast_, broadcast_async, broadcast_async_,
     poll, synchronize)
 from .ops.compression import Compression  # noqa: F401
 from .optim import (  # noqa: F401
     SGD, AdamW, DistributedOptimizer, allreduce_gradients, broadcast_object,
-    broadcast_optimizer_state, broadcast_parameters)
+    broadcast_optimizer_state, broadcast_parameters, distributed_grad)
+from .common.exceptions import (  # noqa: F401
+    DuplicateNameError, MismatchError, NotInitializedError, RanksLostError,
+    ShutdownError, StalledError)

@@ -36,6 +36,9 @@ class HorovodState:
         # destroy it; a group the caller set up outlives shutdown()
         self.owns_group = False
         self.mesh = None
+        # the eager coordination core (ops/eager.py), from init to
+        # shutdown
+        self.coordinator = None
         self.lock = threading.RLock()
 
 

@@ -6,21 +6,29 @@ handle-based async collectives on torch tensors, ``poll`` and
 ``synchronize``, and in-place (``_``-suffixed) variants that write the
 result back into the submitted tensor at ``synchronize``.
 
-``reducescatter`` and ``alltoall`` run over every worker or over one axis
-of a mesh (``axis_name``: an axis of ``parallel.mesh.global_mesh()`` or a
-process group), as the JAX package runs them over a mesh axis.
-
 The wire is a ``torch.distributed`` process group, one process per card:
-NCCL when the worker runs on CUDA, gloo on the CPU. Allreduces route
-through the operation manager (``ops/operation_manager.py``), as the JAX
-package's route through its backends: the process group's own all-reduce
-unless ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or ``HOROVOD_RING_ALLREDUCE``
-selects the two-level or the explicit ring allreduce, which run to their
-end when started. An async op launches
-its collective at once (``async_op=True``) on a private copy of the input,
-so the caller may reuse the tensor while it is in flight; ``synchronize``
-waits for it, restores the dtype a compressor changed, and divides by the
-world size for an average.
+NCCL when the worker runs on CUDA, gloo on the CPU.
+
+A collective over every worker goes through the eager coordination core
+(``ops/eager.py``), as the JAX package's eager API does: ``init`` starts
+it on every rank with a process group of its own, and ``allreduce``,
+``grouped_allreduce``, ``allgather``, ``broadcast``, ``reducescatter``,
+``alltoall`` and ``broadcast_object`` enqueue there; its background
+thread negotiates the order with rank 0 (when a control address and key
+are set), fuses, and runs the collectives; ``poll`` and ``synchronize``
+read the handle, and ``synchronize`` restores the dtype a compressor
+changed and writes the in-place variants' result back.
+
+A collective over one axis of a mesh (``axis_name``: an axis of
+``parallel.mesh.global_mesh()``, a process group or a group object), and
+any collective of ranks that are threads of one process
+(``parallel.mesh.use_mesh`` of a ``ThreadMesh``), keeps the direct route:
+allreduces through the operation manager (``ops/operation_manager.py``;
+the process group's own all-reduce unless
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` or ``HOROVOD_RING_ALLREDUCE`` selects
+the two-level or the explicit ring allreduce), launched at once on a
+private copy of the input. ``DistributedOptimizer`` reduces on this
+route too.
 """
 
 import atexit
@@ -37,9 +45,11 @@ from .common.config import HorovodConfig
 from .common.device import resolve_device
 from .common.exceptions import DuplicateNameError, NotInitializedError
 from .ops import collective_ops as cops
+from .ops import eager as eager_mod
 from .ops import fusion
 from .ops import operation_manager as om
 from .ops.compression import Compression
+from .ops.eager import EagerCoordinator
 
 # re-exported identity API (reference common/basics.py)
 size = state_mod.size
@@ -131,22 +141,35 @@ def init(device=None, rank=None, size=None, init_method=None):
         st.device = dev
         st.owns_group = owns
         state_mod.init_state(config=HorovodConfig.from_env())
+        try:
+            st.coordinator = EagerCoordinator(st)
+        except BaseException:
+            _teardown(st)
+            raise
     atexit.register(shutdown)
 
 
 def shutdown():
-    """Shut down (reference horovod_shutdown). Collectives still in flight
-    are dropped; the process group goes if ``init`` created it. Safe to
-    call twice."""
+    """Shut down (reference horovod_shutdown): the eager core drains what
+    the coordinator already ordered and fails every other pending handle
+    with ShutdownError; the process group goes if ``init`` created it.
+    Safe to call twice."""
     st = state_mod.global_state()
     with st.lock:
         if not st.initialized:
             return
-        _pending.clear()
-        if st.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
-        state_mod.shutdown_state()
-        st.owns_group = False
+        if st.coordinator is not None:
+            coord, st.coordinator = st.coordinator, None
+            coord.shutdown()
+        _teardown(st)
+
+
+def _teardown(st):
+    _pending.clear()
+    if st.owns_group and dist.is_initialized():
+        dist.destroy_process_group()
+    state_mod.shutdown_state()
+    st.owns_group = False
 
 
 def mpi_threads_supported():
@@ -210,11 +233,56 @@ def synchronize(handle):
 def _entry(handle):
     with _pending_lock:
         entry = _pending.get(handle)
+    if entry is None and not state_mod.is_initialized():
+        raise NotInitializedError()
     if entry is None:
         raise ValueError(
             f"handle {handle} was not created by this API or has already "
             f"been synchronized")
     return entry
+
+
+class _CoreWork:
+    """The work object of a collective queued on the eager core."""
+
+    def __init__(self, coord, handle):
+        self.coord, self.handle = coord, handle
+
+    def is_completed(self):
+        return self.coord.poll(self.handle)
+
+    def wait(self):
+        """``synchronize`` waits through the core (``finish``)."""
+
+
+def _core(axis_name=None):
+    """The eager core a collective over ``axis_name`` goes through, or
+    None when it keeps the direct route: an axis, or ranks that are
+    threads of this process."""
+    if axis_name is not None:
+        return None
+    from .parallel import mesh as mesh_lib
+    if isinstance(mesh_lib.global_mesh_if_set(), mesh_lib.ThreadMesh):
+        return None
+    st = state_mod.global_state()
+    if not st.initialized:
+        raise NotInitializedError()
+    return st.coordinator
+
+
+def _auto_name(op, name):
+    return name if name is not None else f"{op}.noname.{next(_name_ids)}"
+
+
+def _enqueue(coord, items, finish):
+    """Queue ``items`` (name, op, tensor, root_rank, average) on the core
+    as one submission; returns a handle per item, whose ``synchronize``
+    gives ``finish(i, core_result)``."""
+    handles = coord.enqueue_group([it + (None,) for it in items])
+    return [_submit(_CoreWork(coord, h),
+                    (lambda h=h, i=i: finish(i, coord.synchronize(h))),
+                    None)
+            for i, h in enumerate(handles)]
 
 
 def _device():
@@ -298,6 +366,14 @@ def launches_async(axis_name=None):
 
 def _allreduce_async(tensor, average, name, compression, target):
     _check_tensor(tensor)
+    coord = _core()
+    if coord is not None:
+        wire, ctx = compression.compress(tensor.detach())
+        return _enqueue(
+            coord, [(_auto_name("allreduce", name), eager_mod.ALLREDUCE,
+                     _wire(wire), 0, average)],
+            lambda _, out: _write_back(target, compression.decompress(
+                out, ctx).to(tensor.device)))[0]
     name = _claim(name, "allreduce")
     wire, ctx = compression.compress(tensor.detach())
     buf = _wire(wire)
@@ -358,13 +434,39 @@ def _grouped_allreduce_async(tensors, average, compression,
     return started
 
 
+def grouped_allreduce_async(tensors, average=True,
+                            compression=Compression.none, name=None):
+    """Queue an allreduce of each of ``tensors`` on the eager core as ONE
+    submission (one negotiation announcement, one local plan), so that
+    they fuse into buckets of at most ``HOROVOD_FUSION_THRESHOLD`` bytes
+    as the coordinator plans them; returns a handle per tensor. Names are
+    ``{name}.{i}`` when ``name`` is given."""
+    tensors = list(tensors)
+    for t in tensors:
+        _check_tensor(t)
+    coord = _core()
+    packed = [compression.compress(t.detach()) for t in tensors]
+    items = [(f"{name}.{i}" if name is not None
+              else _auto_name("grouped_allreduce", None),
+              eager_mod.ALLREDUCE, _wire(w), 0, average)
+             for i, (w, _) in enumerate(packed)]
+    return _enqueue(coord, items, lambda i, out: compression.decompress(
+        out, packed[i][1]).to(tensors[i].device))
+
+
 def grouped_allreduce(tensors, average=True, compression=Compression.none,
                       fusion_threshold=None, axis_name=None):
     """Allreduce many tensors at once, fused into buckets of at most
     ``fusion_threshold`` bytes (``HOROVOD_FUSION_THRESHOLD`` by default),
     one collective per bucket, over every worker or the workers of
-    ``axis_name``. Returns the reduced tensors in order."""
+    ``axis_name``. Returns the reduced tensors in order. Over every
+    worker the eager core plans the buckets with its live threshold (as
+    the JAX package's eager grouped allreduce does); ``fusion_threshold``
+    applies to an axis's direct route."""
     tensors = list(tensors)
+    if _core(axis_name) is not None:
+        return [synchronize(h) for h in grouped_allreduce_async(
+            tensors, average, compression)]
     if fusion_threshold is None:
         fusion_threshold = state_mod.global_state().config.fusion_threshold
     out = [None] * len(tensors)
@@ -384,6 +486,12 @@ def allgather_async(tensor, name=None):
     the other dims must agree. The first dims are exchanged before the
     call returns."""
     _check_tensor(tensor)
+    coord = _core()
+    if coord is not None:
+        return _enqueue(
+            coord, [(_auto_name("allgather", name), eager_mod.ALLGATHER,
+                     _wire(tensor), 0, False)],
+            lambda _, out: out.to(tensor.device))[0]
     name = _claim(name, "allgather")
     buf = _wire(tensor)
     n = size()
@@ -428,6 +536,12 @@ def reducescatter(tensor, average=False, axis_name=None, name=None):
     size must divide: ``lax.psum_scatter(..., tiled=True)`` of the JAX
     package. ``average`` divides by the group size."""
     _check_tensor(tensor)
+    coord = _core(axis_name)
+    if coord is not None:
+        return synchronize(_enqueue(
+            coord, [(_auto_name("reducescatter", name),
+                     eager_mod.REDUCESCATTER, _wire(tensor), 0, average)],
+            lambda _, out: out.to(tensor.device))[0])
     _claim(name, "reducescatter")
     group = process_group(axis_name)
     n = group_size(group)
@@ -449,7 +563,8 @@ def alltoall(tensor, axis_name=None, split_axis=0, concat_axis=0,
     the blocks received, in worker order, along ``concat_axis``:
     ``lax.all_to_all(..., tiled=True)`` of the JAX package."""
     _check_tensor(tensor)
-    _claim(name, "alltoall")
+    if _core(axis_name) is None:
+        _claim(name, "alltoall")
     group = process_group(axis_name)
     n = group_size(group)
     if tensor.shape[split_axis] % n:
@@ -460,8 +575,14 @@ def alltoall(tensor, axis_name=None, split_axis=0, concat_axis=0,
     blocks = tensor.detach().to(_device())
     blocks = blocks.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
     blocks = blocks.contiguous()
-    got = torch.empty_like(blocks)
-    dist.all_to_all_single(got, blocks, group=group)
+    coord = _core(axis_name)
+    if coord is not None:
+        got = synchronize(_enqueue(
+            coord, [(_auto_name("alltoall", name), eager_mod.ALLTOALL,
+                     blocks, 0, False)], lambda _, out: out)[0])
+    else:
+        got = torch.empty_like(blocks)
+        dist.all_to_all_single(got, blocks, group=group)
     # got[j] is worker j's block: concatenate them along concat_axis
     got = got.movedim(0, concat_axis)
     return got.flatten(concat_axis, concat_axis + 1).to(tensor.device)
@@ -479,6 +600,12 @@ def _check_root(root_rank):
 def _broadcast_async(tensor, root_rank, name, target):
     _check_tensor(tensor)
     _check_root(root_rank)
+    coord = _core()
+    if coord is not None:
+        return _enqueue(
+            coord, [(_auto_name("broadcast", name), eager_mod.BROADCAST,
+                     _wire(tensor), root_rank, False)],
+            lambda _, out: _write_back(target, out.to(tensor.device)))[0]
     name = _claim(name, "broadcast")
     buf = _wire(tensor)
     work = dist.broadcast(buf, src=root_rank, async_op=True)
@@ -504,12 +631,30 @@ def broadcast_(tensor, root_rank=0, name=None):
     return synchronize(broadcast_async_(tensor, root_rank, name))
 
 
+_bcast_object_ids = itertools.count(1)
+
+
 def broadcast_object(obj, root_rank=0):
     """Broadcast a picklable object from root_rank (identity on one
-    worker)."""
+    worker): two broadcasts through the eager core, the payload's length
+    and then its pickled bytes, as the JAX package's ``broadcast_object``
+    (under negotiation every cross-process collective must originate
+    from the core's background cycle). The names are matched across
+    processes by call order."""
+    import pickle
     _check_root(root_rank)
     if size() == 1:
         return obj
-    box = [obj if rank() == root_rank else None]
-    dist.broadcast_object_list(box, src=root_rank)
-    return box[0]
+    k = next(_bcast_object_ids)
+    is_root = rank() == root_rank
+    payload = pickle.dumps(obj) if is_root else b""
+    length = torch.tensor([len(payload)], dtype=torch.int64,
+                          device=_device())
+    length = broadcast(length, root_rank,
+                       name=f"hvd.broadcast_object.{k}.len")
+    buf = torch.zeros(int(length.item()), dtype=torch.uint8,
+                      device=_device())
+    if is_root:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    buf = broadcast(buf, root_rank, name=f"hvd.broadcast_object.{k}.payload")
+    return pickle.loads(buf.cpu().numpy().tobytes())

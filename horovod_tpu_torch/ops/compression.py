@@ -96,3 +96,46 @@ class Compression:
             raise ValueError(f"unknown compression codec {name!r}; expected "
                              f"one of {', '.join(cls._BY_NAME)}")
         return codec
+
+
+# ---------------------------------------------------------------------------
+# the eager core's wire codec (ops/negotiation.py), the port of the cast
+# half of horovod_tpu/ops/quantization.py's config_fingerprint and
+# select_codec: HOROVOD_COMPRESSION picks the codec a fused allreduce's
+# buffer crosses the wire in, and under negotiation rank 0's choice is
+# the plan every rank follows
+
+CAST_CODECS = ("fp16", "bf16")
+# the JAX package's defaults of its quantizer knobs, which the port does
+# not have yet; they ride the fingerprint so both packages' agree
+QUANT_BLOCK, QUANT_MIN_BYTES, QUANT_EF = 256, 1024, True
+_FLOATING = ("float64", "float32", "float16", "bfloat16")
+
+
+def config_fingerprint(config):
+    """The codec knobs that must agree across ranks for the wire to be
+    decodable, compared by the coordinator every cycle."""
+    name = getattr(config, "compression", "none") or "none"
+    return "%s/b%d/min%d/ef%d" % (name, QUANT_BLOCK, QUANT_MIN_BYTES,
+                                  1 if QUANT_EF else 0)
+
+
+def select_codec(config, dtype, nbytes):
+    """The wire codec of one tensor (its dtype's name and bytes) under
+    this rank's config: the configured cast codec when the tensor is
+    floating, at least QUANT_MIN_BYTES and not at the wire width already,
+    else None (full width)."""
+    name = getattr(config, "compression", "none") or "none"
+    if name not in CAST_CODECS or dtype is None:
+        return None
+    from .fusion import dtype_name
+    dt = dtype_name(dtype)
+    if dt not in _FLOATING or nbytes < QUANT_MIN_BYTES:
+        return None
+    if dt == {"fp16": "float16", "bf16": "bfloat16"}[name]:
+        return None   # already at wire width
+    return name
+
+
+def wire_dtype(codec):
+    return {"fp16": torch.float16, "bf16": torch.bfloat16}[codec]

@@ -6,7 +6,8 @@ executes). The list, first enabled wins:
   1. ``hierarchical`` — the two-level allreduce
      (``parallel/hierarchical.py``). Enabled by
      ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` when both hierarchy axes are
-     bound and the reduction spans both.
+     bound and the reduction spans both, or when the axis is a (fast,
+     slow) pair of group objects, the eager core's own.
   2. ``ring`` — the explicit ring (``parallel/ring_collectives.py``).
      Enabled by ``HOROVOD_RING_ALLREDUCE=1`` over exactly one axis (a
      bound axis name, or a group).
@@ -70,6 +71,8 @@ class HierarchicalBackend(CollectiveBackend):
     def enabled(self, axis, bound_axes, config):
         if config is None or not config.hierarchical_allreduce:
             return False
+        if _group_pair(axis):
+            return True
         if HIER_FAST_AXIS not in bound_axes or \
                 HIER_SLOW_AXIS not in bound_axes:
             return False
@@ -80,9 +83,18 @@ class HierarchicalBackend(CollectiveBackend):
 
     def allreduce(self, tensor, axis, average=False):
         from ..parallel import hierarchical
+        fast, slow = axis if _group_pair(axis) else (HIER_FAST_AXIS,
+                                                     HIER_SLOW_AXIS)
         return hierarchical.hierarchical_allreduce(
-            tensor, fast_axis=HIER_FAST_AXIS, slow_axis=HIER_SLOW_AXIS,
-            average=average)
+            tensor, fast_axis=fast, slow_axis=slow, average=average)
+
+
+def _group_pair(axis):
+    """Whether ``axis`` is a (fast, slow) pair of group objects: the
+    eager core's own two-level groups
+    (``process_collectives.HierarchicalProcessEngine``)."""
+    return (isinstance(axis, tuple) and len(axis) == 2
+            and all(cops.is_group(a) for a in axis))
 
 
 class RingBackend(CollectiveBackend):

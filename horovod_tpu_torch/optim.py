@@ -17,7 +17,8 @@ horovod/torch/__init__.py:42-348):
     low-precision first moment and puts the decay elsewhere.
   * ``SGD`` is ``optax.sgd`` with momentum (the vision benchmarks'
     optimizer), in optax's order of operations.
-  * ``allreduce_gradients``, ``broadcast_parameters``,
+  * ``allreduce_gradients`` (through the eager core, one grouped
+    submission) and ``distributed_grad``, ``broadcast_parameters``,
     ``broadcast_optimizer_state`` and ``broadcast_object``.
 
 Parameters placed on a mesh (DTensors, ``trainer.place``) are updated on
@@ -340,16 +341,41 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
 
 
 def allreduce_gradients(grads, compression=Compression.none, average=True,
-                        fusion_threshold=None):
-    """Average (or sum) a list or dict of gradient tensors across workers,
-    one fused collective per bucket; returns the same structure."""
-    if isinstance(grads, dict):
-        keys = list(grads)
-        out = mpi_ops.grouped_allreduce([grads[k] for k in keys], average,
-                                        compression, fusion_threshold)
-        return dict(zip(keys, out))
-    return mpi_ops.grouped_allreduce(grads, average, compression,
-                                     fusion_threshold)
+                        fusion_threshold=None, axis_name=None):
+    """Average (or sum) a pytree (a list, a dict, nested) of gradient
+    tensors across workers; returns the same structure. Over every
+    worker the leaves go to the eager core as ONE grouped submission,
+    which the coordinator fuses into buckets of the live
+    ``HOROVOD_FUSION_THRESHOLD`` (the JAX package's eager route,
+    ``horovod_tpu/optim.py:61-139``); over ``axis_name`` they take the
+    direct route, one fused collective per bucket of
+    ``fusion_threshold``."""
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(grads)
+    out = mpi_ops.grouped_allreduce(leaves, average, compression,
+                                    fusion_threshold, axis_name)
+    return pytree.tree_unflatten(out, spec)
+
+
+def distributed_grad(fun, argnums=0, compression=Compression.none,
+                     average=True, has_aux=False, fusion_threshold=None,
+                     axis_name=None):
+    """``torch.func.grad`` with cross-worker gradient averaging — the port
+    of the JAX package's ``distributed_grad`` (the analogue of
+    ``DistributedGradientTape``, tensorflow/__init__.py:242-316): the
+    gradients of ``fun`` with respect to its ``argnums`` arguments,
+    averaged (or summed) through ``allreduce_gradients``; with
+    ``has_aux``, ``(grads, aux)``."""
+    grad_fn = torch.func.grad(fun, argnums=argnums, has_aux=has_aux)
+
+    def wrapped(*args, **kwargs):
+        out = grad_fn(*args, **kwargs)
+        grads, aux = out if has_aux else (out, None)
+        grads = allreduce_gradients(
+            grads, compression=compression, average=average,
+            fusion_threshold=fusion_threshold, axis_name=axis_name)
+        return (grads, aux) if has_aux else grads
+    return wrapped
 
 
 def broadcast_parameters(params, root_rank=0):

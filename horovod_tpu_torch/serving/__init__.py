@@ -7,12 +7,14 @@
   * sampling.py  — greedy / temperature sampling, per row
   * decode.py    — prefill + single-token decode forwards
   * engine.py    — the step loop tying it together
+  * replica.py   — replica-group liveness on the negotiation control plane
 """
 
 from .engine import ServeEngine
 from .kv_cache import BlockLedger, KVCache
 from .queue import AdmissionQueue, Request, RequestResult
+from .replica import ReplicaGroup
 from .scheduler import SlotScheduler
 
-__all__ = ["AdmissionQueue", "BlockLedger", "KVCache", "Request",
-           "RequestResult", "ServeEngine", "SlotScheduler"]
+__all__ = ["AdmissionQueue", "BlockLedger", "KVCache", "ReplicaGroup",
+           "Request", "RequestResult", "ServeEngine", "SlotScheduler"]

@@ -37,6 +37,7 @@ import torch
 
 from ..common import config
 from ..common.device import resolve_device
+from ..common.exceptions import RanksLostError
 from ..utils import memory as hvd_memory
 from .decode import ServingWeights, decode_step, prefill_forward
 from .kv_cache import KVCache
@@ -64,12 +65,16 @@ class ServeEngine:
     (CUDA unless told otherwise). ``model`` is a ``TransformerLM`` on
     that device, whole on every rank; with a ``mesh`` each rank keeps its
     tensor-parallel shards of it. ``policy="drain"`` is the static-batch
-    baseline; everything else about the engine is identical."""
+    baseline; everything else about the engine is identical.
+    ``replica`` (``serving.replica.ReplicaGroup``) plugs the engine into
+    the control plane's liveness ledger: each step heartbeats with the
+    engine's load snapshot, and a declared-lost peer calls
+    ``on_ranks_lost(lost_ranks)`` instead of hanging."""
 
     def __init__(self, cfg, model, num_slots=None, max_len=None,
                  kv_block=None, total_blocks=None, policy="continuous",
                  queue=None, seed=0, clock=time.monotonic, device=None,
-                 mesh=None):
+                 mesh=None, replica=None, on_ranks_lost=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -92,6 +97,8 @@ class ServeEngine:
         self._draining = False
         self._active = {}  # slot -> _Active
         self._finished = []
+        self._replica = replica
+        self._on_ranks_lost = on_ranks_lost
 
     # -- submission -----------------------------------------------------
 
@@ -114,6 +121,7 @@ class ServeEngine:
     def step(self):
         """One scheduler iteration. Returns the requests that finished
         during it, as RequestResults."""
+        self._heartbeat()
         self._admit()
         self.scheduler.begin_wave()
         self._decode()
@@ -132,6 +140,21 @@ class ServeEngine:
     @property
     def active_count(self):
         return len(self._active)
+
+    def _heartbeat(self):
+        """One liveness cycle of the replica group; a RanksLostError
+        becomes failover: the group is closed and dropped, and the lost
+        ranks go to ``on_ranks_lost``."""
+        if self._replica is None:
+            return
+        try:
+            self._replica.heartbeat(load=self.load_snapshot())
+        except RanksLostError as err:
+            lost = tuple(int(r) for r in err.ranks)
+            replica, self._replica = self._replica, None
+            replica.close()
+            if self._on_ranks_lost is not None:
+                self._on_ranks_lost(lost)
 
     @property
     def generation(self):

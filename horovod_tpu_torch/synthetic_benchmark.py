@@ -16,6 +16,10 @@ cuDNN's algorithm search run there), then ``--num-iters`` timed
 iterations of ``--num-batches-per-iter`` steps, each ending in a read of
 the loss.
 
+``--eager-allreduce`` averages the gradients through the eager core
+instead (``build_eager_step``: a plain ``SGD``, one grouped allreduce
+submission per step), the JAX harness's ``build_eager_image_step``.
+
 Added to the JAX CLI: ``--device`` (CUDA unless ``cpu`` is asked for)
 and ``--norm-impl``: "flax" (PyTorch's batch norm, the JAX model's
 default) or "tpu" (the fused statistics kernels, B6/B7). Each worker
@@ -56,7 +60,8 @@ def parse_args(argv=None):
                    help="bf16 compression on gradient allreduce")
     p.add_argument("--eager-allreduce", action="store_true",
                    help="average gradients through the eager collective "
-                        "core (not ported yet)")
+                        "core (one fused allreduce submission per step) "
+                        "instead of DistributedOptimizer's hooks")
     p.add_argument("--norm-impl", default="flax", choices=["flax", "tpu"],
                    help="BatchNorm of the ResNets: PyTorch's ('flax') or "
                         "the fused statistics kernels ('tpu')")
@@ -102,11 +107,13 @@ def build_step(model_name, batch, image_size, device, fp16_allreduce=False,
 
 
 def timed_rates(step, batch_data, batch, num_warmup_batches, num_iters,
-                num_batches_per_iter, on_iter=None, updates_per_step=1):
+                num_batches_per_iter, on_iter=None, updates_per_step=1,
+                losses=None):
     """The reference timing protocol; returns per-iteration img/sec of
     this worker's ``batch``. At least one warm-up step always runs, so the
     kernels' build and cuDNN's algorithm search never land in the timed
-    region; reading the loss is the sync point."""
+    region; reading the loss is the sync point (each iteration's loss is
+    appended to ``losses`` when a list is given)."""
     for _ in range(max(1, num_warmup_batches)):
         loss = step(batch_data)
     loss.item()
@@ -115,8 +122,10 @@ def timed_rates(step, batch_data, batch, num_warmup_batches, num_iters,
         t0 = time.perf_counter()
         for _ in range(num_batches_per_iter):
             loss = step(batch_data)
-        loss.item()
+        value = loss.item()
         dt = time.perf_counter() - t0
+        if losses is not None:
+            losses.append(value)
         rate = batch * num_batches_per_iter * updates_per_step / dt
         rates.append(rate)
         if on_iter is not None:
@@ -124,36 +133,59 @@ def timed_rates(step, batch_data, batch, num_warmup_batches, num_iters,
     return rates
 
 
+def build_eager_step(model_name, batch, image_size, device,
+                     fp16_allreduce=False, norm_impl="flax", seed=0):
+    """``build_step`` with the gradients averaged by the eager core
+    (``trainer.build_eager_image_step``) instead of a
+    ``DistributedOptimizer``: returns (step, model, optimizer, (images,
+    labels)), ``step`` returning the loss averaged over the workers."""
+    compression = Compression.bf16 if fp16_allreduce else Compression.none
+    one, model, opt, data = trainer.build_eager_image_step(
+        model_name, batch, image_size, device, compression=compression,
+        norm_impl=norm_impl, seed=seed)
+    optim.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    def step(batch_data):
+        loss = one(batch_data)
+        if mpi_ops.size() > 1:
+            loss = mpi_ops.allreduce(loss, average=True)
+        return loss
+    return step, model, opt, data
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.eager_allreduce:
-        raise NotImplementedError(
-            "--eager-allreduce needs the eager collective core, which the "
-            "port brings in slice 5 (ROADMAP.md); gradients are averaged by "
-            "DistributedOptimizer without it")
     mpi_ops.init(device=args.device)
     device = state_mod.device()
     world = mpi_ops.size()
-    step, _, _, batch_data = build_step(
+    build = build_eager_step if args.eager_allreduce else build_step
+    step, _, _, batch_data = build(
         args.model, args.batch_size, args.image_size, device,
         fp16_allreduce=args.fp16_allreduce, norm_impl=args.norm_impl)
     root = mpi_ops.rank() == 0
     if root:
         print(f"Model: {args.model}")
         print(f"Batch size: {args.batch_size} per worker x {world} workers")
+        if args.eager_allreduce:
+            print("Gradient averaging: eager fused allreduce (the eager "
+                  "coordination core)")
 
     def on_iter(i, rate):
         if root:
             print(f"Iter #{i}: {rate:.1f} img/sec per worker", flush=True)
 
+    losses = []
     rates = timed_rates(step, batch_data, args.batch_size,
                         args.num_warmup_batches, args.num_iters,
-                        args.num_batches_per_iter, on_iter=on_iter)
+                        args.num_batches_per_iter, on_iter=on_iter,
+                        losses=losses)
     if root:
         mean, conf = np.mean(rates), 1.96 * np.std(rates)
         print(f"Img/sec per worker: {mean:.1f} +-{conf:.1f}")
         print(f"Total img/sec on {world} worker(s): "
-              f"{mean * world:.1f} +-{conf * world:.1f}", flush=True)
+              f"{mean * world:.1f} +-{conf * world:.1f}")
+        print(f"Loss after each iteration: "
+              f"{' '.join(f'{x:.6f}' for x in losses)}", flush=True)
     mpi_ops.shutdown()
     return rates
 

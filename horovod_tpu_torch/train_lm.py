@@ -31,6 +31,11 @@ power limit. On CUDA it runs the flagship at batch 16 per card, seq 1024,
 10 inner steps; on the CPU (``--device cpu``) a tiny smoke configuration
 with no MFU. Launch several workers with torchrun or hvdrun for data
 parallelism across cards.
+
+``--eager-allreduce`` trains data-parallel only (tp, sp and ep must be
+1) through ``trainer.build_eager_lm_step``: a plain ``AdamW``, and the
+gradients averaged by the eager core, one grouped submission per step
+(the JAX CLI's ``examples/transformer_lm.py --eager-allreduce``).
 """
 
 import argparse
@@ -188,7 +193,35 @@ def parse_args(argv=None):
     p.add_argument("--remat-policy", default=None,
                    choices=["dots", "dots_no_batch"],
                    help="what --remat saves (default: nothing)")
+    p.add_argument("--eager-allreduce", action="store_true",
+                   help="average gradients through the EAGER collective "
+                        "core (one fused allreduce submission per step) "
+                        "instead of the GSPMD step's DistributedOptimizer. "
+                        "Pure data-parallel only (tp/sp/ep must be 1).")
     return p.parse_args(argv)
+
+
+def build_eager(args, cfg, batch, seq, inner, device):
+    """The ``--eager-allreduce`` path: ``trainer.build_eager_lm_step`` on
+    this worker's rows of the tokens, driven ``inner`` steps per window.
+    Returns (window, mesh)."""
+    mesh = mesh_of(args)
+    for axis in ("tp", "sp", "ep"):
+        if mesh_lib.mesh_axis_size(mesh, axis) != 1:
+            raise SystemExit("--eager-allreduce is pure data-parallel: "
+                             "tp/sp/ep must all be 1")
+    step, model, opt, toks = trainer.build_eager_lm_step(
+        cfg, batch, seq, device, inner=inner)
+    optim.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    def window():
+        loss = None
+        for i in range(inner):
+            loss = step(toks[i])
+        if mpi_ops.size() > 1:
+            loss = mpi_ops.allreduce(loss, average=True)
+        return loss
+    return window, mesh
 
 
 def main(argv=None):
@@ -200,12 +233,15 @@ def main(argv=None):
     seq = args.seq_len or seq
     cfg = flagship_config(on_card, args.size, attention_impl=args.attention,
                           remat=args.remat, remat_policy=args.remat_policy)
-    mesh = mesh_lib.set_global_mesh(mesh_of(args))
-    model, opt, step, toks = build_gspmd_step(cfg, batch, seq, inner, device,
-                                              mesh, args.vocab_chunk)
+    if args.eager_allreduce:
+        window, mesh = build_eager(args, cfg, batch, seq, inner, device)
+    else:
+        mesh = mesh_lib.set_global_mesh(mesh_of(args))
+        model, opt, step, toks = build_gspmd_step(
+            cfg, batch, seq, inner, device, mesh, args.vocab_chunk)
 
-    def window():
-        return step(model, opt, toks)[2]
+        def window():
+            return step(model, opt, toks)[2]
     losses = [window().item()]   # warm-up window: the kernels build here
     window_s = []
     for w in range(args.windows):
@@ -225,6 +261,7 @@ def main(argv=None):
     out.update({
         "inner": inner, "workers": mpi_ops.size(),
         "mesh": mesh_lib.mesh_layout(mesh), "attention": cfg.attention_impl,
+        "eager_allreduce": args.eager_allreduce,
         "loss_first": losses[0], "loss_last": losses[-1],
         "launches_per_step": {k: v / inner
                               for k, v in sorted(fa.launch_counts.items())},

@@ -12,11 +12,17 @@ model placed on a mesh (``place``: its parameters DTensors by
 PartitionSpec, e.g. ``models.transformer.param_specs``) and a batch
 placed by ``batch_spec``, and writes out the collectives the JAX
 package's XLA inserts for dp, tp and sp.
+
+The eager step (``make_eager_step``, ``build_eager_lm_step``,
+``build_eager_image_step``) averages the gradients through the eager
+core between the backward and the update, the JAX package's
+``--eager-allreduce`` recipe.
 """
 
 import torch
 
 from . import mpi_ops, optim
+from .ops.compression import Compression
 from .parallel import mesh as mesh_lib
 from .parallel import tensor_parallel as tpl
 from .parallel.mesh import P
@@ -256,3 +262,95 @@ def make_gspmd_multi_step(loss_fn, tx, mesh, param_spec_tree, batch_spec):
             params, opt_state, loss = one(params, opt_state, one_batch)
         return params, opt_state, loss
     return multi_step, param_shardings, batch_sharding
+
+
+# ---------------------------------------------------------------------------
+# the eager data-parallel step: gradients averaged by the eager core
+# (ops/eager.py) between the backward and the update, the port of the JAX
+# package's _eager_step (examples/bench_common.py:288-366)
+
+
+def make_eager_step(model, optimizer, loss_fn, compression=None):
+    """``step(batch) -> loss``: this rank's forward and backward on its own
+    ``batch``, ONE ``allreduce_gradients`` of every gradient through the
+    eager core (enqueue → negotiated cycle → fused collective →
+    callback), then ``optimizer``'s step on the averaged gradients.
+    ``optimizer`` is a plain one (not a ``DistributedOptimizer``, which
+    would average a second time). A parameter without a gradient
+    contributes zeros and keeps none. Returns this rank's loss, detached
+    and on the device."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    if optim.averages_gradients(optimizer):
+        raise ValueError("make_eager_step averages the gradients itself; "
+                         "pass the optimizer a DistributedOptimizer wraps")
+    compression = compression or Compression.none
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        reduced = optim.allreduce_gradients(grads, compression=compression)
+        for p, r in zip(params, reduced):
+            if p.grad is not None:
+                p.grad.copy_(r)
+        optimizer.step()
+        return loss.detach()
+    return step
+
+
+def build_eager_lm_step(cfg, batch_per_shard, seq, device, lr=3e-4,
+                        inner=1, seed=0):
+    """The transformer LM's eager step (``build_eager_lm_step`` of the JAX
+    package's bench harness): the model from ``seed``, ``AdamW(lr,
+    mu_dtype=bfloat16)``, and this rank's tokens ``[inner,
+    batch_per_shard, seq]`` — rows ``[rank · b, (rank + 1) · b)`` of
+    ``numpy.random.RandomState(0)``'s ``[inner, world · b, seq]``, as the
+    JAX harness's stacked ``[world, b, seq]`` row ``rank``. Returns
+    ``(step, model, optimizer, toks)``; ``step(toks[i]) -> loss``."""
+    import numpy as np
+    from .models import transformer as tr
+    model = tr.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device=device, train=True)
+    opt = optim.AdamW(model.parameters(), lr, mu_dtype=torch.bfloat16)
+    step = make_eager_step(model, opt, tr.lm_loss_fn(model))
+    n, r = mpi_ops.size(), mpi_ops.rank()
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (inner, n * batch_per_shard, seq),
+                       dtype=np.int64)
+    toks = toks[:, r * batch_per_shard:(r + 1) * batch_per_shard]
+    return step, model, opt, torch.from_numpy(toks.copy()).to(device)
+
+
+def build_eager_image_step(model_name, batch_per_shard, image_size, device,
+                           compression=None, norm_impl="flax", seed=0):
+    """An image model's eager step (``build_eager_image_step`` of the JAX
+    package's bench harness): a zoo model of 1000 classes at bf16 with
+    seeded fp32 master weights, ``SGD(0.01, momentum=0.9)``, zero images and labels
+    of this rank's batch. Returns ``(step, model, optimizer, (images,
+    labels))``; ``step((images, labels)) -> loss``."""
+    from . import models
+    kwargs = {}
+    if model_name.startswith("vgg"):
+        kwargs = {"dropout_rate": 0.0, "image_size": image_size}
+    elif model_name.startswith("resnet"):
+        kwargs = {"norm_impl": norm_impl}
+    model = models.build(model_name, num_classes=1000, dtype=torch.bfloat16,
+                         device=device,
+                         generator=torch.Generator().manual_seed(seed),
+                         **kwargs)
+    model.train()
+    images = torch.zeros((batch_per_shard, 3, image_size, image_size),
+                         dtype=torch.bfloat16, device=device).to(
+        memory_format=torch.channels_last)
+    labels = torch.zeros((batch_per_shard,), dtype=torch.int64,
+                         device=device)
+    opt = optim.SGD(model.parameters(), 0.01, momentum=0.9)
+
+    def loss_fn(model, batch):
+        imgs, lbls = batch
+        return softmax_cross_entropy(model(imgs), lbls)
+
+    step = make_eager_step(model, opt, loss_fn, compression=compression)
+    return step, model, opt, (images, labels)

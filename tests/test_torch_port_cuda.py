@@ -754,3 +754,80 @@ def test_resnet_step_launches_the_bn_kernels(card):
         assert not bn.layout_copies
     finally:
         mpi_ops.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the eager core's CUDA completion machinery (ops/process_collectives.py
+# StreamSync): ready events on the producer's stream, record_stream on
+# inputs and fusion buffers, completion events handed to the caller
+
+
+@pytest.fixture
+def core(card):
+    mpi_ops.init()
+    from horovod_tpu_torch.common import state
+    yield state.global_state().coordinator
+    mpi_ops.shutdown()
+
+
+def _slow_fill(t, value, side):
+    """Fill ``t`` with ``value`` on ``side`` behind a long chain of
+    kernels, so a reader that does not wait on ``side`` sees stale
+    data."""
+    with torch.cuda.stream(side):
+        x = torch.randn(2048, 2048, device=t.device)
+        for _ in range(30):
+            x = x @ x * 1e-3
+        t.copy_(torch.full_like(t, value) + 0 * x[0, 0])
+
+
+def test_eager_allreduce_waits_on_the_producer_stream(core):
+    side = torch.cuda.Stream()
+    tensors = [torch.zeros(1000 + i, device="cuda", dtype=dt)
+               for i, dt in enumerate([torch.float32, torch.bfloat16,
+                                       torch.int32] * 8)]
+    for i, t in enumerate(tensors):
+        _slow_fill(t, i + 1, side)
+    with torch.cuda.stream(side):
+        handles = mpi_ops.grouped_allreduce_async(tensors, average=False)
+    outs = [mpi_ops.synchronize(h) for h in handles]
+    for i, o in enumerate(outs):
+        assert torch.equal(o.cpu(), torch.full((1000 + i,), i + 1,
+                                               dtype=o.dtype))
+
+
+def test_freed_inputs_in_flight_keep_their_memory(core):
+    side = torch.cuda.Stream()
+    handles = []
+    with core.hold_cycle():
+        for i in range(16):
+            t = torch.empty(1 << 16, device="cuda")
+            _slow_fill(t, float(i), side)
+            with torch.cuda.stream(side):
+                handles.append(mpi_ops.allreduce_async(t, average=False))
+            del t
+            # allocations that would reuse a freed input's block
+            junk = torch.full((1 << 16,), -1.0, device="cuda")
+            del junk
+    for i, h in enumerate(handles):
+        out = mpi_ops.synchronize(h)
+        assert torch.equal(out.cpu(), torch.full((1 << 16,), float(i)))
+
+
+def test_poll_reports_completion_on_the_device(core):
+    h = mpi_ops.allreduce_async(torch.ones(1 << 20, device="cuda"))
+    deadline = __import__("time").monotonic() + 30
+    while not mpi_ops.poll(h):
+        assert __import__("time").monotonic() < deadline
+    assert mpi_ops.synchronize(h).sum().item() == float(1 << 20)
+
+
+def test_eager_lm_step_on_the_card(core):
+    cfg = tr.TransformerConfig.tiny(attention_impl="flash")
+    step, model, opt, toks = trainer.build_eager_lm_step(
+        cfg, 2, 128, torch.device("cuda"), inner=3)
+    fa.reset_launch_counts()
+    losses = [step(toks[i]).item() for i in range(3)]
+    assert all(map(lambda v: v == v, losses)) and losses[-1] < losses[0]
+    assert fa.launch_counts.get("flash_bwd_sm90_dq", 0) == \
+        3 * cfg.num_layers

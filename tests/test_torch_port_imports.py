@@ -80,6 +80,24 @@ def test_scan_sees_every_module():
         assert want in files
 
 
+EAGER_CORE_MODULES = (
+    "horovod_tpu_torch._native", "horovod_tpu_torch.common.hvd_logging",
+    "horovod_tpu_torch.run.secret", "horovod_tpu_torch.run.network",
+    "horovod_tpu_torch.ops.negotiation", "horovod_tpu_torch.ops.eager",
+    "horovod_tpu_torch.ops.process_collectives",
+    "horovod_tpu_torch.utils.timeline", "horovod_tpu_torch.serving.replica")
+
+
+@pytest.mark.parametrize("module", EAGER_CORE_MODULES)
+def test_eager_core_modules_are_scanned_and_import(module):
+    """The eager core's modules are in the scan and import without
+    building anything (the native core builds at first use)."""
+    import importlib
+    path = os.path.join(*module.split(".")) + ".py"
+    assert path in _port_files()
+    importlib.import_module(module)
+
+
 @pytest.mark.parametrize("relpath", [
     os.path.join("horovod_tpu_torch", "parallel", "ring_collectives.py"),
     os.path.join("horovod_tpu_torch", "parallel", "hierarchical.py"),

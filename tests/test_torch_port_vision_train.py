@@ -165,9 +165,42 @@ def test_synthetic_benchmark_on_cpu(capsys):
         assert line in out
 
 
-def test_synthetic_benchmark_eager_allreduce_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        synthetic_benchmark.main(["--device", "cpu", "--eager-allreduce"])
+def test_synthetic_benchmark_eager_allreduce_names_its_slice(capsys):
+    """``--eager-allreduce`` runs (it raised before the eager core was
+    ported): the protocol's lines, plus the gradient-averaging line, and
+    one eager step (``build_eager_step``: gradients through the eager
+    core, a plain SGD) equals one step of ``build_step``'s
+    ``DistributedOptimizer`` route, which test_data_parallel_step_
+    matches_jax_sgd holds to the JAX harness, on the same seeded model
+    and batch."""
+    rates = synthetic_benchmark.main([
+        "--device", "cpu", "--model", "resnet18", "--batch-size", "2",
+        "--image-size", "32", "--num-warmup-batches", "1", "--num-iters",
+        "2", "--num-batches-per-iter", "1", "--norm-impl", "tpu",
+        "--eager-allreduce"])
+    out = capsys.readouterr().out
+    assert len(rates) == 2 and all(r > 0 for r in rates)
+    for line in ("Gradient averaging: eager fused allreduce",
+                 "Img/sec per worker:", "Total img/sec on 1 worker(s):"):
+        assert line in out
+    mpi_ops.init(device="cpu")
+    try:
+        params = []
+        for build in (synthetic_benchmark.build_step,
+                      synthetic_benchmark.build_eager_step):
+            step, model, _, (images, labels) = build(
+                "resnet18", 2, 32, torch.device("cpu"), norm_impl="tpu")
+            g = torch.Generator().manual_seed(4)
+            images.copy_(torch.randn(images.shape, generator=g))
+            labels.copy_(torch.randint(0, 1000, labels.shape, generator=g))
+            step((images, labels))
+            params.append({n: p.detach().float().clone()
+                           for n, p in model.named_parameters()})
+        for n, p in params[0].items():
+            torch.testing.assert_close(params[1][n], p, rtol=0, atol=0,
+                                       msg=n)
+    finally:
+        mpi_ops.shutdown()
 
 
 def test_resnet50_step_makes_no_layout_copy(hvd_cpu):
