@@ -155,6 +155,33 @@ on failure:
      DistributedOptimizer route's within 2e-5 of each tensor's largest
      magnitude, ms/step, device ms and busy share against that route at
      HOROVOD_CYCLE_TIME 5 and 0;
+  3i. the quantized and sparse wire, the checkpoint plane and the elastic
+     drill, each part under its own deadline: (a) int8 and fp8
+     encode/decode over the flagship's fp32 gradient buckets (607.6 MB)
+     and ragged lengths (a pad tail, an all-zero block, a block at
+     +-448), payload bytes and scales bit-equal to the same functions on
+     the CPU, device ms per bucket and in all; (b) `python -m
+     horovod_tpu_torch.run -np 2` on the one card (gloo between two
+     processes, over CUDA tensors) with train_lm --eager-allreduce, the
+     flagship at full width and depth, 20 steps under
+     HOROVOD_COMPRESSION none, bf16, int8 and fp8: 12+12+12 launches a
+     step on each rank, losses falling, encoded wire bytes a step at
+     most 0.26 of the fp32 gradient bytes, rank 0's last quantized bucket
+     (error feedback applied on both ranks) equal to
+     stacked_wire_allreduce of both ranks' compensated inputs, ms/step
+     per codec; (c) word2vec --eager on 2 ranks through hvdrun,
+     200 steps: the loss falls, to_dense of the grouped sparse allreduce
+     within 1e-6 of the dense allreduce of the densified gradients, 2
+     fused allgather groups a step; (d) the flagship's full-depth state
+     (1.5 GB) through CheckpointManager (blocking part and whole save,
+     restore, bit-equal), and the elastic drill (run/drill.py: the
+     supervisor over hvdrun over train_lm's GSPMD step at the flagship's
+     width, depth cut to 2 layers): SIGTERM after step 3 -> exit 45 ->
+     same-slot resume, SIGKILL of rank 1 after step 6 -> the liveness
+     ledger confirms the loss -> exit 44 -> shrink to one
+     rank -> resume of the 2-rank checkpoint, to step 10, every restore
+     crc-verified and equal to the saving ranks' digest, each restart's
+     recovery time printed;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -3106,6 +3133,315 @@ def run_eager_entry_points(card, dev, train_cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the quantized and sparse wire, the checkpoint plane and the
+# elastic drill (hvdrun and the supervisor over processes on the one card)
+
+
+WIRE_CODECS = ("none", "bf16", "int8", "fp8")
+# train_lm's inner steps on the card: a warm-up window and a timed one
+WIRE_STEPS = 2 * train_lm.DEFAULTS["cuda"][2]
+WIRE_RATIO_MAX = 0.26
+WIRE_RUN_S = 240
+W2V_STEPS = 200
+W2V_RUN_S = 180
+DRILL_LAYERS = 2     # the flagship's width, depth cut for time
+DRILL_STEPS, DRILL_EVERY, DRILL_PREEMPT, DRILL_KILL = 10, 2, 3, 6
+DRILL_RUN_S = 420
+RAGGED = (1, 255, 1000, 4097, 65537)
+P3I_DIR = os.path.join(ROOT, "build", "phase3i")
+
+
+def _module_run(args, env, timeout, name):
+    """``python -m`` + ``args`` from the checkout with ``env``; stderr to
+    build/phase3i/<name>.err. Returns the JSON lines of stdout; raises,
+    with the end of stderr, on a nonzero exit or the deadline."""
+    os.makedirs(P3I_DIR, exist_ok=True)
+    err_path = os.path.join(P3I_DIR, f"{name}.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m"] + args, cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError(f"{name}: no result within {timeout} s; "
+                                 f"stderr: {open(err_path).read()[-3000:]}")
+    if proc.returncode:
+        raise AssertionError(f"{name} exited {proc.returncode}; stderr: "
+                             f"{open(err_path).read()[-3000:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def _ragged(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 30
+    x[:min(n, 256)] = 0.0          # an all-zero block
+    if n > 300:
+        x[260], x[261] = 448.0, -448.0   # a block at exactly +-448
+    return x
+
+
+def check_codecs(card, dev, model):
+    """Phase 3i (a): int8 and fp8 encode/decode on the card over the
+    flagship's gradient set as the eager core fuses it (fp32 buckets of
+    HOROVOD_FUSION_THRESHOLD) and over ragged lengths, bit-equal to the
+    same functions on the CPU; device ms per bucket and in all."""
+    from horovod_tpu_torch.common import state
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops import quantization as q
+    threshold = state.global_state().config.fusion_threshold
+    g = torch.Generator(device=dev).manual_seed(1)
+    grads = [p.grad.detach().float() if p.grad is not None else
+             torch.randn(p.shape, device=dev, generator=g) * 1e-3
+             for p in model.parameters() if p.requires_grad]
+    buckets = fusion.plan_buckets(grads, threshold)
+    total_bytes = sum(t.numel() * 4 for t in grads)
+    report = {}
+    for codec in q.QUANTIZED_CODECS:
+        enc_ms, dec_ms, wire = [], [], 0
+        for b in buckets:
+            fused = fusion.fuse(grads, b)
+            qg, sg = q.encode(fused, 256, codec)
+            dg = q.decode(qg, sg, 256, fused.numel())
+            cpu = fused.cpu()
+            qc, sc = q.encode(cpu, 256, codec)
+            if not (torch.equal(qg.view(torch.uint8).cpu(),
+                                qc.view(torch.uint8)) and
+                    torch.equal(sg.cpu().view(torch.int32),
+                                sc.view(torch.int32)) and
+                    torch.equal(dg.cpu().view(torch.int32),
+                                q.decode(qc, sc, 256, cpu.numel())
+                                .view(torch.int32))):
+                raise AssertionError(f"{codec} bucket of {fused.numel()} "
+                                     f"elements: card != CPU")
+            wire += q.wire_nbytes(qg, sg)
+            enc_ms.append(time_ms(lambda: q.encode(fused, 256, codec),
+                                  iters=5, warmup=1))
+            dec_ms.append(time_ms(lambda: q.decode(qg, sg, 256,
+                                                   fused.numel()),
+                                  iters=5, warmup=1))
+            del fused, qg, sg, dg, cpu, qc, sc
+        for n in RAGGED:
+            x = _ragged(n, n)
+            for multiple in (None, 512):
+                qc, sc = q.encode(x, 256, codec, multiple=multiple)
+                qg, sg = q.encode(x.to(dev), 256, codec, multiple=multiple)
+                if not (torch.equal(qg.view(torch.uint8).cpu(),
+                                    qc.view(torch.uint8)) and
+                        torch.equal(sg.cpu().view(torch.int32),
+                                    sc.view(torch.int32))):
+                    raise AssertionError(f"{codec} ragged {n}: card != CPU")
+        report[codec] = (enc_ms, dec_ms, wire)
+        log(card, f"phase 3i (a): {codec} encode/decode of the flagship's "
+                  f"{len(grads)} fp32 gradients in {len(buckets)} fused "
+                  f"buckets ({total_bytes / 1e6:.1f} MB, "
+                  f"{wire / 1e6:.1f} MB encoded, ratio "
+                  f"{wire / total_bytes:.4f}) and {len(RAGGED)} ragged "
+                  f"lengths (a pad tail, an all-zero block, a block at "
+                  f"+-448): payload bytes and scales bit-equal to the CPU; "
+                  f"device ms per bucket encode "
+                  f"{[round(v, 3) for v in enc_ms]}, decode "
+                  f"{[round(v, 3) for v in dec_ms]}; in all encode "
+                  f"{sum(enc_ms):.3f} ms, decode {sum(dec_ms):.3f} ms")
+    return report
+
+
+def run_quantized_wire(card, grad_bytes, layers):
+    """Phase 3i (b): hvdrun -np 2 on the one card, train_lm
+    --eager-allreduce at full width and depth (b16 x s1024), WIRE_STEPS
+    steps a codec. Per rank 12+12+12 launches a step; losses finite and
+    falling; encoded wire bytes per step at most WIRE_RATIO_MAX of the
+    fp32 gradient bytes; rank 0's last quantized bucket, error feedback
+    applied, equal to stacked_wire_allreduce of both ranks' compensated
+    inputs."""
+    from horovod_tpu_torch.ops import quantization as q
+    per_step = {"flash_fwd_lazy": float(layers),
+                "flash_bwd_sm90_dq": float(layers),
+                "flash_bwd_sm90_dkv": float(layers)}
+    ms = {}
+    for codec in WIRE_CODECS:
+        check = os.path.join(P3I_DIR, f"wire-{codec}")
+        args = ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
+                sys.executable, "-m", "horovod_tpu_torch.train_lm",
+                "--device", "cuda", "--eager-allreduce", "--windows", "1"]
+        if q.is_quantized(codec):
+            args += ["--wire-check", check]
+        env = dict(os.environ, HOROVOD_COMPRESSION=codec)
+        t0 = time.perf_counter()
+        out = _module_run(args, env, WIRE_RUN_S, f"wire-{codec}")[-1]
+        wall = time.perf_counter() - t0
+        if not (math.isfinite(out["loss_first"]) and
+                math.isfinite(out["loss_last"]) and
+                out["loss_last"] < out["loss_first"]):
+            raise AssertionError(f"{codec}: losses {out}")
+        if out["launches_per_step"] != per_step:
+            raise AssertionError(f"{codec}: rank 0 launched "
+                                 f"{out['launches_per_step']} a step")
+        ms[codec] = out["ms_per_step"]
+        note = ""
+        if q.is_quantized(codec):
+            ranks = [torch.load(os.path.join(check, f"rank{r}.pt"))
+                     for r in range(2)]
+            for r, rec in enumerate(ranks):
+                if rec["launches_per_step"] != per_step:
+                    raise AssertionError(f"{codec}: rank {r} launched "
+                                         f"{rec['launches_per_step']}")
+                # the gradients keep their names, so the last step's
+                # bucket carries the residual of the step before
+                if not rec["compensated"]:
+                    raise AssertionError(f"{codec}: rank {r}'s last bucket "
+                                         f"took no error feedback")
+            ratio = out["wire"]["bytes"] / grad_bytes
+            if ratio > WIRE_RATIO_MAX:
+                raise AssertionError(f"{codec}: {out['wire']} is {ratio:.4f}"
+                                     f" of the gradient bytes")
+            n = ranks[0]["comp"].numel() // 256 * 256
+            want, _ = q.stacked_wire_allreduce(
+                torch.stack([r["comp"][:n] for r in ranks]), 256, codec,
+                True, n)
+            if not (torch.equal(want[0], ranks[0]["out"][:n]) and
+                    torch.equal(ranks[0]["out"], ranks[1]["out"])):
+                raise AssertionError(f"{codec}: rank 0's bucket "
+                                     f"{ranks[0]['names'][:2]}... != "
+                                     f"stacked_wire_allreduce")
+            note = (f"; wire {out['wire']['bytes'] / 1e6:.2f} MB a step = "
+                    f"{ratio:.4f} of the {grad_bytes / 1e6:.1f} MB fp32 "
+                    f"gradients (bound {WIRE_RATIO_MAX}); rank 0's last "
+                    f"bucket ({len(ranks[0]['names'])} tensors, first {n} "
+                    f"elements, error feedback applied on both ranks) "
+                    f"equals stacked_wire_allreduce of both ranks' "
+                    f"compensated inputs bit for bit")
+        log(card, f"phase 3i (b): HOROVOD_COMPRESSION={codec}, 2 ranks on "
+                  f"one card (gloo between two processes on one card: not "
+                  f"an interconnect figure), flagship b{TRAIN_BATCH} x "
+                  f"s{TRAIN_SEQ}, {WIRE_STEPS} steps: loss "
+                  f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, "
+                  f"{out['ms_per_step']:.1f} ms/step, launches "
+                  f"{out['launches_per_step']} a step on every rank"
+                  f"{note}; {wall:.1f} s wall")
+    log(card, "phase 3i (b): ms/step, gloo between two processes on one "
+              "card: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return ms
+
+
+def run_word2vec(card):
+    """Phase 3i (c): word2vec --eager on 2 ranks through hvdrun at the
+    example's defaults: the loss falls, one step's to_dense of the reduced
+    slices equals the dense allreduce of the densified gradients, two
+    fused allgather groups a step."""
+    out = _module_run(
+        ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
+         sys.executable, "-m", "horovod_tpu_torch.word2vec", "--device",
+         "cuda", "--eager", "--check-dense", "--steps", str(W2V_STEPS)],
+        dict(os.environ), W2V_RUN_S, "word2vec")[-1]
+    if not out["loss_last"] < out["loss_first"]:
+        raise AssertionError(f"word2vec loss {out}")
+    # the sums of duplicate rows run in another order (index_add on the
+    # card): fp32 rounding of the order, not a difference of rows
+    if out["dense_check_max_rel"] > 1e-6:
+        raise AssertionError(f"word2vec dense check {out}")
+    if out["allgather_groups_per_step"] != 2:
+        raise AssertionError(f"word2vec fused {out} allgather groups")
+    log(card, f"phase 3i (c): word2vec --eager, 2 ranks through hvdrun, "
+              f"vocab {out['vocab']} dim {out['dim']}, {W2V_STEPS} steps: "
+              f"loss {out['loss_first']:.4f} -> {out['loss_last']:.4f}; "
+              f"to_dense(grouped_sparse_allreduce) vs the dense allreduce "
+              f"of the densified gradients {out['dense_check_max_rel']:.2e} "
+              f"of the largest magnitude (bound 1e-6); "
+              f"{out['allgather_groups_per_step']:g} fused allgather groups "
+              f"a step; {out['ms_per_step']:.2f} ms/step")
+    return out
+
+
+def time_checkpoint(card, model, opt):
+    """Phase 3i (d): the flagship's full-depth state (fp32 masters, bf16
+    mu, fp32 nu) through CheckpointManager: the blocking part of an async
+    save, the whole save, and the crc-verified restore, bit-equal."""
+    from horovod_tpu_torch.utils import checkpoint as ck
+    state = train_lm.state_tree(model, opt)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 ck._flatten_with_names(state)[1])
+    digest = ck.tree_digest(state)
+    path = os.path.join(P3I_DIR, "flagship-ckpt")
+    mgr = ck.CheckpointManager(path, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(state, 1, extra={"step": 1})
+    block = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    whole = (time.perf_counter() - t0) * 1e3
+    mgr.close()
+    t0 = time.perf_counter()
+    tree, step, _ = ck.CheckpointManager(path).restore(like=state)
+    torch.cuda.synchronize()
+    restore = (time.perf_counter() - t0) * 1e3
+    if step != 1 or ck.tree_digest(tree) != digest:
+        raise AssertionError("the flagship's restored state differs")
+    log(card, f"phase 3i (d): the flagship's full-depth state "
+              f"({nbytes / 1e9:.3f} GB: fp32 masters, bf16 mu, fp32 nu) "
+              f"through CheckpointManager: blocking part of the async save "
+              f"{block:.1f} ms, whole save {whole:.1f} ms, crc-verified "
+              f"restore to the card {restore:.1f} ms, bit-equal")
+    return block, whole, restore
+
+
+def run_drill(card):
+    """Phase 3i (d): the elastic drill (horovod_tpu_torch.run.drill) on
+    the one card: preempt after step 3 -> exit 45 -> same-slot resume;
+    SIGKILL rank 1 after step 6 -> exit 44 -> shrink to 1 rank -> resume a
+    2-rank checkpoint; run to step 10."""
+    from horovod_tpu_torch.run import drill
+    path = os.path.join(P3I_DIR, "drill")
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(P3I_DIR, exist_ok=True)
+    with open(os.path.join(P3I_DIR, "drill.log"), "w") as logf:
+        report = drill.run_drill(
+            path, np_=2, steps=DRILL_STEPS, every=DRILL_EVERY,
+            preempt_after=DRILL_PREEMPT, kill_after=DRILL_KILL,
+            device="cuda", train_args=["--num-layers", str(DRILL_LAYERS)],
+            timeout=DRILL_RUN_S, log=logf)
+    losses = [l for _, l, _ in report["losses"]]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"drill losses {losses}")
+    r1, r2 = report["resumes"]
+    log(card, f"phase 3i (d): drill (flagship width, depth cut to "
+              f"{DRILL_LAYERS} layers, b{TRAIN_BATCH} x s{TRAIN_SEQ}, "
+              f"checkpoint every {DRILL_EVERY}): SIGTERM after step "
+              f"{DRILL_PREEMPT} -> exit 45 -> resumed step {r1['step']} on "
+              f"{r1['workers']} ranks ({r1['ms']:.1f} ms restore); SIGKILL "
+              f"rank 1 after step {DRILL_KILL} -> exit 44 -> shrink -> "
+              f"resumed step {r2['step']} on {r2['workers']} rank from "
+              f"{r2['saved_layout']} ({r2['ms']:.1f} ms restore); every "
+              f"restore crc-verified and equal to the saving ranks' digest, "
+              f"extra {r2['extra']}; final step {report['done']['step']}; "
+              f"RTO (exit to first step) "
+              f"{[round(v, 2) for v in report['rto_s']]} s; losses "
+              f"{[round(v, 4) for v in losses]}")
+    return report
+
+
+def run_phase_3i(card, dev, model, opt, cfg):
+    """Phase 3i, each part fatal and under its own deadline."""
+    t0 = time.perf_counter()
+    grads = [p for p in model.parameters() if p.requires_grad]
+    grad_bytes = sum(p.numel() * 4 for p in grads)
+    check_codecs(card, dev, model)
+    ckpt = time_checkpoint(card, model, opt)
+    torch.cuda.empty_cache()
+    log(card, f"phase 3i: this process holds "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
+              f"while the ranks run")
+    ms = run_quantized_wire(card, grad_bytes, cfg.num_layers)
+    w2v = run_word2vec(card)
+    drill = run_drill(card)
+    log(card, f"phase 3i: {time.perf_counter() - t0:.1f} s in all")
+    return {"ms": ms, "w2v": w2v, "ckpt": ckpt, "drill": drill}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3298,6 +3634,9 @@ def main():
     check_eager_processes(card)
     run_eager_entry_points(card, dev, train_cfg)
     log(card, f"phase 3h: {time.perf_counter() - t3h:.1f} s in all")
+
+    # ---- phase 3i: the quantized and sparse wire, checkpoint, the drill
+    run_phase_3i(card, dev, t_model, t_opt, train_cfg)
 
     # ---- phase 4: timings
     kernels = []

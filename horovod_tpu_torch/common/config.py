@@ -60,8 +60,9 @@ ENV_REGISTRY = (
     ("HOROVOD_CACHE_CAPACITY", True, "1024", "common/config.py",
      "Response-cache capacity of the negotiation client."),
     ("HOROVOD_COMPRESSION", True, "none", "common/config.py",
-     "Wire codec for gradient allreduces: none, fp16 or bf16 (the "
-     "quantized int8/fp8 codecs are not ported yet)."),
+     "Wire codec for gradient allreduces: none, fp16, bf16, or the "
+     "block-scaled int8/fp8 (two-phase encoded allreduce with error "
+     "feedback on the eager core)."),
     ("HOROVOD_COORDINATOR_LOST_TIMEOUT_SECONDS", True, "0.0",
      "common/config.py",
      "Worker self-terminates after this long without coordinator "
@@ -80,6 +81,15 @@ ENV_REGISTRY = (
      "Framework log level (TRACE/DEBUG/INFO/WARNING/ERROR/FATAL)."),
     ("HOROVOD_LOG_TIMESTAMP", True, "0", "common/config.py",
      "Prefix log lines with timestamps."),
+    ("HOROVOD_QUANT_BLOCK", True, "256", "common/config.py",
+     "Elements per block-scaled quantization block (one f32 scale "
+     "each)."),
+    ("HOROVOD_QUANT_EF", True, "1", "common/config.py",
+     "Error feedback for quantized codecs: carry encode rounding "
+     "error into the next step (set 0 to disable)."),
+    ("HOROVOD_QUANT_MIN_BYTES", True, "1024", "common/config.py",
+     "Tensors smaller than this many bytes skip the quantized wire "
+     "and stay full width."),
     ("HOROVOD_RANK_LOST_TIMEOUT_SECONDS", True, "0.0",
      "common/config.py",
      "Coordinator declares a silent rank lost after this long "
@@ -131,8 +141,21 @@ class HorovodConfig:
     coordinator_lost_timeout_seconds: float = 0.0
     # The autotuner of fusion_threshold / cycle_time_ms (not ported yet).
     autotune: bool = False
-    # Default wire codec of DistributedOptimizer's gradient allreduces.
+    # Wire codec of the eager core's allreduces (and the default of
+    # DistributedOptimizer's): "none" keeps full width, "fp16"/"bf16"
+    # cast, "int8"/"fp8" are block-scaled with one f32 max-abs scale per
+    # block (ops/quantization.py). Selection is per tensor (floating,
+    # at least quant_min_bytes) and, under negotiation, rank 0's, with a
+    # fingerprint check that fails loudly if any rank's knobs differ.
     compression: str = "none"
+    # Elements per quantization block (the scale overhead is
+    # 4/quant_block bytes per element).
+    quant_block: int = 256
+    # Tensors smaller than this stay full width.
+    quant_min_bytes: int = 1024
+    # Error feedback: carry each encode's rounding error into the next
+    # step's buffer.
+    quant_ef: bool = True
     # Hierarchical (two-level 'chips' / 'slices') collectives.
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
@@ -162,6 +185,9 @@ class HorovodConfig:
             autotune=env_bool("AUTOTUNE", False),
             compression=(env_str("COMPRESSION", "none") or "none")
             .strip().lower(),
+            quant_block=env_int("QUANT_BLOCK", 256),
+            quant_min_bytes=env_int("QUANT_MIN_BYTES", 1024),
+            quant_ef=env_bool("QUANT_EF", True),
             hierarchical_allreduce=env_bool("HIERARCHICAL_ALLREDUCE", False),
             hierarchical_allgather=env_bool("HIERARCHICAL_ALLGATHER", False),
             ring_allreduce=env_bool("RING_ALLREDUCE", False),

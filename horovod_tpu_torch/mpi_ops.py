@@ -35,6 +35,7 @@ import atexit
 import dataclasses
 import itertools
 import threading
+import time
 from typing import Callable
 
 import torch
@@ -98,7 +99,9 @@ def init(device=None, rank=None, size=None, init_method=None):
 
     The rank within the host (the card a CUDA worker drives) and the
     workers per host come from the launcher's environment, or default to
-    the rank and the world size (one host).
+    the rank and the world size (one host). When more workers share a
+    host than it has cards, they share cards, and join gloo (over CUDA
+    tensors) instead of NCCL, which refuses two ranks on one device.
 
     A process group the caller already set up is adopted as it is, and
     outlives ``shutdown()``. Calling ``init`` again is a no-op.
@@ -122,6 +125,16 @@ def init(device=None, rank=None, size=None, init_method=None):
                                    local_rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
+        if backend == "nccl" and local_size > torch.cuda.device_count():
+            # NCCL refuses two ranks on one device: ranks that share a
+            # card join gloo, whose collectives take CUDA tensors too
+            backend = "gloo"
+            if owns:
+                import sys
+                print(f"horovod_tpu_torch: {local_size} ranks share "
+                      f"{torch.cuda.device_count()} card(s); joining gloo "
+                      f"over CUDA tensors (NCCL refuses two ranks on one "
+                      f"device)", file=sys.stderr, flush=True)
         if owns:
             init_method = init_method or _env_init_method()
             if init_method is None:
@@ -201,7 +214,7 @@ _name_ids = itertools.count()
 def _claim(name, op):
     """The name of a collective about to start: ``name``, or a generated
     one; raises if another collective in flight holds it."""
-    name = name if name is not None else f"{op}.noname.{next(_name_ids)}"
+    name = _auto_name(op, name)
     with _pending_lock:
         if any(p.name == name for p in _pending.values()):
             raise DuplicateNameError(name)
@@ -271,7 +284,44 @@ def _core(axis_name=None):
 
 
 def _auto_name(op, name):
-    return name if name is not None else f"{op}.noname.{next(_name_ids)}"
+    if name is not None:
+        return name
+    return f"{op}{eager_mod.AUTO_NAME_INFIX}{next(_name_ids)}"
+
+
+_probe_ids = itertools.count()
+
+
+def lost_ranks(timeout=None):
+    """The control plane's verdict on the other workers, for a caller
+    whose collective failed: a one-element allreduce through the eager
+    core's negotiation, waited on for at most ``timeout`` seconds
+    (default: ``HOROVOD_RANK_LOST_TIMEOUT_SECONDS`` plus the core's
+    coordinator-lost grace and 5 s). Returns the ranks the coordinator's
+    liveness ledger declared lost (``[0]`` when the coordinator itself
+    is unreachable), or ``[]`` when every worker answered or none was
+    declared lost in time: they live, whatever failed. Without
+    negotiation, or with the ledger off (its timeout 0), only the
+    coordinator's loss can be seen."""
+    from .common.exceptions import RanksLostError
+    coord = _core()
+    if coord is None or size() == 1:
+        return []
+    if timeout is None:
+        timeout = (coord._config.rank_lost_timeout_seconds +
+                   coord._poison_grace_s + 5.0)
+    deadline = time.monotonic() + timeout
+    try:
+        h = allreduce_async(torch.zeros(1, device=_device()),
+                            name=f"hvd.liveness.{next(_probe_ids)}")
+        while not poll(h):
+            if time.monotonic() > deadline:
+                return []
+            time.sleep(0.05)
+        synchronize(h)
+    except RanksLostError as exc:
+        return list(exc.ranks)
+    return []
 
 
 def _enqueue(coord, items, finish):
@@ -398,6 +448,18 @@ def allreduce_async_(tensor, average=True, name=None,
 
 
 def allreduce(tensor, average=True, name=None, compression=Compression.none):
+    """Allreduce ``tensor`` across workers. An ``IndexedSlices`` (or a
+    sparse COO tensor) takes the sparse path instead: its values and
+    indices are allgathered (``ops/sparse.py``), and the result has the
+    input's form."""
+    from .ops import sparse as sparse_mod
+    if sparse_mod.is_sparse_coo(tensor):
+        return sparse_mod.to_coo(allreduce(sparse_mod.from_coo(tensor),
+                                           average, name, compression))
+    if sparse_mod.is_indexed_slices(tensor):
+        return sparse_mod.sparse_allreduce(tensor, average=average,
+                                           name=name,
+                                           compression=compression)
     return synchronize(allreduce_async(tensor, average, name, compression))
 
 
@@ -462,8 +524,17 @@ def grouped_allreduce(tensors, average=True, compression=Compression.none,
     ``axis_name``. Returns the reduced tensors in order. Over every
     worker the eager core plans the buckets with its live threshold (as
     the JAX package's eager grouped allreduce does); ``fusion_threshold``
-    applies to an axis's direct route."""
+    applies to an axis's direct route. ``IndexedSlices`` and sparse COO
+    leaves take the sparse path (``optim.allreduce_gradients``): their
+    integer indices never enter a dense sum."""
     tensors = list(tensors)
+    from .ops import sparse as sparse_mod
+    if any(sparse_mod.is_indexed_slices(t) or sparse_mod.is_sparse_coo(t)
+           for t in tensors):
+        from . import optim
+        return optim.allreduce_gradients(
+            tensors, compression=compression, average=average,
+            fusion_threshold=fusion_threshold, axis_name=axis_name)
     if _core(axis_name) is not None:
         return [synchronize(h) for h in grouped_allreduce_async(
             tensors, average, compression)]
@@ -511,6 +582,19 @@ def allgather_async(tensor, name=None):
 
 def allgather(tensor, name=None):
     return synchronize(allgather_async(tensor, name))
+
+
+def grouped_allgather_async(tensors, names):
+    """Queue an allgather of each of ``tensors`` (first dims may differ
+    between workers) on the eager core as ONE submission, so that they
+    drain in one cycle and the negotiated coordinator fuses those of one
+    dtype into one allgatherv; returns a handle per tensor."""
+    for t in tensors:
+        _check_tensor(t)
+    tensors = list(tensors)
+    return _enqueue(_core(), [(n, eager_mod.ALLGATHER, _wire(t), 0, False)
+                              for n, t in zip(names, tensors)],
+                    lambda i, out: out.to(tensors[i].device))
 
 
 # ---------------------------------------------------------------------------

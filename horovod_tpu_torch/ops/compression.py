@@ -1,24 +1,31 @@
 """Gradient compression codecs, plus the registry that names them.
 
-The port of ``horovod_tpu/ops/compression.py``'s cast codecs (the
-reference's Compressor interface, horovod/torch/compression.py):
-``compress`` returns ``(compressed_tensor, ctx)`` and ``decompress``
-restores the original dtype from ``ctx``. fp16 and bf16 halve the wire
-bytes of an fp32 gradient; the sum itself runs in the wire dtype.
-Non-floating tensors pass through unchanged: a cast would corrupt their
-exact sums.
+The port of ``horovod_tpu/ops/compression.py`` (the reference's
+Compressor interface, horovod/torch/compression.py): ``compress``
+returns ``(compressed_tensor, ctx)`` and ``decompress`` restores the
+original dtype from ``ctx``. fp16 and bf16 halve the wire bytes of an
+fp32 gradient; the sum itself runs in the wire dtype. Non-floating
+tensors pass through unchanged: a cast would corrupt their exact sums.
 
-The block-scaled int8 and fp8 codecs of the JAX package are not ported
-yet (ROADMAP.md); ``from_name`` refuses them by name.
+The block-scaled int8 and fp8 codecs (``ops/quantization.py``) have two
+uses, as in the JAX package. On the op API (``compression=``) they are a
+fake-quant round trip: encode, then decode at once, in the input's
+dtype, so the numerics are the wire's while the bytes that move stay
+full width. On the negotiated eager wire (``HOROVOD_COMPRESSION``) the
+eager core encodes each fused buffer and the payload itself narrows.
 """
 
 import torch
+
+from . import quantization
 
 
 class Compressor:
     """Interface to compress and decompress a tensor."""
 
     name = "none"
+    # quantized codecs defer the real encode to the negotiated wire
+    quantized = False
 
     @staticmethod
     def compress(tensor):
@@ -71,6 +78,40 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
+class _QuantizedCompressor(Compressor):
+    """Block-scaled quantized codec on the op API: ``compress`` is the
+    fake-quant round trip (encode, decode, the input's dtype and shape);
+    the byte reduction itself happens on the negotiated eager wire."""
+
+    quantized = True
+    block = quantization.BLOCK_DEFAULT
+
+    @classmethod
+    def compress(cls, tensor):
+        if not tensor.is_floating_point():
+            return tensor, None
+        flat = tensor.reshape(-1)
+        payload, scales = quantization.encode(flat, cls.block, cls.name)
+        dec = quantization.decode(payload, scales, cls.block, flat.numel())
+        return dec.reshape(tensor.shape).to(tensor.dtype), None
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        return tensor
+
+
+class Int8Compressor(_QuantizedCompressor):
+    """Symmetric block-scaled int8: per-block max-abs scale, 4x fewer
+    wire bytes than f32."""
+    name = "int8"
+
+
+class FP8Compressor(_QuantizedCompressor):
+    """Block-scaled float8_e4m3fn: int8's wire width with more dynamic
+    range inside a block."""
+    name = "fp8"
+
+
 class Compression:
     """Optional gradient compression used during allreduce, plus the name
     registry that ``HOROVOD_COMPRESSION`` selects from."""
@@ -78,19 +119,22 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
+    int8 = Int8Compressor
+    fp8 = FP8Compressor
 
     _BY_NAME = {c.name: c for c in (NoneCompressor, FP16Compressor,
-                                    BF16Compressor)}
+                                    BF16Compressor, Int8Compressor,
+                                    FP8Compressor)}
+
+    @classmethod
+    def names(cls):
+        return tuple(cls._BY_NAME)
 
     @classmethod
     def from_name(cls, name):
         """Codec class for ``name`` (None and '' mean none); raises on a
         name it does not know, so ranks never disagree about the wire."""
         key = (name or "none").strip().lower()
-        if key in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"compression codec {key!r} is not ported yet; use "
-                f"{', '.join(cls._BY_NAME)}")
         codec = cls._BY_NAME.get(key)
         if codec is None:
             raise ValueError(f"unknown compression codec {name!r}; expected "
@@ -98,44 +142,10 @@ class Compression:
         return codec
 
 
-# ---------------------------------------------------------------------------
-# the eager core's wire codec (ops/negotiation.py), the port of the cast
-# half of horovod_tpu/ops/quantization.py's config_fingerprint and
-# select_codec: HOROVOD_COMPRESSION picks the codec a fused allreduce's
-# buffer crosses the wire in, and under negotiation rank 0's choice is
-# the plan every rank follows
-
-CAST_CODECS = ("fp16", "bf16")
-# the JAX package's defaults of its quantizer knobs, which the port does
-# not have yet; they ride the fingerprint so both packages' agree
-QUANT_BLOCK, QUANT_MIN_BYTES, QUANT_EF = 256, 1024, True
-_FLOATING = ("float64", "float32", "float16", "bfloat16")
-
-
-def config_fingerprint(config):
-    """The codec knobs that must agree across ranks for the wire to be
-    decodable, compared by the coordinator every cycle."""
-    name = getattr(config, "compression", "none") or "none"
-    return "%s/b%d/min%d/ef%d" % (name, QUANT_BLOCK, QUANT_MIN_BYTES,
-                                  1 if QUANT_EF else 0)
-
-
-def select_codec(config, dtype, nbytes):
-    """The wire codec of one tensor (its dtype's name and bytes) under
-    this rank's config: the configured cast codec when the tensor is
-    floating, at least QUANT_MIN_BYTES and not at the wire width already,
-    else None (full width)."""
-    name = getattr(config, "compression", "none") or "none"
-    if name not in CAST_CODECS or dtype is None:
-        return None
-    from .fusion import dtype_name
-    dt = dtype_name(dtype)
-    if dt not in _FLOATING or nbytes < QUANT_MIN_BYTES:
-        return None
-    if dt == {"fp16": "float16", "bf16": "bfloat16"}[name]:
-        return None   # already at wire width
-    return name
-
-
-def wire_dtype(codec):
-    return {"fp16": torch.float16, "bf16": torch.bfloat16}[codec]
+# the eager core's wire codec (ops/negotiation.py): HOROVOD_COMPRESSION
+# picks the codec a fused allreduce's buffer crosses the wire in, and
+# under negotiation rank 0's choice is the plan every rank follows
+CAST_CODECS = quantization.CAST_CODECS
+config_fingerprint = quantization.config_fingerprint
+select_codec = quantization.select_codec
+wire_dtype = quantization.wire_dtype

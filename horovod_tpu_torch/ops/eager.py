@@ -60,6 +60,7 @@ from ..common.exceptions import (DuplicateNameError, MismatchError,
 from ..utils import timeline as timeline_mod
 from . import compression as compression_mod
 from . import fusion as fusion_mod
+from . import quantization as quant_mod
 from .process_collectives import (HierarchicalProcessEngine,
                                   ProcessCollectiveEngine, StreamSync)
 
@@ -69,6 +70,9 @@ BROADCAST = "broadcast"
 REDUCESCATTER = "reducescatter"
 ALLTOALL = "alltoall"
 _OPS = (ALLREDUCE, ALLGATHER, BROADCAST, REDUCESCATTER, ALLTOALL)
+#: the infix of the names ``mpi_ops`` gives a collective submitted without
+#: one (``{op}.noname.{n}``): new on every submission
+AUTO_NAME_INFIX = ".noname."
 
 
 def _entry_nbytes(entry):
@@ -208,6 +212,12 @@ class EagerCoordinator:
         # hooks, the tp/sp collectives) ever issues on it
         self.group = dist.new_group(list(range(self._world)))
         self._sync = StreamSync(self._device)
+        # error-feedback residuals of the quantized wire, by fused bucket
+        self._ef = quant_mod.ErrorFeedback()
+        #: when set, the flat quantized leg keeps its last bucket's names,
+        #: codec, compensated input and result in ``last_quantized``
+        self.record_quantized = False
+        self.last_quantized = None
         self._queue = collections.deque()  # guarded_by: _queue_lock
         self._queue_lock = threading.Lock()
         self._tensor_table = {}  # guarded_by: _queue_lock; name -> entry
@@ -234,6 +244,9 @@ class EagerCoordinator:
         self._cycle_backoff_until = 0.0
         self._cycle_req_id = 0
         self._negotiation_dead = False
+        #: the ranks the control plane declared lost (its liveness ledger,
+        #: or this worker when the coordinator is gone), once it has
+        self.lost_ranks = ()
         self._unannounced = None  # (metas, hit_ids) not yet delivered
         # worker half of the response cache: a name resubmitted with an
         # unchanged signature rides the wire as its cache id
@@ -246,6 +259,8 @@ class EagerCoordinator:
         # compares with plan_buckets
         self.executed_groups = 0
         self.executed_tensors = 0
+        #: executed groups by op (a fused allgatherv counts once)
+        self.executed_ops = collections.Counter()
         # the two-level engine, on groups of its own built here, on every
         # rank at the same point (dist.new_group is collective)
         self._hier = self._make_hier_engine(state.local_size)
@@ -297,7 +312,7 @@ class EagerCoordinator:
         if self._shutdown:
             raise ShutdownError()
         if self._negotiation_dead:
-            raise ShutdownError("negotiation control plane lost")
+            raise self._dead_error()
         entries = []
         for name, op, tensor, root_rank, average, callback in items:
             if op not in _OPS:
@@ -507,8 +522,7 @@ class EagerCoordinator:
         processes no matter how entries were submitted."""
         from . import negotiation as neg
         if self._negotiation_dead:
-            self._fail_pending_negotiated(ShutdownError(
-                "negotiation control plane lost"))
+            self._fail_pending_negotiated(self._dead_error())
             return
         if time.monotonic() < self._cycle_backoff_until:
             return  # exponential backoff after control-plane failures
@@ -594,6 +608,7 @@ class EagerCoordinator:
         the error."""
         self.executed_groups += 1
         self.executed_tensors += len(entries)
+        self.executed_ops[entries[0].op] += 1
         try:
             with self._sync.collective_stream(
                     [e.ready_event for e in entries]):
@@ -720,7 +735,17 @@ class EagerCoordinator:
         if resp.shutdown:
             self._fail_pending_negotiated(ShutdownError())
 
+    def _dead_error(self):
+        """The error of work that meets a lost control plane: a
+        RanksLostError naming the ranks when that is why it was lost."""
+        if self.lost_ranks:
+            return RanksLostError(self.lost_ranks,
+                                  reason="declared lost earlier")
+        return ShutdownError("negotiation control plane lost")
+
     def _fail_pending_negotiated(self, exc):
+        if isinstance(exc, RanksLostError):
+            self.lost_ranks = exc.ranks
         self._reannounce.clear()
         with self._queue_lock:
             pending = list(self._negotiated_pending.values()) + \
@@ -764,8 +789,11 @@ class EagerCoordinator:
         """One flattened buffer, ONE collective for the whole group
         (MPIAllreduce's fusion-buffer memcpy-in/allreduce/memcpy-out,
         mpi_operations.cc:25-66): concat, the sum and the un-fuse
-        slicing all run on the device, on the collective stream. A cast
-        ``codec`` narrows the buffer for the sum."""
+        slicing all run on the device, on the collective stream.
+        ``codec`` is the wire codec (the negotiated plan's, or this
+        rank's own choice): a quantized one runs the two-phase encoded
+        collective with error feedback, a cast one narrows the buffer
+        for the sum."""
         tl = self.timeline
         names = [e.name for e in entries]
         if tl:
@@ -774,17 +802,31 @@ class EagerCoordinator:
         flats = [e.tensor.detach().reshape(-1) for e in entries]
         # always a new buffer: the sum is taken in place
         fused = torch.cat(flats) if len(flats) > 1 else flats[0].clone()
-        wire = fused.to(compression_mod.wire_dtype(codec)) if codec \
-            else fused
         if tl:
             for n in names:
                 tl.end_activity(n)
                 tl.start_activity(n, timeline_mod.ALLREDUCE)
-        self._allreduce_engine().allreduce(wire)
-        summed = wire.to(fused.dtype) if codec else wire
-        if average:
-            summed = _divide(summed, self._world)
-        self._sync.keep_alive([fused, wire, summed])
+        nbytes = fused.numel() * fused.element_size()
+        engine = self._allreduce_engine()
+        hier = engine if engine is self._hier else None
+        if codec is not None and quant_mod.is_quantized(codec):
+            summed = self._quantized_allreduce(fused, names, codec, average,
+                                               hier)
+        else:
+            wire = fused.to(quant_mod.wire_dtype(codec)) if codec \
+                else fused
+            engine.allreduce(wire)
+            summed = wire.to(fused.dtype) if codec else wire
+            if average:
+                summed = _divide(summed, self._world)
+            self._sync.keep_alive([wire])
+            quant_mod.account(codec, nbytes, quant_mod.wire_nbytes(wire))
+            if hier is not None:
+                quant_mod.account_leg("intra", None, nbytes)
+                quant_mod.account_leg("inter", codec,
+                                      quant_mod.wire_nbytes(wire) //
+                                      hier.axes[0].size)
+        self._sync.keep_alive([fused, summed])
         if tl:
             for n in names:
                 tl.end_activity(n)
@@ -797,6 +839,58 @@ class EagerCoordinator:
         if tl:
             for n in names:
                 tl.end_activity(n)
+
+    def _quantized_allreduce(self, fused, names, codec, average, hier):
+        """The quantized leg (the JAX core's ``eager.py:1269-1334``): on
+        the flat engine, EF-compensate the fused buffer (keyed by its
+        members' names), encode it padded to ``block · world``, run the
+        two-phase collective and update the residual from this rank's
+        own wire decode; on the two-level engine, the same with the
+        residual at shard length (key suffix ``#hier``) and only the
+        inter-host leg encoded. One rank takes the same arithmetic."""
+        block = int(getattr(self._config, "quant_block",
+                            quant_mod.BLOCK_DEFAULT))
+        # a residual is kept only for a bucket whose members all have the
+        # caller's names: a generated name is new on every submission, so
+        # its residual could never be read back, only pile up
+        ef_on = bool(getattr(self._config, "quant_ef", True)) and not any(
+            AUTO_NAME_INFIX in n for n in names)
+        total = fused.numel()
+        nbytes = total * fused.element_size()
+        if hier is not None:
+            key = "|".join(names) + "#hier"
+            shard_len = quant_mod.pad_to(
+                total, block * self._world) // hier.axes[0].size
+            residual = self._ef.peek(key, (shard_len,)) if ef_on else None
+            full, comp, dec_own = hier.allreduce_quantized(
+                fused, codec, block, average=average, residual=residual)
+            if ef_on:
+                self._ef.update(key, comp, dec_own, block, anchor=names[0])
+            wire_inter = quant_mod.encoded_nbytes(shard_len, codec, block)
+            quant_mod.account(codec, nbytes, wire_inter)
+            quant_mod.account_leg("intra", None, nbytes)
+            quant_mod.account_leg("inter", codec, wire_inter)
+            self._sync.keep_alive([full, comp, dec_own])
+            return full[:total].to(fused.dtype)
+        key = "|".join(names)
+        comp = self._ef.compensate(key, fused) if ef_on else fused
+        payload, scales = quant_mod.encode(comp, block, codec,
+                                           multiple=block * self._world)
+        out = self._proc_engine.allreduce_quantized(
+            payload, scales, codec, block, average=average)
+        # this rank's own contribution as the peers decoded it: the
+        # error-feedback reference
+        dec_own = quant_mod.decode(payload, scales, block, total)
+        if ef_on:
+            self._ef.update(key, comp, dec_own, block, anchor=names[0])
+        if self.record_quantized:
+            self.last_quantized = {"names": names, "codec": codec,
+                                   "comp": comp, "out": out[:total],
+                                   "compensated": comp is not fused}
+        quant_mod.account(codec, nbytes,
+                          quant_mod.wire_nbytes(payload, scales))
+        self._sync.keep_alive([comp, payload, scales, out, dec_own])
+        return out[:total].to(fused.dtype)
 
     def _exec_fused_allgather(self, entries):
         """Coordinator-fused allgatherv: ONE counts exchange and ONE

@@ -17,12 +17,20 @@ call:
                      eager core pads an allgatherv to them)
   * reducescatter  → ``dist.reduce_scatter_single``
   * alltoall       → ``dist.all_to_all_single``
+  * quantized allreduce → two phases over the narrow wire
+                     (``ops/quantization.py``): all_to_all the encoded
+                     payload and scales, dequant the peer rows and sum
+                     them in f32 in rank order, requant the owned chunk,
+                     all_gather the narrow sum and decode it locally. The
+                     payload moves as a ``uint8`` view (gloo, and NCCL by
+                     version, do not move ``float8_e4m3fn``); every byte
+                     that crosses the wire is int8/fp8 or an f32 scale.
 
 ``HierarchicalProcessEngine`` is the two-level allreduce of
 ``parallel/hierarchical.py`` over the world's hosts, on two-level groups
 of the eager core's own, which the eager core takes under
-``HOROVOD_HIERARCHICAL_ALLREDUCE``; the JAX package's quantized leg
-comes with the int8/fp8 codecs.
+``HOROVOD_HIERARCHICAL_ALLREDUCE``; its quantized leg encodes only the
+inter-host hop.
 
 Every process must invoke the same engine call in the same order — the
 eager core guarantees that (coordinator-ordered under negotiation,
@@ -45,6 +53,39 @@ import torch.distributed as dist
 
 from ..parallel.ring import GroupRing
 from . import operation_manager as om
+from . import quantization
+
+
+def _two_phase(q, s, codec, block, group):
+    """The two-phase quantized sum over ``group`` of every rank's encoded
+    (q [m], s [m // block]), m a multiple of block · group size. Returns
+    the narrow sum (payload [m], scales [m // block]), the same on every
+    rank. At one rank it is the same arithmetic without the wire."""
+    n = dist.get_world_size(group)
+    chunk = q.numel() // n
+    wire = q.dtype
+    qb = q.view(torch.uint8)
+    if n > 1:
+        qp, sp = torch.empty_like(qb), torch.empty_like(s)
+        dist.all_to_all_single(qp, qb, group=group)
+        dist.all_to_all_single(sp, s, group=group)
+    else:
+        qp, sp = qb, s
+    # dequant each peer's rows of the owned chunk, sum in f32 in rank
+    # order, requant the sum
+    dec = quantization._block_decode(qp.view(wire).reshape(n, chunk),
+                                     sp.reshape(n, chunk // block), block)
+    total = dec[0]
+    for row in dec[1:]:
+        total = total + row
+    q2, s2 = quantization._block_encode(total, block, codec)
+    if n == 1:
+        return q2, s2
+    qg = torch.empty((n, chunk), dtype=torch.uint8, device=q.device)
+    sg = torch.empty((n, chunk // block), dtype=s.dtype, device=s.device)
+    dist.all_gather(list(qg.unbind(0)), q2.view(torch.uint8), group=group)
+    dist.all_gather(list(sg.unbind(0)), s2, group=group)
+    return qg.reshape(-1).view(wire), sg.reshape(-1)
 
 
 class ProcessCollectiveEngine:
@@ -60,6 +101,16 @@ class ProcessCollectiveEngine:
         backend = om.get_operation_manager().select(self.group)
         backend.start(buf, self.group).wait()
         return buf
+
+    def allreduce_quantized(self, payload, scales, codec, block,
+                            average=False):
+        """Sum (or mean) across processes of the block-scaled encoded
+        buffers, an f32 result of the padded length. ``payload``'s length
+        must be a multiple of ``block * nproc``; each process passes its
+        own (payload, scales) from ``quantization.encode``."""
+        q, s = _two_phase(payload, scales, codec, int(block), self.group)
+        out = quantization._block_decode(q, s, int(block))
+        return out / self.nproc if average else out
 
     def broadcast(self, buf, root):
         """Process ``root``'s ``buf`` on every process, in place."""
@@ -128,6 +179,36 @@ class HierarchicalProcessEngine(ProcessCollectiveEngine):
         backend = om.get_operation_manager().select(self.axes)
         backend.start(buf, self.axes).wait()
         return buf
+
+    def allreduce_quantized(self, fused, codec, block, average=False,
+                            residual=None):
+        """Two-level allreduce of a flat buffer with the quantized codec
+        on the inter-host leg only: a full-width reduce-scatter within
+        the host, the error-feedback-compensated encode of this
+        process's shard, the two-phase schedule over the hosts, and a
+        full-width all_gather within the host. ``residual`` is this
+        process's carried EF residual for its shard (or None). Returns
+        (f32 result of the padded length, compensated shard, own-wire
+        decode of the shard)."""
+        chips, slices = self.axes
+        block = int(block)
+        m = quantization.pad_to(fused.numel(), block * self.nproc)
+        x = fused.to(torch.float32)
+        if m != x.numel():
+            x = torch.nn.functional.pad(x, (0, m - x.numel()))
+        shard_len = m // chips.size
+        if residual is None or tuple(residual.shape) != (shard_len,):
+            residual = torch.zeros(shard_len, dtype=torch.float32,
+                                   device=x.device)
+        shard = chips.reduce_scatter(x, 0)
+        comp = shard + residual
+        q, s = quantization._block_encode(comp, block, codec)
+        q2, s2 = _two_phase(q, s, codec, block, slices.group)
+        red = quantization._block_decode(q2, s2, block)
+        full = chips.all_gather(red, 0)
+        if average:
+            full = full / self.nproc
+        return full, comp, quantization._block_decode(q, s, block)
 
 
 class StreamSync:

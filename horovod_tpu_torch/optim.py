@@ -204,6 +204,9 @@ class _DistributedOptimizer:
         self._passes[p] += 1
         if self._passes[p] % self.backward_passes_per_step:
             return
+        if p.grad is not None and p.grad.is_sparse and \
+                self._sparse_as_dense:
+            p.grad = p.grad.to_dense()
         b = self._bucket_of[p]
         if b in self._handles or p in self._ready[b]:
             raise ValueError(
@@ -220,12 +223,16 @@ class _DistributedOptimizer:
 
     def _start(self, b):
         """Start bucket b's fused allreduce; a parameter without a
-        gradient contributes zeros and keeps no gradient."""
+        gradient contributes zeros and keeps no gradient. A sparse
+        gradient stays out of the fused buffer: ``synchronize`` reduces
+        it on the sparse path."""
+        dense = [p for p in self._buckets[b]
+                 if p.grad is None or not p.grad.is_sparse]
         grads = [local(p.grad) if p.grad is not None
-                 else torch.zeros_like(local(p)) for p in self._buckets[b]]
-        self._handles[b] = mpi_ops._grouped_allreduce_async(
+                 else torch.zeros_like(local(p)) for p in dense]
+        self._handles[b] = (dense, mpi_ops._grouped_allreduce_async(
             grads, True, self._compression, self._fusion_threshold,
-            self._process_group)
+            self._process_group))
 
     def synchronize(self):
         """Join every gradient allreduce (reference torch/__init__.py:
@@ -238,11 +245,25 @@ class _DistributedOptimizer:
             if b not in self._handles and any(p.grad is not None
                                               for p in ps):
                 self._start(b)
-        for b, started in self._handles.items():
+        # sparse gradients (nn.Embedding(sparse=True)): one grouped values
+        # + indices allgather through the eager core, every gather in
+        # flight at once (over the process group when it is not every
+        # worker), each given back as a sparse COO gradient
+        sparse = [p for ps in self._buckets for p in ps
+                  if p.grad is not None and p.grad.is_sparse]
+        if sparse:
+            from .ops import sparse as sparse_mod
+            reduced = sparse_mod.grouped_sparse_allreduce(
+                [sparse_mod.from_coo(p.grad) for p in sparse],
+                average=True, name="hvd.sparse_grads",
+                axis_name=self._process_group)
+            for p, r in zip(sparse, reduced):
+                p.grad = sparse_mod.to_coo(r)
+        for b, (dense, started) in self._handles.items():
             for fused, handle in started:
                 for i, reduced in zip(fused.indices,
                                       mpi_ops.synchronize(handle)):
-                    p = self._buckets[b][i]
+                    p = dense[i]
                     if p.grad is not None:
                         local(p.grad).copy_(reduced)
         self._handles.clear()
@@ -291,7 +312,7 @@ def _dp_group(optimizer):
 
 def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
                          backward_passes_per_step=1, fusion_threshold=None,
-                         process_group=None):
+                         process_group=None, sparse_as_dense=False):
     """Wrap a constructed ``torch.optim.Optimizer`` so that gradients are
     averaged across workers during backward (reference
     torch/__init__.py:163-198). The wrapper subclasses the optimizer's own
@@ -306,7 +327,12 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
     data-parallel replicas); a group object of ``parallel.ring`` (ranks
     that are threads) is taken too. Each bucket's allreduce goes through
     the operation manager (``HOROVOD_HIERARCHICAL_ALLREDUCE``,
-    ``HOROVOD_RING_ALLREDUCE``). Needs ``init()`` first."""
+    ``HOROVOD_RING_ALLREDUCE``). A sparse COO gradient
+    (``nn.Embedding(sparse=True)``) is reduced on the sparse path of
+    ``ops/sparse.py`` over the same workers (through the eager core when
+    they are every worker) and given back sparse, or densified first
+    with ``sparse_as_dense`` (the reference's
+    _keras/__init__.py:39-46). Needs ``init()`` first."""
     config = state_mod.global_state().config
     if config is None:
         raise mpi_ops.NotInitializedError()
@@ -322,6 +348,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
                                  if fusion_threshold is None
                                  else fusion_threshold)
     wrapped.backward_passes_per_step = backward_passes_per_step
+    wrapped._sparse_as_dense = sparse_as_dense
     wrapped._process_group = (_dp_group(optimizer) if process_group is None
                               else process_group)
     named = list(named_parameters) if named_parameters is not None else []
@@ -341,7 +368,8 @@ def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
 
 
 def allreduce_gradients(grads, compression=Compression.none, average=True,
-                        fusion_threshold=None, axis_name=None):
+                        fusion_threshold=None, axis_name=None,
+                        sparse_as_dense=False):
     """Average (or sum) a pytree (a list, a dict, nested) of gradient
     tensors across workers; returns the same structure. Over every
     worker the leaves go to the eager core as ONE grouped submission,
@@ -349,11 +377,42 @@ def allreduce_gradients(grads, compression=Compression.none, average=True,
     ``HOROVOD_FUSION_THRESHOLD`` (the JAX package's eager route,
     ``horovod_tpu/optim.py:61-139``); over ``axis_name`` they take the
     direct route, one fused collective per bucket of
-    ``fusion_threshold``."""
+    ``fusion_threshold``.
+
+    ``IndexedSlices`` leaves, and sparse COO tensors (each given back in
+    its own form), take the sparse values + indices allgather path
+    (``ops/sparse.py``), all in flight at once, unless
+    ``sparse_as_dense``, which densifies them first."""
     from torch.utils import _pytree as pytree
-    leaves, spec = pytree.tree_flatten(grads)
-    out = mpi_ops.grouped_allreduce(leaves, average, compression,
-                                    fusion_threshold, axis_name)
+    from .ops import sparse as sparse_mod
+
+    def is_leaf(x):
+        return sparse_mod.is_indexed_slices(x)
+    leaves, spec = pytree.tree_flatten(grads, is_leaf=is_leaf)
+    kinds = ["coo" if sparse_mod.is_sparse_coo(l) else
+             "slices" if sparse_mod.is_indexed_slices(l) else None
+             for l in leaves]
+    if sparse_as_dense:
+        leaves = [l.to_dense() if k == "coo" else
+                  sparse_mod.to_dense(l) if k == "slices" else l
+                  for l, k in zip(leaves, kinds)]
+        kinds = [None] * len(leaves)
+    dense = [l for l, k in zip(leaves, kinds) if k is None]
+    dense_out = iter(mpi_ops.grouped_allreduce(
+        dense, average, compression, fusion_threshold, axis_name)
+        if dense else [])
+    sparse = [sparse_mod.from_coo(l) if k == "coo" else l
+              for l, k in zip(leaves, kinds) if k is not None]
+    sparse_out = iter(sparse_mod.grouped_sparse_allreduce(
+        sparse, average=average, name="hvd.sparse_grads",
+        axis_name=axis_name) if sparse else [])
+    out = []
+    for l, k in zip(leaves, kinds):
+        if k is None:
+            out.append(next(dense_out))
+        else:
+            s = next(sparse_out)
+            out.append(sparse_mod.to_coo(s) if k == "coo" else s)
     return pytree.tree_unflatten(out, spec)
 
 

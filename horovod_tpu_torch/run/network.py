@@ -41,6 +41,10 @@ class PingResponse:
         self.source_address = source_address  # client ip as seen by service
 
 
+class AckResponse:
+    pass
+
+
 class NoValidAddressesFound(Exception):
     pass
 

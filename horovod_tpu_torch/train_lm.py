@@ -36,21 +36,50 @@ parallelism across cards.
 1) through ``trainer.build_eager_lm_step``: a plain ``AdamW``, and the
 gradients averaged by the eager core, one grouped submission per step
 (the JAX CLI's ``examples/transformer_lm.py --eager-allreduce``).
+
+``--steps N`` (or ``--checkpoint-dir``) drives the same model,
+optimizer and GSPMD step through a loop of N optimizer steps instead of
+the timed windows, data-parallel only, each batch drawn from
+``RandomState([seed, step])`` so that a resumed run sees the data an
+uninterrupted one does. With ``--checkpoint-dir`` it runs the
+``trainer.Checkpointer`` contract (the JAX CLI's
+``--checkpoint-dir``/``--checkpoint-every``): resume from the newest
+commit, an async save every ``--checkpoint-every`` steps, and on
+SIGTERM/SIGINT an emergency save at the end of the step and exit 45.
+The state is the fp32 masters and AdamW's bf16 ``mu`` and fp32 ``nu`` by
+parameter name; the step, the data position and AdamW's step count ride
+``extra``. A rank whose step fails because a peer is gone exits with
+``RanksLostError.EXIT_CODE`` (44): a ``RanksLostError``, or a failed
+collective that the control plane's liveness ledger confirms
+(``mpi_ops.lost_ranks``; ``HOROVOD_RANK_LOST_TIMEOUT_SECONDS`` defaults
+to 10 here). Any other failure is raised. Rank 0 prints one JSON line
+per event (``start`` on every rank, with its pid; ``resume``, ``step``,
+``save`` with ``--checkpoint-digest``, ``done``), which the elastic
+drill reads.
 """
 
 import argparse
 import json
+import os
 import subprocess
+import sys
 import time
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import mpi_ops, optim, trainer
 from .common import state as state_mod
+from .common.exceptions import (PREEMPTED_EXIT_CODE, HorovodError,
+                                RanksLostError)
 from .models import transformer as tr
 from .ops import flash_attention as fa
+from .ops import quantization as quant_mod
 from .parallel import mesh as mesh_lib
+from .parallel import tensor_parallel as tpl
+from .utils import checkpoint as hvd_checkpoint
 
 # NVIDIA's published dense bf16 tensor-core peaks, by H100 variant
 H100_PEAK_BF16 = {"sxm": 989e12, "pcie": 756e12}
@@ -193,6 +222,28 @@ def parse_args(argv=None):
     p.add_argument("--remat-policy", default=None,
                    choices=["dots", "dots_no_batch"],
                    help="what --remat saves (default: nothing)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="drive the step through a loop of this many "
+                        "optimizer steps instead of the timed windows")
+    p.add_argument("--seed", type=int, default=0,
+                   help="weights (and the --steps loop's batches)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="trainer.Checkpointer contract on the --steps loop: "
+                        "auto-resume, async saves, SIGTERM -> emergency "
+                        "save and exit 45")
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   help="save an async checkpoint every N steps")
+    p.add_argument("--checkpoint-digest", action="store_true",
+                   help="rank 0 prints the crc32 digest of the state at "
+                        "every save and resume")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="cut the model's depth to this many blocks")
+    p.add_argument("--wire-check", default=None,
+                   help="with --eager-allreduce: each rank saves the "
+                        "compensated input and the result of its last "
+                        "quantized bucket (their first 2^20 elements), its "
+                        "launches and wire bytes per step to "
+                        "DIR/rank<r>.pt")
     p.add_argument("--eager-allreduce", action="store_true",
                    help="average gradients through the EAGER collective "
                         "core (one fused allreduce submission per step) "
@@ -224,8 +275,192 @@ def build_eager(args, cfg, batch, seq, inner, device):
     return window, mesh
 
 
+def wire_per_step(inner):
+    """The eager core's wire bytes per step over the last window, from
+    the quantization tally: encoded and full-width, in all and by
+    codec."""
+    wire, raw, by_codec = 0, 0, {}
+    for key, v in quant_mod.tally().items():
+        if key[0] == "hvd_wire_bytes_total":
+            wire += v
+            by_codec[key[1]] = by_codec.get(key[1], 0) + v / inner
+        elif key[0] == "hvd_wire_raw_bytes_total":
+            raw += v
+    return {"bytes": wire / inner, "raw_bytes": raw / inner,
+            "by_codec": by_codec}
+
+
+WIRE_CHECK_ELEMENTS = 1 << 20
+
+
+def save_wire_check(directory, coord, out):
+    """``--wire-check``: this rank's record of its last quantized bucket
+    (whole blocks, so the prefix is its own allreduce), launches and wire
+    bytes, to ``directory/rank<r>.pt``."""
+    rec = coord.last_quantized
+    if rec is None:
+        raise SystemExit("--wire-check: no quantized bucket ran (set "
+                         "HOROVOD_COMPRESSION=int8 or fp8)")
+    os.makedirs(directory, exist_ok=True)
+    n = WIRE_CHECK_ELEMENTS
+    torch.save({"names": rec["names"], "codec": rec["codec"],
+                "comp": rec["comp"][:n].float().cpu(),
+                "out": rec["out"][:n].float().cpu(),
+                "compensated": rec["compensated"],
+                "launches_per_step": out["launches_per_step"],
+                "wire": out["wire"]},
+               os.path.join(directory, f"rank{mpi_ops.rank()}.pt"))
+
+
+# -- the --steps loop and its checkpoint contract -----------------------------
+
+
+def batch_at(seed, step, vocab, rows, seq):
+    """The tokens ``[1, rows, seq]`` of optimizer step ``step``, a draw of
+    ``RandomState([seed, step])``: every worker passes the same, and the
+    GSPMD step places each dp way's rows."""
+    toks = np.random.RandomState([seed, step]).randint(
+        0, vocab, (1, rows, seq), dtype=np.int64)
+    return torch.from_numpy(toks)
+
+
+def state_tree(model, opt):
+    """The training state as a nested dict: the parameters (fp32 masters)
+    and AdamW's ``mu``/``nu`` by parameter name, as this rank holds them
+    (whole, on a data-parallel mesh)."""
+    names = {p: n for n, p in model.named_parameters()}
+    moments = {}
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st:
+                moments[names[p]] = {"mu": tpl.local(st["mu"]),
+                                     "nu": tpl.local(st["nu"])}
+    return {"params": {n: tpl.local(p.detach())
+                       for n, p in model.named_parameters()},
+            "opt": moments}
+
+
+@torch.no_grad()
+def load_state(model, opt, tree, extra):
+    """Copy a restored ``state_tree`` (and AdamW's step count from
+    ``extra``) into the model and the optimizer."""
+    params = dict(model.named_parameters())
+    for n, t in tree["params"].items():
+        tpl.local(params[n]).copy_(t)
+    for n, moments in tree["opt"].items():
+        st = opt.state[params[n]]
+        tpl.local(st["mu"]).copy_(moments["mu"])
+        tpl.local(st["nu"]).copy_(moments["nu"])
+        st["step"] = int(extra["adam_step"])
+
+
+def _lost_ranks(exc):
+    """The peers whose loss failed this rank's step, or None when it
+    failed for another reason: a RanksLostError names them; a failed
+    collective (gloo and NCCL raise RuntimeError) is put to the control
+    plane's liveness verdict. Everything else is no loss."""
+    if isinstance(exc, RanksLostError):
+        return list(exc.ranks)
+    if isinstance(exc, RuntimeError):
+        return mpi_ops.lost_ranks() or None
+    return None
+
+
+def _emit(event, **fields):
+    print(json.dumps({"event": event, **fields}), flush=True)
+
+
+def train_loop(args, cfg, model, opt, step, rows, seq, device):
+    """``--steps``: the GSPMD ``step`` driven one optimizer step at a time
+    on ``rows`` rows of ``batch_at``, with the checkpoint contract (see
+    the module docstring). Returns the final record."""
+    n, rank = mpi_ops.size(), mpi_ops.rank()
+    steps = args.steps if args.steps is not None else 20
+    _emit("start", rank=rank, workers=n, pid=os.getpid(),
+          ppid=os.getppid(), t=time.time())
+    ckptr, start = None, 0
+    digest = args.checkpoint_digest and rank == 0
+    if args.checkpoint_dir:
+        agree = None
+        if n > 1:
+            def agree(flag):
+                got = mpi_ops.allreduce(
+                    torch.tensor([float(flag)], device=device),
+                    average=False, name="hvd.ckpt.preempt")
+                return got.item() > 0
+        ckptr = trainer.Checkpointer(
+            args.checkpoint_dir, every=args.checkpoint_every, rank=rank,
+            world_size=n, layout={"dp": n}, agree=agree)
+        t0 = time.perf_counter()
+        tree, start, extra = ckptr.resume(like=state_tree(model, opt))
+        if start:
+            load_state(model, opt, tree, extra)
+            if rank == 0:
+                _emit("resume", step=start, extra=extra, workers=n,
+                      saved_layout=hvd_checkpoint.saved_layout(
+                          args.checkpoint_dir, start),
+                      ms=(time.perf_counter() - t0) * 1e3,
+                      digest=hvd_checkpoint.tree_digest(
+                          state_tree(model, opt)) if digest else None)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(start, steps):
+        try:
+            toks = batch_at(args.seed, i, cfg.vocab_size, rows,
+                            seq).to(device)
+            loss = step(model, opt, toks)[2].item()
+            losses.append(loss)
+            if rank == 0:
+                _emit("step", step=i + 1, loss=loss, workers=n,
+                      t=time.time())
+            extra = {"step": i + 1, "data_pos": i + 1,
+                     "adam_step": i + 1}
+            state = state_tree(model, opt)
+            periodic = ckptr is not None and ckptr.every and \
+                (i + 1) % ckptr.every == 0
+            if ckptr is not None and ckptr.step_end(i + 1, state, extra):
+                if digest:
+                    _emit("save", step=i + 1, kind="emergency",
+                          digest=hvd_checkpoint.tree_digest(state))
+                _emit("preempted", rank=rank, step=i + 1)
+                sys.exit(PREEMPTED_EXIT_CODE)
+            if periodic and digest:
+                _emit("save", step=i + 1, kind="async",
+                      digest=hvd_checkpoint.tree_digest(state))
+        except (RuntimeError, HorovodError) as exc:
+            lost = _lost_ranks(exc) if n > 1 else None
+            if not lost:
+                raise
+            err = RanksLostError(lost, reason=f"a collective failed: {exc}")
+            print(f"train_lm rank {rank}: {err}", file=sys.stderr,
+                  flush=True)
+            _emit("ranks_lost", rank=rank, step=i + 1, ranks=lost)
+            os._exit(RanksLostError.EXIT_CODE)
+    if ckptr is not None:
+        ckptr.close()
+    dt = time.perf_counter() - t0
+    out = {"event": "done", "step": steps, "start_step": start,
+           "workers": n, "loss_first": losses[0] if losses else None,
+           "loss_last": losses[-1] if losses else None,
+           "ms_per_step": dt / max(1, steps - start) * 1e3,
+           "device": str(device)}
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+    mesh_lib.reset_global_mesh()
+    mpi_ops.shutdown()
+    return out
+
+
 def main(argv=None):
     args = parse_args(argv)
+    looped = args.steps is not None or bool(args.checkpoint_dir)
+    if looped and args.eager_allreduce:
+        raise SystemExit("--steps and --checkpoint-dir drive the GSPMD "
+                         "step, not --eager-allreduce")
+    if args.checkpoint_dir:
+        # the liveness ledger confirms a lost peer (exit 44, _lost_ranks)
+        os.environ.setdefault("HOROVOD_RANK_LOST_TIMEOUT_SECONDS", "10")
     mpi_ops.init(device=args.device)
     device = state_mod.device()
     on_card = device.type == "cuda"
@@ -233,12 +468,25 @@ def main(argv=None):
     seq = args.seq_len or seq
     cfg = flagship_config(on_card, args.size, attention_impl=args.attention,
                           remat=args.remat, remat_policy=args.remat_policy)
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    coord = state_mod.global_state().coordinator
     if args.eager_allreduce:
         window, mesh = build_eager(args, cfg, batch, seq, inner, device)
+        coord.record_quantized = args.wire_check is not None
     else:
         mesh = mesh_lib.set_global_mesh(mesh_of(args))
+        if looped and any(mesh_lib.mesh_axis_size(mesh, a) != 1
+                          for a in ("tp", "sp", "ep")):
+            raise SystemExit("the --steps loop is data-parallel only: "
+                             "tp/sp/ep must all be 1")
         model, opt, step, toks = build_gspmd_step(
-            cfg, batch, seq, inner, device, mesh, args.vocab_chunk)
+            cfg, batch, seq, inner, device, mesh, args.vocab_chunk,
+            seed=args.seed)
+        if looped:
+            return train_loop(args, cfg, model, opt, step,
+                              batch * mesh_lib.mesh_axis_size(mesh, "dp"),
+                              seq, device)
 
         def window():
             return step(model, opt, toks)[2]
@@ -247,6 +495,7 @@ def main(argv=None):
     for w in range(args.windows):
         if w == args.windows - 1:
             fa.reset_launch_counts()
+            quant_mod.reset_tally()
         t0 = time.perf_counter()
         loss = window()
         losses.append(loss.item())   # the sync point
@@ -267,6 +516,10 @@ def main(argv=None):
                               for k, v in sorted(fa.launch_counts.items())},
         "device": str(device),
         "card": card_line() if on_card else None})
+    if args.eager_allreduce:
+        out["wire"] = wire_per_step(inner)
+    if args.wire_check:
+        save_wire_check(args.wire_check, coord, out)
     if mpi_ops.rank() == 0:
         print(json.dumps(out), flush=True)
     mesh_lib.reset_global_mesh()

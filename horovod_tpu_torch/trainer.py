@@ -17,11 +17,20 @@ The eager step (``make_eager_step``, ``build_eager_lm_step``,
 ``build_eager_image_step``) averages the gradients through the eager
 core between the backward and the update, the JAX package's
 ``--eager-allreduce`` recipe.
+
+``Checkpointer`` is the train loop's checkpoint contract (periodic async
+saves, auto-resume, preemption-safe exit with ``PREEMPTED_EXIT_CODE``).
 """
+
+import signal
+import threading
 
 import torch
 
 from . import mpi_ops, optim
+from .common.config import env_bool, env_int
+from .common.exceptions import PREEMPTED_EXIT_CODE  # noqa: F401
+from .utils import checkpoint as hvd_checkpoint
 from .ops.compression import Compression
 from .parallel import mesh as mesh_lib
 from .parallel import tensor_parallel as tpl
@@ -272,11 +281,13 @@ def make_gspmd_multi_step(loss_fn, tx, mesh, param_spec_tree, batch_spec):
 
 def make_eager_step(model, optimizer, loss_fn, compression=None):
     """``step(batch) -> loss``: this rank's forward and backward on its own
-    ``batch``, ONE ``allreduce_gradients`` of every gradient through the
-    eager core (enqueue → negotiated cycle → fused collective →
-    callback), then ``optimizer``'s step on the averaged gradients.
+    ``batch``, ONE grouped allreduce of every gradient through the eager
+    core (enqueue → negotiated cycle → fused collective → callback), then
+    ``optimizer``'s step on the averaged gradients.
     ``optimizer`` is a plain one (not a ``DistributedOptimizer``, which
-    would average a second time). A parameter without a gradient
+    would average a second time). The gradients keep their names from
+    step to step (``hvd.eager_grads.{i}``), so that a quantized wire
+    carries its error feedback. A parameter without a gradient
     contributes zeros and keeps none. Returns this rank's loss, detached
     and on the device."""
     params = [p for p in model.parameters() if p.requires_grad]
@@ -291,7 +302,10 @@ def make_eager_step(model, optimizer, loss_fn, compression=None):
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        reduced = optim.allreduce_gradients(grads, compression=compression)
+        reduced = [mpi_ops.synchronize(h) for h in
+                   mpi_ops.grouped_allreduce_async(
+                       grads, compression=compression,
+                       name="hvd.eager_grads")]
         for p, r in zip(params, reduced):
             if p.grad is not None:
                 p.grad.copy_(r)
@@ -354,3 +368,121 @@ def build_eager_image_step(model_name, batch_per_shard, image_size, device,
 
     step = make_eager_step(model, opt, loss_fn, compression=compression)
     return step, model, opt, (images, labels)
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint contract of a train loop
+
+
+class Checkpointer:
+    """The train loop's checkpoint contract: periodic async saves,
+    auto-resume and preemption-safe exit, in three calls (the port of
+    ``horovod_tpu/trainer.py``'s)::
+
+        ckpt = trainer.Checkpointer(args.checkpoint_dir,
+                                    every=args.checkpoint_every,
+                                    rank=rank, world_size=world)
+        state, start_step, extra = ckpt.resume(like=state_tree())
+        for i in range(start_step, steps):
+            ...one optimizer step...
+            if ckpt.step_end(i + 1, state_tree(), extra={"data_pos": i + 1}):
+                sys.exit(trainer.PREEMPTED_EXIT_CODE)
+        ckpt.close()
+
+    ``step_end`` saves every ``every`` steps through the async
+    ``CheckpointManager`` (the loop blocks only for the host snapshot)
+    and consumes preemption: on SIGTERM/SIGINT the in-flight step
+    finishes, then a BLOCKING emergency save of the state it was handed
+    commits and it returns True; the caller exits with
+    ``PREEMPTED_EXIT_CODE`` (45), which the elastic supervisor takes as
+    a restart on the same slots. ``extra`` carries what resume needs
+    beyond the tree (the data position) into the manifest.
+
+    Several ranks must stop at the same step, since each writes its shard
+    and rank 0 commits: ``agree(flag) -> bool`` (e.g. an allreduce of the
+    flag over the workers) makes the decision collective at every step
+    end. Signal handlers chain to a previously installed callable handler
+    and are installed from the main thread only; ``preemption=False`` or
+    HVD_CKPT_PREEMPTION=0 turns them off."""
+
+    def __init__(self, directory, every=None, keep=None, async_save=None,
+                 preemption=None, rank=0, world_size=1, manager=None,
+                 verbose=False, layout=None, agree=None):
+        self.every = env_int("CKPT_EVERY", 0) if every is None else int(every)
+        self.manager = manager or hvd_checkpoint.CheckpointManager(
+            directory, rank=rank, world_size=world_size, keep=keep,
+            async_save=async_save, layout=layout)
+        self.verbose = verbose
+        self._agree = agree
+        self._preempt = threading.Event()
+        self._signals = []
+        if preemption is None:
+            preemption = env_bool("CKPT_PREEMPTION", True)
+        if preemption:
+            self._install_handlers()
+
+    def _install_handlers(self):
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev = signal.getsignal(sig)
+
+                def handler(signum, frame, _prev=prev):
+                    self._preempt.set()
+                    # chain CUSTOM handlers only: SIG_DFL, SIG_IGN and the
+                    # default KeyboardInterrupt raiser would abort the
+                    # in-flight step this handler promises to finish
+                    if callable(_prev) and _prev not in (
+                            signal.SIG_IGN, signal.SIG_DFL,
+                            signal.default_int_handler):
+                        _prev(signum, frame)
+
+                signal.signal(sig, handler)
+                self._signals.append(sig)
+            except ValueError:
+                return  # not the main thread: run without handlers
+
+    @property
+    def preempted(self):
+        return self._preempt.is_set()
+
+    def resume(self, like=None, mesh=None, spec_tree=None):
+        """(state, start_step, extra): the newest committed checkpoint when
+        one exists, else ``(like, 0, {})``. ``spec_tree`` places the
+        restored leaves on the mesh (``restore_on_mesh``)."""
+        if not self.manager.exists():
+            return like, 0, {}
+        tree, step, extra = self.manager.restore(like=like, mesh=mesh,
+                                                 spec_tree=spec_tree)
+        if self.verbose:
+            print(f"checkpoint: resumed step {step} from "
+                  f"{self.manager.directory}", flush=True)
+        return tree, step, extra
+
+    def step_end(self, step, state, extra=None):
+        """Call after every completed optimizer step. Returns True when the
+        process should exit with PREEMPTED_EXIT_CODE (an emergency durable
+        checkpoint of ``state`` has already committed)."""
+        preempt = self._preempt.is_set()
+        if self._agree is not None:
+            preempt = bool(self._agree(preempt))
+        if preempt:
+            self.manager.save(state, step, extra=extra, block=True,
+                              kind="emergency")
+            if self.verbose:
+                print(f"checkpoint: preempted — emergency save at step "
+                      f"{step} committed, exiting {PREEMPTED_EXIT_CODE}",
+                      flush=True)
+            self.close()
+            return True
+        if self.every and step % self.every == 0:
+            self.manager.save(state, step, extra=extra)
+        return False
+
+    def close(self):
+        for sig in self._signals:
+            try:
+                signal.signal(sig, signal.SIG_DFL)
+            except ValueError:
+                pass
+        self._signals = []
+        self.manager.close()

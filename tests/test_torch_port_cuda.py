@@ -831,3 +831,45 @@ def test_eager_lm_step_on_the_card(core):
     assert all(map(lambda v: v == v, losses)) and losses[-1] < losses[0]
     assert fa.launch_counts.get("flash_bwd_sm90_dq", 0) == \
         3 * cfg.num_layers
+
+
+# -- the quantized wire on the card
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097, 1 << 20])
+def test_codecs_on_the_card_equal_the_cpu(card, codec, n):
+    """Every operation of the codec is IEEE f32 arithmetic, so the card's
+    payload bytes and scales equal the CPU's."""
+    from horovod_tpu_torch.ops import quantization as q
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=g) * 30
+    x[:min(n, 256)] = 0.0
+    if n > 300:
+        x[260], x[261] = 448.0, -448.0
+    for multiple in (None, 512):
+        qc, sc = q.encode(x, 256, codec, multiple=multiple)
+        qg, sg = q.encode(x.to(card), 256, codec, multiple=multiple)
+        assert torch.equal(qg.view(torch.uint8).cpu(), qc.view(torch.uint8))
+        assert torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32))
+        dc, dg = q.decode(qc, sc, 256, n), q.decode(qg, sg, 256, n)
+        assert torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32))
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_quantized_allreduce_world_one_on_nccl(card, codec, monkeypatch):
+    """The eager core's quantized leg at world 1 over NCCL: the requantized
+    decode of the rank's own contribution, as on the CPU."""
+    from horovod_tpu_torch.ops import quantization as q
+    monkeypatch.setenv("HOROVOD_COMPRESSION", codec)
+    mpi_ops.init()
+    try:
+        from horovod_tpu_torch.common import state
+        assert state.global_state().backend == "nccl"
+        x = torch.randn(10_000, generator=torch.Generator().manual_seed(1))
+        out = mpi_ops.allreduce(x.to(card), average=False)
+    finally:
+        mpi_ops.shutdown()
+    want, _ = q.stacked_wire_allreduce(x[None], 256, codec, False, 10_000)
+    assert torch.equal(out.cpu().view(torch.int32),
+                       want[0].contiguous().view(torch.int32))

@@ -4,12 +4,12 @@ the JAX package's.
 On one rank: the local plan fuses a burst into the buckets
 ``plan_buckets`` predicts and the plan cache serves repeats; duplicate
 names raise; callbacks fire at completion; the timeline holds the
-NEGOTIATE and ALLREDUCE spans; ``HOROVOD_AUTOTUNE`` and the unported
-codecs are refused; and the stall cases of ``tests/test_stall.py`` (the
-metrics gauge aside, which comes with slice 8): the warning after the
-check time, once per tensor, the StalledError at the shutdown deadline
-from ``synchronize`` and from the background scan, and the shutdown
-failing pending handles.
+NEGOTIATE and ALLREDUCE spans; ``HOROVOD_AUTOTUNE`` and unknown codecs
+are refused (the quantized ones run: tests/test_torch_port_quantization.py);
+and the stall cases of ``tests/test_stall.py`` (the metrics gauge aside,
+which comes with slice 8): the warning after the check time, once per
+tensor, the StalledError at the shutdown deadline from ``synchronize``
+and from the background scan, and the shutdown failing pending handles.
 
 The JAX eager core runs on 2 virtual CPU devices (``init(devices=
 jax.devices()[:2])``): its stacked row i is port rank i. Two gloo ranks,
@@ -185,7 +185,6 @@ def test_timeline_holds_negotiate_and_allreduce_spans(tmp_path,
 
 @pytest.mark.parametrize("var,value,err", [
     ("HOROVOD_AUTOTUNE", "1", NotImplementedError),
-    ("HOROVOD_COMPRESSION", "int8", NotImplementedError),
     ("HOROVOD_COMPRESSION", "zstd", ValueError)])
 def test_init_refuses_what_is_not_ported(monkeypatch, var, value, err):
     monkeypatch.setenv(var, value)

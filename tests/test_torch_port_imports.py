@@ -118,6 +118,29 @@ def test_scan_sees_the_serving_mesh_and_backend_modules(relpath):
     assert not _imported_roots(os.path.join(ROOT, relpath)) & set(FORBIDDEN)
 
 
+QUANTIZED_SPARSE_CHECKPOINT_LAUNCH_MODULES = (
+    "horovod_tpu_torch.ops.quantization", "horovod_tpu_torch.ops.sparse",
+    "horovod_tpu_torch.utils.checkpoint", "horovod_tpu_torch.word2vec",
+    "horovod_tpu_torch.run.settings", "horovod_tpu_torch.run.threads",
+    "horovod_tpu_torch.run.hosts", "horovod_tpu_torch.run.exec_util",
+    "horovod_tpu_torch.run.cache", "horovod_tpu_torch.run.services",
+    "horovod_tpu_torch.run.task_fn", "horovod_tpu_torch.run.cli",
+    "horovod_tpu_torch.run.elastic", "horovod_tpu_torch.run.drill",
+    "horovod_tpu_torch.run.__main__")
+
+
+@pytest.mark.parametrize("module", QUANTIZED_SPARSE_CHECKPOINT_LAUNCH_MODULES)
+def test_wire_checkpoint_and_launch_modules_are_scanned_and_import(module):
+    """The quantized and sparse wire, the checkpoint plane and the launch
+    layer are in the scan, import neither jax nor the JAX package, and
+    import without side effects."""
+    import importlib
+    path = os.path.join(*module.split(".")) + ".py"
+    assert path in _port_files()
+    assert not _imported_roots(os.path.join(ROOT, path)) & set(FORBIDDEN)
+    importlib.import_module(module)
+
+
 def test_build_compiles_every_kernel_source():
     from horovod_tpu_torch.ops import _build
     assert set(_build.SOURCES) == {
@@ -136,7 +159,8 @@ def test_scan_catches_forbidden_forms(tmp_path):
 
 
 def _entry_points():
-    from horovod_tpu_torch import models, mpi_ops, synthetic_benchmark, train_lm
+    from horovod_tpu_torch import (models, mpi_ops, synthetic_benchmark,
+                                   train_lm, word2vec)
     from horovod_tpu_torch.models import mnist
     from horovod_tpu_torch.models import transformer as tr
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -158,6 +182,8 @@ def _entry_points():
         "build_vgg": lambda: models.build("vgg11"),
         "build_inception": lambda: models.build("inception3"),
         "MnistCNN": lambda: mnist.MnistCNN(),
+        "train_lm_steps": lambda: train_lm.main(["--steps", "1"]),
+        "word2vec": lambda: word2vec.main(["--steps", "1"]),
     }
 
 
@@ -166,7 +192,7 @@ def _entry_points():
                                   "flash_attention", "init", "train_lm",
                                   "synthetic_benchmark", "build_resnet",
                                   "build_vgg", "build_inception",
-                                  "MnistCNN"])
+                                  "MnistCNN", "train_lm_steps", "word2vec"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
