@@ -203,6 +203,27 @@ on failure:
      (emergency save, exit 45) beside an uninterrupted tp-2 run, resumed
      at tp 2 (the later losses bit-equal) and at dp 2 (within 2^-8),
      save (blocking, whole) and restore ms; the phase's seconds;
+  3k. the observability planes: (a) the flagship eager step at full size
+     at world 1 over NCCL, 10 steps with the metrics, tracing, history
+     and alert planes on: the port's MetricsServer scraped over localhost
+     and parsed (flush cycles and fusion totals above 0, the tensors the
+     flushes drained equal to the gradients enqueued, the fusion
+     planner's tensors equal to the gradients times the plan misses),
+     every gradient of the last step with a closed enqueue -> negotiate
+     -> fusion -> execute -> callback span tree (each stage's median and
+     p99 ms, and first enqueue to last callback), the history segments
+     read back; then the same 10 steps from the same seed with every
+     plane off (fp32 masters bit-equal) and ms/step both ways over
+     interleaved windows (on, off, off, on); (b) run(fn, num_proc=2) on
+     the one card over gloo at depth 2 with HVD_METRICS_PORT: rank 0's
+     /metrics.json aggregate covers both ranks, and a stall forced on
+     rank 1 leaves rank 0's own flight dump and rank 1's dump solicited
+     over the negotiation wire; (c) the same two ranks under
+     HVD_CHAOS_SPEC (a 20 % response loss, a fixed seed): 3 steps with
+     masters bit-equal to (b)'s and injections above 0; (d) GPT-2 small
+     serving 8 requests at prompt 960 with request tracing: each result's
+     trace id and phase_ms summing to its total, the phases' p50 and
+     p99; the phase's seconds;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -329,14 +350,17 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters=20):
+def device_profile(fn, iters=20, events_if_empty=True):
     """Device time per call from torch.profiler over ``iters`` calls,
-    counting each event that ran on the card once: (total ms, None when
-    nothing was recorded; {kernel name: ms})."""
+    counting each event that ran on the card once: (total ms; {kernel
+    name: ms}). A trace that recorded no device event is taken again, up
+    to three times (the profiler has lost whole traces on this card);
+    after that the total is CUDA events' span per call, with a line that
+    says so and an empty dict, or None with ``events_if_empty`` off."""
     fn()
     torch.cuda.synchronize()
     by_name = {}
-    for _ in range(2):   # a trace that recorded nothing is taken again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -346,12 +370,19 @@ def device_profile(fn, iters=20):
                 by_name[e.name] = (by_name.get(e.name, 0.0) +
                                    e.time_range.elapsed_us() / 1e3 / iters)
         if by_name:
-            break
-    return sum(by_name.values()) or None, by_name
+            return sum(by_name.values()), by_name
+    if not events_if_empty:
+        return None, by_name
+    ms = time_ms(fn, iters, 1)
+    print(f"device_profile: torch.profiler recorded no device event in 3 "
+          f"traces of {iters} calls of "
+          f"{getattr(fn, '__qualname__', repr(fn))}; CUDA events' "
+          f"{ms:.4f} ms per call stand in for its device ms", flush=True)
+    return ms, by_name
 
 
-def device_ms(fn, iters=20):
-    return device_profile(fn, iters)[0]
+def device_ms(fn, iters=20, events_if_empty=True):
+    return device_profile(fn, iters, events_if_empty)[0]
 
 
 def kernel_class(name):
@@ -2149,7 +2180,7 @@ def time_pair(fn, iters=50):
     it; the profiler's figure is kept unless it reads under 0.8 of the
     event figure (the profiler has lost events on this card), then the
     event figure is."""
-    ev, dvc = time_ms(fn, iters, 5), device_ms(fn, iters)
+    ev, dvc = time_ms(fn, iters, 5), device_ms(fn, iters, False)
     if dvc is None or dvc < 0.8 * ev:
         return ev, dvc, ev, "event"
     return ev, dvc, dvc, "profiler"
@@ -2244,7 +2275,7 @@ def time_fwd(card, dev, variant, b, s, h, d, seed):
             *(t.view(b, h, s, d) for t in (qf, kf, vf)), is_causal=True)}
     ev = {k_: time_ms(fn, *((2, 1) if k_ == "plain" else ()))
           for k_, fn in calls.items()}
-    dvc = {k_: device_ms(fn, 2 if k_ == "plain" else 20)
+    dvc = {k_: device_ms(fn, 2 if k_ == "plain" else 20, False)
            for k_, fn in calls.items()}
     ms = {k_: dvc[k_] if dvc[k_] is not None else ev[k_] for k_ in ev}
     ops, nbytes = attention_work(b * h, s, d, True, 2)
@@ -2644,8 +2675,8 @@ def time_bn_kernels(card, dev, step_shapes, launches, errs):
     for name, (kernel, plain, library, inputs) in calls.items():
         ev = {"kernel": time_ms(kernel), "plain": time_ms(plain),
               "library": time_ms(library)}
-        dvc = {"kernel": device_ms(kernel), "plain": device_ms(plain),
-               "library": device_ms(library)}
+        dvc = {k: device_ms(fn, events_if_empty=False) for k, fn in
+               (("kernel", kernel), ("plain", plain), ("library", library))}
         ms = {k: dvc[k] if dvc[k] is not None else ev[k] for k in ev}
         ops, nbytes = bn_work(rows, c, inputs, 2)
         b_ms, b_by = bound(ops, nbytes, PEAK_FP32_FLOPS)
@@ -3993,6 +4024,434 @@ def run_phase_3j(card, dev):
     return {"overlap": overlap, "ckpt": ckpt}
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the observability path on the card: (a) the flagship eager
+# step at world 1 over NCCL with the metrics, tracing, history and alert
+# planes on (the exposition server scraped over localhost, every
+# gradient's span tree, the history read back), then with them off;
+# (b) two ranks on the card over gloo: rank 0's aggregate covers both
+# ranks, and a stall forced on rank 1 yields rank 0's own flight dump and
+# the solicited remote one; (c) the same two ranks under a chaos spec;
+# (d) GPT-2 small serving 8 requests at prompt 960 with request tracing
+
+
+P3K_DIR = os.path.join(ROOT, "build", "phase3k")
+P3K_STEPS = 10
+P3K_ROUNDS, P3K_WINDOW = 4, 5   # rounds of on, off, off, on windows
+P3K_CHAOS = "hvd.negotiation:*:drop_response:0.2"
+P3K_STAGES = ("enqueue", "negotiate", "fusion", "execute", "callback")
+
+
+def _planes(on, rank=0, history_dir=None):
+    """Every observability plane of this process on (fresh) or off."""
+    from horovod_tpu_torch.utils import alerts, history, metrics, tracing
+    metrics.reset(enabled=on)
+    tracing.reset(enabled=on, rank=rank)
+    if on:
+        # the writer's own interval (HVD_HISTORY_INTERVAL_S, 30 s by
+        # default): the checks flush it
+        history.reset(enabled=True, dirpath=history_dir, rank=rank)
+    else:
+        history.reset(enabled=False)
+    alerts.reset(enabled=on)
+
+
+def _observed_step(step, toks, i):
+    """One eager step, then the per-step ticks of the history and alert
+    planes (what the JAX package's ``instrument_step`` does each step)."""
+    from horovod_tpu_torch.utils import alerts, history
+    loss = step(toks[i % toks.shape[0]])
+    now = time.monotonic()
+    history.poke(now)
+    alerts.tick(now)
+    return loss
+
+
+def _percentile(vals, q):
+    return float(torch.quantile(torch.tensor(vals, dtype=torch.float64),
+                                q)) if vals else float("nan")
+
+
+def _span_trees(spans, names):
+    """{name: the stage-ordered spans of its newest trace} of ``names``."""
+    by_name = {}
+    for s in spans:
+        if s.get("tensor") in names and s["stage"] in P3K_STAGES:
+            by_name.setdefault(s["tensor"], []).append(s)
+    trees = {}
+    for name in names:
+        spans_of = by_name.get(name, [])
+        if not spans_of:
+            raise AssertionError(f"no spans for {name}")
+        last = spans_of[-1]["trace_id"]
+        trees[name] = sorted((s for s in spans_of if s["trace_id"] == last),
+                             key=lambda s: (s["start_us"], s["span_id"]))
+    return trees
+
+
+def check_observed_eager(card, dev):
+    """Phase 3k (a): the flagship eager step (GPT-2 small, full width and
+    depth, b16 x s1024) at world 1 over NCCL, P3K_STEPS steps with every
+    plane on, then from the same seed with every plane off: fp32 masters
+    bit-equal; ms/step of both, interleaved windows."""
+    import shutil
+    import urllib.request
+    from horovod_tpu_torch.common import state
+    from horovod_tpu_torch.ops import eager as eager_mod
+    from horovod_tpu_torch.utils import history, metrics, tracing
+    t0 = time.perf_counter()
+    hist_dir = os.path.join(P3K_DIR, "history")
+    shutil.rmtree(hist_dir, ignore_errors=True)
+    coord = state.global_state().coordinator
+    # phase 3j ran this step's gradient set: plan it afresh here, so the
+    # fusion planner's totals count this run's plan
+    coord.plan_cache.clear()
+    flagship = train_lm.flagship_config(True)
+    _planes(True, history_dir=hist_dir)
+    server = metrics.MetricsServer(
+        0, lambda: metrics.get_registry().snapshot(),
+        remote_snapshots_fn=coord._remote_metrics_snapshots,
+        host="127.0.0.1")
+    try:
+        step_on, model_on, _, toks = trainer.build_eager_lm_step(
+            flagship, TRAIN_BATCH, TRAIN_SEQ, dev, inner=P3K_STEPS)
+        n_grads = sum(1 for p in model_on.parameters() if p.requires_grad)
+        names = [f"hvd.eager_grads.{i}" for i in range(n_grads)]
+        fa.reset_launch_counts()
+        for i in range(P3K_STEPS):
+            loss = _observed_step(step_on, toks, i)
+        loss.item()
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        spans = tracing.get_tracer().spans()
+        history.flush(wait=True)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/metrics", timeout=10) as r:
+            parsed = metrics.parse_prometheus(r.read().decode())
+    finally:
+        server.close()
+
+    def sample(name, series=None):
+        out = 0.0
+        for labels, v in parsed.get(name, {"samples": []})["samples"]:
+            if labels.get("__series__") == series:
+                out += v
+        return out
+    flushes = sample("hvd_flush_tensors", "count")
+    drained = sample("hvd_flush_tensors", "sum")
+    fused = sample("hvd_fusion_tensors_total")
+    misses = sample("hvd_plan_cache_misses_total")
+    hits = sample("hvd_plan_cache_hits_total")
+    if not (flushes > 0 and fused > 0 and sample("hvd_fusion_bytes_total")
+            > 0 and sample("hvd_fusion_buckets_total") > 0):
+        raise AssertionError(f"cycles or fusion totals not above 0: "
+                             f"{sorted(parsed)}")
+    if drained != P3K_STEPS * n_grads or fused != n_grads * misses or \
+            misses + hits != flushes:
+        raise AssertionError(
+            f"flushes drained {drained} tensors of {P3K_STEPS} x {n_grads} "
+            f"gradients enqueued; fusion planned {fused} ({misses} plan "
+            f"misses, {hits} hits, {flushes} flushes)")
+    trees = _span_trees(spans, set(names))
+    stage_ms = {s: [] for s in P3K_STAGES}
+    first, last = None, None
+    for name, tree in trees.items():
+        if [s["stage"] for s in tree] != list(P3K_STAGES) or \
+                any(s["status"] != "ok" for s in tree) or \
+                any(c["parent_id"] != p["span_id"]
+                    for p, c in zip(tree, tree[1:])):
+            raise AssertionError(f"{name}: span tree {tree}")
+        for s in tree:
+            stage_ms[s["stage"]].append((s["end_us"] - s["start_us"]) / 1e3)
+        first = min(first or tree[0]["start_us"], tree[0]["start_us"])
+        last = max(last or tree[-1]["end_us"], tree[-1]["end_us"])
+    records, torn = history.read_records(hist_dir, rank=0)
+    flush_series = history.series(records, "hvd_flush_tensors")
+    if torn or not records or not flush_series:
+        raise AssertionError(f"history: {len(records)} records, {torn} "
+                             f"torn, series {flush_series}")
+    params_on = [p.detach().clone() for p in model_on.parameters()]
+
+    # the same steps from the same seed with every plane off
+    _planes(False)
+    step_off, model_off, _, _ = trainer.build_eager_lm_step(
+        flagship, TRAIN_BATCH, TRAIN_SEQ, dev, inner=P3K_STEPS)
+    for i in range(P3K_STEPS):
+        loss = _observed_step(step_off, toks, i)
+    loss.item()
+    same = all(torch.equal(a, b.detach()) for a, b in
+               zip(params_on, model_off.parameters()))
+    if not same:
+        raise AssertionError("planes on/off: fp32 masters differ")
+    del params_on
+    # interleaved timing windows: on, off, off, on in every round
+    windows = {True: [], False: []}
+    for _ in range(P3K_ROUNDS):
+        for on, step in ((True, step_on), (False, step_off),
+                         (False, step_off), (True, step_on)):
+            _planes(on, history_dir=hist_dir)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(P3K_WINDOW):
+                loss = _observed_step(step, toks, i)
+            loss.item()
+            windows[on].append((time.perf_counter() - t1) / P3K_WINDOW
+                               * 1e3)
+    _planes(True)
+    ms_on, ms_off = min(windows[True]), min(windows[False])
+    med_on = _percentile(windows[True], 0.5)
+    med_off = _percentile(windows[False], 0.5)
+    med = {s: round(_percentile(v, 0.5), 4) for s, v in stage_ms.items()}
+    p99 = {s: round(_percentile(v, 0.99), 4) for s, v in stage_ms.items()}
+    log(card, f"phase 3k (a): flagship eager step (gpt2_small_tpu, "
+              f"b{TRAIN_BATCH} x s{TRAIN_SEQ}, world 1 over NCCL, "
+              f"{n_grads} gradients a step), {P3K_STEPS} steps with "
+              f"metrics, tracing, history and alerts on: the port's "
+              f"MetricsServer scraped over localhost ({len(parsed)} "
+              f"families): {int(flushes)} flush cycles drained "
+              f"{int(drained)} tensors (= {P3K_STEPS} x {n_grads} "
+              f"enqueued), fusion planned {int(fused)} tensors "
+              f"{int(sample('hvd_fusion_bytes_total'))} bytes in "
+              f"{int(sample('hvd_fusion_buckets_total'))} buckets "
+              f"({int(misses)} plan miss, {int(hits)} hits); wire bytes "
+              f"{int(sample('hvd_wire_bytes_total'))}; every gradient of "
+              f"the last step has a closed enqueue -> negotiate -> fusion "
+              f"-> execute -> callback tree; history {len(records)} "
+              f"records read back; launches {launches}")
+    log(card, f"phase 3k (a): the last step's spans, ms per gradient "
+              f"median {med}, p99 {p99}; first enqueue to last callback "
+              f"{(last - first) / 1e3:.3f} ms (the host's wait at the "
+              f"gradient sync: execute closes at the bucket's CUDA "
+              f"completion event)")
+    log(card, f"phase 3k (a): fp32 masters after {P3K_STEPS} steps "
+              f"bit-equal with every plane off; ms/step over "
+              f"{2 * P3K_ROUNDS} windows of {P3K_WINDOW} steps each way "
+              f"(on, off, off, on), best / median: planes on "
+              f"{ms_on:.3f} / {med_on:.3f}, off {ms_off:.3f} / "
+              f"{med_off:.3f}, overhead {(ms_on / ms_off - 1) * 100:+.2f} "
+              f"/ {(med_on / med_off - 1) * 100:+.2f} %; windows on "
+              f"{[round(w, 3) for w in windows[True]]}, off "
+              f"{[round(w, 3) for w in windows[False]]}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    del step_on, model_on, step_off, model_off, toks
+    eager_mod.reset_tally()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms_on": ms_on, "ms_off": ms_off, "med_on": med_on,
+            "med_off": med_off, "stage_ms_median": med,
+            "stage_ms_p99": p99, "sync_ms": (last - first) / 1e3,
+            "n_grads": n_grads}
+
+
+def _p3k_ranks_job():
+    """run(fn)'s worker of phase 3k (b) and (c): the eager step at depth
+    P3J_LAYERS, P3J_STEPS steps; rank 0 scrapes its aggregate until it
+    covers both ranks; then, with ``stall``, rank 1 holds back one
+    allreduce past the stall deadline and rank 0 reports the flight dumps
+    its coordinator wrote."""
+    def fn(layers, steps, stall):
+        import dataclasses
+        import hashlib
+        import json
+        import os
+        import time
+        import urllib.request
+        import torch
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import train_lm, trainer
+        from horovod_tpu_torch.common import state
+        from horovod_tpu_torch.utils import metrics
+        hvd.init(device="cuda")
+        r = hvd.rank()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = dataclasses.replace(train_lm.flagship_config(True),
+                                  num_layers=layers)
+        step, model, _, toks = trainer.build_eager_lm_step(
+            cfg, 16, 1024, dev, inner=steps)
+        losses = [float(step(toks[i])) for i in range(steps)]
+        masters = [hashlib.sha256(p.detach().cpu().numpy().tobytes())
+                   .hexdigest() for p in model.parameters()]
+        out = {"rank": r, "losses": losses, "masters": masters}
+        # one more allreduce after the interval, so the worker's
+        # snapshot rides a cycle
+        time.sleep(float(os.environ["HVD_METRICS_INTERVAL"]) * 2)
+        hvd.allreduce(torch.ones(4, device=dev), name="p3k.late")
+        if r == 0:
+            port = int(os.environ["HVD_METRICS_PORT"])
+            deadline = time.monotonic() + 30
+            while True:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics.json",
+                        timeout=10) as resp:
+                    data = json.loads(resp.read().decode())
+                agg = data["aggregate"]
+                if agg.get("ranks") == [0, 1] or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            out["agg_ranks"] = agg.get("ranks")
+            out["ranks_in_view"] = sorted(data["ranks"])
+            vals = {}
+            for name in ("hvd_negotiation_cycles_total",
+                         "hvd_coordinator_cycles_total",
+                         "hvd_fusion_tensors_total",
+                         "hvd_chaos_injections_total"):
+                fam = agg["metrics"].get(name, {"values": []})
+                vals[name] = sum(v["value"] for v in fam["values"])
+            out["agg"] = vals
+        if stall:
+            cfg_live = state.global_state().config
+            cfg_live.stall_warning_time_seconds = 0.5
+            if r == 1:
+                time.sleep(2.5)  # held back past the stall deadline
+            hvd.allreduce(torch.ones(4, device=dev), name="p3k.stall")
+            if r == 0:
+                # rank 1's background cycles keep heartbeating; the
+                # first after the solicitation carries its dump
+                svc = state.global_state().coordinator._negotiator.service
+                deadline = time.monotonic() + 20
+                while 1 not in svc.flight_dump_view() and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.05)
+                dumps = dict(svc.flight_dump_view())
+                dumps[0] = os.path.join(os.environ["HVD_FLIGHT_DIR"],
+                                        "flight-rank0.json")
+                out["dumps"] = {}
+                for rank, path in dumps.items():
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            d = json.load(f)
+                        out["dumps"][rank] = {
+                            "reason": d["reason"], "spans": len(d["spans"]),
+                            "held": sum(s.get("tensor") == "p3k.stall"
+                                        for s in d["spans"] +
+                                        d["open_spans"]),
+                            "stall_events": sum(
+                                e["event"] == "stall"
+                                for e in d["events"])}
+            else:
+                time.sleep(1.0)
+        hvd.shutdown()
+        return out
+    return fn
+
+
+def run_observed_ranks(card):
+    """Phase 3k (b) and (c): two ranks on the one card over gloo, the
+    clean run with a stall forced on rank 1, then the same steps under
+    HVD_CHAOS_SPEC (fp32 masters bit-equal to the clean run's)."""
+    import shutil
+    from horovod_tpu_torch.run.launch import run
+    flight = os.path.join(P3K_DIR, "flight")
+    shutil.rmtree(flight, ignore_errors=True)
+    port = 20000 + os.getpid() % 20000
+    # the launcher's SIGTERM to exiting workers must not overwrite the
+    # stall's dumps
+    base = {"HVD_METRICS_PORT": str(port), "HVD_METRICS_INTERVAL": "0.2",
+            "HVD_FLIGHT_DIR": flight, "HVD_FLIGHT_SIGTERM": "0"}
+    t0 = time.perf_counter()
+    clean = run(_p3k_ranks_job(), args=(P3J_LAYERS, P3J_STEPS, True),
+                num_proc=2, env=base, start_timeout_s=P3J_RUN_S)
+    t1 = time.perf_counter()
+    r0 = clean[0]
+    if r0["agg_ranks"] != [0, 1] or r0["agg"][
+            "hvd_negotiation_cycles_total"] <= 0:
+        raise AssertionError(f"rank 0's aggregate: {r0['agg_ranks']} "
+                             f"{r0['agg']}")
+    dumps = r0["dumps"]
+    if sorted(dumps) != [0, 1] or not dumps[0]["held"] or \
+            not dumps[0]["stall_events"]:
+        raise AssertionError(f"the stall's flight dumps: {dumps}")
+    log(card, f"phase 3k (b): 2 ranks on one card (gloo), eager step "
+              f"width 768 depth {P3J_LAYERS}, {P3J_STEPS} steps: rank 0's "
+              f"/metrics.json aggregate covers ranks {r0['agg_ranks']} "
+              f"(per-rank views {r0['ranks_in_view']}; aggregate "
+              f"{r0['agg']}); a stall forced on rank 1 (held 2.5 s past a "
+              f"0.5 s deadline): rank 0's own flight dump {dumps[0]} and "
+              f"the solicited dump of rank 1 its coordinator wrote "
+              f"{dumps[1]}; {t1 - t0:.1f} s")
+    env = dict(base, HVD_CHAOS_SPEC=P3K_CHAOS, HVD_CHAOS_SEED="1234",
+               HVD_METRICS_PORT=str(port + 2),
+               HVD_FLIGHT_DIR=os.path.join(P3K_DIR, "flight-chaos"))
+    chaos = run(_p3k_ranks_job(), args=(P3J_LAYERS, P3J_STEPS, False),
+                num_proc=2, env=env, start_timeout_s=P3J_RUN_S)
+    injected = chaos[0]["agg"]["hvd_chaos_injections_total"]
+    same = all(c["masters"] == k["masters"] for c, k in zip(clean, chaos))
+    if not same or injected <= 0:
+        raise AssertionError(f"chaos run: masters equal {same}, "
+                             f"injections {injected}")
+    log(card, f"phase 3k (c): the same 2 ranks under HVD_CHAOS_SPEC="
+              f"{P3K_CHAOS!r} (seed 1234): {int(injected)} injections "
+              f"(hvd_chaos_injections_total in rank 0's aggregate), "
+              f"{P3J_STEPS} steps finished with fp32 masters bit-equal to "
+              f"(b)'s clean run on both ranks (sha256 of every "
+              f"parameter's bytes), losses "
+              f"{[round(v, 6) for v in chaos[0]['losses']]}; "
+              f"{time.perf_counter() - t1:.1f} s")
+    return {"injected": injected}
+
+
+def check_observed_serving(card, dev, cfg, model):
+    """Phase 3k (d): GPT-2 small serves 8 requests at prompt 960 (prefill
+    through B2; decode attention is the plain one, as in the JAX engine)
+    with request tracing on: every result
+    carries a trace id and phase_ms summing to its request's total; the
+    p50 and p99 of each phase."""
+    from horovod_tpu_torch.utils import tracing
+    _planes(True, history_dir=os.path.join(P3K_DIR, "serve-history"))
+    requests = [Request(f"p3k-{i}", tuple(
+        int(x) for x in (((i + 3) * 7919 + 104729 * j) % 50000 + 1
+                         for j in range(960))), max_new_tokens=16)
+        for i in range(8)]
+    fa.reset_launch_counts()
+    results, steps, wall, _ = serve(cfg, model, requests, dev)
+    launches = dict(fa.launch_counts)
+    if set(launches) != {"flash_fwd_lazy"}:
+        raise AssertionError(f"serving at prompt 960 launched {launches}")
+    roots = {(s["tensor"], s["trace_id"]): s
+             for s in tracing.get_tracer().spans()
+             if s["stage"] == tracing.REQUEST}
+    phases = {}
+    worst = 0.0
+    for r in results:
+        root = roots.get((r.request_id, r.trace_id))
+        if not r.trace_id or root is None or not r.phase_ms:
+            raise AssertionError(f"{r.request_id}: trace {r.trace_id}, "
+                                 f"phases {r.phase_ms}")
+        gap = (root["end_us"] - root["start_us"]) / 1e3 - \
+            sum(r.phase_ms.values())
+        if not -0.003 <= gap < 1.0:
+            raise AssertionError(f"{r.request_id}: phases {r.phase_ms} "
+                                 f"do not sum to the total ({gap} ms off)")
+        worst = max(worst, abs(gap))
+        for k, v in r.phase_ms.items():
+            phases.setdefault(k, []).append(v)
+    pct = {k: (round(_percentile(v, 0.5), 3), round(_percentile(v, 0.99),
+                                                    3))
+           for k, v in phases.items()}
+    log(card, f"phase 3k (d): served {len(results)} requests at prompt 960 "
+              f"(16 new tokens each, {SERVE_SLOTS} slots) in {steps} steps, "
+              f"{wall:.3f} s; every result carries a trace id and phase_ms "
+              f"summing to its root span's duration (largest gap "
+              f"{worst:.3f} ms); phase ms (p50, p99): {pct}; launches "
+              f"{launches}")
+    return pct
+
+
+def run_phase_3k(card, dev, cfg, model):
+    """Phase 3k, each part fatal."""
+    t0 = time.perf_counter()
+    os.makedirs(P3K_DIR, exist_ok=True)
+    eager = check_observed_eager(card, dev)
+    ranks = run_observed_ranks(card)
+    serving = check_observed_serving(card, dev, cfg, model)
+    # phase 4 times kernels and steps with every plane off (the history
+    # writer's thread closed)
+    _planes(False)
+    log(card, f"phase 3k: {time.perf_counter() - t0:.1f} s in all")
+    return {"eager": eager, "ranks": ranks, "serving": serving}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4192,6 +4651,10 @@ def main():
 
     # ---- phase 3j: op/axis_name, run(fn), mpirun, overlap, tp checkpoint
     run_phase_3j(card, dev)
+
+    # ---- phase 3k: the observability planes on the eager core, two
+    # ranks, chaos and serving
+    run_phase_3k(card, dev, cfg, model)
 
     # ---- phase 4: timings
     kernels = []

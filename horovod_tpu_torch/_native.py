@@ -42,7 +42,8 @@ def _configure(lib):
         c.POINTER(c.c_int32)]
 
     lib.hvd_timeline_create.restype = c.c_void_p
-    lib.hvd_timeline_create.argtypes = [c.c_char_p, c.c_int]
+    lib.hvd_timeline_create.argtypes = [c.c_char_p, c.c_int, c.c_int64,
+                                        c.c_int64]
     lib.hvd_timeline_destroy.argtypes = [c.c_void_p]
     lib.hvd_timeline_event.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
                                        c.c_int]

@@ -55,10 +55,26 @@ def env_str(name, default=None):
 
 ENV_REGISTRY = (
     ("HOROVOD_AUTOTUNE", True, "0", "common/config.py",
-     "The online fusion-parameter autotuner: not ported yet (slice 8); "
+     "The online fusion-parameter autotuner: not ported yet; "
      "init() raises NotImplementedError when it is set."),
+    ("HOROVOD_ALERT", True, "1", "utils/alerts.py",
+     "Set 0 to replace the AlertManager with a no-op (no rule "
+     "evaluation, no incidents; the hvd_alert_state gauges never "
+     "appear)."),
+    ("HOROVOD_ALERT_FOR_S", True, "5.0", "utils/alerts.py",
+     "Default breach hold before an alert rule fires (and clear hold "
+     "before it resolves)."),
+    ("HOROVOD_ALERT_INTERVAL_S", True, "1.0", "utils/alerts.py",
+     "Least seconds between alert-rule evaluations."),
     ("HOROVOD_CACHE_CAPACITY", True, "1024", "common/config.py",
      "Response-cache capacity of the negotiation client."),
+    ("HOROVOD_CHAOS_DELAY_MS", True, "50.0", "run/chaos.py",
+     "Injected delay for chaos delay_request/delay_response rules."),
+    ("HOROVOD_CHAOS_SEED", True, "0", "run/chaos.py",
+     "Deterministic seed for chaos-rule sampling."),
+    ("HOROVOD_CHAOS_SPEC", True, None, "run/chaos.py",
+     "Chaos-plane fault spec (run/chaos.py grammar); unset disables "
+     "injection."),
     ("HOROVOD_COMPRESSION", True, "none", "common/config.py",
      "Wire codec for gradient allreduces: none, fp16, bf16, or the "
      "block-scaled int8/fp8 (two-phase encoded allreduce with error "
@@ -69,6 +85,15 @@ ENV_REGISTRY = (
      "contact (0: the eager core's built-in 5 s)."),
     ("HOROVOD_CYCLE_TIME", True, "5.0", "common/config.py",
      "Negotiation cycle time in milliseconds."),
+    ("HOROVOD_FLIGHT_CYCLES", True, "64", "utils/tracing.py",
+     "Flight-recorder ring size for negotiation-cycle records."),
+    ("HOROVOD_FLIGHT_DIR", True, None, "utils/tracing.py",
+     "Directory flight-recorder dumps are written to (default: "
+     "<tmp>/hvd-flight)."),
+    ("HOROVOD_FLIGHT_SIGTERM", True, "1", "utils/tracing.py",
+     "Set 0 to skip installing the SIGTERM flight-dump handler."),
+    ("HOROVOD_FLIGHT_SPANS", True, "2048", "utils/tracing.py",
+     "Flight-recorder ring size for finished spans."),
     ("HOROVOD_FUSION_THRESHOLD", True, "67108864", "common/config.py",
      "Fusion-buffer byte threshold for bucketing collectives."),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", True, "0", "ops/operation_manager.py",
@@ -77,10 +102,32 @@ ENV_REGISTRY = (
      "hierarchy axes."),
     ("HOROVOD_HIERARCHICAL_ALLGATHER", True, "0", "common/config.py",
      "Two-level allgather (parsed; no port path reads it yet)."),
+    ("HOROVOD_HISTORY", True, "1", "utils/history.py",
+     "Set 0 to disable the durable run-history WAL (per-rank "
+     "delta-encoded metrics snapshots + the event ring, written by a "
+     "background thread)."),
+    ("HOROVOD_HISTORY_DIR", True, None, "utils/history.py",
+     "Directory history segments and the rank-0 run manifest are "
+     "written to (default: <tmp>/hvd-history)."),
+    ("HOROVOD_HISTORY_INTERVAL_S", True, "30.0", "utils/history.py",
+     "Seconds between history snapshots; pokes inside the interval "
+     "are a lock-free no-op on the instrument path."),
+    ("HOROVOD_HISTORY_MAX_MB", True, "64.0", "utils/history.py",
+     "On-disk budget per rank for history segments."),
     ("HOROVOD_LOG_LEVEL", True, "WARNING", "common/config.py",
      "Framework log level (TRACE/DEBUG/INFO/WARNING/ERROR/FATAL)."),
     ("HOROVOD_LOG_TIMESTAMP", True, "0", "common/config.py",
      "Prefix log lines with timestamps."),
+    ("HOROVOD_METRICS", True, "1", "utils/metrics.py",
+     "Set 0 to replace the metrics registry with no-op instruments."),
+    ("HOROVOD_METRICS_EVENT_LOG", True, None, "utils/metrics.py",
+     "JSONL file the metrics event channel appends to."),
+    ("HOROVOD_METRICS_INTERVAL", True, "5.0", "common/config.py",
+     "Seconds between a worker's piggybacked metrics snapshots to "
+     "rank 0."),
+    ("HOROVOD_METRICS_PORT", True, "0", "common/config.py",
+     "Base HTTP port of /metrics and /metrics.json: rank r binds it + "
+     "r, rank 0 also serving the aggregate (0 disables)."),
     ("HOROVOD_OVERLAP_EAGER", True, "0", "optim.py",
      "Overlap plane: allreduce_gradients and the eager step enqueue in "
      "reverse order and drain every filled fusion bucket while later "
@@ -108,6 +155,13 @@ ENV_REGISTRY = (
     ("HOROVOD_RING_ALLREDUCE", True, "0", "ops/operation_manager.py",
      "The explicit ring allreduce (N-1 neighbour exchanges of "
      "reduce-scatter, then of all-gather) over one axis."),
+    ("HOROVOD_SERVE_TRACE", True, "1", "serving/tracing.py",
+     "Set 0 to disable request-path tracing (per-request spans and "
+     "phase decomposition) in the serving plane."),
+    ("HOROVOD_SERVE_TRACE_SLOW_TICK_MS", True, "250.0",
+     "serving/tracing.py",
+     "Decode ticks slower than this emit a slow_decode_tick event "
+     "into the metrics ring."),
     ("HOROVOD_STALL_CHECK_DISABLE", True, "0", "common/config.py",
      "Disable the coordinator's stalled-rank warnings."),
     ("HOROVOD_STALL_CHECK_TIME_SECONDS", True, "60.0",
@@ -120,6 +174,12 @@ ENV_REGISTRY = (
      "Write a Chrome-trace timeline to this file."),
     ("HOROVOD_TIMELINE_MARK_CYCLES", True, "0", "common/config.py",
      "Mark negotiation cycles in the timeline."),
+    ("HOROVOD_TRACE", True, "1", "utils/tracing.py",
+     "Set 0 to replace the tracing plane (spans + flight recorder) "
+     "with no-ops."),
+    ("HOROVOD_TRACE_SLOW_MS", True, "100.0", "utils/tracing.py",
+     "Spans slower than this emit a slow_span event into the metrics "
+     "ring."),
 )
 
 
@@ -150,6 +210,11 @@ class HorovodConfig:
     # before a worker fails its pending work. 0 = the eager core's
     # built-in default (EagerCoordinator.POISON_GRACE_S).
     coordinator_lost_timeout_seconds: float = 0.0
+    # Telemetry plane (utils/metrics.py): base port of the per-rank
+    # exposition server (rank r binds metrics_port + r; 0 disables) and
+    # the seconds between a worker's piggybacked snapshots to rank 0.
+    metrics_port: int = 0
+    metrics_interval: float = 5.0
     # The autotuner of fusion_threshold / cycle_time_ms (not ported yet).
     autotune: bool = False
     # Wire codec of the eager core's allreduces (and the default of
@@ -206,6 +271,8 @@ class HorovodConfig:
                 "RANK_LOST_TIMEOUT_SECONDS", 0.0),
             coordinator_lost_timeout_seconds=env_float(
                 "COORDINATOR_LOST_TIMEOUT_SECONDS", 0.0),
+            metrics_port=env_int("METRICS_PORT", 0),
+            metrics_interval=env_float("METRICS_INTERVAL", 5.0),
             autotune=env_bool("AUTOTUNE", False),
             compression=(env_str("COMPRESSION", "none") or "none")
             .strip().lower(),

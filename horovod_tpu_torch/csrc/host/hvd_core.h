@@ -44,7 +44,12 @@ HVD_EXPORT int64_t hvd_plan_buckets(int64_t n, const int64_t* nbytes,
                                     int64_t threshold, int32_t* bucket_out);
 
 // ---- timeline -------------------------------------------------------------
-HVD_EXPORT void* hvd_timeline_create(const char* path, int mark_cycles);
+// base_ns: the monotonic base (ns of CLOCK_MONOTONIC) that ts 0 stands
+// for; epoch_us_at_ts0: the wall clock at that base, written as the
+// clock_sync event. Both are the shared clock's (utils/metrics.py).
+HVD_EXPORT void* hvd_timeline_create(const char* path, int mark_cycles,
+                                     int64_t base_ns,
+                                     int64_t epoch_us_at_ts0);
 HVD_EXPORT void hvd_timeline_destroy(void* timeline);
 // phase: 0 = begin span, 1 = end span, 2 = instant event
 HVD_EXPORT void hvd_timeline_event(void* timeline, const char* tensor,

@@ -24,18 +24,17 @@ struct Event {
 };
 
 struct Timeline {
-  explicit Timeline(const char* path, int mark_cycles)
+  // base_ns: the shared clock's base in nanoseconds of CLOCK_MONOTONIC
+  // (the clock steady_clock reads on Linux, as Python's
+  // time.monotonic_ns does); epoch_us_at_ts0: the wall-clock epoch
+  // sampled with it. Both come from the process-wide clock of
+  // utils/metrics.py, so timeline ts values, metric events and spans
+  // share one base.
+  Timeline(const char* path, int mark_cycles, int64_t base_ns,
+           int64_t epoch_us_at_ts0)
       : mark_cycles(mark_cycles != 0),
-        start(std::chrono::steady_clock::now()),
-        // wall-clock epoch at ts=0, sampled in the SAME initializer list
-        // as the monotonic base (fopen below can take ms on a network
-        // filesystem, which would skew every span in the merged view):
-        // a merged view aligns these host spans with a device trace
-        // through it
-        epoch_us_at_start(
-            std::chrono::duration_cast<std::chrono::microseconds>(
-                std::chrono::system_clock::now().time_since_epoch())
-                .count()) {
+        base_ns(base_ns),
+        epoch_us_at_start(epoch_us_at_ts0) {
     file = std::fopen(path, "w");
     healthy = file != nullptr;
     if (healthy) {
@@ -90,9 +89,11 @@ struct Timeline {
   }
 
   int64_t NowUs() const {
-    return std::chrono::duration_cast<std::chrono::microseconds>(
-               std::chrono::steady_clock::now() - start)
-        .count();
+    const int64_t now_ns =
+        std::chrono::duration_cast<std::chrono::nanoseconds>(
+            std::chrono::steady_clock::now().time_since_epoch())
+            .count();
+    return (now_ns - base_ns) / 1000;
   }
 
   void Push(Event e) {
@@ -161,7 +162,7 @@ struct Timeline {
   bool mark_cycles;
   bool healthy = false;
   std::FILE* file = nullptr;
-  std::chrono::steady_clock::time_point start;
+  int64_t base_ns = 0;
   int64_t epoch_us_at_start = 0;
   std::mutex mutex;
   std::condition_variable cv;
@@ -174,8 +175,9 @@ struct Timeline {
 
 }  // namespace
 
-void* hvd_timeline_create(const char* path, int mark_cycles) {
-  auto* t = new Timeline(path, mark_cycles);
+void* hvd_timeline_create(const char* path, int mark_cycles,
+                          int64_t base_ns, int64_t epoch_us_at_ts0) {
+  auto* t = new Timeline(path, mark_cycles, base_ns, epoch_us_at_ts0);
   if (!t->healthy) {
     delete t;
     return nullptr;

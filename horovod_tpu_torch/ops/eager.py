@@ -53,11 +53,29 @@ stacked row i to port rank i).
     for the collectives over mesh axes and ``DistributedOptimizer``,
     not the eager core's engine.
 
-Left for the observability slice: the JAX core's metrics, numerics,
-tracing-span and lockdep calls, and the autotuner (``HOROVOD_AUTOTUNE``
-raises here until then). Until then the overlap plane's counters
-(``hvd_overlap_*``, and ``optim``'s ``hvd_grad_*`` windows) go into a
-tally (``tally()``), as the wire bytes go into ``quantization.tally()``.
+  * the observability planes, as the JAX core has them: the metrics
+    registry (``utils/metrics.py``: plan-cache, flush, collective,
+    negotiation-cycle, stall and overlap instruments; the exposition
+    server on ``HVD_METRICS_PORT`` + rank, rank 0 serving the aggregate
+    of the snapshots workers piggyback on their cycle requests every
+    ``HVD_METRICS_INTERVAL`` seconds), and the tracing plane
+    (``utils/tracing.py``): every tensor's spans enqueue -> negotiate ->
+    fusion -> execute -> callback under one trace id, the negotiate span
+    closed with the coordinator's ``cycle``, the flight recorder dumped
+    on a lost rank, a stale ack, a stall kill or SIGTERM, and sent to
+    rank 0 when its responses ask for it (``dump_requested``). The JAX
+    core keeps one execute and one callback span per fused group; the
+    port keeps one of each per tensor, so that every tensor's tree is
+    whole, and on the card an execute span closes where the group's CUDA
+    completion event has fired, not where the collective was issued.
+    ``HVD_METRICS=0`` and ``HVD_TRACE=0`` give the null objects. The
+    queue, flush and handle locks opt into ``HVD_LOCKDEP``.
+
+Left for later: the JAX core's numerics calls and the autotuner
+(``HOROVOD_AUTOTUNE`` raises here until then). ``tally()`` reads the
+overlap plane's ``hvd_overlap_*`` and ``optim``'s ``hvd_grad_*`` counters
+back from the registry, flat, as ``quantization.tally()`` reads the wire
+bytes.
 """
 
 import collections
@@ -75,7 +93,10 @@ from ..common import hvd_logging as log
 from ..common.exceptions import (DuplicateNameError, MismatchError,
                                  RanksLostError, ShutdownError,
                                  StalledError)
+from ..utils import lockdep
+from ..utils import metrics as hvd_metrics
 from ..utils import timeline as timeline_mod
+from ..utils import tracing as hvd_tracing
 from . import compression as compression_mod
 from . import fusion as fusion_mod
 from . import quantization as quant_mod
@@ -97,28 +118,81 @@ def _entry_nbytes(entry):
     return fusion_mod._nbytes(entry.tensor)
 
 
-# the overlap plane's counters, {(metric, labels...): value}, the JAX
-# package's hvd_overlap_* and hvd_grad_* registry counters until the
-# observability core lands
-_tally = {}
-_tally_lock = threading.Lock()
-
-
-def count(key, value=1):
-    """Add ``value`` to the tally's ``key`` (a tuple: metric, labels)."""
-    with _tally_lock:
-        _tally[key] = _tally.get(key, 0) + value
+_TALLY = hvd_metrics.Tally((
+    "hvd_overlap_ready_flushes_total", "hvd_overlap_ready_tensors_total",
+    "hvd_overlap_wakes_total", "hvd_grad_reduce_steps_total",
+    "hvd_grad_enqueue_ms_total", "hvd_grad_exposed_ms_total"))
 
 
 def tally():
-    """A copy of the overlap plane's tally."""
-    with _tally_lock:
-        return dict(_tally)
+    """The overlap plane's counters since ``reset_tally()``, flat:
+    ``{(metric, labels...): value}``."""
+    return _TALLY.read()
 
 
 def reset_tally():
-    with _tally_lock:
-        _tally.clear()
+    _TALLY.reset()
+
+
+class _Instruments:
+    """The core's instruments on one registry, bound once (the JAX core
+    binds them at construction); ``EagerCoordinator._m`` rebinds when
+    the process registry is replaced."""
+
+    def __init__(self, reg):
+        self.reg = reg
+        self.plan_hits = reg.counter(
+            "hvd_plan_cache_hits_total",
+            "Fusion-plan cache hits (batch signature seen before).")
+        self.plan_misses = reg.counter(
+            "hvd_plan_cache_misses_total",
+            "Fusion-plan cache misses (plan computed fresh).")
+        self.neg_cycles = reg.counter(
+            "hvd_negotiation_cycles_total",
+            "Negotiation cycle RPCs completed by this worker.")
+        self.neg_cycle_s = reg.histogram(
+            "hvd_negotiation_cycle_seconds",
+            "Latency of one negotiation cycle RPC (request to response, "
+            "excluding response application).")
+        self.neg_failures = reg.counter(
+            "hvd_negotiation_cycle_failures_total",
+            "Cycle RPC failures (transient transport errors; backoff "
+            "applies between retries).")
+        self.flush_s = reg.histogram(
+            "hvd_flush_seconds",
+            "Duration of one non-negotiated flush (plan + execute).")
+        self.flush_tensors = reg.histogram(
+            "hvd_flush_tensors",
+            "Tensors drained per non-negotiated flush.",
+            buckets=hvd_metrics.COUNT_BUCKETS)
+        self.coll_bytes = reg.counter(
+            "hvd_collective_bytes_total",
+            "Payload bytes executed through the eager data plane, by "
+            "op class.", labels=("op",))
+        self.coll_s = reg.histogram(
+            "hvd_collective_seconds",
+            "Dispatch latency of one eager collective execution "
+            "(async: completion happens on device), by op class.",
+            labels=("op",))
+        self.overlap_flushes = reg.counter(
+            "hvd_overlap_ready_flushes_total",
+            "Ready-bucket drains dispatched while the caller was still "
+            "enqueuing later tensors (overlap plane).")
+        self.overlap_tensors = reg.counter(
+            "hvd_overlap_ready_tensors_total",
+            "Tensors dispatched by ready-bucket drains ahead of the "
+            "whole-tree barrier.")
+        self.overlap_wakes = reg.counter(
+            "hvd_overlap_wakes_total",
+            "Early background-cycle wakes requested by flush_ready "
+            "(negotiated path: a bucket's worth of bytes is queued).")
+        self.stalled_tensors = reg.gauge(
+            "hvd_stalled_tensors",
+            "Pending tensors on this worker past the stall warning "
+            "deadline (0 = healthy).")
+        self.stall_kills = reg.counter(
+            "hvd_stall_kills_total",
+            "Tensors failed by the stall shutdown deadline.")
 
 
 def _divide(t, n):
@@ -132,7 +206,8 @@ class TensorTableEntry:
 
     __slots__ = ("name", "op", "tensor", "root_rank", "average", "handle",
                  "result", "status", "event", "enqueue_time", "ready_event",
-                 "done_event", "callbacks")
+                 "done_event", "callbacks", "trace_id", "span", "fu_span",
+                 "ex_span")
 
     def __init__(self, name, op, tensor, root_rank=0, average=False,
                  handle=None):
@@ -152,6 +227,10 @@ class TensorTableEntry:
         self.done_event = None
         # fired by the finalizer once the collective has completed
         self.callbacks = []
+        # the tracing plane: the trace id minted at enqueue, the open
+        # negotiate span, then the fusion and execute spans
+        self.trace_id = None
+        self.span = self.fu_span = self.ex_span = hvd_tracing._NULL_SPAN
 
     def signature(self):
         return (self.op, self.name, tuple(self.tensor.shape),
@@ -163,7 +242,7 @@ class HandleManager:
     """Integer async handles (torch/handle_manager.h:30-41)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("HandleManager._lock")
         self._next = 0      # guarded_by: _lock
         self._entries = {}  # guarded_by: _lock
 
@@ -204,13 +283,17 @@ class PlanCache:
         self.hits = 0
         self.misses = 0
 
-    def get(self, key):
+    def get(self, key, instruments=None):
         plan = self._cache.get(key)
         if plan is not None:
             self._cache.move_to_end(key)
             self.hits += 1
+            if instruments is not None:
+                instruments.plan_hits.inc()
         else:
             self.misses += 1
+            if instruments is not None:
+                instruments.plan_misses.inc()
         return plan
 
     def put(self, key, plan):
@@ -241,9 +324,8 @@ class EagerCoordinator:
         self._config = state.config
         if getattr(self._config, "autotune", False):
             raise NotImplementedError(
-                "HOROVOD_AUTOTUNE: the autotuner is not ported yet; it "
-                "comes with the observability planes (slice 8, "
-                "ROADMAP.md). Unset HOROVOD_AUTOTUNE.")
+                "HOROVOD_AUTOTUNE: the autotuner is not ported yet "
+                "(ROADMAP.md). Unset HOROVOD_AUTOTUNE.")
         # validate HOROVOD_COMPRESSION at init, not mid-step
         compression_mod.Compression.from_name(
             getattr(self._config, "compression", "none"))
@@ -261,9 +343,9 @@ class EagerCoordinator:
         self.record_quantized = False
         self.last_quantized = None
         self._queue = collections.deque()  # guarded_by: _queue_lock
-        self._queue_lock = threading.Lock()
+        self._queue_lock = lockdep.lock("EagerCoordinator._queue_lock")
         self._tensor_table = {}  # guarded_by: _queue_lock; name -> entry
-        self._flush_lock = threading.Lock()
+        self._flush_lock = lockdep.lock("EagerCoordinator._flush_lock")
         self.handles = HandleManager()
         self.plan_cache = PlanCache(self._config.cache_capacity)
         self._shutdown = False
@@ -308,6 +390,20 @@ class EagerCoordinator:
         self._hier = self._make_hier_engine(
             int(getattr(self._config, "overlap_local_size", 0))
             or state.local_size)
+        # the observability planes: the registry takes this rank, the
+        # tracer too, and SIGTERM dumps the flight recorder
+        self._inst = None
+        reg = hvd_metrics.get_registry()
+        if reg.enabled and reg.rank is None:
+            reg.rank = self._rank
+        hvd_tracing.set_rank(self._rank)
+        hvd_tracing.install_signal_dump()
+        # dump solicitation: the coordinator sets dump_requested on its
+        # responses when it escalates; this worker attaches ONE flight
+        # snapshot to its next cycle request in reply
+        self._flight_send_pending = False
+        self._flight_sent = False
+        self._metrics_next_push = 0.0
         if self._world > 1:
             from . import negotiation as neg
             addrs = neg.control_addresses()
@@ -330,9 +426,41 @@ class EagerCoordinator:
                 target=self._finalize_loop, daemon=True,
                 name="hvd-finalizer")
             self._finalizer.start()
+        self._metrics_server = None
+        port = int(getattr(self._config, "metrics_port", 0) or 0)
+        if port and reg.enabled:
+            try:
+                self._metrics_server = hvd_metrics.MetricsServer(
+                    port + self._rank,
+                    lambda: hvd_metrics.get_registry().snapshot(),
+                    remote_snapshots_fn=self._remote_metrics_snapshots)
+            except OSError as exc:
+                log.warning("metrics server failed to bind port %s: %s",
+                            port + self._rank, exc)
         self._thread = threading.Thread(
             target=self._background_loop, daemon=True, name="hvd-background")
         self._thread.start()
+
+    @property
+    def _m(self):
+        """The core's instruments on the current process registry."""
+        reg = hvd_metrics.get_registry()
+        inst = self._inst
+        if inst is None or inst.reg is not reg:
+            inst = self._inst = _Instruments(reg)
+        return inst
+
+    @property
+    def _tracer(self):
+        return hvd_tracing.get_tracer()
+
+    def _remote_metrics_snapshots(self):
+        """Rank 0 only: the peers' piggybacked snapshots held by the
+        coordinator service (the exposition server's aggregation
+        source), through its locked accessor."""
+        neg = self._negotiator
+        svc = getattr(neg, "service", None) if neg is not None else None
+        return svc.metrics_snapshot_view() if svc is not None else {}
 
     @property
     def negotiated(self):
@@ -357,6 +485,7 @@ class EagerCoordinator:
             raise ShutdownError()
         if self._negotiation_dead:
             raise self._dead_error()
+        tracer = self._tracer
         entries = []
         for name, op, tensor, root_rank, average, callback in items:
             if op not in _OPS:
@@ -374,14 +503,32 @@ class EagerCoordinator:
                 entry.callbacks.append(callback)
             entry.ready_event = self._sync.ready_event(tensor)
             entries.append(entry)
-        with self._queue_lock:
-            names = [e.name for e in entries]
-            for i, n in enumerate(names):
-                if n in self._tensor_table or n in names[:i]:
-                    raise DuplicateNameError(n)
-            for e in entries:
-                self._tensor_table[e.name] = e
-                self._queue.append(e)
+        # a group's spans open and close together (one clock read, one
+        # tracer lock): the per-tensor trees cost a few µs a tensor
+        names = [e.name for e in entries]
+        for e, tid in zip(entries, tracer.new_trace_ids(names)):
+            e.trace_id = tid
+        spans = tracer.open_many(hvd_tracing.ENQUEUE, [
+            (e.name, e.trace_id, None, {"op": e.op}) for e in entries])
+        try:
+            with self._queue_lock:
+                for i, n in enumerate(names):
+                    if n in self._tensor_table or n in names[:i]:
+                        raise DuplicateNameError(n)
+                # the negotiation-wait spans stay open until the
+                # coordinator orders the tensor or a local flush drains it
+                negs = tracer.open_many(hvd_tracing.NEGOTIATE, [
+                    (e.name, e.trace_id, enq,
+                     {"op": e.op, "enqueue_req": self._cycle_req_id})
+                    for e, enq in zip(entries, spans)])
+                for e, neg in zip(entries, negs):
+                    e.span = neg
+                    self._tensor_table[e.name] = e
+                    self._queue.append(e)
+        except BaseException as exc:
+            tracer.close_many(spans, status="error", error=str(exc))
+            raise
+        tracer.close_many(spans)
         handles = [self.handles.allocate(e) for e in entries]
         if self.timeline:
             for e in entries:
@@ -475,6 +622,8 @@ class EagerCoordinator:
                 return
             ev, entries = item
             ev.synchronize()
+            # the residual norms computed before the event are ready
+            self._ef.publish()
             self._mark_done(entries)
 
     def flush(self, blocking=True):
@@ -503,14 +652,32 @@ class EagerCoordinator:
             self.timeline.mark_cycle_start()
             for e in batch:
                 self.timeline.negotiate_end(e.name)
+        tracer = self._tracer
+        # without a coordinator, negotiation is a local queue wait
+        tracer.close_many([e.span for e in batch], local=True)
+        fusion = tracer.open_many(hvd_tracing.FUSION, [
+            (e.name, e.trace_id, e.span, {}) for e in batch])
+        for e, fu in zip(batch, fusion):
+            e.fu_span = fu
+        m = self._m
+        t0 = time.perf_counter()
         key = (int(self._config.fusion_threshold),
                compression_mod.config_fingerprint(self._config),
                tuple(e.signature() for e in batch))
-        plan = self.plan_cache.get(key)
+        plan = self.plan_cache.get(key, m)
+        hit = plan is not None
         if plan is None:
             plan = self._make_plan(batch)
             self.plan_cache.put(key, plan)
+        fused = [0] * len(batch)
+        for _, idxs, _, _ in plan:
+            for i in idxs:
+                fused[i] = len(idxs)
+        tracer.close_many(fusion, [{"fused": n} for n in fused],
+                          plan_cache_hit=hit)
         self._execute(batch, plan)
+        m.flush_s.observe(time.perf_counter() - t0)
+        m.flush_tensors.observe(len(batch))
 
     def flush_ready(self):
         """Overlap plane: dispatch every fusion group that has FILLED,
@@ -533,7 +700,7 @@ class EagerCoordinator:
                 queued = sum(_entry_nbytes(e) for e in self._queue
                              if e.op == ALLREDUCE)
             if queued and (threshold <= 0 or queued >= threshold):
-                count(("hvd_overlap_wakes_total",))
+                self._m.overlap_wakes.inc()
                 self._ready_event.set()
             return
         if not self._flush_lock.acquire(False):
@@ -543,8 +710,9 @@ class EagerCoordinator:
                 batch = self._take_ready_locked()
             if not batch:
                 return
-            count(("hvd_overlap_ready_flushes_total",))
-            count(("hvd_overlap_ready_tensors_total",), len(batch))
+            m = self._m
+            m.overlap_flushes.inc()
+            m.overlap_tensors.inc(len(batch))
             self._run_batch(batch)
         finally:
             self._flush_lock.release()
@@ -658,12 +826,14 @@ class EagerCoordinator:
                     if cached[1] == e.signature():
                         hit_ids.append(cached[0])  # steady-state bypass
                         self._neg_hit_count += 1
+                        e.span.annotate(cache_hit=True)
                         continue
                     # signature changed: a full meta, which also makes
                     # the coordinator invalidate the id for every peer
                     del self._neg_cache[e.name]
                     self._neg_cache_ids.pop(cached[0], None)
                 metas.append(self._meta_of(e, neg))
+                e.span.annotate(cache_hit=False)
             # names whose cache ids came back unknown: re-announce
             for name in sorted(self._reannounce):
                 e = self._negotiated_pending.get(name)
@@ -671,13 +841,33 @@ class EagerCoordinator:
                     metas.append(self._meta_of(e, neg))
             self._reannounce.clear()
             self._cycle_req_id += 1
+        # low-rate metrics piggyback: rank 0's registry is local to the
+        # aggregating server, so only workers push snapshots
+        m = self._m
+        reg = m.reg
+        push = None
+        if reg.enabled and self._rank != 0:
+            now = time.monotonic()
+            if now >= self._metrics_next_push:
+                self._metrics_next_push = now + (
+                    getattr(self._config, "metrics_interval", 5.0) or 5.0)
+                push = reg.snapshot(max_events=32)
+        # dump solicitation: the coordinator asked for this worker's
+        # flight recorder; attach one snapshot
+        flight = None
+        tracer = self._tracer
+        if self._flight_send_pending:
+            self._flight_send_pending = False
+            flight = tracer.flight_snapshot("coordinator_request")
+        t0 = time.perf_counter()
         try:
             resp = self._negotiator.cycle(
                 metas, self._applied_seq, req_id=self._cycle_req_id,
-                hits=neg.encode_hits(hit_ids),
+                hits=neg.encode_hits(hit_ids), metrics=push, flight=flight,
                 codec_fp=compression_mod.config_fingerprint(self._config))
         except Exception as exc:  # noqa: BLE001 — transient TCP hiccups
             self._unannounced = (metas, hit_ids)
+            m.neg_failures.inc()
             now = time.monotonic()
             self._cycle_failures += 1
             if self._cycle_fail_since is None:
@@ -688,11 +878,17 @@ class EagerCoordinator:
             if (self._cycle_failures >= 3 and
                     now - self._cycle_fail_since >= self._poison_grace_s):
                 # the coordinator (rank 0's process) has been gone for a
-                # real time window: fail pending work, tell the plane if
-                # it still listens, and poison this core
+                # real time window: record it, dump the flight recorder,
+                # fail pending work, tell the plane if it still listens,
+                # and poison this core
+                reg.event("ranks_lost", ranks=[0],
+                          reason="control plane unreachable",
+                          trace_id=self._blocking_trace_id())
+                tracer.dump("coordinator_lost")
                 self._fail_pending_negotiated(RanksLostError(
                     [0], reason="negotiation control plane unreachable: "
-                                f"{exc}"))
+                                f"{exc}",
+                    trace_id=self._blocking_trace_id()))
                 self._unannounced = None
                 self._negotiation_dead = True
                 try:
@@ -703,6 +899,16 @@ class EagerCoordinator:
                 except Exception:  # noqa: BLE001 — plane truly gone
                     pass
             return
+        m.neg_cycles.inc()
+        m.neg_cycle_s.observe(time.perf_counter() - t0)
+        tracer.record_cycle(
+            req_id=self._cycle_req_id, ack=self._applied_seq,
+            n_metas=len(metas), n_hits=len(hit_ids),
+            rtt_ms=(time.perf_counter() - t0) * 1000.0)
+        if getattr(resp, "dump_requested", False) and not self._flight_sent:
+            self._flight_sent = True
+            self._flight_send_pending = True
+            tracer.dump("coordinator_request")
         self._unannounced = None
         self._cycle_failures = 0
         self._cycle_fail_since = None
@@ -719,10 +925,21 @@ class EagerCoordinator:
         """Run exec_fn over entries on the collective stream, then
         complete them: at once on the CPU, through the finalizer after
         the completion event on the card. A failure completes them with
-        the error."""
+        the error. Each entry's execute span opens here and closes in
+        ``_mark_done``, once the group has completed."""
         self.executed_groups += 1
         self.executed_tensors += len(entries)
-        self.executed_ops[entries[0].op] += 1
+        op = entries[0].op
+        self.executed_ops[op] += 1
+        tracer = self._tracer
+        spans = tracer.open_many(hvd_tracing.EXECUTE, [
+            (e.name, e.trace_id, e.fu_span, {"op": e.op,
+                                             "fused": len(entries)})
+            for e in entries])
+        for e, ex in zip(entries, spans):
+            e.ex_span = ex
+        m = self._m
+        t0 = time.perf_counter()
         try:
             with self._sync.collective_stream(
                     [e.ready_event for e in entries]):
@@ -732,11 +949,15 @@ class EagerCoordinator:
         except Exception as exc:  # noqa: BLE001 — status carries it
             self._fail(entries, exc)
             return
+        m.coll_bytes.labels(op=op).inc(sum(_entry_nbytes(e)
+                                           for e in entries))
+        m.coll_s.labels(op=op).observe(time.perf_counter() - t0)
         for e in entries:
             if not e.event.is_set():
                 e.status = True
                 e.done_event = ev
         if ev is None:
+            self._ef.publish()
             self._mark_done(entries)
         else:
             self._finalize_q.put((ev, entries))
@@ -756,6 +977,17 @@ class EagerCoordinator:
             for e in entries:
                 if self._tensor_table.get(e.name) is e:
                     del self._tensor_table[e.name]
+        tracer = self._tracer
+        ok = [e for e in entries if not isinstance(e.status, Exception)]
+        for e in entries:
+            if isinstance(e.status, Exception):
+                for s in (e.span, e.fu_span, e.ex_span):
+                    s.abort(e.status)
+        tracer.close_many([e.ex_span for e in ok],
+                          [{"bytes": _entry_nbytes(e)} for e in ok])
+        callbacks = tracer.open_many(hvd_tracing.CALLBACK, [
+            (e.name, e.trace_id, e.ex_span,
+             {"n_callbacks": len(e.callbacks)}) for e in entries])
         for e in entries:
             for cb in e.callbacks:
                 try:
@@ -763,21 +995,26 @@ class EagerCoordinator:
                 except Exception as exc:  # noqa: BLE001 — a callback's
                     log.error("callback of '%s' failed: %s", e.name, exc)
             e.event.set()
+        tracer.close_many(callbacks)
 
     def _apply_cycle_response(self, resp):
         """Apply coordinator responses strictly in seq order."""
         from . import negotiation as neg
+        tracer = self._tracer
         try:
             # liveness fail-fast: the coordinator's ledger declared ranks
             # dead — pending work can never complete
-            neg.raise_if_ranks_lost(resp)
+            neg.raise_if_ranks_lost(resp,
+                                    trace_id=self._blocking_trace_id())
         except RanksLostError as exc:
+            tracer.dump("ranks_lost")
             self._fail_pending_negotiated(exc)
             self._negotiation_dead = True
             return
         if getattr(resp, "stale_ack", False):
             # this rank fell behind the coordinator's bounded response
             # log: fail pending work and tell the peers
+            tracer.dump("stale_ack")
             self._fail_pending_negotiated(ShutdownError(
                 "negotiation response log overflow: this rank fell "
                 "behind the coordinator's retained window"))
@@ -811,6 +1048,27 @@ class EagerCoordinator:
             if self.timeline:
                 for e in entries:
                     self.timeline.negotiate_end(e.name)
+            # the coordinator has ordered (or errored) these tensors;
+            # ``cycle`` (=seq) is the same on every rank, the cross-rank
+            # stitch key
+            if r.kind == r.ERROR:
+                for e in entries:
+                    e.span.abort(r.error)
+            else:
+                tracer.close_many(
+                    [e.span for e in entries],
+                    [{"cycles_waited": self._cycle_req_id - int(
+                        getattr(e.span, "attrs", {}).get(
+                            "enqueue_req", self._cycle_req_id))}
+                     for e in entries], cycle=seq)
+                # fusion placement was the coordinator's: this rank
+                # learns its group from the response
+                fusion = tracer.open_many(hvd_tracing.FUSION, [
+                    (e.name, e.trace_id, e.span, {"cycle": seq})
+                    for e in entries])
+                tracer.close_many(fusion, fused=len(entries))
+                for e, fu in zip(entries, fusion):
+                    e.fu_span = fu
             if r.kind == r.EXECUTE and getattr(r, "cache_ids", None):
                 # learn coordinator-assigned cache ids; riding the
                 # seq-ordered log makes every rank's mapping identical
@@ -848,6 +1106,15 @@ class EagerCoordinator:
             self._config.cycle_time_ms = float(resp.params[1])
         if resp.shutdown:
             self._fail_pending_negotiated(ShutdownError())
+
+    def _blocking_trace_id(self):
+        """Trace id of the oldest tensor still waiting on negotiation,
+        the one a RanksLostError names so that its flight dump can be
+        read from the span that was blocked."""
+        for e in self._negotiated_pending.values():
+            if e.trace_id:
+                return e.trace_id
+        return None
 
     def _dead_error(self):
         """The error of work that meets a lost control plane: a
@@ -1206,20 +1473,37 @@ class EagerCoordinator:
         with self._queue_lock:
             pending = list(self._tensor_table.values())
         stalled = [e for e in pending if now - e.enqueue_time > warn]
+        m = self._m
+        # recomputed every scan, so it clears when laggards arrive
+        m.stalled_tensors.set(len(stalled))
         new = [e for e in stalled if e.name not in self._stall_warned]
         if new:
+            names = ", ".join(
+                f"{e.name} [trace {e.trace_id}]" if e.trace_id else e.name
+                for e in new)
+            m.reg.event(
+                "stall", tensors=sorted(e.name for e in new),
+                deadline_s=warn,
+                trace_ids=sorted(e.trace_id for e in new if e.trace_id))
             log.warning(
                 "One or more tensors were submitted to be reduced, gathered "
                 "or broadcasted by subset of ranks and are waiting for "
-                "remainder of ranks for more than %ss: %s", warn,
-                ", ".join(e.name for e in new))
+                "remainder of ranks for more than %ss: %s", warn, names)
             self._stall_warned.update(e.name for e in new)
         if kill > 0:
             dead = [e for e in pending if now - e.enqueue_time > kill]
             if dead:
+                m.stall_kills.inc(len(dead))
+                m.reg.event(
+                    "stall_kill", tensors=sorted(e.name for e in dead),
+                    deadline_s=kill,
+                    trace_ids=sorted(e.trace_id for e in dead
+                                     if e.trace_id))
+                self._tracer.dump("stall_kill")
                 exc = StalledError(
                     f"Collectives stalled past shutdown deadline: "
-                    f"{', '.join(e.name for e in dead)}")
+                    f"{', '.join(e.name for e in dead)} (traces: "
+                    f"{', '.join(e.trace_id or '?' for e in dead)})")
                 # a killed entry stays pending under negotiation: if the
                 # coordinator orders it after all, this rank still runs
                 # the collective its peers run
@@ -1265,6 +1549,9 @@ class EagerCoordinator:
             self._finalizer.join(timeout=30)
         exc = ShutdownError()
         self._fail(pending, exc)
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         if self._negotiator is not None:
             self._negotiator.close()
             self._negotiator = None

@@ -19,6 +19,9 @@ import dataclasses
 
 import torch
 
+from ..utils import metrics as hvd_metrics
+from ..utils import tracing as hvd_tracing
+
 # bytes per element of the dtype names the control plane carries (numpy's
 # names, as the JAX package's metas carry them)
 _ITEMSIZE = {"float64": 8, "float32": 4, "float16": 2, "bfloat16": 2,
@@ -59,19 +62,69 @@ def plan_buckets(tensors, fusion_threshold):
     """Greedy look-ahead bucketing in submission order: a tensor that does
     not fit an open bucket of its dtype opens a new one, and later small
     tensors may still join the earlier buckets. Returns a list of
-    ``Bucket`` in the order each was opened."""
+    ``Bucket`` in the order each was opened.
+
+    As in the JAX package, each call is one ``fusion`` span and feeds
+    the fill-ratio histogram and the bucket, tensor, byte and oversized
+    counters (``hvd_fusion_*``)."""
     threshold = int(fusion_threshold or 0)
-    sizes = [_nbytes(t) for t in tensors]
-    dtypes = [t.dtype for t in tensors]
-    buckets, by_id = [], {}
-    for i, bid in enumerate(_native_plan(sizes, dtypes, threshold)):
-        b = by_id.get(bid)
-        if b is None:
-            b = by_id[bid] = Bucket([], dtypes[i], 0)
-            buckets.append(b)
-        b.indices.append(i)
-        b.nbytes += sizes[i]
+    with hvd_tracing.get_tracer().span(
+            hvd_tracing.FUSION, n_tensors=len(tensors),
+            threshold=threshold) as fspan:
+        sizes = [_nbytes(t) for t in tensors]
+        dtypes = [t.dtype for t in tensors]
+        buckets, by_id = [], {}
+        for i, bid in enumerate(_native_plan(sizes, dtypes, threshold)):
+            b = by_id.get(bid)
+            if b is None:
+                b = by_id[bid] = Bucket([], dtypes[i], 0)
+                buckets.append(b)
+            b.indices.append(i)
+            b.nbytes += sizes[i]
+        fspan.annotate(n_buckets=len(buckets), bytes=sum(sizes))
+    _account(buckets, sizes, threshold)
     return buckets
+
+
+def _account(buckets, sizes, threshold):
+    """The JAX package's fusion telemetry: an oversized tensor (alone in
+    its bucket at or above the threshold) is a counter and an event;
+    every planned bucket's fill against the threshold is a histogram
+    sample."""
+    reg = hvd_metrics.get_registry()
+    if not reg.enabled:
+        return
+    oversized = [b for b in buckets
+                 if threshold > 0 and len(b.indices) == 1
+                 and b.nbytes >= threshold]
+    if oversized:
+        reg.counter(
+            "hvd_fusion_oversized_total",
+            "Tensors at or above the fusion threshold that bypassed "
+            "fusion and went out as their own collective.").inc(
+            len(oversized))
+        for b in oversized:
+            reg.event("oversized_tensor", index=b.indices[0],
+                      nbytes=int(b.nbytes), threshold=threshold)
+    if buckets:
+        fill = reg.histogram(
+            "hvd_fusion_fill_ratio",
+            "Planned bucket bytes / fusion threshold (>1 = oversized "
+            "single tensor in its own bucket).",
+            buckets=hvd_metrics.RATIO_BUCKETS)
+        thr = threshold or 1
+        for b in buckets:
+            fill.observe(b.nbytes / thr)
+        reg.counter(
+            "hvd_fusion_buckets_total",
+            "Fused buckets planned.").inc(len(buckets))
+        reg.counter(
+            "hvd_fusion_tensors_total",
+            "Tensors passed through fusion planning.").inc(len(sizes))
+        reg.counter(
+            "hvd_fusion_bytes_total",
+            "Payload bytes passed through fusion planning.").inc(
+            sum(sizes))
 
 
 def _native_plan(sizes, dtypes, threshold):

@@ -20,12 +20,17 @@ operations.cc:198-400), fuses ready same-dtype allreduces under the
 fusion threshold (FuseResponses, operations.cc:450-573), and assigns the
 one global execution order every process follows.
 
-Left out of the port until their slices: the numerics sentinel
-(``_numerics_scan``; slice 8), the flight-recorder dumps and the
-metrics ledger (slice 8), and the chaos injection points. The wire
-fields they ride (``digest``, ``flight``, ``metrics``) stay on
-``CycleRequest``, so the message is the JAX package's; the
-``dump_requested`` flag is still raised on a stall or a lost rank.
+The observability planes ride the cycle as in the JAX package: the
+coordinator counts cycles, tensors per cycle and response-cache hits,
+misses and unknown ids, keeps the stall gauges and events and the lost
+ranks, stores each worker's piggybacked metrics snapshot for rank 0's
+aggregate (``metrics_snapshot_view``), and on a stall or a lost rank
+dumps its own flight recorder and raises ``dump_requested`` on every
+later response, persisting the dump each worker then sends
+(``utils/tracing.write_remote_dump``). The chaos plane's injection
+points sit in the transport (``run/network.py``) under the service name
+``hvd.negotiation``. Left out until its slice: the numerics sentinel
+(``_numerics_scan``); its ``digest`` field stays on ``CycleRequest``.
 
 Protocol: each worker's background cycle sends
 ``CycleRequest(rank, new entry metas, last applied seq, shutdown)``; the
@@ -45,7 +50,10 @@ import time
 
 from ..common import hvd_logging as log
 from ..common.exceptions import RanksLostError
+from ..utils import lockdep
 from ..run import network, secret
+from ..utils import metrics as hvd_metrics
+from ..utils import tracing as hvd_tracing
 from . import compression as compression_mod
 
 # ops (mirrors eager.py's constants; import cycle keeps them local)
@@ -253,7 +261,17 @@ def encode_response(resp):
                 _put_varint(out, int(cid))
         if r.codec is not None:
             _put_str(out, r.codec)
-    return bytes(out)
+    payload = bytes(out)
+    _response_bytes("out", len(payload))
+    return payload
+
+
+def _response_bytes(direction, n):
+    hvd_metrics.get_registry().counter(
+        "hvd_response_wire_bytes_total",
+        "Compact CycleResponse bytes by direction (out=encoded at the "
+        "coordinator, in=decoded at a worker).",
+        labels=("direction",)).labels(direction=direction).inc(n)
 
 
 def decode_response(payload):
@@ -269,6 +287,7 @@ def decode_response(payload):
             f"coordinator, this worker speaks {RESPONSE_WIRE_VERSION} — "
             "coordinator and workers are running mismatched horovod_tpu "
             "builds; run the same version on every rank")
+    _response_bytes("in", len(payload))
     i = 1
     base_seq, i = _get_varint(payload, i)
     flags = payload[i]
@@ -475,7 +494,7 @@ class CoordinatorService(network.BasicService):
     def __init__(self, nproc, key, ports, config):
         self._nproc = nproc
         self._config = config  # rank 0's HorovodConfig (live object)
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("CoordinatorService._lock")
         self._table = {}     # guarded_by: _lock; name -> _TableRow
         self._order = []     # guarded_by: _lock; first-submission order
         # responses[i] has seq = _base_seq + i; prefixes every rank has
@@ -506,14 +525,49 @@ class CoordinatorService(network.BasicService):
         # serving-load snapshots piggybacked on replica heartbeats (rank
         # -> dict), receipt-stamped on this clock
         self.load_snapshots = {}
+        # piggybacked per-rank metrics snapshots (rank -> snapshot),
+        # served by rank 0's MetricsServer as the aggregate view
+        self.metrics_snapshots = {}  # guarded_by: _lock
         # stall/liveness escalation flips this; every later
-        # CycleResponse carries the flag
+        # CycleResponse carries the flag, and each worker's next cycle
+        # piggybacks its flight snapshot, persisted here (rank -> path)
+        self._tracer = hvd_tracing.get_tracer()
         self._dump_requested = False  # guarded_by: _lock
+        self.flight_dumps = {}  # guarded_by: _lock
         # wire-codec agreement: rank 0's codec-config fingerprint is the
         # negotiated truth; a rank whose fingerprint differs is recorded
         # here and every subsequently ready tensor becomes an ERROR
         self._codec_fp = compression_mod.config_fingerprint(config)
         self._codec_mismatch = {}  # guarded_by: _lock; rank -> their fp
+        reg = self._metrics = hvd_metrics.get_registry()
+        self._m_cycles = reg.counter(
+            "hvd_coordinator_cycles_total",
+            "CycleRequests processed by the rank-0 coordinator.")
+        self._m_tensors_per_cycle = reg.histogram(
+            "hvd_coordinator_tensors_per_cycle",
+            "Tensor announcements (full metas + cache hits) per cycle.",
+            buckets=hvd_metrics.COUNT_BUCKETS)
+        self._m_cache_hits = reg.counter(
+            "hvd_response_cache_hits_total",
+            "Steady-state cache-id resubmissions (one bit on the wire).")
+        self._m_cache_misses = reg.counter(
+            "hvd_response_cache_misses_total",
+            "Full EntryMeta announcements (first submission or "
+            "post-invalidation re-announce).")
+        self._m_cache_unknown = reg.counter(
+            "hvd_response_cache_unknown_ids_total",
+            "Announced hit ids the coordinator no longer holds "
+            "(evicted/invalidated) — each forces a re-announce.")
+        self._m_stalled_ranks = reg.gauge(
+            "hvd_stalled_ranks",
+            "Ranks currently missing from at least one tensor stalled "
+            "past the stall warning deadline (0 = no stall).")
+        self._m_stalled_pending = reg.gauge(
+            "hvd_coordinator_stalled_tensors",
+            "Pending tensors currently past the stall warning deadline.")
+        self._m_lost_ranks = reg.gauge(
+            "hvd_lost_ranks",
+            "Ranks declared LOST by the liveness ledger (terminal).")
         super().__init__(SERVICE_NAME, key)
 
     # bind to one of the agreed candidate ports instead of an ephemeral
@@ -537,6 +591,14 @@ class CoordinatorService(network.BasicService):
             return network.PingResponse(SERVICE_NAME, client_address[0])
         if isinstance(req, CycleRequest):
             with self._lock:
+                self._m_cycles.inc()
+                if req.metrics is not None:
+                    self.metrics_snapshots[req.rank] = req.metrics
+                if req.flight is not None:
+                    path = hvd_tracing.write_remote_dump(
+                        req.flight, rank=req.rank)
+                    if path is not None:
+                        self.flight_dumps[req.rank] = path
                 if getattr(req, "load", None) is not None:
                     # receipt-stamped on the coordinator's clock, so a
                     # replica that heartbeated and went silent stops
@@ -547,6 +609,9 @@ class CoordinatorService(network.BasicService):
                 if (fp is not None and fp != self._codec_fp
                         and req.rank not in self._codec_mismatch):
                     self._codec_mismatch[req.rank] = fp
+                    self._metrics.event(
+                        "codec_mismatch", rank=req.rank, theirs=fp,
+                        ours=self._codec_fp)
                     log.error(
                         "negotiation: rank %d wire-codec config %r "
                         "differs from rank 0's %r — failing its "
@@ -563,7 +628,8 @@ class CoordinatorService(network.BasicService):
                 if seen is None or seen[0] != req.req_id:
                     unknown = []
                     self._submit(req.rank, req.entries)
-                    for cid in decode_hits(req.hits):
+                    hit_ids = decode_hits(req.hits)
+                    for cid in hit_ids:
                         meta = self._cache.get(cid)
                         if meta is None:
                             unknown.append(cid)
@@ -572,6 +638,15 @@ class CoordinatorService(network.BasicService):
                             self._submit(req.rank, [meta])
                     self._seen_req[req.rank] = (req.req_id,
                                                 tuple(unknown))
+                    self._m_tensors_per_cycle.observe(
+                        len(req.entries) + len(hit_ids))
+                    if req.entries:
+                        self._m_cache_misses.inc(len(req.entries))
+                    if hit_ids:
+                        self._m_cache_hits.inc(
+                            len(hit_ids) - len(unknown))
+                    if unknown:
+                        self._m_cache_unknown.inc(len(unknown))
                 else:
                     unknown = list(seen[1])
                 self._negotiate()
@@ -583,6 +658,13 @@ class CoordinatorService(network.BasicService):
                     self._shutdown = True
                 self._stall_scan()
                 self._prune_acknowledged()
+                # coordinator-side cycle record: the postmortem's "last N
+                # cycles" view
+                self._tracer.record_cycle(
+                    rank=req.rank, req_id=req.req_id, ack=req.ack,
+                    n_metas=len(req.entries),
+                    seq=self._base_seq + len(self._responses) - 1,
+                    shutdown=bool(req.shutdown))
                 stale = req.ack + 1 < self._base_seq
                 start = max(0, req.ack + 1 - self._base_seq)
                 return CycleResponse(
@@ -595,11 +677,23 @@ class CoordinatorService(network.BasicService):
                     lost_ranks=sorted(self._lost_ranks))
         raise NotImplementedError(req)
 
+    # Locked snapshot accessors: every thread other than the handler
+    # (rank 0's metrics HTTP server, the drills) reads these copies,
+    # never the live dicts the handler mutates.
+    def metrics_snapshot_view(self):
+        """Copy of the piggybacked per-rank metrics ledger."""
+        with self._lock:
+            return dict(self.metrics_snapshots)
+
     def load_snapshot_view(self):
-        """Copy of the per-replica serving-load ledger (other threads read
-        through this, never the live dict)."""
+        """Copy of the per-replica serving-load ledger."""
         with self._lock:
             return dict(self.load_snapshots)
+
+    def flight_dump_view(self):
+        """Copy of the rank -> flight-dump-path ledger."""
+        with self._lock:
+            return dict(self.flight_dumps)
 
     # retained-response cap: a rank that crashed (or never reaches the
     # eager API) must not let the log grow unboundedly for the rest of a
@@ -812,24 +906,40 @@ class CoordinatorService(network.BasicService):
         warn = self._config.stall_warning_time_seconds
         if self._config.stall_check_disable or warn <= 0:
             return
+        # the gauges are recomputed every scan (so they clear when the
+        # laggard arrives); each tensor crossing the deadline emits one
+        # event carrying the missing-rank set
+        stalled_ranks = set()
         stalled_tensors = 0
         for name in self._order:
             row = self._table[name]
             if now - row.first_ts <= warn:
                 continue
+            missing = sorted(set(range(self._nproc)) -
+                             set(row.metas.keys()))
+            stalled_ranks.update(missing)
             stalled_tensors += 1
             if not row.warned:
                 row.warned = True
-                missing = sorted(set(range(self._nproc)) -
-                                 set(row.metas.keys()))
+                # rank 0 hosts a worker too, so its tracer knows the
+                # blocking tensor's trace id
+                trace_id = self._tracer.trace_id_for(name)
+                self._metrics.event(
+                    "stall", tensor=name, missing_ranks=missing,
+                    waited_s=round(now - row.first_ts, 3),
+                    trace_id=trace_id)
                 log.warning(
                     "One or more tensors were submitted to be reduced, "
                     "gathered or broadcasted by subset of ranks and are "
                     "waiting for remainder of ranks for more than %ss: "
-                    "%s (missing ranks: %s)", warn, name, missing)
-        if stalled_tensors:
-            # stall escalation: every later response carries the flag
+                    "%s (missing ranks: %s, trace %s)", warn, name,
+                    missing, trace_id)
+        if stalled_tensors and not self._dump_requested:
+            # stall escalation: solicit every rank's flight dump
             self._dump_requested = True
+            self._tracer.dump("stall")
+        self._m_stalled_ranks.set(len(stalled_ranks))
+        self._m_stalled_pending.set(stalled_tensors)
 
     def _liveness_scan(self, now):
         """Escalate silence to fail-fast: a rank that heartbeated at
@@ -848,7 +958,16 @@ class CoordinatorService(network.BasicService):
         if not dead:
             return
         self._lost_ranks = set(dead)
+        self._m_lost_ranks.set(len(dead))
+        self._metrics.event(
+            "ranks_lost", ranks=dead, deadline_s=deadline,
+            failed_tensors=len(self._order),
+            trace_ids={n: self._tracer.trace_id_for(n)
+                       for n in self._order[:8]})
+        # terminal escalation: dump our own flight ring and solicit every
+        # surviving rank's on their next cycle
         self._dump_requested = True
+        self._tracer.dump("ranks_lost")
         log.error(
             "negotiation liveness: ranks %s sent no cycle for more than "
             "%ss — declaring them LOST and failing all pending work "
@@ -859,10 +978,12 @@ class CoordinatorService(network.BasicService):
         for name in self._order:
             row = self._table.pop(name)
             op = next(iter(row.metas.values())).op
+            tid = self._tracer.trace_id_for(name)
+            suffix = f" [trace {tid}]" if tid else ""
             self._responses.append(NegotiatedResponse(
                 NegotiatedResponse.ERROR, op, [name],
                 error=f"RanksLostError: {op} '{name}' cannot complete: "
-                      f"{reason}."))
+                      f"{reason}.{suffix}"))
         self._order = []
 
 

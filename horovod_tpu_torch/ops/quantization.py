@@ -20,16 +20,19 @@ tail and decode to exact zeros. Every operation is IEEE f32 arithmetic
 (multiplies, one divide, a round half to even, the cast to the wire
 type), so the card and the CPU give the same bytes.
 
-Plain torch ops, on whatever device the input lies on. The wire-byte
-tally (``account``, ``account_leg``) is a module-level dict keyed as the
-JAX package's metric labels; moving it onto a metrics registry comes
-with the observability slice.
+Plain torch ops, on whatever device the input lies on. The wire bytes
+(``account``, ``account_leg``) and the error-feedback residual norm go
+into the metrics registry under the JAX package's names and labels
+(``hvd_wire_bytes_total``, ``hvd_wire_raw_bytes_total``,
+``hvd_wire_compression_ratio``, ``hvd_wire_leg_bytes_total``,
+``hvd_ef_residual_norm``); ``tally()`` reads them back flat.
 """
 
 import threading
 
 import torch
 
+from ..utils import metrics as hvd_metrics
 from .fusion import dtype_name
 
 # Per-block element count; HOROVOD_QUANT_BLOCK overrides it.
@@ -174,6 +177,7 @@ class ErrorFeedback:
         self._lock = threading.Lock()
         #: L2 norm of the newest residual, by anchor tensor name
         self.norms = {}
+        self._unpublished = set()  # guarded_by: _lock; anchors
 
     def compensate(self, key, x):
         with self._lock:
@@ -186,12 +190,36 @@ class ErrorFeedback:
 
     def update(self, key, comp, decoded, block, anchor=None):
         """Store ``comp - decoded``; ``anchor`` (the bucket's first member)
-        labels its norm."""
+        labels its norm, which the ``hvd_ef_residual_norm`` gauge takes:
+        at once on the CPU, at ``publish()`` on the card (the eager core
+        calls it once the bucket's completion event has fired, so that
+        reading the norm never waits on the device)."""
         r, norm = ef_update(comp, decoded, block)
         with self._lock:
             self._residuals[key] = r
             if anchor is not None:
                 self.norms[anchor] = norm
+                self._unpublished.add(anchor)
+        if norm.device.type == "cpu":
+            self.publish()
+
+    def publish(self):
+        """Set the ``hvd_ef_residual_norm`` gauge of every norm updated
+        since the last call."""
+        with self._lock:
+            todo = [(a, self.norms[a]) for a in self._unpublished
+                    if a in self.norms]
+            self._unpublished.clear()
+        reg = hvd_metrics.get_registry()
+        if not reg.enabled or not todo:
+            return
+        gauge = reg.gauge(
+            "hvd_ef_residual_norm",
+            "L2 norm of the error-feedback residual carried to the "
+            "next step, by fused-bucket anchor tensor.",
+            labels=("tensor",))
+        for anchor, norm in todo:
+            gauge.labels(tensor=anchor).set(float(norm))
 
     def __len__(self):
         """The residuals held."""
@@ -213,6 +241,7 @@ class ErrorFeedback:
         with self._lock:
             self._residuals.clear()
             self.norms.clear()
+            self._unpublished.clear()
 
 
 # -- selection + accounting ------------------------------------------------
@@ -268,42 +297,61 @@ def wire_nbytes(payload, scales=None):
     return int(nb)
 
 
-# the wire tally: {(metric, labels...): value}, the JAX package's
-# counters under their own names and label tuples
-_tally = {}
-_tally_lock = threading.Lock()
-
-
-def _add(key, value):
-    with _tally_lock:
-        _tally[key] = _tally.get(key, 0) + int(value)
-
-
 def account(codec, raw_nbytes, wire_nb, axis="dp"):
-    """Fold one executed collective into the tally: encoded bytes and
-    full-width bytes by (codec, axis), and the newest raw/wire ratio."""
-    labels = (codec or "none", axis or "dp")
-    _add(("hvd_wire_bytes_total",) + labels, wire_nb)
-    _add(("hvd_wire_raw_bytes_total",) + labels, raw_nbytes)
+    """Fold one executed collective into the wire metrics: encoded bytes
+    and full-width bytes by (codec, axis), and the newest raw/wire
+    ratio."""
+    reg = hvd_metrics.get_registry()
+    if not reg.enabled:
+        return
+    reg.counter(
+        "hvd_wire_bytes_total",
+        "Encoded allreduce payload bytes that crossed (or would cross) "
+        "the wire, by codec and mesh axis; 'none' counts full-width "
+        "buffers.",
+        labels=("codec", "axis")).labels(
+            codec=codec or "none", axis=axis or "dp").inc(int(wire_nb))
+    reg.counter(
+        "hvd_wire_raw_bytes_total",
+        "Full-width bytes of the same buffers before encoding, by "
+        "codec and mesh axis — hvd_wire_bytes_total's denominator.",
+        labels=("codec", "axis")).labels(
+            codec=codec or "none", axis=axis or "dp").inc(
+            int(raw_nbytes))
     if wire_nb:
-        with _tally_lock:
-            _tally[("hvd_wire_compression_ratio",)] = \
-                float(raw_nbytes) / float(wire_nb)
+        reg.gauge(
+            "hvd_wire_compression_ratio",
+            "raw/wire byte ratio of the most recent encoded collective "
+            "(1.0 when no codec is active).").set(
+                float(raw_nbytes) / float(wire_nb))
 
 
 def account_leg(leg, codec, wire_nb):
     """Per-leg bytes of the two-level reduction: ``leg`` is 'intra'
     (full width inside a host) or 'inter' (the cross-host hop, the only
     leg a quantized codec rides)."""
-    _add(("hvd_wire_leg_bytes_total", leg, codec or "none"), wire_nb)
+    reg = hvd_metrics.get_registry()
+    if not reg.enabled:
+        return
+    reg.counter(
+        "hvd_wire_leg_bytes_total",
+        "Bytes moved per hierarchy leg of the two-level eager "
+        "reduction, by leg (intra|inter) and codec.",
+        labels=("leg", "codec")).labels(
+            leg=leg, codec=codec or "none").inc(int(wire_nb))
+
+
+_TALLY = hvd_metrics.Tally(
+    ("hvd_wire_bytes_total", "hvd_wire_raw_bytes_total",
+     "hvd_wire_leg_bytes_total"),
+    gauges=("hvd_wire_compression_ratio",))
 
 
 def tally():
-    """A copy of the wire tally."""
-    with _tally_lock:
-        return dict(_tally)
+    """The wire metrics since ``reset_tally()``, flat:
+    ``{(metric, labels...): value}``."""
+    return _TALLY.read()
 
 
 def reset_tally():
-    with _tally_lock:
-        _tally.clear()
+    _TALLY.reset()

@@ -37,10 +37,10 @@ import torch
 
 from . import mpi_ops
 from .common import state as state_mod
-from .ops import eager as eager_mod
 from .ops import fusion
 from .ops.compression import Compression
 from .parallel.tensor_parallel import local
+from .utils import metrics as hvd_metrics
 
 
 class AdamW(torch.optim.Optimizer):
@@ -374,11 +374,27 @@ def _account_grad_windows(mode, enqueue_s, drain_s):
     into the enqueue window (where the overlap plane can hide the
     collectives) and the drain after it (what the step still waits
     for), by mode ("barrier" or "overlap"): the JAX package's
-    ``hvd_grad_*`` counters, kept in the eager core's tally until the
-    observability core."""
-    eager_mod.count(("hvd_grad_reduce_steps_total", mode))
-    eager_mod.count(("hvd_grad_enqueue_ms_total", mode), enqueue_s * 1e3)
-    eager_mod.count(("hvd_grad_exposed_ms_total", mode), drain_s * 1e3)
+    ``hvd_grad_*`` registry counters (``ops.eager.tally()`` reads them
+    back flat)."""
+    reg = hvd_metrics.get_registry()
+    if not reg.enabled:
+        return
+    reg.counter(
+        "hvd_grad_reduce_steps_total",
+        "Eager gradient reductions, by dispatch mode.",
+        labels=("mode",)).labels(mode=mode).inc()
+    reg.counter(
+        "hvd_grad_enqueue_ms_total",
+        "Wall ms spent enqueueing gradient collectives (the window "
+        "where readiness-ordered dispatch overlaps comm with grad "
+        "production), by dispatch mode.",
+        labels=("mode",)).labels(mode=mode).inc(enqueue_s * 1e3)
+    reg.counter(
+        "hvd_grad_exposed_ms_total",
+        "Wall ms spent draining gradient collectives after the last "
+        "enqueue — comm the step still pays for serially, by dispatch "
+        "mode.",
+        labels=("mode",)).labels(mode=mode).inc(drain_s * 1e3)
 
 
 def reduce_on_core(tensors, average=True, compression=Compression.none,

@@ -9,10 +9,13 @@ every (ip, port) pair they were given and remember the first route that
 answers a Ping.
 
 Adapted, not imported: the body is the standard library's pickle (the
-JAX package uses cloudpickle), the interfaces are read with
-``SIOCGIFADDR`` (the JAX package uses psutil), and the chaos injection
-points and transport metrics of the JAX package are left out (slice 8).
-``advertise_ip`` never opens a socket towards another host.
+JAX package uses cloudpickle) and the interfaces are read with
+``SIOCGIFADDR`` (the JAX package uses psutil). ``advertise_ip`` never
+opens a socket towards another host. As in the JAX package, a service
+carries the chaos plane's injector (``run/chaos.py``, under
+``HVD_CHAOS_SPEC``) at its handler loop, and the client counts its
+silent resends and backoff (``hvd_transport_retries_total``,
+``hvd_transport_backoff_seconds_total``).
 """
 
 import array
@@ -26,6 +29,8 @@ import struct
 import threading
 import time
 
+from ..utils import metrics as hvd_metrics
+from . import chaos as chaos_mod
 from . import secret
 
 _SIOCGIFADDR = 0x8915
@@ -68,6 +73,20 @@ class Wire:
         wfile.flush()
         with self._count_lock:
             self.bytes_out += secret.DIGEST_LENGTH + 4 + len(body)
+
+    def write_truncated(self, obj, wfile, frac=0.5):
+        """Chaos-plane helper (``truncate_response``): a cut-off frame
+        whose digest and length promise a body that never arrives, so
+        the peer's read sees a mid-message disconnect (EOFError), never
+        a bogus HMAC failure."""
+        body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        frame = (secret.compute_digest(self._key, body) +
+                 struct.pack("i", len(body)) + body)
+        cut = max(1, int(len(frame) * frac))
+        wfile.write(frame[:cut])
+        wfile.flush()
+        with self._count_lock:
+            self.bytes_out += cut
 
     def read(self, rfile):
         digest = rfile.read(secret.DIGEST_LENGTH)
@@ -139,6 +158,10 @@ class BasicService:
     def __init__(self, service_name, key):
         self._service_name = service_name
         self._wire = Wire(key)
+        # the chaos plane: None unless HVD_CHAOS_SPEC targets this
+        # service; evaluated once so every handler thread shares one
+        # deterministic rule state
+        self._chaos = chaos_mod.from_env(service_name)
         # live persistent connections: shutdown() must sever them, or
         # clients looping on an established socket would keep being
         # served by daemon handler threads after the accept loop stops
@@ -188,10 +211,44 @@ class BasicService:
                 try:
                     while True:
                         req = service._wire.read(self.rfile)
+                        cz = service._chaos
+                        fault = (cz.decide("request", type(req).__name__)
+                                 if cz else None)
+                        if fault == "drop_request":
+                            # severed before the handler: no state
+                            # applied, the client sees EOF and retries
+                            break
+                        if fault == "delay_request":
+                            time.sleep(cz.delay_s)
                         resp = service._handle(req, self.client_address)
+                        if fault == "dup_request":
+                            # duplicate delivery: only a service that
+                            # dedupes (req_id) survives unchanged
+                            resp = service._handle(req,
+                                                   self.client_address)
                         if resp is None:
                             raise RuntimeError(
                                 "Handler returned no response.")
+                        fault = (cz.decide("response",
+                                           type(resp).__name__)
+                                 if cz else None)
+                        if fault == "drop_response":
+                            # state was applied; the response is lost
+                            break
+                        if fault == "truncate_response":
+                            service._wire.write_truncated(resp,
+                                                          self.wfile)
+                            break
+                        if fault == "reset":
+                            try:
+                                self.connection.setsockopt(
+                                    socket.SOL_SOCKET, socket.SO_LINGER,
+                                    struct.pack("ii", 1, 0))
+                            except OSError:
+                                pass
+                            break  # close with RST: peer sees ECONNRESET
+                        if fault == "delay_response":
+                            time.sleep(cz.delay_s)
                         service._wire.write(resp, self.wfile)
                 except (EOFError, ConnectionError, struct.error):
                     pass
@@ -338,7 +395,17 @@ class BasicClient:
                     self._close_persistent()
                     if attempt == last:
                         raise
-                    time.sleep(self._backoff_delay(attempt))
+                    delay = self._backoff_delay(attempt)
+                    reg = hvd_metrics.get_registry()
+                    reg.counter(
+                        "hvd_transport_retries_total",
+                        "Silent reconnect-and-resend retries on a dead "
+                        "persistent control-plane socket.").inc()
+                    reg.counter(
+                        "hvd_transport_backoff_seconds_total",
+                        "Total seconds slept in transport retry "
+                        "backoff.").inc(delay)
+                    time.sleep(delay)
                 except BaseException:
                     # e.g. an HMAC mismatch: the stream position is
                     # undefined, never reuse it

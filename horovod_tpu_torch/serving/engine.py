@@ -24,10 +24,19 @@ one after ``down`` per layer and one all-gather of the head's logits
 (``serving.decode.ServingWeights``). Every tp rank runs the same engine
 on the same requests, and samples the same tokens.
 
+The observability planes ride the step as in the JAX engine: the
+``hvd_serve_*`` families (requests by outcome, tokens by phase, TTFT,
+inter-token gaps, goodput and wasted tokens, active slots, KV blocks,
+phase seconds), the ``serve_admit`` / ``serve_reject`` /
+``serve_retire`` / ``serve_failover`` events, every request's trace
+(``serving/tracing.py``: prefill, one ``decode_tick`` span per fused
+step credited to every active request, the ``phase_ms`` decomposition on
+each result), and ``history.poke`` and ``alerts.tick`` on every
+``step`` on the engine's clock.
+
 Left for later slices of the port: the fleet's weight hot swap (and so
-the per-generation decode cohorts, the generation stays 0),
-``ReplicaGroup`` liveness, and the metrics, alert, history and memory
-hooks.
+the per-generation decode cohorts, the generation stays 0) and the
+memory plane's compile tracker.
 """
 
 import time
@@ -38,7 +47,12 @@ import torch
 from ..common import config
 from ..common.device import resolve_device
 from ..common.exceptions import RanksLostError
+from ..utils import alerts as hvd_alerts
+from ..utils import history as hvd_history
 from ..utils import memory as hvd_memory
+from ..utils import metrics as hvd_metrics
+from ..utils import tracing as hvd_tracing
+from . import tracing as serve_tracing
 from .decode import ServingWeights, decode_step, prefill_forward
 from .kv_cache import KVCache
 from .queue import AdmissionQueue, RequestResult
@@ -50,7 +64,7 @@ class _Active:
     """Host-side per-slot decode state."""
 
     __slots__ = ("request", "generated", "next_token", "next_pos",
-                 "ttft_s")
+                 "ttft_s", "last_token_ts")
 
     def __init__(self, request, first_token, prompt_len, now):
         self.request = request
@@ -58,6 +72,7 @@ class _Active:
         self.next_token = first_token  # fed to the next decode step
         self.next_pos = prompt_len  # cache position it will occupy
         self.ttft_s = now - request.arrival_ts
+        self.last_token_ts = now
 
 
 class ServeEngine:
@@ -99,6 +114,50 @@ class ServeEngine:
         self._finished = []
         self._replica = replica
         self._on_ranks_lost = on_ranks_lost
+        reg = self._metrics = hvd_metrics.get_registry()
+        self._m_requests = reg.counter(
+            "hvd_serve_requests_total",
+            "Serving requests by terminal outcome "
+            "(completed/rejected/failed).", labels=("outcome",))
+        self._m_tokens = reg.counter(
+            "hvd_serve_tokens_total",
+            "Tokens processed by the serving engine, by phase.",
+            labels=("phase",))
+        self._m_ttft = reg.histogram(
+            "hvd_serve_ttft_seconds",
+            "Time to first token: request arrival to the prefill "
+            "sample.")
+        self._m_intertoken = reg.histogram(
+            "hvd_serve_intertoken_seconds",
+            "Gap between consecutive decode tokens of one request.")
+        self._m_active = reg.gauge(
+            "hvd_serve_active_slots",
+            "Batch slots currently decoding a request.")
+        self._m_blocks = reg.gauge(
+            "hvd_serve_kv_blocks_in_use",
+            "KV-cache blocks currently claimed by active slots.")
+        # SLO goodput: a token counts as goodput only when its request
+        # completed within its deadline; everything else is wasted
+        # device work, labeled by why
+        self._m_goodput = reg.counter(
+            "hvd_serve_goodput_tokens_total",
+            "Tokens (prefill + decode) of requests that completed "
+            "within their SLO deadline.")
+        self._m_wasted = reg.counter(
+            "hvd_serve_wasted_tokens_total",
+            "Tokens (prefill + decode) whose request ended without "
+            "meeting its SLO, by why the work was wasted.",
+            labels=("reason",))
+        self._m_goodput_ratio = reg.gauge(
+            "hvd_serve_goodput_ratio",
+            "goodput / (goodput + wasted) tokens over the engine's "
+            "life; 1.0 until the first wasted token.")
+        self._goodput_tokens = 0
+        self._wasted_tokens = 0
+        serve_tracing.phase_histogram(reg)
+        self._gauge_interval = config.env_float(
+            "SERVE_METRICS_INTERVAL_S", 1.0)
+        self._last_gauge_ts = -1e30
 
     # -- submission -----------------------------------------------------
 
@@ -114,7 +173,12 @@ class ServeEngine:
     def begin_drain(self):
         """Enter drain mode: no new submissions; the queue and in-flight
         work run to completion. Idempotent."""
+        if self._draining:
+            return
         self._draining = True
+        self._metrics.event("serve_drain_begin",
+                            inflight=len(self._active),
+                            queued=len(self.queue))
 
     # -- the step loop --------------------------------------------------
 
@@ -122,9 +186,15 @@ class ServeEngine:
         """One scheduler iteration. Returns the requests that finished
         during it, as RequestResults."""
         self._heartbeat()
-        self._admit()
+        dirty = self._admit()
         self.scheduler.begin_wave()
-        self._decode()
+        dirty |= self._decode()
+        self._refresh_gauges(force=dirty)
+        # alerting and the durable history ride the serve tick, on the
+        # engine's clock (interval-throttled clock compares)
+        now = self._clock()
+        hvd_history.poke(now)
+        hvd_alerts.tick(now)
         done, self._finished = self._finished, []
         return done
 
@@ -151,6 +221,13 @@ class ServeEngine:
             self._replica.heartbeat(load=self.load_snapshot())
         except RanksLostError as err:
             lost = tuple(int(r) for r in err.ranks)
+            # the in-flight requests' spans are still open, so the dump
+            # below carries them
+            inflight = sorted(st.request.request_id
+                              for st in self._active.values())
+            self._metrics.event("serve_failover", lost_ranks=list(lost),
+                                inflight=inflight)
+            hvd_tracing.get_tracer().dump("serve_ranks_lost")
             replica, self._replica = self._replica, None
             replica.close()
             if self._on_ranks_lost is not None:
@@ -226,6 +303,7 @@ class ServeEngine:
         return min(-(-n // block) * block, self.kv.max_len)
 
     def _admit(self):
+        admitted = False
         while self.scheduler.can_join():
             req = self.queue.pop()
             if req is None:
@@ -237,9 +315,16 @@ class ServeEngine:
             if (prompt_len == 0 or final_len > self.kv.max_len or
                     self.kv.ledger._blocks_for(final_len) >
                     self.kv.ledger.total_blocks):
+                self._m_requests.labels(outcome="failed").inc()
+                trace = serve_tracing.trace_of(req)
+                phases = trace.on_reject("too_long")
+                self._metrics.event(
+                    "serve_reject", request_id=req.request_id,
+                    reason="too_long", trace_id=trace.trace_id)
                 self._finished.append(RequestResult(
                     req.request_id, (), "failed", reason="too_long",
-                    finish_ts=self._clock()))
+                    finish_ts=self._clock(), trace_id=trace.trace_id,
+                    phase_ms=phases or None))
                 continue
             if not self.kv.ledger.can_alloc(final_len):
                 # cache pressure, not impossibility: wait for
@@ -247,9 +332,13 @@ class ServeEngine:
                 self.queue.requeue(req)
                 break
             self._prefill(req, prompt_len, final_len)
+            admitted = True
+        return admitted
 
     def _prefill(self, req, prompt_len, final_len):
         slot = self.scheduler.join(req.request_id)
+        trace = serve_tracing.trace_of(req)
+        trace.on_prefill_start(slot, prompt_len)
         self.kv.ledger.alloc_at(slot, prompt_len, reserve=final_len)
         s_pad = self._pad_len(prompt_len)
         tokens = torch.zeros((1, s_pad), dtype=torch.int64)
@@ -261,13 +350,27 @@ class ServeEngine:
         self.kv.k[:, slot, :s_pad] = pk[:, 0]
         self.kv.v[:, slot, :s_pad] = pv[:, 0]
         first = int(tok[0])  # the one per-prefill readback
-        self._active[slot] = _Active(req, first, prompt_len, self._clock())
+        st = self._active[slot] = _Active(req, first, prompt_len,
+                                          self._clock())
+        trace.on_prefill_end(ttft_s=st.ttft_s)
+        self._m_tokens.labels(phase="prefill").inc(prompt_len)
+        self._m_tokens.labels(phase="decode").inc()
+        self._m_ttft.observe(st.ttft_s)
+        self._metrics.event("serve_admit", request_id=req.request_id,
+                            slot=slot, prompt_len=prompt_len,
+                            trace_id=trace.trace_id,
+                            generation=self._generation,
+                            ttft_s=round(st.ttft_s, 6))
         if req.max_new_tokens <= 1:
             self._retire(slot, "completed")
 
     def _decode(self):
         if not self._active:
-            return
+            return False
+        # one span per fused step, its duration credited to every
+        # request active during the tick
+        tick = serve_tracing.tick_span(**self.scheduler.snapshot())
+        in_tick = list(self._active.values())
         S = self.kv.num_slots
         tokens = np.zeros(S, np.int64)
         # rows outside the batch park their K/V write at max_len-1, where
@@ -284,6 +387,10 @@ class ServeEngine:
             self.kv.v)
         nxt = sample_tokens(logits, temps, self._generator)
         ids = nxt.cpu().numpy()  # the one per-step readback
+        tick_us = serve_tracing.finish_tick(tick,
+                                            active_slots=len(in_tick))
+        for st in in_tick:
+            serve_tracing.trace_of(st.request).on_decode_tick(tick_us)
         now = self._clock()
         for slot in list(self._active):
             st = self._active[slot]
@@ -295,17 +402,61 @@ class ServeEngine:
             st.generated.append(tok)
             st.next_token = tok
             st.next_pos += 1
+            self._m_intertoken.observe(now - st.last_token_ts)
+            st.last_token_ts = now
+            self._m_tokens.labels(phase="decode").inc()
             req = st.request
             if len(st.generated) >= req.max_new_tokens:
                 self._retire(slot, "completed")
             elif (req.deadline_s is not None and
                     now - req.arrival_ts > req.deadline_s):
                 self._retire(slot, "failed", reason="deadline")
+        return True
 
     def _retire(self, slot, outcome, reason=""):
         st = self._active.pop(slot)
         self.kv.ledger.free(slot)
         self.scheduler.retire(slot)
+        self._m_requests.labels(outcome=outcome).inc()
+        now = self._clock()
+        req = st.request
+        trace = serve_tracing.trace_of(req)
+        phases = trace.on_retire(outcome, reason,
+                                 tokens=len(st.generated))
+        # SLO goodput: every token this request cost the device counts
+        # as goodput only if it completed inside its deadline
+        tokens = len(req.prompt) + len(st.generated)
+        met = (outcome == "completed" and
+               (req.deadline_s is None or
+                now - req.arrival_ts <= req.deadline_s))
+        if met:
+            self._goodput_tokens += tokens
+            self._m_goodput.inc(tokens)
+        else:
+            waste = reason or ("deadline_miss" if outcome == "completed"
+                               else outcome)
+            self._wasted_tokens += tokens
+            self._m_wasted.labels(reason=waste).inc(tokens)
+        total = self._goodput_tokens + self._wasted_tokens
+        if total:
+            self._m_goodput_ratio.set(self._goodput_tokens / total)
+        self._metrics.event("serve_retire",
+                            request_id=req.request_id, slot=slot,
+                            outcome=outcome, reason=reason,
+                            tokens=len(st.generated),
+                            generation=self._generation,
+                            trace_id=trace.trace_id,
+                            phase_ms=phases or None,
+                            ttft_s=st.ttft_s)
         self._finished.append(RequestResult(
-            st.request.request_id, tuple(st.generated), outcome,
-            ttft_s=st.ttft_s, finish_ts=self._clock(), reason=reason))
+            req.request_id, tuple(st.generated), outcome,
+            ttft_s=st.ttft_s, finish_ts=now, reason=reason,
+            trace_id=trace.trace_id, phase_ms=phases or None))
+
+    def _refresh_gauges(self, force=False):
+        now = self._clock()
+        if not force and now - self._last_gauge_ts < self._gauge_interval:
+            return
+        self._last_gauge_ts = now
+        self._m_active.set(len(self._active))
+        self._m_blocks.set(self.kv.ledger.blocks_in_use)

@@ -5,18 +5,22 @@ A bounded request queue in front of the engine, with the semantics of
 (deadline, temperature, token budget); ``submit`` refuses at a full
 queue, ``pop`` rejects requests whose admission window passed while
 they waited, and ``requeue`` puts cache-pressured work back at the head.
-Rejections are counted on the queue (``rejected``, by reason); the
-metrics, lock-order and request-tracing planes of the JAX package come
-with the observability slice of the port.
+Rejections are counted on the queue (``rejected``, by reason) and, as in
+the JAX package, in the registry (``hvd_serve_requests_total``, the
+``hvd_serve_queue_depth`` gauge) and the event ring (``serve_reject``).
+``submit`` opens the request's trace (``serving/tracing.py``); ``pop``,
+``requeue`` and a rejection drive its queue-wait spans.
 """
 
-import threading
 import time
 from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Optional
 
 from ..common import config
+from ..utils import lockdep
+from ..utils import metrics as hvd_metrics
+from . import tracing as serve_tracing
 
 
 @dataclass
@@ -27,6 +31,9 @@ class Request:
     queued past it is rejected (reason=deadline) instead of occupying a
     slot it can no longer use. None means the queue-wide admission
     timeout (HVD_SERVE_ADMISSION_TIMEOUT_S) applies alone.
+
+    ``trace`` is the request-path trace (``serving/tracing.py``) the
+    queue attaches at submit.
     """
     request_id: str
     prompt: tuple  # token ids
@@ -34,6 +41,8 @@ class Request:
     temperature: float = 0.0
     deadline_s: Optional[float] = None
     arrival_ts: float = field(default=0.0)
+    trace: Optional[object] = field(default=None, repr=False,
+                                    compare=False)
 
 
 @dataclass
@@ -45,6 +54,8 @@ class RequestResult:
     ttft_s: Optional[float] = None  # arrival -> first token
     finish_ts: float = 0.0
     reason: str = ""  # detail for outcome=failed
+    trace_id: Optional[str] = None  # the request's trace
+    phase_ms: Optional[dict] = None  # latency decomposition by phase
 
 
 class AdmissionQueue:
@@ -58,9 +69,18 @@ class AdmissionQueue:
             config.env_float("SERVE_ADMISSION_TIMEOUT_S", 10.0)
             if admission_timeout_s is None else admission_timeout_s)
         self._clock = clock
-        self._lock = threading.Lock()
-        self._q = deque()  # guarded by _lock
-        self.rejected = Counter()  # reason -> count; _lock
+        self._lock = lockdep.lock("AdmissionQueue._lock")
+        self._q = deque()  # guarded_by: _lock
+        self.rejected = Counter()  # guarded_by: _lock; reason -> count
+        reg = hvd_metrics.get_registry()
+        self._m_requests = reg.counter(
+            "hvd_serve_requests_total",
+            "Serving requests by terminal outcome "
+            "(completed/rejected/failed).", labels=("outcome",))
+        self._m_depth = reg.gauge(
+            "hvd_serve_queue_depth",
+            "Requests waiting for a batch slot right now.")
+        self._metrics = reg
 
     def __len__(self):
         with self._lock:
@@ -71,11 +91,15 @@ class AdmissionQueue:
         now = self._clock()
         if not request.arrival_ts:
             request.arrival_ts = now
+        serve_tracing.begin(request)  # root + queue_wait spans open here
         with self._lock:
-            if len(self._q) >= self.max_depth:
-                self.rejected["queue_full"] += 1
-                return False
-            self._q.append(request)
+            full = len(self._q) >= self.max_depth
+            if not full:
+                self._q.append(request)
+                self._m_depth.set(len(self._q))
+        if full:
+            self._reject(request, "queue_full")
+            return False
         return True
 
     def pop(self):
@@ -86,18 +110,34 @@ class AdmissionQueue:
         while True:
             with self._lock:
                 if not self._q:
+                    self._m_depth.set(0)
                     return None
                 req = self._q.popleft()
-                budget = (req.deadline_s if req.deadline_s is not None
-                          else self.admission_timeout_s)
-                if now - req.arrival_ts > budget:
-                    self.rejected["deadline"] += 1
-                    continue
+                self._m_depth.set(len(self._q))
+            budget = (req.deadline_s if req.deadline_s is not None
+                      else self.admission_timeout_s)
+            if now - req.arrival_ts > budget:
+                self._reject(req, "deadline")
+                continue
+            serve_tracing.trace_of(req).on_pop()
             return req
 
     def requeue(self, request):
         """Put an already-admitted request back at the head — the
         engine's cache-pressure path. Not a new admission: depth may
         transiently exceed max_depth rather than drop accepted work."""
+        serve_tracing.trace_of(request).on_requeue()
         with self._lock:
             self._q.appendleft(request)
+            self._m_depth.set(len(self._q))
+
+    def _reject(self, request, reason):
+        with self._lock:
+            self.rejected[reason] += 1
+        trace = serve_tracing.trace_of(request)
+        trace.on_reject(reason)
+        self._m_requests.labels(outcome="rejected").inc()
+        self._metrics.event("serve_reject", request_id=request.request_id,
+                            reason=reason, trace_id=trace.trace_id,
+                            waited_s=self._clock() - request.arrival_ts
+                            if request.arrival_ts else 0.0)

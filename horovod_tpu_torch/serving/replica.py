@@ -11,12 +11,14 @@ raises RanksLostError naming the dead ranks.
 
 The engine (``serving/engine.py``) calls ``heartbeat()`` once per step
 and turns the error into failover: it hands the lost ranks to the
-``on_ranks_lost`` callback and keeps serving. The serving tracing spans
-around the heartbeat come with the observability planes (slice 8).
+``on_ranks_lost`` callback and keeps serving. Each heartbeat is one
+``heartbeat`` span (``serving/tracing.py``), so a slow control plane
+shows in the request-path story, and a RanksLost heartbeat aborts it.
 """
 
 from ..common.config import HorovodConfig
 from ..ops import negotiation as neg
+from . import tracing as serve_tracing
 
 
 class ReplicaGroup:
@@ -61,9 +63,11 @@ class ReplicaGroup:
         thing this method must never produce. ``load`` (a compact dict,
         ``ServeEngine.load_snapshot``) piggybacks on the cycle into the
         coordinator's per-replica ledger."""
-        resp = self._worker.cycle([], -1, req_id=self._req_id, load=load)
-        self._req_id += 1
-        neg.raise_if_ranks_lost(resp)
+        with serve_tracing.heartbeat_span(replica=self.rank):
+            resp = self._worker.cycle([], -1, req_id=self._req_id,
+                                      load=load)
+            self._req_id += 1
+            neg.raise_if_ranks_lost(resp)
         return resp
 
     def peer_loads(self):

@@ -31,6 +31,7 @@ from . import mpi_ops, optim
 from .common.config import env_bool, env_int
 from .common.exceptions import PREEMPTED_EXIT_CODE  # noqa: F401
 from .utils import checkpoint as hvd_checkpoint
+from .utils import metrics as hvd_metrics
 from .ops.compression import Compression
 from .parallel import mesh as mesh_lib
 from .parallel import tensor_parallel as tpl
@@ -428,9 +429,12 @@ class Checkpointer:
 
                 def handler(signum, frame, _prev=prev):
                     self._preempt.set()
-                    # chain CUSTOM handlers only: SIG_DFL, SIG_IGN and the
-                    # default KeyboardInterrupt raiser would abort the
-                    # in-flight step this handler promises to finish
+                    hvd_metrics.get_registry().event(
+                        "ckpt_preempt", signum=int(signum))
+                    # chain CUSTOM handlers only (the tracing plane's
+                    # flight dump): SIG_DFL, SIG_IGN and the default
+                    # KeyboardInterrupt raiser would abort the in-flight
+                    # step this handler promises to finish
                     if callable(_prev) and _prev not in (
                             signal.SIG_IGN, signal.SIG_DFL,
                             signal.default_int_handler):
@@ -473,6 +477,8 @@ class Checkpointer:
         if preempt:
             self.manager.save(state, step, extra=extra, block=True,
                               kind="emergency")
+            hvd_metrics.get_registry().event("ckpt_emergency_exit",
+                                             step=int(step))
             if self.verbose:
                 print(f"checkpoint: preempted — emergency save at step "
                       f"{step} committed, exiting {PREEMPTED_EXIT_CODE}",

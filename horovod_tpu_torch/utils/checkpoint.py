@@ -47,9 +47,13 @@ checkpoint of either package. A bfloat16 (float8) leaf is written as the
 bytes; a void leaf restores to the ``like`` leaf's dtype, or to bfloat16
 (float8_e4m3fn) without one. A DTensor leaf is saved whole.
 
-The JAX package's metric instruments are left for the observability
-slice; ``CheckpointManager.stats`` keeps the save and restore times.
-The fleet publisher's pointer functions (``manifest_signature``,
+As in the JAX package, the manager feeds the metrics registry
+(``hvd_ckpt_*``: saves by kind, bytes, save and blocking seconds, the
+newest step and its epoch seconds on the shared clock, dropped snapshots,
+retention removals) and the event ring (``ckpt_commit``), and a
+format-2 restore counts ``hvd_ckpt_restores_total`` by outcome (a
+corrupt one also emits ``ckpt_corrupt``); ``CheckpointManager.stats``
+keeps the newest save's times as before. The fleet publisher's pointer functions (``manifest_signature``,
 ``write_pointer``, ``latest_manifest``) come with the fleet slice.
 """
 
@@ -87,6 +91,16 @@ def _failpoint(name):
 
 
 # -- trees ------------------------------------------------------------------
+
+
+def _registry():
+    from . import metrics as hvd_metrics
+    return hvd_metrics.get_registry()
+
+
+def _epoch_seconds():
+    from . import metrics as hvd_metrics
+    return hvd_metrics.shared_clock().epoch_us() / 1e6
 
 
 def _flatten_with_names(tree):
@@ -420,26 +434,36 @@ def _restore_v2(path, steps, like, step, verify):
             f"no committed checkpoint for step {step} under {path!r} "
             f"(committed steps: {sorted(steps)})")
     d = steps[step]
-    manifest = _read_global_manifest(d)
-    if verify:
-        _verify_files(d, manifest)
-    n = manifest["n"]
-    leaves = [None] * n
-    # reshard: reassemble from however many rank shards the saving world
-    # wrote; the restoring world's size plays no part
-    for rm_name in manifest["ranks"]:
-        with open(os.path.join(d, rm_name)) as f:
-            rank_manifest = json.load(f)
-        shard = os.path.join(d, rank_manifest["shard"])
-        with np.load(shard) as data:
-            for i in rank_manifest["indices"]:
-                leaves[i] = data[str(i)]
-    missing = [i for i, v in enumerate(leaves) if v is None]
-    if missing:
-        raise CorruptCheckpointError(
-            f"checkpoint {d!r} is incomplete: no rank shard owns "
-            f"leaves {missing[:8]}{'...' if len(missing) > 8 else ''}")
+    reg = _registry()
+    restores = reg.counter("hvd_ckpt_restores_total",
+                           "Checkpoint restore attempts by outcome.",
+                           labels=("outcome",))
+    try:
+        manifest = _read_global_manifest(d)
+        if verify:
+            _verify_files(d, manifest)
+        n = manifest["n"]
+        leaves = [None] * n
+        # reshard: reassemble from however many rank shards the saving
+        # world wrote; the restoring world's size plays no part
+        for rm_name in manifest["ranks"]:
+            with open(os.path.join(d, rm_name)) as f:
+                rank_manifest = json.load(f)
+            shard = os.path.join(d, rank_manifest["shard"])
+            with np.load(shard) as data:
+                for i in rank_manifest["indices"]:
+                    leaves[i] = data[str(i)]
+        missing = [i for i, v in enumerate(leaves) if v is None]
+        if missing:
+            raise CorruptCheckpointError(
+                f"checkpoint {d!r} is incomplete: no rank shard owns "
+                f"leaves {missing[:8]}{'...' if len(missing) > 8 else ''}")
+    except CorruptCheckpointError:
+        restores.labels(outcome="corrupt").inc()
+        reg.event("ckpt_corrupt", step=int(step), dir=d)
+        raise
     tree = _rebuild(manifest["names"], leaves, like)
+    restores.labels(outcome="ok").inc()
     return tree, manifest["step"], manifest.get("extra") or {}
 
 
@@ -561,6 +585,42 @@ class CheckpointManager:
         self._thread = None   # guarded_by: _cv
         self._closed = False  # guarded_by: _cv
 
+    # -- instruments (looked up per use, so HVD_METRICS=0 stays free) --
+
+    def _instruments(self):
+        reg = _registry()
+        return {
+            "saves": reg.counter(
+                "hvd_ckpt_saves_total",
+                "Committed checkpoint saves by kind "
+                "(async/sync/emergency).", labels=("kind",)),
+            "bytes": reg.counter(
+                "hvd_ckpt_bytes_total",
+                "Bytes of checkpoint shard data written by this rank."),
+            "save_s": reg.histogram(
+                "hvd_ckpt_save_seconds",
+                "Wall time of one background checkpoint write "
+                "(serialize + fsync + commit)."),
+            "block_s": reg.histogram(
+                "hvd_ckpt_block_seconds",
+                "Time the TRAIN LOOP was blocked per save() call (the "
+                "host snapshot; the async contract keeps this tiny)."),
+            "last_step": reg.gauge(
+                "hvd_ckpt_last_step",
+                "Step of the newest checkpoint committed by this rank."),
+            "last_ts": reg.gauge(
+                "hvd_ckpt_last_save_ts_seconds",
+                "Epoch seconds of the newest committed checkpoint "
+                "(dashboards render now - this as last-save age)."),
+            "dropped": reg.counter(
+                "hvd_ckpt_dropped_snapshots_total",
+                "Snapshots superseded in the latest-wins write buffer "
+                "before reaching disk (writer slower than cadence)."),
+            "gc": reg.counter(
+                "hvd_ckpt_gc_total",
+                "Checkpoint directories removed by retention GC."),
+        }
+
     # -- public API ----------------------------------------------------
 
     def save(self, tree, step, extra=None, block=False, kind=None):
@@ -581,6 +641,7 @@ class CheckpointManager:
         # overwrite the live tensors the moment save() returns
         arrays = [_to_host(leaf) for leaf in leaves]
         self.stats["block_s"] = time.perf_counter() - t0
+        self._instruments()["block_s"].observe(self.stats["block_s"])
         job = (int(step), names, arrays,
                dict(extra) if extra else {},
                kind or ("sync" if (block or not self.async_save)
@@ -594,6 +655,7 @@ class CheckpointManager:
         with self._cv:
             if self._pending is not None:
                 self.stats["dropped"] += 1
+                self._instruments()["dropped"].inc()
             self._pending = job
             if self._thread is None:
                 self._thread = threading.Thread(
@@ -701,9 +763,15 @@ class CheckpointManager:
                       lambda f: f.write(payload))
         _failpoint("post_rank_manifest")
         self.stats["bytes"] += shard_bytes
+        ins = self._instruments()
+        ins["bytes"].inc(shard_bytes)
         if self.rank != 0:
             self.stats["saves"] += 1
             self.stats["save_s"] = time.perf_counter() - t0
+            ins["saves"].labels(kind=kind).inc()
+            ins["save_s"].observe(self.stats["save_s"])
+            ins["last_step"].set(step)
+            ins["last_ts"].set(_epoch_seconds())
             return d
         # -- rank 0: gather rank manifests, then commit ---------------
         rank_manifests = self._await_rank_manifests(d, step)
@@ -733,7 +801,14 @@ class CheckpointManager:
         _fsync_dir(d)
         _failpoint("post_commit")
         self.stats["saves"] += 1
-        self.stats["save_s"] = time.perf_counter() - t0
+        self.stats["save_s"] = dt = time.perf_counter() - t0
+        ins["saves"].labels(kind=kind).inc()
+        ins["save_s"].observe(dt)
+        ins["last_step"].set(step)
+        ins["last_ts"].set(_epoch_seconds())
+        _registry().event("ckpt_commit", step=step, save_kind=kind,
+                          bytes=sum(m["bytes"] for m in files.values()),
+                          ms=round(dt * 1e3, 3))
         if self.on_commit is not None:
             self.on_commit(step, d, manifest)
         self._gc()
@@ -781,9 +856,11 @@ class CheckpointManager:
             return
         newest = max(committed)
         doomed = sorted(committed)[:-self.keep] if self.keep > 0 else []
+        gc = self._instruments()["gc"]
         for step in doomed:
             shutil.rmtree(committed[step], ignore_errors=True)
             self.stats["gc"] += 1
+            gc.inc()
         try:
             entries = os.listdir(self.directory)
         except OSError:
@@ -798,3 +875,4 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, name),
                           ignore_errors=True)
             self.stats["gc"] += 1
+            gc.inc()

@@ -16,11 +16,10 @@ reports
   * **hold-while-blocking**: a thread holding a lock blocked longer than
     ``HVD_LOCKDEP_STALL_S`` acquiring another.
 
-Each finding is kept (``findings()``) and logged as a warning. The JAX
-package also records it as a metrics event (``lockdep_*``) and dumps the
-tracing flight recorder; those two calls come with the observability
-core (the metrics registry and the tracer), which the port has not
-taken yet.
+Each finding is kept (``findings()``) and escalates as in the JAX
+package: a metrics event (``lockdep_<kind>``), a warning, and a dump of
+the tracing flight recorder (reason ``lockdep_<kind>``), whose event
+ring then holds the finding beside the spans.
 
 Cost: when ``HVD_LOCKDEP`` is unset, ``lock(name)`` returns a raw
 ``threading.Lock``: no instrumented code on any acquire or release.
@@ -143,14 +142,18 @@ def _record(kind, detail):
 
 
 def _escalate(kind, finding):
-    # the log warning; the metrics event and the flight dump come with
-    # the observability core
+    # ladder: structured event -> warning -> flight dump (the dump
+    # snapshots the event ring, so a postmortem sees locks and stacks)
+    from . import metrics as hvd_metrics
+    from . import tracing as hvd_tracing
     from ..common import hvd_logging
     fields = {k: v for k, v in finding.items() if k != "kind"}
+    hvd_metrics.get_registry().event(f"lockdep_{kind}", **fields)
     hvd_logging.warning(
         "lockdep: %s — %s (HVD_LOCKDEP sanitizer)", kind,
         ", ".join(f"{k}={v}" for k, v in fields.items()
                   if not k.startswith("stack")))
+    hvd_tracing.get_tracer().dump(f"lockdep_{kind}")
 
 
 def _stack():

@@ -11,8 +11,8 @@ parameter's declared shard shape: a full-shape gather of something
 declared sharded. Activation collectives never match a parameter's
 (full, shard) pair. A result shape that is also the full shape of a
 parameter declared replicated is ambiguous and stays silent: the rule is
-precision-first. The rest of the memory plane comes with the port's
-observability slice.
+precision-first. The rest of the memory plane (the HBM ledger, the
+compile tracker, the flight dump's memory section) is not ported yet.
 """
 
 from ..parallel.mesh import spec_shard_shape

@@ -14,8 +14,10 @@ horovod/common/timeline.{h,cc}):
 Activity names (common.h:30-51): QUEUE, MEMCPY_IN_FUSION_BUFFER,
 ALLREDUCE, MEMCPY_OUT_FUSION_BUFFER, ALLGATHER, BROADCAST, NEGOTIATE_*.
 Events use the Chrome trace "ph" codes "M" metadata, "B"/"E"
-begin/end, "i" instant. The device-trace capture (the JAX package's
-``profile()``) comes with the observability planes (slice 8).
+begin/end, "i" instant. The writer takes the shared clock of
+``utils/metrics.py``: its ``ts`` and ``clock_sync`` epoch are the ones
+metric events and spans carry. The device-trace capture (the JAX
+package's ``profile()``) is not ported.
 """
 
 # Activity names (reference common.h:30-51).
@@ -37,9 +39,15 @@ class NativeTimeline:
 
     def __init__(self, filename, mark_cycles=False):
         from .. import _native
+        from . import metrics as metrics_mod
         self._lib = _native.load()
+        # the process-wide shared clock: trace ts and metric/event/span
+        # ts_us ride one monotonic base, and the clock_sync epoch is the
+        # one sampled with it
+        clock = metrics_mod.shared_clock()
         self._ptr = self._lib.hvd_timeline_create(
-            filename.encode(), 1 if mark_cycles else 0)
+            filename.encode(), 1 if mark_cycles else 0, clock.base_ns,
+            clock.epoch_us_at_ts0)
         if not self._ptr:
             raise OSError(f"cannot open timeline file {filename}")
 

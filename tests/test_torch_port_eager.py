@@ -6,8 +6,8 @@ On one rank: the local plan fuses a burst into the buckets
 names raise; callbacks fire at completion; the timeline holds the
 NEGOTIATE and ALLREDUCE spans; ``HOROVOD_AUTOTUNE`` and unknown codecs
 are refused (the quantized ones run: tests/test_torch_port_quantization.py);
-and the stall cases of ``tests/test_stall.py`` (the metrics gauge aside,
-which comes with slice 8): the warning after the check time, once per
+and the stall cases of ``tests/test_stall.py`` (the metrics gauge
+aside): the warning after the check time, once per
 tensor, the StalledError at the shutdown deadline from ``synchronize``
 and from the background scan, and the shutdown failing pending handles.
 

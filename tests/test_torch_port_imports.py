@@ -279,3 +279,25 @@ def test_chip_smoke_fails_without_cuda_or_port(where, tmp_path):
         script), capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+OBSERVABILITY_MODULES = (
+    "horovod_tpu_torch.utils.metrics", "horovod_tpu_torch.utils.tracing",
+    "horovod_tpu_torch.utils.provenance", "horovod_tpu_torch.utils.history",
+    "horovod_tpu_torch.utils.alerts", "horovod_tpu_torch.serving.tracing",
+    "horovod_tpu_torch.run.chaos")
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+def test_observability_modules_are_scanned_and_import(module):
+    """The observability core and the chaos plane are in the scan, import
+    neither jax nor the JAX package, and import without starting a
+    thread, a server or a file."""
+    import importlib
+    import threading
+    path = os.path.join(*module.split(".")) + ".py"
+    assert path in _port_files()
+    assert not _imported_roots(os.path.join(ROOT, path)) & set(FORBIDDEN)
+    before = threading.active_count()
+    importlib.import_module(module)
+    assert threading.active_count() == before

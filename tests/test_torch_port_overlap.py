@@ -13,8 +13,9 @@ through the port's ``run(fn)`` (two CPU processes over gloo, negotiated
 by the job's secret): overlap on and off give the same fp32 bits on
 every rank, the two-level engine carries int8 on the inter-host leg
 only, and collectives under overlap and the two-level engine complete
-with exact sums (the JAX case adds a chaos delay on the control plane;
-the chaos plane comes with the observability core).
+with exact sums under a chaos delay on the control plane (the JAX
+case's spec names the service "negotiation", which no service is
+called, so it delays nothing; the port's names "hvd.negotiation").
 """
 
 import time
@@ -272,7 +273,11 @@ def two_process():
             "late": run(_late_job(), num_proc=2,
                         env={"HOROVOD_OVERLAP_EAGER": "1",
                              "HOROVOD_OVERLAP_HIERARCHICAL": "1",
-                             "HOROVOD_OVERLAP_LOCAL_SIZE": "1"},
+                             "HOROVOD_OVERLAP_LOCAL_SIZE": "1",
+                             "HVD_CHAOS_SPEC":
+                                 "hvd.negotiation:*:delay_response:0.5",
+                             "HVD_CHAOS_DELAY_MS": "120",
+                             "HVD_CHAOS_SEED": "17"},
                         start_timeout_s=RUN_TIMEOUT_S)}
 
 
@@ -365,10 +370,10 @@ class TestHierarchicalEngine:
 
 class TestDelayedInterHostLeg:
     def test_overlap_and_hierarchy_complete_exactly(self, two_process):
-        """tests/test_overlap.py::TestChaosDelayedInterHostLeg without the
-        chaos delay (the port's chaos plane comes with the observability
-        core): overlap plus the two-level engine on the negotiated
-        control plane, every collective complete with exact sums."""
+        """tests/test_overlap.py::TestChaosDelayedInterHostLeg: overlap
+        plus the two-level engine on the negotiated control plane, half
+        its responses delayed 120 ms, every collective complete with
+        exact sums."""
         for res in two_process["late"]:
             assert res["hier"] == "HierarchicalProcessEngine", res
             assert res["sums"] == [3.0 * (i + 1) for i in range(3)], res
