@@ -121,7 +121,8 @@ on failure:
      and depth) served by tp engines of 2, 3 and 4 ranks, the ranks
      threads of this process on the one card (at tp 4 the 6 heads do not
      split: every rank computes all of them, the KV cache replicated),
-     the phase-3 requests and a twopass run, held to the unsharded
+     the phase-3 requests (each cut to its first 16 tokens, for time)
+     and a twopass run, held to the unsharded
      engine: prefill logits of every request within two bf16 ulps plus
      1 % of the largest |logit|, token agreement printed, KV bytes per
      rank (at least 1.9x below at tp 2), resharding_report empty, a
@@ -163,14 +164,15 @@ on failure:
      the CPU, device ms per bucket and in all; (b) `python -m
      horovod_tpu_torch.run -np 2` on the one card (gloo between two
      processes, over CUDA tensors) with train_lm --eager-allreduce, the
-     flagship at full width and depth, 20 steps under
-     HOROVOD_COMPRESSION none, bf16, int8 and fp8: 12+12+12 launches a
+     flagship at full width with its depth cut to 4 layers, 8 steps
+     (a warm-up window of 4 and a timed one) under
+     HOROVOD_COMPRESSION none, bf16, int8 and fp8: 4+4+4 launches a
      step on each rank, losses falling, encoded wire bytes a step at
      most 0.26 of the fp32 gradient bytes, rank 0's last quantized bucket
      (error feedback applied on both ranks) equal to
      stacked_wire_allreduce of both ranks' compensated inputs, ms/step
-     per codec; (c) word2vec --eager on 2 ranks through hvdrun,
-     200 steps: the loss falls, to_dense of the grouped sparse allreduce
+     per codec and the four runs' seconds; (c) word2vec --eager on 2
+     ranks through hvdrun, 200 steps: the loss falls, to_dense of the grouped sparse allreduce
      within 1e-6 of the dense allreduce of the densified gradients, 2
      fused allgather groups a step; (d) the flagship's full-depth state
      (1.5 GB) through CheckpointManager (blocking part and whole save,
@@ -224,6 +226,43 @@ on failure:
      serving 8 requests at prompt 960 with request tracing: each result's
      trace id and phase_ms summing to its total, the phases' p50 and
      p99; the phase's seconds;
+  3l. (run after phase 4's timings: its loader and RPC threads touch
+     the card, and the profiler's readings are left alone) the fleet and
+     router planes on GPT-2 small (tied embeddings, bf16, full width and
+     depth), 2 replicas of 4 slots, max_len 1024, kv block 16: (a)
+     route_lm.route_workload under least_loaded, then round_robin, on
+     route_lm's seeded workload (12 requests, prompts
+     16-960, 8 or 40 new tokens): every request completes, no KV block
+     leaks, the split between replicas, every temperature-0 request's
+     tokens equal to one engine serving it alone (where they part, the
+     top-2 logit gap at the first differing step within 2 bf16 ulps of
+     the top logit: a tie, printed), TTFT and inter-token p50/p99,
+     tokens/s, each arm's wall time; (b) trainer.Checkpointer(publish=
+     True) publishes the served tree as generation 1, each replica boots
+     through WeightSubscriber.load_initial, and phase 3b's trained
+     weights in bf16 are published as generation 2 with requests in
+     flight; the replicas load it in the background (pinned memory, a
+     copy stream of their own, a CUDA event the engine waits on) and a
+     CanaryController (50 %, a window of 4) gates the swaps, fed only
+     requests submitted once every loader has finished and each replica
+     decodes one generation: its decision and evidence, every fleet_swap
+     with inflight >= 1, each
+     swapped replica's requests that crossed its swap equal to
+     generation 1 served alone and its first generation-2 requests equal
+     to generation 2 served alone, both prefill kernels launched on both
+     generations, every engine back to one generation; the swap phases
+     (detect -> loaded -> armed -> swapped) in ms, router step ms while a
+     loader runs against before the publish, device memory with one and
+     with two generations resident; (c) replica 1 declared lost
+     (Router.on_ranks_lost, twice) with requests in flight: its orphans
+     rerouted exactly once, completed on the survivor with the tokens of
+     serving them alone; one SpawnReplicaRequest sent twice over
+     ReplicaSupervisorClient under a chaos rule that also duplicates its
+     delivery spawns exactly one replica, which then serves; the flash
+     launches of the routed runs alone (the counts set to 0 before each
+     and read after it; the solo references and tie checks count
+     nowhere), added to the kernels line's B1 and B2 counts, and the
+     phase's seconds;
   4. timings, each printed with the card's name and power limit: the
      kernels against their bounds, plain versions and the library call
      (SDPA forward and backward; the backward pair, its sum and SDPA's
@@ -286,6 +325,7 @@ from horovod_tpu_torch.ops import flash_attention_ref as ref  # noqa: E402
 from horovod_tpu_torch.ops import flash_fwd_ab as fwd_ab  # noqa: E402
 from horovod_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from horovod_tpu_torch.parallel import ring  # noqa: E402
+from horovod_tpu_torch.router import CanaryController  # noqa: E402
 from horovod_tpu_torch.serving.decode import (  # noqa: E402
     decode_step, prefill_forward)
 from horovod_tpu_torch.serving.engine import ServeEngine  # noqa: E402
@@ -1790,6 +1830,11 @@ TP_LOGITS_ATOL_SHARE = 1e-2
 # in another order (both printed)
 TP_CHECK_LAYERS = 2
 TP_FLOOR_FACTOR = 2.0
+# phase 3f serves each request's first TP_NEW_TOKENS tokens, a cut of its
+# decode depth for time (the thread ranks' decode steps were most of the
+# phase: tp 4 took 43 s for the 388 tokens of the phase-3 requests);
+# every check is per prefill or per decode step
+TP_NEW_TOKENS = 16
 # an fp32 sum of 4 values taken in another order: each element within
 # 1e-6 of the sum of the values' magnitudes (3 roundings of 2^-24 each)
 SUM_ORDER_TOL = 1e-6
@@ -1887,8 +1932,10 @@ def check_serving_mesh(card, dev, cfg, model, requests):
     held to TP_FLOOR_FACTOR times the unsharded engine's deviation under
     another summation order of every product (see TP_CHECK_LAYERS). Then
     the tiny fp32 model at tp 2, token for token equal to the unsharded
-    engine."""
+    engine. Each request is cut to its first TP_NEW_TOKENS tokens."""
     from horovod_tpu_torch.serving.decode import ServingWeights
+    requests = [dataclasses.replace(q, max_new_tokens=min(
+        q.max_new_tokens, TP_NEW_TOKENS)) for q in requests]
     base_engine, base = serve_on(cfg, model, requests, dev)
     base_bytes = base_engine.kv.per_chip_bytes()
     del base_engine
@@ -3191,8 +3238,11 @@ def run_eager_entry_points(card, dev, train_cfg):
 
 
 WIRE_CODECS = ("none", "bf16", "int8", "fp8")
-# train_lm's inner steps on the card: a warm-up window and a timed one
-WIRE_STEPS = 2 * train_lm.DEFAULTS["cuda"][2]
+# train_lm on the card at the flagship's width with its depth cut, for
+# time: a warm-up window and a timed one of WIRE_INNER steps each
+WIRE_LAYERS = 4
+WIRE_INNER = 4
+WIRE_STEPS = 2 * WIRE_INNER
 WIRE_RATIO_MAX = 0.26
 WIRE_RUN_S = 240
 W2V_STEPS = 200
@@ -3304,22 +3354,25 @@ def check_codecs(card, dev, model):
 
 def run_quantized_wire(card, grad_bytes, layers):
     """Phase 3i (b): hvdrun -np 2 on the one card, train_lm
-    --eager-allreduce at full width and depth (b16 x s1024), WIRE_STEPS
-    steps a codec. Per rank 12+12+12 launches a step; losses finite and
-    falling; encoded wire bytes per step at most WIRE_RATIO_MAX of the
-    fp32 gradient bytes; rank 0's last quantized bucket, error feedback
-    applied, equal to stacked_wire_allreduce of both ranks' compensated
-    inputs."""
+    --eager-allreduce at the flagship's width (b16 x s1024) with its depth
+    cut to ``layers`` blocks, WIRE_STEPS steps a codec. Per rank
+    layers+layers+layers launches a step; losses finite and falling;
+    encoded wire bytes per step at most WIRE_RATIO_MAX of the fp32
+    gradient bytes (``grad_bytes``, of the cut model); rank 0's last
+    quantized bucket, error feedback applied, equal to
+    stacked_wire_allreduce of both ranks' compensated inputs."""
     from horovod_tpu_torch.ops import quantization as q
     per_step = {"flash_fwd_lazy": float(layers),
                 "flash_bwd_sm90_dq": float(layers),
                 "flash_bwd_sm90_dkv": float(layers)}
     ms = {}
+    t_wire = time.perf_counter()
     for codec in WIRE_CODECS:
         check = os.path.join(P3I_DIR, f"wire-{codec}")
         args = ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
                 sys.executable, "-m", "horovod_tpu_torch.train_lm",
-                "--device", "cuda", "--eager-allreduce", "--windows", "1"]
+                "--device", "cuda", "--eager-allreduce", "--windows", "1",
+                "--num-layers", str(layers), "--inner-steps", str(WIRE_INNER)]
         if q.is_quantized(codec):
             args += ["--wire-check", check]
         env = dict(os.environ, HOROVOD_COMPRESSION=codec)
@@ -3369,14 +3422,18 @@ def run_quantized_wire(card, grad_bytes, layers):
                     f"compensated inputs bit for bit")
         log(card, f"phase 3i (b): HOROVOD_COMPRESSION={codec}, 2 ranks on "
                   f"one card (gloo between two processes on one card: not "
-                  f"an interconnect figure), flagship b{TRAIN_BATCH} x "
-                  f"s{TRAIN_SEQ}, {WIRE_STEPS} steps: loss "
+                  f"an interconnect figure), flagship width, depth cut to "
+                  f"{layers} layers, b{TRAIN_BATCH} x s{TRAIN_SEQ}, "
+                  f"{WIRE_STEPS} steps: loss "
                   f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, "
                   f"{out['ms_per_step']:.1f} ms/step, launches "
                   f"{out['launches_per_step']} a step on every rank"
                   f"{note}; {wall:.1f} s wall")
     log(card, "phase 3i (b): ms/step, gloo between two processes on one "
               "card: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    log(card, f"phase 3i (b): {time.perf_counter() - t_wire:.1f} s in all "
+              f"({len(WIRE_CODECS)} codecs at {layers} layers, {WIRE_STEPS} "
+              f"steps each)")
     return ms
 
 
@@ -3479,15 +3536,17 @@ def run_drill(card):
 def run_phase_3i(card, dev, model, opt, cfg):
     """Phase 3i, each part fatal and under its own deadline."""
     t0 = time.perf_counter()
-    grads = [p for p in model.parameters() if p.requires_grad]
-    grad_bytes = sum(p.numel() * 4 for p in grads)
+    # the fp32 gradient bytes of the depth-cut model phase 3i (b) trains
+    cut = tr.TransformerLM(dataclasses.replace(cfg, num_layers=WIRE_LAYERS),
+                           "meta", torch.float32)
+    grad_bytes = sum(p.numel() * 4 for p in cut.parameters())
     check_codecs(card, dev, model)
     ckpt = time_checkpoint(card, model, opt)
     torch.cuda.empty_cache()
     log(card, f"phase 3i: this process holds "
               f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
               f"while the ranks run")
-    ms = run_quantized_wire(card, grad_bytes, cfg.num_layers)
+    ms = run_quantized_wire(card, grad_bytes, WIRE_LAYERS)
     w2v = run_word2vec(card)
     drill = run_drill(card)
     log(card, f"phase 3i: {time.perf_counter() - t0:.1f} s in all")
@@ -4452,6 +4511,593 @@ def run_phase_3k(card, dev, cfg, model):
     return {"eager": eager, "ranks": ranks, "serving": serving}
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the fleet and router planes: GPT-2 small (tied embeddings,
+# bf16, full width and depth) behind a Router of P3L_REPLICAS engines,
+# hot-swapped to a newly published weight generation under a canary
+
+
+P3L_DIR = os.path.join(ROOT, "build", "phase3l")
+P3L_REPLICAS, P3L_SLOTS = 2, 4
+# (a): route_lm's workload on the card (prompts 16-960, 8 or 40 new
+# tokens); seed 6's 12 requests hold two prompts of one 64-key tile (B1)
+P3L_SEED, P3L_REQUESTS, P3L_RATE = 6, 12, 0.5
+# (b): traffic at 0.4 arrivals a step (6.4 of the 8 slots' tokens a step
+# at 16 new tokens a request on average), so the replicas stay busy and
+# no queue grows without bound while the canary waits for requests that
+# arrive after the loads; generation 2 is published after
+# P3L_PUBLISH_STEP router steps with requests in flight
+P3L_SWAP_SEED, P3L_SWAP_REQUESTS, P3L_SWAP_RATE = 4, 160, 0.4
+P3L_PUBLISH_STEP = 8
+P3L_CANARY_PCT, P3L_CANARY_WINDOW = 50.0, 4
+P3L_POLL_S = 0.05
+P3L_MIN_GEN2 = 8      # after a promote, generation-2 admissions before
+#                       (b)'s traffic stops
+# (c): requests behind two replicas when replica 1 is declared lost
+P3L_LOST_REQUESTS, P3L_LOST_AFTER = 8, 3
+P3L_SPAWN_CHAOS = ("hvd elastic replica supervisor:SpawnReplicaRequest:"
+                   "dup_request:1.0:1")
+
+
+def p3l_cfg():
+    """The served model: gpt2_small_tpu with tied embeddings (the
+    training flagship's parameters, so phase 3b's weights publish into
+    it), bf16, flash prefill."""
+    return tr.TransformerConfig.gpt2_small_tpu(attention_impl="flash",
+                                               tie_embeddings=True)
+
+
+def p3l_engine(cfg, weights, dev, queue_depth=256, **kw):
+    return ServeEngine(cfg, weights, num_slots=P3L_SLOTS,
+                       max_len=SERVE_MAX_LEN, kv_block=SERVE_KV_BLOCK,
+                       queue=AdmissionQueue(max_depth=queue_depth,
+                                            admission_timeout_s=1e9),
+                       seed=0, device=dev, **kw)
+
+
+def fresh(req, request_id=None):
+    """A copy of ``req`` as a client would submit it anew (no arrival
+    time, no trace)."""
+    return dataclasses.replace(req, request_id=request_id or req.request_id,
+                               arrival_ts=0.0, trace=None)
+
+
+@contextlib.contextmanager
+def routed_launches(into):
+    """One routed run of phase 3l: the launch counts set to 0 just before
+    it and added to ``into`` just after, so that the kernels line counts
+    the router's own traffic and never a solo reference or a tie check
+    run between two routed runs."""
+    fa.reset_launch_counts()
+    yield
+    for k, v in fa.launch_counts.items():
+        into[k] = into.get(k, 0) + v
+
+
+class SettledCanary(CanaryController):
+    """Phase 3l (b)'s CanaryController, fed only the results of requests
+    submitted at or after ``settled_step``: the router step after which
+    every replica's loader has finished, the canary cohort decodes the
+    new generation alone and the held replicas the old one alone. The
+    loader's host work slows every replica's step while it runs (ROADMAP
+    section C), so a result that met it would judge the swap's own stall,
+    not the weights. ``submitted`` maps request ids to the router step of
+    their submission; ``counted`` and ``skipped`` list what the windows
+    took and left."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.settled_step = None
+        self.submitted, self.counted, self.skipped = {}, [], []
+
+    def observe(self, result, replica_id):
+        if self.state == "canary":
+            at = self.submitted[result.request_id]
+            if self.settled_step is None or at < self.settled_step:
+                self.skipped.append(result.request_id)
+                return
+            self.counted.append(result.request_id)
+        super().observe(result, replica_id)
+
+
+def solo_tokens(cfg, weights, requests, dev):
+    """Each request served alone, one after another, by one engine of
+    phase 3l's shape: {request id: tokens}."""
+    eng = p3l_engine(cfg, weights, dev)
+    out = {}
+    for r in requests:
+        eng.submit(fresh(r))
+        got = eng.run_to_completion()
+        if len(got) != 1 or got[0].outcome != "completed":
+            raise AssertionError(f"solo {r.request_id}: {got}")
+        out[r.request_id] = list(got[0].tokens)
+    return out
+
+
+def hold_tokens(cfg, weights, prompts, got, want, dev, where):
+    """``got`` against ``want`` ({id: tokens}, temperature 0). Where they
+    part, the logits at the first differing step (a prefill over the
+    prompt and the common tokens) must have their top two within two bf16
+    ulps of the top logit, a tie; returns those ties."""
+    ties = []
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        if len(g) != len(w):
+            raise AssertionError(f"{where} {rid}: {len(g)} tokens, want "
+                                 f"{len(w)}")
+        k = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        toks = torch.tensor([list(prompts[rid]) + w[:k]], device=dev)
+        logits = prefill_forward(cfg, weights, toks)[0][0, -1].float()
+        top = torch.topk(logits, 2)
+        gap = (top.values[0] - top.values[1]).item()
+        limit = bf16_ulps(top.values[0], 2).item()
+        tie = {"request": rid, "step": k, "got": g[k], "want": w[k],
+               "top2": top.indices.tolist(), "gap": gap, "limit": limit}
+        if gap > limit:
+            raise AssertionError(f"{where}: tokens part at a non-tie {tie}")
+        ties.append(tie)
+    return ties
+
+
+def count_prefills_by_generation(engine, into, admitted):
+    """Wrap ``engine._prefill`` to add each prefill's kernel launches to
+    ``into[generation]`` (the generation the request is admitted on) and
+    one to ``admitted[generation]``, this engine's admissions."""
+    inner = engine._prefill
+
+    def prefill(req, prompt_len, final_len):
+        before = dict(fa.launch_counts)
+        inner(req, prompt_len, final_len)
+        admitted[engine.generation] = admitted.get(engine.generation, 0) + 1
+        gen = into.setdefault(engine.generation, {})
+        for k, v in fa.launch_counts.items():
+            if v - before.get(k, 0):
+                gen[k] = gen.get(k, 0) + v - before.get(k, 0)
+    engine._prefill = prefill
+
+
+def run_routed_arms(card, dev, cfg, model, launches):
+    """Phase 3l (a): route_lm's ``route_workload`` under least_loaded,
+    then round_robin, each arm fresh engines behind a fresh Router on the
+    same weights: every request completes, no KV block leaks (checked by
+    route_lm), the split between replicas; every temperature-0 request's
+    tokens equal to one engine serving it alone (or parted at a tie);
+    TTFT, per-request inter-token gap, tokens/s, wall time. ``launches``
+    takes the arms' flash launches."""
+    from horovod_tpu_torch import route_lm, serve_lm
+    workload = serve_lm.make_workload(P3L_SEED, P3L_REQUESTS, P3L_RATE,
+                                      prompt_lens=(16, 960))
+    requests = [r for _, r in workload]
+    prompts = {r.request_id: r.prompt for r in requests}
+    t0 = time.perf_counter()
+    solo = solo_tokens(cfg, model, requests, dev)
+    solo_s = time.perf_counter() - t0
+    arms = {}
+    for policy in ("least_loaded", "round_robin"):
+        results = []
+        with routed_launches(launches):
+            arm = route_lm.route_workload(
+                cfg, model, workload, policy, P3L_REPLICAS, P3L_SLOTS,
+                SERVE_MAX_LEN, kv_block=SERVE_KV_BLOCK, seed=0, device=dev,
+                results=results)
+        if (arm["completed"], arm["failed"]) != (len(requests), 0):
+            raise AssertionError(f"{policy}: {arm}")
+        got = {r.request_id: list(r.tokens) for r in results}
+        ties = hold_tokens(cfg, model, prompts, got, solo, dev,
+                           f"phase 3l (a) {policy}")
+        arms[policy] = dict(arm, ties=ties)
+        log(card, f"phase 3l (a): {policy}, {P3L_REPLICAS} replicas x "
+                  f"{P3L_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
+                  f"{len(requests)} requests (seed {P3L_SEED}, prompts "
+                  f"{min(map(len, prompts.values()))}-"
+                  f"{max(map(len, prompts.values()))}): all completed in "
+                  f"{arm['steps']} router steps, {arm['wall_s']:.3f} s wall, "
+                  f"split {arm['by_replica']}, {arm['tokens_per_s']:.1f} "
+                  f"tokens/s, TTFT p50/p99 (of {len(requests)} requests) "
+                  f"{arm['ttft_p50_s'] * 1e3:.1f}/"
+                  f"{arm['ttft_p99_s'] * 1e3:.1f} ms, inter-token p50/p99 "
+                  f"{arm['intertoken_p50_s'] * 1e3:.2f}/"
+                  f"{arm['intertoken_p99_s'] * 1e3:.2f} ms (per-request "
+                  f"mean gaps); tokens equal to the engine serving each "
+                  f"alone for {len(requests) - len(ties)}/{len(requests)}, "
+                  f"ties {ties}; no KV block leaked")
+    log(card, f"phase 3l (a): the solo reference (each request alone, one "
+              f"engine) took {solo_s:.1f} s")
+    return arms, workload, solo
+
+
+def mixed_swap_workload():
+    """(b)'s traffic: route_lm's workload on the card, every other prompt
+    of each canary cohort (the request id's stable hash, as the canary
+    splits traffic) cut to 16-63 tokens (one 64-key tile, B1), so that
+    both prefill kernels run on both generations whatever the verdict."""
+    from horovod_tpu_torch import serve_lm
+    from horovod_tpu_torch.router.canary import _hash_pct
+    out, seen = [], {True: 0, False: 0}
+    for i, (t, r) in enumerate(serve_lm.make_workload(
+            P3L_SWAP_SEED, P3L_SWAP_REQUESTS, P3L_SWAP_RATE,
+            prompt_lens=(16, 960))):
+        rid = f"swap-{i}"
+        cohort = _hash_pct(rid) < P3L_CANARY_PCT
+        if seen[cohort] % 2 == 0:
+            r = dataclasses.replace(r, prompt=r.prompt[:16 + (i * 7) % 48])
+        seen[cohort] += 1
+        out.append((t, dataclasses.replace(r, request_id=rid)))
+    return out
+
+
+def run_fleet_swap(card, dev, cfg, model, trained, launches):
+    """Phase 3l (b): a rank-0 Checkpointer(publish=True) publishes the
+    serving tree as generation 1 and ``trained`` (phase 3b's weights by
+    name, in the serving dtype) as generation 2 while requests are in
+    flight; each
+    replica boots through WeightSubscriber.load_initial and loads
+    generation 2 in the background (pinned host memory, its own stream,
+    a CUDA event the engine waits on); a CanaryController gates the
+    swaps, its windows fed only requests submitted once the loads and the
+    canary replica's transition are over (``SettledCanary``). Checks: the
+    canary's decision, and evidence made of those requests alone; every
+    fleet_swap
+    with inflight >= 1; each swapped replica's old-generation requests in
+    flight across its swap equal to generation 1 served alone, and its
+    first generation-2 requests equal to generation 2 served alone;
+    every generation's prefills launching both B1 and B2; each engine
+    back to one generation. Prints the swap phases, router step ms while
+    a loader runs against before the publish, and the device memory with
+    two generations resident. ``launches`` takes the routed steps' flash
+    launches."""
+    import shutil
+
+    from horovod_tpu_torch.fleet import WeightSubscriber
+    from horovod_tpu_torch.router import Router
+    from horovod_tpu_torch.serving.decode import (model_from_tree,
+                                                  serving_tree)
+    from horovod_tpu_torch.utils import metrics
+    directory = os.path.join(P3L_DIR, "fleet")
+    shutil.rmtree(directory, ignore_errors=True)
+    tree1 = serving_tree(model)
+    if set(trained) != set(tree1):
+        raise AssertionError(f"trained and served trees differ: "
+                             f"{sorted(set(trained) ^ set(tree1))}")
+    tree2 = {n: trained[n].to(device=t.device, dtype=t.dtype)
+             for n, t in tree1.items()}
+    ckpt = trainer.Checkpointer(directory, publish=True, preemption=False)
+    ckpt.manager.save(tree1, 1, block=True)
+    canary = SettledCanary(pct=P3L_CANARY_PCT, window=P3L_CANARY_WINDOW,
+                           max_canary_replicas=1)
+    subs, engines, by_gen, admitted = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for rid in range(P3L_REPLICAS):
+        subs[rid] = WeightSubscriber(directory, like=tree1, replica=rid,
+                                     poll_interval_s=P3L_POLL_S)
+        init = subs[rid].load_initial()
+        where = init.params["embed.weight"].device
+        if init.generation != 1 or where.type != dev.type:
+            raise AssertionError(f"replica {rid} booted generation "
+                                 f"{init.generation} on {where}")
+        engines[rid] = p3l_engine(cfg, model_from_tree(cfg, init.params,
+                                                       dev), dev,
+                                  subscriber=subs[rid],
+                                  generation=init.generation,
+                                  swap_gate=canary.gate(rid))
+        admitted[rid] = {}
+        count_prefills_by_generation(engines[rid], by_gen, admitted[rid])
+    boot_s = time.perf_counter() - t0
+    router = Router(engines, policy="least_loaded", canary=canary)
+    workload = mixed_swap_workload()
+    prompts = {r.request_id: r.prompt for _, r in workload}
+    step_ms = {"steady": [], "loading": [], "two_generations": []}
+    mem = {"one_generation": None, "two_generations": 0}
+    swap_step, results, returned_at = {}, [], {}
+    published = stop = False
+    i = steps = 0
+    t0 = time.perf_counter()
+    with routed_launches(launches):
+        while (not stop and i < len(workload)) or router.pending():
+            while not stop and i < len(workload) and workload[i][0] <= steps:
+                req = workload[i][1]
+                canary.submitted[req.request_id] = steps
+                if not router.submit(req):
+                    raise AssertionError(f"phase 3l (b): shed "
+                                         f"{router.last_shed}")
+                i += 1
+            loading = published and not all(s.wait(0) for s in subs.values())
+            t1 = time.perf_counter()
+            done = router.step()
+            dt = (time.perf_counter() - t1) * 1e3
+            if not published:
+                step_ms["steady"].append(dt)
+            elif loading:
+                step_ms["loading"].append(dt)
+            elif any(len(e._params_by_gen) > 1 for e in engines.values()):
+                # a transition step: one more decode pass on that replica
+                step_ms["two_generations"].append(dt)
+            for r in done:
+                returned_at[r.request_id] = steps
+            results.extend(done)
+            for rid, eng in engines.items():
+                if eng.last_swap is not None and rid not in swap_step:
+                    swap_step[rid] = steps
+                if len(eng._params_by_gen) > 1:
+                    mem["two_generations"] = max(mem["two_generations"],
+                                                 torch.cuda.memory_allocated())
+            steps += 1
+            if canary.state == "canary" and canary.settled_step is None and \
+                    all(s.wait(0) for s in subs.values()) and \
+                    all(len(e._params_by_gen) == 1 for e in engines.values()) \
+                    and all(engines[r].generation == canary.canary_generation
+                            for r in canary.canary_replicas):
+                canary.settled_step = steps
+            if not published and steps >= P3L_PUBLISH_STEP and \
+                    all(e.active_count for e in engines.values()):
+                mem["one_generation"] = torch.cuda.memory_allocated()
+                ckpt.manager.save(tree2, 2)   # async: the step loop goes on
+                published = True
+            gen2 = by_gen.get(2, {})
+            # every swapped replica has admitted a request on generation 2
+            # (the checks below hold its first ones to generation 2 alone)
+            took = all(admitted[r].get(2) for r in swap_step)
+            if canary.state == "promoted":
+                # every replica on generation 2, and enough traffic on it
+                stop = took and \
+                    all(e.generation == 2 for e in engines.values()) \
+                    and sum(gen2.values()) >= P3L_MIN_GEN2 * cfg.num_layers \
+                    and {"flash_fwd_online", "flash_fwd_lazy"} <= set(gen2)
+            elif canary.state == "rolled_back":
+                stop = took   # a quarantined generation gets no new traffic
+
+            if steps > 5000:
+                raise AssertionError("phase 3l (b): traffic never drained")
+    wall = time.perf_counter() - t0
+    ckpt.close()
+    if not published or canary.state not in ("promoted", "rolled_back"):
+        raise AssertionError(f"phase 3l (b): published {published}, canary "
+                             f"{canary.state} after {steps} steps (settled "
+                             f"at {canary.settled_step}, counted "
+                             f"{len(canary.counted)}, skipped "
+                             f"{len(canary.skipped)}, generations "
+                             f"{[e.generation for e in engines.values()]})")
+    bad = [(r.request_id, r.outcome, r.reason) for r in results
+           if r.outcome != "completed"]
+    if bad or len({r.request_id for r in results}) != len(results):
+        raise AssertionError(f"phase 3l (b): failures {bad}")
+    snap = metrics.get_registry().snapshot()
+    swaps = [e for e in snap["events"] if e["event"] == "fleet_swap"]
+    if not swaps or any(e["inflight"] < 1 for e in swaps) or \
+            sorted(e["replica"] for e in swaps) != sorted(swap_step):
+        raise AssertionError(f"phase 3l (b): fleet_swap events {swaps}")
+    verdict, evidence = canary.decisions[-1]
+    late = [q for q in canary.counted
+            if canary.submitted[q] < canary.settled_step]
+    if late or len(canary.counted) != \
+            evidence["canary_n"] + evidence["baseline_n"]:
+        raise AssertionError(f"phase 3l (b): the canary counted "
+                             f"{len(canary.counted)} results for "
+                             f"{evidence}, {late} submitted before step "
+                             f"{canary.settled_step}")
+    if verdict == "promote" and sorted(swap_step) != list(engines):
+        raise AssertionError(f"promoted, but swapped {sorted(swap_step)}")
+    for rid, eng in engines.items():
+        if len(eng._params_by_gen) != 1 or eng.kv.ledger.blocks_in_use:
+            raise AssertionError(f"replica {rid}: generations "
+                                 f"{sorted(eng._params_by_gen)}, KV blocks "
+                                 f"{eng.kv.ledger.blocks_in_use}")
+        if subs[rid].refusals:
+            raise AssertionError(f"replica {rid} refused "
+                                 f"{subs[rid].refusals}")
+    for gen in (1, 2):
+        if not {"flash_fwd_online", "flash_fwd_lazy"} <= set(
+                by_gen.get(gen, {})):
+            raise AssertionError(f"generation {gen}'s prefills launched "
+                                 f"{by_gen.get(gen)}")
+    # each swapped replica: the old-generation requests in flight across
+    # its swap, and its first generation-2 requests, each against the
+    # weights it decoded on, served alone
+    old, new = [], []
+    for rid, at in sorted(swap_step.items()):
+        mine = [r for r in results if r.replica == rid]
+        crossed = [r for r in mine if r.generation == 1 and
+                   returned_at[r.request_id] >= at]
+        after = [r for r in mine if r.generation == 2][:2]
+        if not crossed or not after:
+            raise AssertionError(f"replica {rid}: {len(crossed)} requests "
+                                 f"crossed its swap, {len(after)} on "
+                                 f"generation 2")
+        old += crossed
+        new += after
+    model2 = model_from_tree(cfg, tree2, dev)
+    ties = []
+    for gen, group, weights in ((1, old, model), (2, new, model2)):
+        reqs = [next(q for _, q in workload if q.request_id == r.request_id)
+                for r in group]
+        want = solo_tokens(cfg, weights, reqs, dev)
+        ties += hold_tokens(cfg, weights, prompts,
+                            {r.request_id: list(r.tokens) for r in group},
+                            want, dev, f"phase 3l (b) generation {gen}")
+    del model2
+    phases = {rid: {k: v for k, v in eng.last_swap.items()
+                    if k.endswith("_ms")}
+              for rid, eng in engines.items() if eng.last_swap}
+    p = {k: (round(_percentile(v, 0.5), 3), round(_percentile(v, 0.99), 3),
+             len(v)) for k, v in step_ms.items()}
+    tree_gb = sum(t.numel() * t.element_size() for t in tree1.values()) / 1e9
+    log(card, f"phase 3l (b): generation 1 published ({tree_gb:.3f} GB, "
+              f"bf16) and each of {P3L_REPLICAS} replicas booted through "
+              f"load_initial in {boot_s:.2f} s; generation 2 (phase 3b's "
+              f"trained weights in bf16) published after {P3L_PUBLISH_STEP} "
+              f"router steps with requests in flight; canary "
+              f"(pct {P3L_CANARY_PCT}, window {P3L_CANARY_WINDOW}; its "
+              f"windows fed only the {len(canary.counted)} requests "
+              f"submitted from router step {canary.settled_step}, once "
+              f"every loader had finished and the canary replica decoded "
+              f"generation 2 alone, {len(canary.skipped)} earlier results "
+              f"left out): {verdict} {evidence}")
+    keys = ("replica", "generation", "from_generation", "inflight")
+    log(card, f"phase 3l (b): swaps {[{k: e[k] for k in keys} for e in swaps]}"
+              f" at router steps {swap_step}; swap phases ms {phases}; "
+              f"router step ms (p50, p99, steps) while a loader runs "
+              f"{p['loading']}, before the publish {p['steady']}, with "
+              f"two generations decoding (no loader) "
+              f"{p['two_generations']}; device "
+              f"memory allocated {mem['one_generation'] / 1e9:.3f} GB with "
+              f"one generation, {mem['two_generations'] / 1e9:.3f} GB at "
+              f"most with two resident")
+    log(card, f"phase 3l (b): {len(results)} requests completed in {steps} "
+              f"router steps, {wall:.3f} s; {len(old)} crossed a swap on "
+              f"generation 1 and {len(new)} ran on generation 2, each equal "
+              f"to its generation served alone (ties {ties}); prefill "
+              f"launches by generation {by_gen}; every engine back to one "
+              f"generation, no refusal, no KV block leaked")
+    return {"verdict": verdict, "phases": phases, "step_ms": p,
+            "memory": mem, "by_generation": by_gen,
+            "settled_step": canary.settled_step}
+
+
+def run_replica_loss(card, dev, cfg, model, workload, solo, launches):
+    """Phase 3l (c): replica 1 of two declared lost with requests in
+    flight (``Router.on_ranks_lost``, twice): its orphans are rerouted
+    exactly once and complete on the survivor, their tokens equal to
+    serving them alone. Then one SpawnReplicaRequest sent twice over
+    ReplicaSupervisorClient, under a chaos rule that also duplicates its
+    delivery: exactly one replica is spawned, and it serves. ``launches``
+    takes the routed runs' flash launches."""
+    from horovod_tpu_torch.router import Router
+    from horovod_tpu_torch.run.elastic import (ReplicaSupervisorClient,
+                                               ReplicaSupervisorService)
+    from horovod_tpu_torch.utils import metrics
+    reg = metrics.get_registry()
+
+    def rerouted_total():
+        fam = reg.snapshot()["metrics"].get("hvd_route_rerouted_total")
+        return fam["values"][0]["value"] if fam and fam["values"] else 0
+
+    engines = {rid: p3l_engine(cfg, model, dev)
+               for rid in range(P3L_REPLICAS)}
+    router = Router(engines, policy="round_robin")
+    requests = [r for _, r in workload[:P3L_LOST_REQUESTS]]
+    results = []
+    with routed_launches(launches):
+        for r in requests:
+            if not router.submit(fresh(r)):
+                raise AssertionError(f"{r.request_id} refused")
+        for _ in range(P3L_LOST_AFTER):
+            results.extend(router.step())
+        orphans = sorted(q for q, rid in router.inflight.items() if rid == 1)
+        if not orphans:
+            raise AssertionError("replica 1 held no request when lost")
+        before = rerouted_total()
+        router.on_ranks_lost({1})
+        router.on_ranks_lost({1})   # a second notice reroutes nothing
+        results.extend(router.run_to_completion())
+    by_id = {}
+    for r in results:
+        if r.request_id in by_id:
+            raise AssertionError(f"{r.request_id} returned twice")
+        by_id[r.request_id] = r
+    if sorted(by_id) != sorted(r.request_id for r in requests):
+        raise AssertionError(f"returned {sorted(by_id)}")
+    for q in orphans:
+        r = by_id[q]
+        if (r.outcome, r.replica, r.rerouted) != ("completed", 0, True):
+            raise AssertionError(f"orphan {q}: {r}")
+    if rerouted_total() - before != len(orphans):
+        raise AssertionError(f"rerouted {rerouted_total() - before}, "
+                             f"orphans {orphans}")
+    # the replica supervisor door under a chaos rule that duplicates the
+    # spawn's delivery; the client sends the same change id twice more
+    spawned = []
+
+    def spawn():
+        rid = P3L_REPLICAS + len(spawned)
+        router.add_replica(rid, p3l_engine(cfg, model, dev))
+        spawned.append(rid)
+        return rid
+    key = os.urandom(32)
+    os.environ["HVD_CHAOS_SPEC"] = P3L_SPAWN_CHAOS
+    try:
+        svc = ReplicaSupervisorService(key, on_spawn=spawn)
+    finally:
+        del os.environ["HVD_CHAOS_SPEC"]
+    try:
+        client = ReplicaSupervisorClient(
+            {"lo": [("127.0.0.1", svc.port)]}, key)
+        first = client.spawn_replica("phase-3l-spawn")
+        again = client.spawn_replica("phase-3l-spawn")
+        client.close()
+        injected = sum(svc._chaos.stats().values())
+    finally:
+        svc.shutdown()
+    if not (first.ok and again.duplicate and spawned == [P3L_REPLICAS] and
+            first.replica_id == again.replica_id == P3L_REPLICAS and
+            injected >= 1):
+        raise AssertionError(f"spawn: {vars(first)}, {vars(again)}, "
+                             f"spawned {spawned}, chaos {injected}")
+    if router.live_replicas() != [0, P3L_REPLICAS]:
+        raise AssertionError(f"live {router.live_replicas()}")
+    late = [r for _, r in workload[P3L_LOST_REQUESTS:P3L_LOST_REQUESTS + 2]]
+    with routed_launches(launches):
+        for r in late:
+            router.submit(fresh(r))
+        served = {r.request_id: r for r in router.run_to_completion()}
+    if sorted(r.replica for r in served.values()) != [0, P3L_REPLICAS] or \
+            any(list(served[r.request_id].tokens) != solo[r.request_id]
+                for r in late):
+        raise AssertionError(f"after the spawn: {served}")
+    prompts = {r.request_id: r.prompt for r in requests}
+    ties = hold_tokens(cfg, model, prompts,
+                       {q: list(r.tokens) for q, r in by_id.items()},
+                       {q: solo[q] for q in by_id}, dev, "phase 3l (c)")
+    log(card, f"phase 3l (c): replica 1 lost after {P3L_LOST_AFTER} router "
+              f"steps holding {len(orphans)} of {len(requests)} requests "
+              f"{orphans}: rerouted exactly once (hvd_route_rerouted_total "
+              f"+{len(orphans)}, a second loss notice rerouted nothing), all "
+              f"completed on replica 0, tokens equal to each served alone "
+              f"(ties {ties}); SpawnReplicaRequest sent twice under "
+              f"{P3L_SPAWN_CHAOS!r} ({injected} injection): one replica "
+              f"spawned (id {spawned[0]}), the repeat answered from the "
+              f"ledger, and the new replica served a request")
+    return {"orphans": orphans, "spawned": spawned}
+
+
+def run_phase_3l(card, dev, trained):
+    """Phase 3l, each part fatal: the routed arms, the fleet hot swap
+    under a canary (``trained``: phase 3b's weights by name, generation
+    2), a replica lost mid-stream and one spawned over RPC. Returns the
+    flash launches of its routed runs alone (``routed_launches``), by
+    part and in all. It runs after phase 4's timings, whose profiler
+    readings it leaves alone: its loader and RPC threads touch the
+    card."""
+    t0 = time.perf_counter()
+    os.makedirs(P3L_DIR, exist_ok=True)
+    _planes(True, history_dir=os.path.join(P3L_DIR, "history"))
+    cfg = p3l_cfg()
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+    parts = {"a": {}, "b": {}, "c": {}}
+    arms, workload, solo = run_routed_arms(card, dev, cfg, model,
+                                           parts["a"])
+    swap = run_fleet_swap(card, dev, cfg, model, trained, parts["b"])
+    loss = run_replica_loss(card, dev, cfg, model, workload, solo,
+                            parts["c"])
+    launches = {}
+    for part in parts.values():
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    if set(launches) != {"flash_fwd_online", "flash_fwd_lazy"} or \
+            not all(parts.values()):
+        raise AssertionError(f"phase 3l launched {parts}")
+    _planes(False)
+    del model
+    torch.cuda.empty_cache()
+    log(card, f"phase 3l: launches of the routed runs alone {launches} "
+              f"((a) {parts['a']}, (b) {parts['b']}, (c) {parts['c']}; "
+              f"prefills on both generations); "
+              f"{time.perf_counter() - t0:.1f} s in all")
+    return launches, {"arms": arms, "swap": swap, "loss": loss}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4656,6 +5302,10 @@ def main():
     # ranks, chaos and serving
     run_phase_3k(card, dev, cfg, model)
 
+    # phase 3b's weights, generation 2 of phase 3l (after phase 4), kept
+    # on the host so that phase 4's memory readings do not count them
+    trained = {n: p.detach().cpu() for n, p in t_model.named_parameters()}
+
     # ---- phase 4: timings
     kernels = []
     # each kernel at the largest shape the serving runs gave it
@@ -4745,6 +5395,13 @@ def main():
               f"{top_kernels(by_name)}")
 
     time_vision(card, dev, step_shapes)
+
+    # ---- phase 3l: the fleet and router planes; its B1/B2 launches go
+    # into the kernels line
+    p3l_launches, _ = run_phase_3l(card, dev, trained)
+    for k in kernels[:len(fa.VARIANTS)]:
+        k["routed_launches"] = p3l_launches.get(k["name"], 0)
+        k["launches"] += k["routed_launches"]
     log(card, f"chip_smoke: {time.perf_counter() - t_main:.1f} s from the "
               f"build to the result")
 

@@ -85,6 +85,63 @@ ENV_REGISTRY = (
      "contact (0: the eager core's built-in 5 s)."),
     ("HOROVOD_CYCLE_TIME", True, "5.0", "common/config.py",
      "Negotiation cycle time in milliseconds."),
+    ("HOROVOD_ELASTIC_BREAKER_CLOSE_N", True, "3", "router/elastic.py",
+     "Circuit breaker: consecutive successful completions a half-open "
+     "replica must serve before its breaker closes again."),
+    ("HOROVOD_ELASTIC_BREAKER_FAILS", True, "3", "router/elastic.py",
+     "Circuit breaker: consecutive failed dispatches that trip a "
+     "replica's breaker open (probe traffic only until it recovers)."),
+    ("HOROVOD_ELASTIC_BREAKER_TIMEOUT_S", True, "10.0", "router/elastic.py",
+     "Circuit breaker: a live replica holding a dispatched request "
+     "longer than this without completing is declared wedged and its "
+     "breaker trips — catches the heartbeating-but-stuck failure the "
+     "liveness ledger cannot see."),
+    ("HOROVOD_ELASTIC_COOLDOWN_S", True, "10.0", "router/elastic.py",
+     "Elasticity: minimum seconds between executed scale changes; "
+     "with the dwell requirement this is the anti-flap hysteresis."),
+    ("HOROVOD_ELASTIC_DOWN_UTIL", True, "0.25", "router/elastic.py",
+     "Elasticity: scale down when fleet slot utilization stays at or "
+     "below this fraction (and the queue is empty) for the dwell "
+     "window."),
+    ("HOROVOD_ELASTIC_DRAIN_TIMEOUT_S", True, "30.0", "router/core.py",
+     "Graceful drain: seconds a DRAINING replica gets to finish its "
+     "in-flight work before the router force-retires it and reroutes "
+     "the remainder through the exactly-once ledger."),
+    ("HOROVOD_ELASTIC_DWELL_S", True, "5.0", "router/elastic.py",
+     "Elasticity: a pressure or idle signal must hold continuously "
+     "this long before a scale decision executes (one blip never "
+     "moves the fleet)."),
+    ("HOROVOD_ELASTIC_MAX_REPLICAS", True, "0", "router/elastic.py",
+     "Elasticity: ceiling on live replicas for scale-up (0 = "
+     "unbounded)."),
+    ("HOROVOD_ELASTIC_MIN_REPLICAS", True, "1", "router/elastic.py",
+     "Elasticity: floor on live replicas — scale-down never drains "
+     "below it."),
+    ("HOROVOD_ELASTIC_PROBE_S", True, "2.0", "router/elastic.py",
+     "Circuit breaker: seconds between single probe requests admitted "
+     "to an open replica to test recovery."),
+    ("HOROVOD_ELASTIC_SHED_DEPTH", True, "16", "router/core.py",
+     "Overload shedding: Router.submit rejects at admission (with a "
+     "retry-after derived from the drain rate) when every usable "
+     "replica's queue depth reaches this, or all are KV-exhausted (0 "
+     "disables shedding)."),
+    ("HOROVOD_ELASTIC_TTFT_SLO_S", True, "1.0", "router/elastic.py",
+     "Elasticity: rolling-window p99 TTFT above this is scale-up "
+     "pressure even when queues look shallow."),
+    ("HOROVOD_ELASTIC_UP_DEPTH", True, "4.0", "router/elastic.py",
+     "Elasticity: mean queue depth per live replica at or above this "
+     "is scale-up pressure."),
+    ("HOROVOD_FLEET_POLL_S", True, "0.5", "fleet/subscriber.py",
+     "Fleet plane: seconds between publication-pointer polls by a "
+     "serving replica's WeightSubscriber (the fast path is one stat)."),
+    ("HOROVOD_FLEET_PUBLISH", True, "0", "trainer.py",
+     "Fleet plane: publish every committed checkpoint as a weight "
+     "generation (trainer.Checkpointer attaches a WeightPublisher on "
+     "rank 0)."),
+    ("HOROVOD_FLEET_VERIFY", True, "1", "fleet/subscriber.py",
+     "Fleet plane: checksum-verify a published generation's files "
+     "before arming it for a hot swap (0 trusts the manifest; corrupt "
+     "weights would reach decode)."),
     ("HOROVOD_FLIGHT_CYCLES", True, "64", "utils/tracing.py",
      "Flight-recorder ring size for negotiation-cycle records."),
     ("HOROVOD_FLIGHT_DIR", True, None, "utils/tracing.py",
@@ -155,6 +212,43 @@ ENV_REGISTRY = (
     ("HOROVOD_RING_ALLREDUCE", True, "0", "ops/operation_manager.py",
      "The explicit ring allreduce (N-1 neighbour exchanges of "
      "reduce-scatter, then of all-gather) over one axis."),
+    ("HOROVOD_ROUTE_AFFINITY_PREFIX", True, "8", "router/core.py",
+     "Router plane: prompt-prefix length (tokens) hashed for "
+     "cache-affinity stickiness; 0 disables affinity routing."),
+    ("HOROVOD_ROUTE_CANARY_GOODPUT_DROP", True, "0.10", "router/canary.py",
+     "Canary rollout: roll back when the canary cohort's goodput "
+     "ratio (completed tokens / all tokens) falls more than this "
+     "below the baseline cohort's."),
+    ("HOROVOD_ROUTE_CANARY_MIN_DELTA_S", True, "0.025", "router/canary.py",
+     "Canary rollout: a latency breach additionally needs this "
+     "absolute p99 gap (seconds) — keeps the verdict above the "
+     "histogram buckets' own resolution."),
+    ("HOROVOD_ROUTE_CANARY_PCT", True, "10.0", "router/canary.py",
+     "Canary rollout: percent of traffic (deterministic request-id "
+     "hash) steered to the cohort serving the newly armed weight "
+     "generation."),
+    ("HOROVOD_ROUTE_CANARY_REPLICAS", True, "1", "router/canary.py",
+     "Canary rollout: max replicas admitted to the canary cohort when "
+     "several arm the new generation at once; the rest hold as "
+     "baseline."),
+    ("HOROVOD_ROUTE_CANARY_TTFT_X", True, "1.5", "router/canary.py",
+     "Canary rollout: roll back when the canary cohort's p99 TTFT or "
+     "inter-token gap exceeds this multiple of the baseline cohort's."),
+    ("HOROVOD_ROUTE_CANARY_WINDOW", True, "24", "router/canary.py",
+     "Canary rollout: completed requests each cohort must accumulate "
+     "before the promote/rollback verdict is computed."),
+    ("HOROVOD_ROUTE_POLICY", True, "least_loaded", "router/policy.py",
+     "Router plane: dispatch policy over live replica load snapshots "
+     "(least_loaded, round_robin)."),
+    ("HOROVOD_ROUTE_REROUTE_WINDOW_S", True, "30.0", "router/core.py",
+     "Router plane: max age (seconds since dispatch) a request may be "
+     "requeued to a survivor after its replica is lost; older "
+     "requests fail loudly instead of resurrecting."),
+    ("HOROVOD_ROUTE_STALE_S", True, "5.0", "router/core.py",
+     "Router plane: exclude a replica from dispatch once its load "
+     "snapshot is older than this — a silent replica ages out instead "
+     "of scoring as freshly idle forever (0 disables; never-reported "
+     "replicas get this long as a post-add grace window)."),
     ("HOROVOD_SERVE_TRACE", True, "1", "serving/tracing.py",
      "Set 0 to disable request-path tracing (per-request spans and "
      "phase decomposition) in the serving plane."),

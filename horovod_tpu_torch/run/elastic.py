@@ -1,8 +1,9 @@
 """Elastic resource supervisor: the port's copy of
 ``horovod_tpu/run/elastic.py`` (reference submitjob.py, the CS744 fork's
 contribution), with a plain lock where the JAX package takes its
-lockdep-checked one. The serving-replica control door of the JAX module
-belongs to the fleet and is not here.
+lockdep-checked one, and the serving-replica control door
+(``ReplicaSupervisorService`` / ``ReplicaSupervisorClient``) the router's
+elasticity controller changes the replica set through.
 
 The reference daemon listens on a TCP port; a peer sends an integer N
 (``echo N | nc node0 5000``) to surrender N slots. The daemon shrinks the
@@ -25,14 +26,18 @@ on the same slots). Command placeholders: ``{np}`` worker count,
 ``--loadcp``).
 """
 
+import collections
 import socket
 import subprocess
 import sys
 import threading
 import time
 
+from ..common import hvd_logging as log
+from ..utils import lockdep
 from . import exec_util
 from .hosts import HostSlots, parse_hosts
+from .network import BasicClient, BasicService
 
 DEFAULT_PORTS = (5000, 5001, 5002)
 
@@ -294,6 +299,127 @@ class ElasticSupervisor:
         # freshly spawned one
         with self._lock:
             self._kill_job()
+
+
+# ---------------------------------------------------------------------------
+# serving-replica control door
+#
+# The restart-based supervisor above kills and relaunches whole jobs; the
+# elasticity controller (router/elastic.py) instead changes the SERVING
+# replica set one replica at a time, through this authenticated RPC door.
+# Riding BasicService brings the chaos plane along: HVD_CHAOS_SPEC rules
+# that name "hvd elastic replica supervisor" drop, duplicate and delay
+# these control messages like any other wire traffic.
+# ---------------------------------------------------------------------------
+
+class SpawnReplicaRequest:
+    """Start one serving replica. ``change_id`` keys the idempotency
+    ledger: a duplicate delivery (chaos dup, client retry) returns the
+    original response instead of spawning a second replica."""
+
+    def __init__(self, change_id):
+        self.change_id = str(change_id)
+
+
+class DrainReplicaRequest:
+    """Gracefully drain one serving replica. Idempotent by
+    ``change_id``: a duplicated drain executes once."""
+
+    def __init__(self, change_id, replica_id):
+        self.change_id = str(change_id)
+        self.replica_id = int(replica_id)
+
+
+class ReplicaOpResponse:
+    def __init__(self, change_id, op, ok, replica_id=None, detail="",
+                 duplicate=False):
+        self.change_id = change_id
+        self.op = op
+        self.ok = ok
+        self.replica_id = replica_id
+        self.detail = detail
+        # True when this response was replayed from the idempotency
+        # ledger: the operation did NOT execute a second time
+        self.duplicate = duplicate
+
+
+class ReplicaSupervisorService(BasicService):
+    """The supervisor end of replica scale changes. ``on_spawn()`` must
+    start a replica and return its id; ``on_drain(replica_id)`` must
+    begin a graceful drain and return truthiness. Both run under the
+    ledger lock, so two racing requests with the same ``change_id``
+    execute exactly once; the ledger keeps the newest ``LEDGER_CAP``."""
+
+    NAME = "hvd elastic replica supervisor"
+    LEDGER_CAP = 1024
+
+    def __init__(self, key, on_spawn=None, on_drain=None):
+        super().__init__(self.NAME, key)
+        self._on_spawn = on_spawn
+        self._on_drain = on_drain
+        self._op_lock = lockdep.lock("ReplicaSupervisorService._op_lock")
+        self._ledger = collections.OrderedDict()  # guarded_by: _op_lock
+
+    def _handle(self, req, client_address):
+        if isinstance(req, (SpawnReplicaRequest, DrainReplicaRequest)):
+            return self._op(req)
+        return super()._handle(req, client_address)
+
+    def _op(self, req):
+        op = "spawn" if isinstance(req, SpawnReplicaRequest) else "drain"
+        with self._op_lock:
+            hit = self._ledger.get(req.change_id)
+            if hit is not None:
+                return ReplicaOpResponse(
+                    hit.change_id, hit.op, hit.ok,
+                    replica_id=hit.replica_id, detail=hit.detail,
+                    duplicate=True)
+            try:
+                if op == "spawn":
+                    if self._on_spawn is None:
+                        resp = ReplicaOpResponse(
+                            req.change_id, op, False,
+                            detail="no spawn hook configured")
+                    else:
+                        rid = self._on_spawn()
+                        resp = ReplicaOpResponse(req.change_id, op, True,
+                                                 replica_id=rid)
+                else:
+                    if self._on_drain is None:
+                        resp = ReplicaOpResponse(
+                            req.change_id, op, False,
+                            replica_id=req.replica_id,
+                            detail="no drain hook configured")
+                    else:
+                        ok = bool(self._on_drain(req.replica_id))
+                        resp = ReplicaOpResponse(req.change_id, op, ok,
+                                                 replica_id=req.replica_id)
+            except Exception as exc:  # fail loud BY NAME, never hang
+                log.warning("replica %s %s failed: %r", op,
+                            req.change_id, exc)
+                resp = ReplicaOpResponse(req.change_id, op, False,
+                                         detail=repr(exc))
+            self._ledger[req.change_id] = resp
+            while len(self._ledger) > self.LEDGER_CAP:
+                self._ledger.popitem(last=False)
+            return resp
+
+
+class ReplicaSupervisorClient(BasicClient):
+    """Client side of the control door. ``retry_requests`` is safe here
+    BECAUSE the service is idempotent by change_id: a retried spawn or
+    drain replays the ledger entry, it never executes twice."""
+
+    def __init__(self, addresses, key, probe_timeout=5.0):
+        super().__init__(ReplicaSupervisorService.NAME, addresses, key,
+                         probe_timeout=probe_timeout,
+                         retry_requests=True)
+
+    def spawn_replica(self, change_id):
+        return self.request(SpawnReplicaRequest(change_id))
+
+    def drain_replica(self, change_id, replica_id):
+        return self.request(DrainReplicaRequest(change_id, replica_id))
 
 
 def main(argv=None):

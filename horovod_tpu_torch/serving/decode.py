@@ -34,9 +34,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from ..models.transformer import (_dispatch_attention, attention_columns,
-                                  head_logits, head_rows, param_specs,
-                                  split_heads)
+from ..models.transformer import (TransformerLM, _dispatch_attention,
+                                  attention_columns, head_logits, head_rows,
+                                  param_specs, set_trainable, split_heads)
 from ..ops.flash_attention import decode_attention
 from ..parallel import mesh as mesh_lib
 from ..parallel.tensor_parallel import local
@@ -205,6 +205,26 @@ class ServingWeights:
         if self.tp == 1:
             return out
         return self.all_gather(out, -1, "logits_gather")
+
+
+def serving_tree(model):
+    """A serving ``TransformerLM``'s weights as the fleet plane publishes
+    and restores them: ``{parameter name: tensor}``, the model's own
+    tensors (no copy)."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def model_from_tree(cfg, tree, device):
+    """A frozen ``TransformerLM`` whose parameters ARE ``tree``'s tensors
+    (a ``serving_tree`` restored by the fleet plane), on ``device``: the
+    module is built on ``meta`` and takes the tensors with
+    ``load_state_dict(assign=True)``, so a hot-swapped generation
+    allocates nothing twice and never writes into the module that
+    in-flight requests still decode on."""
+    model = TransformerLM(cfg, "meta", tree["embed.weight"].dtype)
+    model.load_state_dict(tree, strict=True, assign=True)
+    model.device = torch.device(device)
+    return set_trainable(model, False)
 
 
 def as_weights(cfg, model):

@@ -34,26 +34,42 @@ step credited to every active request, the ``phase_ms`` decomposition on
 each result), and ``history.poke`` and ``alerts.tick`` on every
 ``step`` on the engine's clock.
 
-Left for later slices of the port: the fleet's weight hot swap (and so
-the per-generation decode cohorts, the generation stays 0) and the
-memory plane's compile tracker.
+The fleet plane's zero-drain hot swap rides it too. ``_maybe_swap`` at
+the top of ``step()`` polls the engine's ``WeightSubscriber`` (one stat,
+rate-limited), asks the ``swap_gate`` (the router's canary), and makes an
+armed generation current: on the card it first makes the engine's stream
+wait on the loader's CUDA event and ``record_stream``s the new tensors
+onto it, then builds a separate module for the generation
+(``decode.model_from_tree``, on ``meta`` with ``assign=True``) and its
+``ServingWeights`` through ``_place_params``, so on a tp mesh it is
+sharded as the old one was. Every request decodes to the end on the
+weights that admitted it: during a transition decode runs one fused pass
+per live generation over all slots (the other cohorts' rows parked at
+``max_len - 1``), one readback per pass, and an old generation is dropped
+once no active request decodes on it. Under tp every rank swaps at the
+same step: the ranks agree on the armed generation over the tp group.
+
+Left for later slices of the port: the memory plane's compile tracker.
 """
 
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..common import config
 from ..common.device import resolve_device
 from ..common.exceptions import RanksLostError
+from ..fleet.subscriber import tree_leaves
 from ..utils import alerts as hvd_alerts
 from ..utils import history as hvd_history
 from ..utils import memory as hvd_memory
 from ..utils import metrics as hvd_metrics
 from ..utils import tracing as hvd_tracing
 from . import tracing as serve_tracing
-from .decode import ServingWeights, decode_step, prefill_forward
+from .decode import (ServingWeights, decode_step, model_from_tree,
+                     prefill_forward)
 from .kv_cache import KVCache
 from .queue import AdmissionQueue, RequestResult
 from .sampling import sample_tokens
@@ -64,32 +80,46 @@ class _Active:
     """Host-side per-slot decode state."""
 
     __slots__ = ("request", "generated", "next_token", "next_pos",
-                 "ttft_s", "last_token_ts")
+                 "ttft_s", "last_token_ts", "generation")
 
-    def __init__(self, request, first_token, prompt_len, now):
+    def __init__(self, request, first_token, prompt_len, now,
+                 generation=0):
         self.request = request
         self.generated = [first_token]
         self.next_token = first_token  # fed to the next decode step
         self.next_pos = prompt_len  # cache position it will occupy
         self.ttft_s = now - request.arrival_ts
         self.last_token_ts = now
+        # the weight generation that admitted this request: it decodes on
+        # these weights to the end, across any hot swap
+        self.generation = generation
 
 
 class ServeEngine:
     """Continuous-batching engine over one model replica on ``device``
     (CUDA unless told otherwise). ``model`` is a ``TransformerLM`` on
-    that device, whole on every rank; with a ``mesh`` each rank keeps its
-    tensor-parallel shards of it. ``policy="drain"`` is the static-batch
-    baseline; everything else about the engine is identical.
-    ``replica`` (``serving.replica.ReplicaGroup``) plugs the engine into
-    the control plane's liveness ledger: each step heartbeats with the
-    engine's load snapshot, and a declared-lost peer calls
-    ``on_ranks_lost(lost_ranks)`` instead of hanging."""
+    that device, whole on every rank (``decode.model_from_tree`` builds
+    one from the weights ``WeightSubscriber.load_initial`` returns); with
+    a ``mesh`` each rank keeps its tensor-parallel shards of it.
+    ``policy="drain"`` is the static-batch baseline; everything else
+    about the engine is identical. ``replica``
+    (``serving.replica.ReplicaGroup``) plugs the engine into the control
+    plane's liveness ledger: each step heartbeats with the engine's load
+    snapshot, and a declared-lost peer calls ``on_ranks_lost(lost_ranks)``
+    instead of hanging.
+
+    ``subscriber`` (``fleet.WeightSubscriber``, else ``replica``'s) feeds
+    armed weight generations, swapped in at step boundaries;
+    ``generation`` is the one ``model`` holds (the subscriber's current
+    one, else 0). ``swap_gate(generation) -> bool`` (the router's
+    ``CanaryController.gate``) may hold the engine on its current weights;
+    the generation stays armed and is offered again next step."""
 
     def __init__(self, cfg, model, num_slots=None, max_len=None,
                  kv_block=None, total_blocks=None, policy="continuous",
                  queue=None, seed=0, clock=time.monotonic, device=None,
-                 mesh=None, replica=None, on_ranks_lost=None):
+                 mesh=None, replica=None, on_ranks_lost=None,
+                 subscriber=None, generation=None, swap_gate=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -98,7 +128,21 @@ class ServeEngine:
         self.model = model
         self.mesh = mesh
         self.params = self._place_params(model)
-        self._generation = 0
+        # fleet plane: params is always the CURRENT generation's weights
+        # (what prefill uses); _params_by_gen keeps older generations
+        # alive exactly as long as a request admitted under them decodes
+        if subscriber is None and replica is not None:
+            subscriber = getattr(replica, "subscriber", None)
+        self._subscriber = subscriber
+        if generation is None:
+            generation = 0
+            if subscriber is not None and \
+                    subscriber.current_generation is not None:
+                generation = subscriber.current_generation
+        self._generation = int(generation)
+        self._params_by_gen = {self._generation: self.params}
+        self.last_swap = None  # latency phases of the most recent swap
+        self._swap_gate = swap_gate
         num_slots = (config.env_int("SERVE_SLOTS", 8)
                      if num_slots is None else num_slots)
         self.kv = KVCache(cfg, num_slots, max_len=max_len,
@@ -154,6 +198,25 @@ class ServeEngine:
             "life; 1.0 until the first wasted token.")
         self._goodput_tokens = 0
         self._wasted_tokens = 0
+        if self._subscriber is not None:
+            rep = str(self._subscriber.replica)
+            self._m_gen = reg.gauge(
+                "hvd_fleet_generation",
+                "Weight generation this replica is currently serving.",
+                labels=("replica",)).labels(replica=rep)
+            self._m_gen.set(self._generation)
+            self._m_swaps = reg.counter(
+                "hvd_fleet_swaps_total",
+                "Zero-drain weight swaps completed by serving engines.")
+            self._m_last_swap = reg.gauge(
+                "hvd_fleet_last_swap_seconds",
+                "Detect->swapped latency of this replica's most recent "
+                "weight swap.", labels=("replica",)).labels(replica=rep)
+            self._m_swap_s = reg.histogram(
+                "hvd_fleet_swap_seconds",
+                "Weight-swap latency decomposition "
+                "(detect_to_loaded/loaded_to_armed/armed_to_swapped/"
+                "total).", labels=("phase",))
         serve_tracing.phase_histogram(reg)
         self._gauge_interval = config.env_float(
             "SERVE_METRICS_INTERVAL_S", 1.0)
@@ -186,6 +249,7 @@ class ServeEngine:
         """One scheduler iteration. Returns the requests that finished
         during it, as RequestResults."""
         self._heartbeat()
+        self._maybe_swap()
         dirty = self._admit()
         self.scheduler.begin_wave()
         dirty |= self._decode()
@@ -235,17 +299,18 @@ class ServeEngine:
 
     @property
     def generation(self):
-        """The weight generation newly admitted requests decode on (0
-        until the fleet's hot swap is ported)."""
+        """The weight generation newly admitted requests decode on."""
         return self._generation
 
     def load_snapshot(self):
-        """Compact live-load summary, the JAX engine's: queue depth,
-        busy/free slots, outstanding decode work in tokens (queued plus
-        remaining on active slots), free KV blocks, the OOM forecast and
-        the weight generations (the armed one None until the fleet plane
-        is ported)."""
+        """Compact live-load summary, the JAX engine's and what the router
+        scores dispatch on: queue depth, busy/free slots, outstanding
+        decode work in tokens (queued plus remaining on active slots),
+        free KV blocks, the OOM forecast, and the current and armed
+        weight generations (the canary controller reads cohorts off
+        these)."""
         ledger = self.kv.ledger
+        sub = self._subscriber
         work = sum(max(st.request.max_new_tokens - len(st.generated), 0)
                    for st in self._active.values())
         queued_tokens = (self.queue.queued_work_tokens()
@@ -262,7 +327,8 @@ class ServeEngine:
             "predicted_free_blocks": ledger.predicted_free_blocks(
                 queued_tokens),
             "generation": self._generation,
-            "armed_generation": None,
+            "armed_generation": (getattr(sub, "armed_generation", None)
+                                 if sub is not None else None),
         }
         if self._draining:
             snap["draining"] = True
@@ -295,8 +361,90 @@ class ServeEngine:
     def _place_params(self, model):
         """The weights the forwards read: the model's own without a mesh,
         this rank's shards placed by ``param_specs`` with one (the fused
-        qkv's heads gathered once, here)."""
+        qkv's heads gathered once, here). Weights enter the engine only
+        through here (``__init__`` and hot swaps), so a swapped-in
+        generation is sharded as the one it replaces."""
         return ServingWeights(self.cfg, model, self.mesh)
+
+    def _maybe_swap(self):
+        """Zero-drain hot swap at the step boundary: poll the subscriber
+        and, if a fully loaded and verified generation is armed (and the
+        swap gate lets it through), make it current. In-flight requests
+        keep their admit-time generation (the cohort decode finishes them
+        on the old weights), so nothing drains and no half-loaded tree is
+        ever read."""
+        sub = self._subscriber
+        if sub is None:
+            return
+        sub.poll()
+        rec = sub.armed
+        if rec is not None and self._swap_gate is not None and \
+                not self._swap_gate(rec.generation):
+            rec = None  # held by the canary gate; offered again next step
+        if self.params.comm is not None:
+            rec = self._agree(rec)
+        if rec is None:
+            return
+        rec = sub.take_armed(rec)
+        if rec.event is not None:
+            # fence: the engine's stream waits for the loader's copies,
+            # and the allocator learns that this stream reads the blocks
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(rec.event)
+            for leaf in tree_leaves(rec.params):
+                leaf.record_stream(stream)
+        old_gen, gen = self._generation, rec.generation
+        self.model = model_from_tree(self.cfg, rec.params, self.device)
+        new_params = self._place_params(self.model)
+        self.params = new_params
+        self._params_by_gen[gen] = new_params
+        self._generation = gen
+        self._prune_params()
+        now = sub.clock()  # the subscriber's clock stamped rec
+        d2l = max(rec.loaded_ts - rec.detect_ts, 0.0)
+        l2a = max(rec.armed_ts - rec.loaded_ts, 0.0)
+        a2s = max(now - rec.armed_ts, 0.0)
+        total = d2l + l2a + a2s
+        for phase, dt in (("detect_to_loaded", d2l),
+                          ("loaded_to_armed", l2a),
+                          ("armed_to_swapped", a2s), ("total", total)):
+            self._m_swap_s.labels(phase=phase).observe(dt)
+        self._m_swaps.inc()
+        self._m_gen.set(gen)
+        self._m_last_swap.set(total)
+        self.last_swap = {
+            "generation": gen, "from_generation": old_gen,
+            "step": rec.step,
+            "detect_to_loaded_ms": round(d2l * 1e3, 3),
+            "loaded_to_armed_ms": round(l2a * 1e3, 3),
+            "armed_to_swapped_ms": round(a2s * 1e3, 3),
+            "total_ms": round(total * 1e3, 3),
+        }
+        self._metrics.event(
+            "fleet_swap", replica=sub.replica,
+            inflight=len(self._active), **self.last_swap)
+
+    def _agree(self, rec):
+        """``rec`` when every tp rank of the engine holds the same armed
+        generation ready to swap, else None: the ranks' decode passes
+        issue collectives, so they must change weights at the same
+        step. One two-element MIN all-reduce over the tp group."""
+        g = -1 if rec is None else int(rec.generation)
+        both = self.params.comm.all_reduce(
+            torch.tensor([g, -g], dtype=torch.int64, device=self.device),
+            op=dist.ReduceOp.MIN)
+        lo, hi = (int(v) for v in both.cpu())
+        return rec if lo >= 0 and lo == -hi else None
+
+    def _prune_params(self):
+        """Drop weight generations no active request decodes on; the
+        single-generation steady state returns at once."""
+        if len(self._params_by_gen) == 1:
+            return
+        live = {st.generation for st in self._active.values()}
+        live.add(self._generation)
+        for gen in [g for g in self._params_by_gen if g not in live]:
+            del self._params_by_gen[gen]
 
     def _pad_len(self, n):
         block = self.kv.ledger.block_size
@@ -324,7 +472,8 @@ class ServeEngine:
                 self._finished.append(RequestResult(
                     req.request_id, (), "failed", reason="too_long",
                     finish_ts=self._clock(), trace_id=trace.trace_id,
-                    phase_ms=phases or None))
+                    phase_ms=phases or None,
+                    generation=self._generation))
                 continue
             if not self.kv.ledger.can_alloc(final_len):
                 # cache pressure, not impossibility: wait for
@@ -351,8 +500,10 @@ class ServeEngine:
         self.kv.v[:, slot, :s_pad] = pv[:, 0]
         first = int(tok[0])  # the one per-prefill readback
         st = self._active[slot] = _Active(req, first, prompt_len,
-                                          self._clock())
+                                          self._clock(),
+                                          generation=self._generation)
         trace.on_prefill_end(ttft_s=st.ttft_s)
+        trace.annotate(generation=self._generation)
         self._m_tokens.labels(phase="prefill").inc(prompt_len)
         self._m_tokens.labels(phase="decode").inc()
         self._m_ttft.observe(st.ttft_s)
@@ -372,21 +523,35 @@ class ServeEngine:
         tick = serve_tracing.tick_span(**self.scheduler.snapshot())
         in_tick = list(self._active.values())
         S = self.kv.num_slots
-        tokens = np.zeros(S, np.int64)
-        # rows outside the batch park their K/V write at max_len-1, where
-        # the length mask hides it until a real row overwrites it
-        positions = np.full(S, self.kv.max_len - 1, np.int64)
-        temps = np.zeros(S, np.float32)
+        # Cohort-partitioned decode: a request decodes on the weights that
+        # admitted it, so each live generation runs its own fused pass
+        # over ALL slots. Rows outside the pass's cohort park their K/V
+        # write at max_len-1, where the length mask hides it until the
+        # row's own pass overwrites it (each pass writes, then attends).
+        # Between swaps there is one cohort: the one fused call as ever.
+        cohorts = {}
         for slot, st in self._active.items():
-            tokens[slot] = st.next_token
-            positions[slot] = st.next_pos
-            temps[slot] = st.request.temperature
-        logits, _, _ = decode_step(
-            self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(positions).to(self.device), self.kv.k,
-            self.kv.v)
-        nxt = sample_tokens(logits, temps, self._generator)
-        ids = nxt.cpu().numpy()  # the one per-step readback
+            cohorts.setdefault(st.generation, []).append(slot)
+        sampled = {}
+        for gen in sorted(cohorts):
+            tokens = np.zeros(S, np.int64)
+            positions = np.full(S, self.kv.max_len - 1, np.int64)
+            temps = np.zeros(S, np.float32)
+            for slot in cohorts[gen]:
+                st = self._active[slot]
+                tokens[slot] = st.next_token
+                positions[slot] = st.next_pos
+                temps[slot] = st.request.temperature
+            logits, _, _ = decode_step(
+                self.cfg, self._params_by_gen[gen],
+                torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(positions).to(self.device), self.kv.k,
+                self.kv.v)
+            nxt = sample_tokens(logits, temps, self._generator)
+            # the per-step readback (one per cohort during a transition)
+            ids = nxt.cpu().numpy()
+            for slot in cohorts[gen]:
+                sampled[slot] = int(ids[slot])
         tick_us = serve_tracing.finish_tick(tick,
                                             active_slots=len(in_tick))
         for st in in_tick:
@@ -398,7 +563,7 @@ class ServeEngine:
             if not self.kv.ledger.grow(slot, st.next_pos + 1):
                 self._retire(slot, "failed", reason="kv_exhausted")
                 continue
-            tok = int(ids[slot])
+            tok = sampled[slot]
             st.generated.append(tok)
             st.next_token = tok
             st.next_pos += 1
@@ -444,14 +609,16 @@ class ServeEngine:
                             request_id=req.request_id, slot=slot,
                             outcome=outcome, reason=reason,
                             tokens=len(st.generated),
-                            generation=self._generation,
+                            generation=st.generation,
                             trace_id=trace.trace_id,
                             phase_ms=phases or None,
                             ttft_s=st.ttft_s)
         self._finished.append(RequestResult(
             req.request_id, tuple(st.generated), outcome,
             ttft_s=st.ttft_s, finish_ts=now, reason=reason,
-            trace_id=trace.trace_id, phase_ms=phases or None))
+            trace_id=trace.trace_id, phase_ms=phases or None,
+            generation=st.generation))
+        self._prune_params()
 
     def _refresh_gauges(self, force=False):
         now = self._clock()

@@ -56,6 +56,11 @@ class RequestResult:
     reason: str = ""  # detail for outcome=failed
     trace_id: Optional[str] = None  # the request's trace
     phase_ms: Optional[dict] = None  # latency decomposition by phase
+    generation: Optional[int] = None  # weight generation that decoded it
+    # router plane: which replica served it, and whether it was
+    # re-dispatched after its first replica was lost
+    replica: Optional[int] = None
+    rerouted: bool = False
 
 
 class AdmissionQueue:
@@ -85,6 +90,13 @@ class AdmissionQueue:
     def __len__(self):
         with self._lock:
             return len(self._q)
+
+    def queued_work_tokens(self):
+        """Decode tokens the queue still owes: the router's load-snapshot
+        work term (a queued 40-token request is five times the backlog of
+        a queued 8-token one, which queue depth cannot see)."""
+        with self._lock:
+            return sum(r.max_new_tokens for r in self._q)
 
     def submit(self, request):
         """Admit or reject; returns whether the request was queued."""

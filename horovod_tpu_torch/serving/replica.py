@@ -28,13 +28,19 @@ class ReplicaGroup:
     rank 0 hosts the coordinator there (NegotiationWorker does this
     internally). ``key`` authenticates the control wire — pass the
     job's secret, or rely on neg.control_key() (HVD_SECRET_KEY).
+    ``subscriber`` (``fleet.WeightSubscriber``) is the replica's weight
+    subscription, which its ``ServeEngine`` takes.
     """
 
     def __init__(self, rank, world, address, key=None,
                  rank_lost_timeout_s=2.0, start_timeout_s=60.0,
-                 config=None):
+                 config=None, subscriber=None):
         self.rank = rank
         self.world = world
+        # the replica's weight subscription (fleet/subscriber.py): the
+        # engine picks it up from here, so wiring a replica into the
+        # fleet plane is one constructor argument
+        self.subscriber = subscriber
         if key is None:
             key = neg.control_key()
         if key is None:

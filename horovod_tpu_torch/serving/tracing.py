@@ -1,6 +1,5 @@
 """Request-path tracing for the serving plane, the port's copy of
-``horovod_tpu/serving/tracing.py`` (the router's ``route_span`` is left
-out: the port has no router yet).
+``horovod_tpu/serving/tracing.py``.
 
 Every ``Request`` the admission queue accepts becomes one trace on the
 tracing plane's shared clock (``utils/tracing.py``): a ``request`` root
@@ -271,6 +270,16 @@ def heartbeat_span(**attrs):
     if not enabled():
         return hvd_tracing._NULL_SPAN
     return hvd_tracing.get_tracer().span(hvd_tracing.HEARTBEAT, **attrs)
+
+
+def route_span(**attrs):
+    """One span per router dispatch decision (``router/core.py``): which
+    replica won, under which policy or affinity path, and whether it was
+    a reroute after a replica loss; closed at once, so the request's
+    trace records where it was sent and why."""
+    if not enabled():
+        return hvd_tracing._NULL_SPAN
+    return hvd_tracing.get_tracer().span(hvd_tracing.ROUTE, **attrs)
 
 
 def tick_span(**attrs):

@@ -208,6 +208,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--windows", type=int, default=3,
                    help="timed windows after the warm-up window")
+    p.add_argument("--inner-steps", type=int, default=None,
+                   help="optimizer steps per window (default 10 on the "
+                        "card, 2 on the CPU)")
     p.add_argument("--size", default=None, choices=sorted(SIZES),
                    help="model (default: gpt2-small-tpu on the card, tiny "
                         "on the CPU)")
@@ -541,6 +544,7 @@ def main(argv=None):
     on_card = device.type == "cuda"
     batch, seq, inner = DEFAULTS[device.type]
     seq = args.seq_len or seq
+    inner = args.inner_steps or inner
     cfg = flagship_config(on_card, args.size, attention_impl=args.attention,
                           remat=args.remat, remat_policy=args.remat_policy)
     if args.num_layers is not None:

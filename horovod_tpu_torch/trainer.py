@@ -402,17 +402,31 @@ class Checkpointer:
     Several ranks must stop at the same step, since each writes its shard
     and rank 0 commits: ``agree(flag) -> bool`` (e.g. an allreduce of the
     flag over the workers) makes the decision collective at every step
-    end. Signal handlers chain to a previously installed callable handler
-    and are installed from the main thread only; ``preemption=False`` or
+    end. ``publish=True`` (default HVD_FLEET_PUBLISH) hangs a
+    ``fleet.WeightPublisher`` on rank 0's commit hook. Signal handlers
+    chain to a previously installed callable handler and are installed
+    from the main thread only; ``preemption=False`` or
     HVD_CKPT_PREEMPTION=0 turns them off."""
 
     def __init__(self, directory, every=None, keep=None, async_save=None,
                  preemption=None, rank=0, world_size=1, manager=None,
-                 verbose=False, layout=None, agree=None):
+                 verbose=False, layout=None, agree=None, publish=None):
         self.every = env_int("CKPT_EVERY", 0) if every is None else int(every)
         self.manager = manager or hvd_checkpoint.CheckpointManager(
             directory, rank=rank, world_size=world_size, keep=keep,
             async_save=async_save, layout=layout)
+        # fleet plane: publish every commit as a weight generation that
+        # serving replicas hot-swap to. The publisher continues its
+        # generation counter from the existing pointer, so a preempted
+        # and restarted trainer keeps publishing monotonic ids. Rank 0
+        # only: its writer commits.
+        if publish is None:
+            publish = env_bool("FLEET_PUBLISH", False)
+        self.publisher = None
+        if publish and self.manager.rank == 0:
+            from .fleet import WeightPublisher
+            self.publisher = WeightPublisher(self.manager.directory)
+            self.manager.on_commit = self.publisher.publish
         self.verbose = verbose
         self._agree = agree
         self._preempt = threading.Event()

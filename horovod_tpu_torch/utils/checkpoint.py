@@ -53,8 +53,13 @@ newest step and its epoch seconds on the shared clock, dropped snapshots,
 retention removals) and the event ring (``ckpt_commit``), and a
 format-2 restore counts ``hvd_ckpt_restores_total`` by outcome (a
 corrupt one also emits ``ckpt_corrupt``); ``CheckpointManager.stats``
-keeps the newest save's times as before. The fleet publisher's pointer functions (``manifest_signature``,
-``write_pointer``, ``latest_manifest``) come with the fleet slice.
+keeps the newest save's times as before.
+
+The fleet plane's publication pointer (``manifest_signature``,
+``write_pointer``, ``latest_manifest``) is the JAX package's: a top-level
+``<dir>/manifest.json`` holding the newest committed step's global
+manifest plus ``generation`` and ``dir``, byte for byte the JSON the JAX
+package writes, so each package reads the other's pointers.
 """
 
 import json
@@ -538,6 +543,78 @@ def latest_step(path):
         return None
     with open(os.path.join(p, _MANIFEST)) as f:
         return json.load(f)["step"]
+
+
+# ---------------------------------------------------------------------------
+# publication pointer (the fleet plane's watch primitive)
+# ---------------------------------------------------------------------------
+#
+# A top-level <path>/manifest.json holding a copy of the newest committed
+# step's global manifest plus {"generation", "dir"}. The fleet plane's
+# WeightPublisher writes it through _write_atomic AFTER the step commit and
+# BEFORE retention GC runs, so by the time an old step directory can
+# vanish the pointer already names its replacement. Pollers stat and read
+# ONE file instead of scanning the directory. It is never taken for a
+# format-1 checkpoint: _legacy_dir also requires the arrays file.
+
+def manifest_signature(path):
+    """Cheap change detector for ``latest_manifest`` polling: one stat
+    of the publication pointer -> (mtime_ns, size), or None when no
+    pointer exists. Atomic rename replaces the inode, so any republish
+    changes the signature even when sizes collide."""
+    try:
+        st = os.stat(os.path.join(path, _MANIFEST))
+    except OSError:
+        return None
+    return (st.st_mtime_ns, st.st_size)
+
+
+def write_pointer(path, pointer):
+    """Atomically publish ``pointer`` (a global manifest dict extended
+    with generation/dir) as <path>/manifest.json."""
+    payload = json.dumps(pointer).encode()
+    _write_atomic(os.path.join(path, _MANIFEST),
+                  lambda f: f.write(payload))
+    _fsync_dir(path)
+
+
+def latest_manifest(path, retries=3):
+    """Newest committed global manifest under ``path`` without a
+    directory scan -> (step, step_dir, manifest) or None.
+
+    Fast path: read the publication pointer (one file). Fallback for
+    directories no publisher ever touched, and for a stale pointer (one
+    naming a step GC already removed, possible only if the publisher
+    died between commit and publish): the ``_committed_steps`` scan,
+    retried when GC unlinks a manifest between the listdir and the
+    read."""
+    doc = None
+    try:
+        with open(os.path.join(path, _MANIFEST)) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        # absent, or torn by a crash before _write_atomic: as absent
+        doc = None
+    if isinstance(doc, dict) and doc.get("format") == CHECKPOINT_FORMAT \
+            and "dir" in doc:
+        d = os.path.join(path, str(doc["dir"]))
+        if os.path.exists(os.path.join(d, _MANIFEST)):
+            return int(doc["step"]), d, doc
+    elif isinstance(doc, dict) and "dir" not in doc:
+        return None  # a format-1 checkpoint lives AT path: no steps
+    for _ in range(max(1, int(retries))):
+        steps = _committed_steps(path)
+        if not steps:
+            return None
+        step = max(steps)
+        d = steps[step]
+        try:
+            return step, d, _read_global_manifest(d)
+        except CorruptCheckpointError as e:
+            if isinstance(e.__cause__, FileNotFoundError):
+                continue  # GC won the race for this step; rescan
+            raise
+    return None
 
 
 # ---------------------------------------------------------------------------

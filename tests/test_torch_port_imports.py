@@ -193,8 +193,9 @@ def test_scan_catches_forbidden_forms(tmp_path):
 
 
 def _entry_points():
-    from horovod_tpu_torch import (models, mpi_ops, synthetic_benchmark,
-                                   train_lm, word2vec)
+    from horovod_tpu_torch import (models, mpi_ops, route_lm,
+                                   synthetic_benchmark, train_lm, word2vec)
+    from horovod_tpu_torch.fleet import WeightSubscriber
     from horovod_tpu_torch.models import mnist
     from horovod_tpu_torch.models import transformer as tr
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -221,6 +222,8 @@ def _entry_points():
         "run_fn": _run_fn_init,
         "train_lm_tp_steps": lambda: train_lm.main(
             ["--tp", "2", "--steps", "1"]),
+        "route_lm": lambda: route_lm.main([]),
+        "WeightSubscriber": lambda: WeightSubscriber("unused"),
     }
 
 
@@ -244,7 +247,8 @@ def _run_fn_init():
                                   "synthetic_benchmark", "build_resnet",
                                   "build_vgg", "build_inception",
                                   "MnistCNN", "train_lm_steps", "word2vec",
-                                  "run_fn", "train_lm_tp_steps"])
+                                  "run_fn", "train_lm_tp_steps",
+                                  "route_lm", "WeightSubscriber"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
@@ -301,3 +305,43 @@ def test_observability_modules_are_scanned_and_import(module):
     before = threading.active_count()
     importlib.import_module(module)
     assert threading.active_count() == before
+
+
+FLEET_ROUTER_MODULES = (
+    "horovod_tpu_torch.fleet", "horovod_tpu_torch.fleet.publisher",
+    "horovod_tpu_torch.fleet.subscriber", "horovod_tpu_torch.router",
+    "horovod_tpu_torch.router.policy", "horovod_tpu_torch.router.canary",
+    "horovod_tpu_torch.router.core", "horovod_tpu_torch.router.elastic",
+    "horovod_tpu_torch.route_lm", "horovod_tpu_torch.run.elastic")
+
+
+@pytest.mark.parametrize("module", FLEET_ROUTER_MODULES)
+def test_fleet_and_router_modules_are_scanned_and_import(module):
+    """The fleet plane, the router plane and route_lm are in the scan,
+    import neither jax nor the JAX package, and import without starting
+    a thread or building anything."""
+    import importlib
+    import threading
+    parts = module.split(".")
+    path = os.path.join(*parts) + ".py"
+    if not os.path.exists(os.path.join(ROOT, path)):
+        path = os.path.join(*parts, "__init__.py")
+    assert path in _port_files()
+    assert not _imported_roots(os.path.join(ROOT, path)) & set(FORBIDDEN)
+    before = threading.active_count()
+    importlib.import_module(module)
+    assert threading.active_count() == before
+
+
+def test_router_exports_match_the_reference():
+    """The port's router package exports the JAX package's names."""
+    import horovod_tpu_torch.fleet as tfleet
+    import horovod_tpu_torch.router as trouter
+    tree = ast.parse(open(os.path.join(ROOT, "horovod_tpu", "router",
+                                       "__init__.py")).read())
+    ref = next(ast.literal_eval(n.value) for n in tree.body
+               if isinstance(n, ast.Assign) and
+               n.targets[0].id == "__all__")
+    assert trouter.__all__ == ref
+    assert tfleet.__all__ == ["ArmedGeneration", "WeightPublisher",
+                              "WeightSubscriber"]
