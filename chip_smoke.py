@@ -3254,10 +3254,12 @@ RAGGED = (1, 255, 1000, 4097, 65537)
 P3I_DIR = os.path.join(ROOT, "build", "phase3i")
 
 
-def _module_run(args, env, timeout, name):
+def _module_run(args, env, timeout, name, meanwhile=None):
     """``python -m`` + ``args`` from the checkout with ``env``; stderr to
-    build/phase3i/<name>.err. Returns the JSON lines of stdout; raises,
-    with the end of stderr, on a nonzero exit or the deadline."""
+    build/phase3i/<name>.err. ``meanwhile()`` runs here while the
+    processes start (it must print nothing to their pipe). Returns the
+    JSON lines of stdout; raises, with the end of stderr, on a nonzero
+    exit or the deadline."""
     os.makedirs(P3I_DIR, exist_ok=True)
     err_path = os.path.join(P3I_DIR, f"{name}.err")
     with open(err_path, "w") as err:
@@ -3266,12 +3268,18 @@ def _module_run(args, env, timeout, name):
                                 stderr=err, text=True,
                                 start_new_session=True)
         try:
+            if meanwhile is not None:
+                meanwhile()
             out, _ = proc.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, 9)
             proc.communicate()
             raise AssertionError(f"{name}: no result within {timeout} s; "
                                  f"stderr: {open(err_path).read()[-3000:]}")
+        except BaseException:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise
     if proc.returncode:
         raise AssertionError(f"{name} exited {proc.returncode}; stderr: "
                              f"{open(err_path).read()[-3000:]}")
@@ -3352,11 +3360,51 @@ def check_codecs(card, dev, model):
     return report
 
 
+def wire_ranks(directory):
+    """The command hvdrun starts on each rank in phase 3i (b)
+    (``chip_smoke.py --wire-ranks DIR``): per codec of WIRE_CODECS,
+    ``train_lm.main`` (``--eager-allreduce --windows 1`` at the flagship's
+    width, depth WIRE_LAYERS, WIRE_INNER inner steps, and for a quantized
+    codec ``--wire-check DIR/wire-<codec>``) under
+    HOROVOD_COMPRESSION=<codec>: what one train_lm process per codec does,
+    main's own init and shutdown included, in one process. Each call after
+    the first takes a rendezvous and a control port of its own (hvdrun's
+    port + 3000 + 2·index and the one after it): a rank that joins first
+    must not reach the store or the coordinator of the run before. After
+    main's JSON line, rank 0 prints the codec and the call's wall seconds
+    on a line of their own."""
+    from horovod_tpu_torch.ops import quantization as q
+    host, _, port = os.environ["HVD_COORDINATOR_ADDR"].rpartition(":")
+    rank = int(os.environ.get("HVD_PROCESS_ID", "0"))
+    for i, codec in enumerate(WIRE_CODECS):
+        os.environ["HOROVOD_COMPRESSION"] = codec
+        if i:
+            rendezvous = int(port) + 3000 + 2 * i
+            os.environ["HVD_COORDINATOR_ADDR"] = f"{host}:{rendezvous}"
+            os.environ["HVD_CONTROL_ADDR"] = f"{host}:{rendezvous + 1}"
+        argv = ["--device", "cuda", "--eager-allreduce", "--windows", "1",
+                "--num-layers", str(WIRE_LAYERS),
+                "--inner-steps", str(WIRE_INNER)]
+        if q.is_quantized(codec):
+            argv += ["--wire-check", os.path.join(directory, f"wire-{codec}")]
+        t0 = time.perf_counter()
+        train_lm.main(argv)
+        if rank == 0:
+            print(json.dumps({"codec": codec,
+                              "wall_s": time.perf_counter() - t0}),
+                  flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
 def run_quantized_wire(card, grad_bytes, layers):
-    """Phase 3i (b): hvdrun -np 2 on the one card, train_lm
-    --eager-allreduce at the flagship's width (b16 x s1024) with its depth
-    cut to ``layers`` blocks, WIRE_STEPS steps a codec. Per rank
-    layers+layers+layers launches a step; losses finite and falling;
+    """Phase 3i (b): ONE hvdrun -np 2 on the one card (``wire_ranks``):
+    train_lm's entry point, --eager-allreduce, at the flagship's width
+    (b16 x s1024) with its depth cut to ``layers`` blocks, WIRE_STEPS
+    steps a codec, the codecs one after another in the same two
+    processes, one ``train_lm.main`` call each. Per
+    rank layers+layers+layers launches a step; losses finite and falling;
     encoded wire bytes per step at most WIRE_RATIO_MAX of the fp32
     gradient bytes (``grad_bytes``, of the cut model); rank 0's last
     quantized bucket, error feedback applied, equal to
@@ -3367,18 +3415,20 @@ def run_quantized_wire(card, grad_bytes, layers):
                 "flash_bwd_sm90_dkv": float(layers)}
     ms = {}
     t_wire = time.perf_counter()
+    args = ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
+            sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+            "--wire-ranks", P3I_DIR]
+    lines = _module_run(args, dict(os.environ), WIRE_RUN_S, "wire")
+    # each train_lm.main line, then wire_ranks' line of its codec
+    tags = [i for i, o in enumerate(lines) if "codec" in o]
+    outs = {lines[i]["codec"]: (lines[i - 1], lines[i]["wall_s"])
+            for i in tags if i and "codec" not in lines[i - 1]}
+    if [lines[i]["codec"] for i in tags] != list(WIRE_CODECS) or \
+            len(outs) != len(WIRE_CODECS):
+        raise AssertionError(f"the wire ranks reported {lines}")
     for codec in WIRE_CODECS:
         check = os.path.join(P3I_DIR, f"wire-{codec}")
-        args = ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
-                sys.executable, "-m", "horovod_tpu_torch.train_lm",
-                "--device", "cuda", "--eager-allreduce", "--windows", "1",
-                "--num-layers", str(layers), "--inner-steps", str(WIRE_INNER)]
-        if q.is_quantized(codec):
-            args += ["--wire-check", check]
-        env = dict(os.environ, HOROVOD_COMPRESSION=codec)
-        t0 = time.perf_counter()
-        out = _module_run(args, env, WIRE_RUN_S, f"wire-{codec}")[-1]
-        wall = time.perf_counter() - t0
+        out, wall = outs[codec]
         if not (math.isfinite(out["loss_first"]) and
                 math.isfinite(out["loss_last"]) and
                 out["loss_last"] < out["loss_first"]):
@@ -3428,12 +3478,12 @@ def run_quantized_wire(card, grad_bytes, layers):
                   f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, "
                   f"{out['ms_per_step']:.1f} ms/step, launches "
                   f"{out['launches_per_step']} a step on every rank"
-                  f"{note}; {wall:.1f} s wall")
+                  f"{note}; {wall:.1f} s in the ranks")
     log(card, "phase 3i (b): ms/step, gloo between two processes on one "
               "card: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
     log(card, f"phase 3i (b): {time.perf_counter() - t_wire:.1f} s in all "
-              f"({len(WIRE_CODECS)} codecs at {layers} layers, {WIRE_STEPS} "
-              f"steps each)")
+              f"(one hvdrun launch, {len(WIRE_CODECS)} codecs at {layers} "
+              f"layers, {WIRE_STEPS} steps each)")
     return ms
 
 
@@ -5098,6 +5148,541 @@ def run_phase_3l(card, dev, trained):
     return launches, {"arms": arms, "swap": swap, "loss": loss}
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: Mixture-of-Experts on the 'ep' axis and the GPipe pipeline on
+# 'pp': (a) gpt2_small_tpu with 8 experts trained on the card, its
+# gradients against the plain path; (b) ep 2 through hvdrun and train_lm;
+# (c) pp 2 through run(fn) and make_pipeline_step
+
+
+MOE_EXPERTS = 8
+MOE_STEPS = 10
+MOE_WINDOW = 4          # ms/step: the best of the windows after 2 steps
+EP_LAYERS, EP_STEPS = 4, 4
+EP_ROWS = 2 * TRAIN_BATCH    # two ranks' rows of train_lm's --steps loop
+PP_LAYERS, PP_MICRO, PP_STEPS = 4, 4, 3
+P3M_RUN_S = 300
+P3M_DIR = os.path.join(ROOT, "build", "phase3m")
+# a leaf's update on 2 ranks against one process's, |d_got - d_want| over
+# |d_want| in the 2-norm. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6): ep 2 0.179 (bf16 routing flips move tokens between
+# experts), pp 2 0.0688; a stage that got no gradient reads 1.000 (a
+# zeroed backward hop, at the tiny config on the CPU)
+EP_GAP_MAX = 3 * 2 ** -3
+PP_GAP_MAX = 2 ** -2
+
+
+def moe_config(**kw):
+    """The flagship (flash, tied, bf16 logits) with MOE_EXPERTS experts,
+    top 2, capacity factor 1.25: ``train_lm --num-experts 8``'s model."""
+    return train_lm.flagship_config(True, num_experts=MOE_EXPERTS, **kw)
+
+
+def kernel_steps(layers, steps=1):
+    """B2, B4 and B5 launches of ``steps`` steps over ``layers`` layers."""
+    return {"flash_fwd_lazy": layers * steps,
+            "flash_bwd_sm90_dq": layers * steps,
+            "flash_bwd_sm90_dkv": layers * steps}
+
+
+def update_gaps(got, want, init):
+    """Per leaf name: (|d_got - d_want|_2 / |d_want|_2, max |d_got -
+    d_want| / max |d_want|), with d the leaf's change from ``init``, in
+    fp32 on the card. The first is held: AdamW moves an element whose
+    gradient is rounding noise by about lr whatever its sign, so the
+    second can read near 1 on an element of no weight."""
+    gaps = {}
+    for name, w in want.items():
+        g = got[name].to(w.device, torch.float32)
+        d_want = w.float() - init[name].float()
+        diff = g - init[name].float() - d_want
+        gaps[name] = ((diff.norm() / d_want.norm()).item(),
+                      (diff.abs().max() / d_want.abs().max()).item())
+    return gaps
+
+
+def hold_gaps(gaps, what, bound):
+    """Raise unless every leaf's update gap is finite and within
+    ``bound``; returns the worst leaf of each measure."""
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    worst_max = max(gaps, key=lambda n: gaps[n][1])
+    bad = {n: v for n, v in gaps.items()
+           if not (math.isfinite(v[0]) and v[0] <= bound)}
+    if bad:
+        raise AssertionError(f"{what}: updates off the reference's "
+                             f"(2-norm gap, max gap): {bad}")
+    return (f"every one of {len(gaps)} leaves' update within "
+            f"{gaps[worst][0]:.3e} of the reference's in the 2-norm "
+            f"(worst {worst}; bound {bound:g}), largest element "
+            f"gap / largest update {gaps[worst_max][1]:.3e} ({worst_max})")
+
+
+def train_moe(card, dev):
+    """Phase 3m (a): MOE_STEPS steps of the MoE flagship on one repeated
+    batch (b16 x s1024) through train_lm.build_transformer_step (fp32
+    masters, DistributedOptimizer(AdamW(3e-4, mu bf16))); 12+12+12
+    launches a step, the loss finite and falling. Returns (launches, batch)."""
+    from horovod_tpu_torch.models import moe
+    cfg = moe_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, opt, _, toks = train_lm.build_transformer_step(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)
+    batch = toks[0]
+    n_params = sum(p.numel() for p in model.parameters())
+    step = trainer.make_train_step(model, opt, tr.lm_loss_fn(model))
+    per_step = kernel_steps(cfg.num_layers)
+    losses, step_s = [], []
+    fa.reset_launch_counts()
+    for i in range(MOE_STEPS):
+        before = dict(fa.launch_counts)
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())     # the sync point
+        step_s.append(time.perf_counter() - t0)
+        got = {k: v - before.get(k, 0) for k, v in fa.launch_counts.items()}
+        if got != per_step:
+            raise AssertionError(f"MoE step {i} launched {got}, expected "
+                                 f"{per_step}")
+    launches = dict(fa.launch_counts)
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"MoE training losses {losses}")
+    peak = torch.cuda.max_memory_allocated() - base
+    windows = [sum(step_s[i:i + MOE_WINDOW]) / MOE_WINDOW
+               for i in range(2, MOE_STEPS - MOE_WINDOW + 1, MOE_WINDOW)]
+    best = min(windows)
+    # where a step's device time goes: two more steps, the second traced
+    by_op = device_by_op(lambda: step(batch))
+    device = sum(ms for _, ms in by_op)
+    cap = moe.capacity_of(cfg, TRAIN_SEQ)
+    log(card, f"phase 3m (a): trained gpt2_small_tpu with {MOE_EXPERTS} "
+              f"experts top {cfg.num_experts_per_tok}, capacity "
+              f"{cap} a row (cf {cfg.expert_capacity_factor}), "
+              f"{n_params / 1e6:.1f} M parameters (flash, tied, bf16 "
+              f"logits, fp32 masters, AdamW mu bf16) at batch {TRAIN_BATCH} "
+              f"x seq {TRAIN_SEQ} for {MOE_STEPS} steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({[round(x, 4) for x in losses]}); launches {launches} "
+              f"({per_step} every step); ms/step by window of "
+              f"{MOE_WINDOW} after 2 steps "
+              f"{[round(w * 1e3, 3) for w in windows]}, best "
+              f"{best * 1e3:.3f} ({TRAIN_BATCH * TRAIN_SEQ / best:.0f} "
+              f"tokens/s); peak memory {peak / 1e9:.2f} GB above the "
+              f"{base / 1e9:.2f} GB held before")
+    log(card, f"phase 3m (a): one more MoE step traced: {device:.3f} device "
+              f"ms (busy {device / (best * 1e3):.1%} of the best window's "
+              f"step); by aten operator, largest first: "
+              + "; ".join(f"{k} {v:.3f}" for k, v in by_op[:10]))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, batch
+
+
+def check_moe_grads(card, dev, batch):
+    """Phase 3m (a): one MoE step at batch 2 on the kernel path against the
+    plain path (every launch replaced by its plain version): at fp32 the
+    gradients within 1e-4 of each gradient's largest magnitude; at bf16
+    the losses within 2^-6 relative. Both print how many of the b·s·k
+    routing decisions differ between the two paths (a near tie in the
+    router flips with one rounding of an attention output). The bf16
+    kernels this path launches (B2, B4, B5 on wgmma) are held at the
+    training shape by phase 2 and by phase 3b's batch-2 gradients; the
+    fp32 check here runs the CUDA-core kernels."""
+    from horovod_tpu_torch.models import moe
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = moe_config(dtype=dtype)
+        # drawn on the device: 746.5 M draws on the host take seconds
+        model = tr.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                               device=dev, train=True)
+        loss_fn = tr.lm_loss_fn(model)
+        routes = []
+
+        def keep(module, inputs, logits):
+            routes.append(moe.top_k(torch.softmax(logits, dim=-1),
+                                    cfg.num_experts_per_tok)[1])
+        hooks = [b.mlp.router.register_forward_hook(keep)
+                 for b in model.layers]
+
+        def grads():
+            routes.clear()
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch[:2])
+            loss.backward()
+            return loss.item(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}, \
+                list(routes)
+        try:
+            got_loss, got, got_routes = grads()
+            with plain_path():
+                want_loss, want, want_routes = grads()
+        finally:
+            for h in hooks:
+                h.remove()
+        flips = sum(int((a != b).sum()) for a, b in zip(got_routes,
+                                                         want_routes))
+        total = sum(a.numel() for a in got_routes)
+        worst = 0.0
+        for name, w in want.items():
+            if not torch.isfinite(got[name]).all():
+                raise AssertionError(f"{dtype} MoE grad {name} not finite")
+            scale = w.abs().max().item()
+            worst = max(worst, (got[name] - w).abs().max().item() / scale)
+        rel = abs(got_loss - want_loss) / abs(want_loss)
+        if dtype == torch.float32 and worst > 1e-4:
+            raise AssertionError(f"fp32 MoE grads: largest |diff| / max "
+                                 f"{worst:.3e} > 1e-4 ({flips} of {total} "
+                                 f"routing decisions differ)")
+        if rel > (1e-4 if dtype == torch.float32 else 2 ** -6):
+            raise AssertionError(f"{dtype} MoE loss {got_loss} vs plain "
+                                 f"{want_loss}")
+        log(card, f"phase 3m (a): {dtype} MoE batch-2 step, kernel vs plain "
+                  f"path: loss {got_loss:.6f} vs {want_loss:.6f} (relative "
+                  f"{rel:.3e}); largest grad |diff| / that grad's max "
+                  f"|value| {worst:.3e} over {len(want)} parameters; "
+                  f"{flips} of {total} routing decisions differ")
+        del model, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_moe_ep(card, dev):
+    """Phase 3m (b): hvdrun -np 2 on the one card, train_lm --device cuda
+    --num-experts 8 --ep 2 --num-layers EP_LAYERS --steps EP_STEPS
+    --checkpoint-dir (the flagship's width, the experts split over the two
+    ranks, both ranks routing the same EP_ROWS rows, the state saved after
+    the last step); the losses equal on both ranks and within 2^-8 of the
+    same config at ep 1 in this process on the same batches; the saved
+    state's every leaf (each expert stack gathered whole over 'ep' by the
+    save) moved from the seeded init within EP_GAP_MAX of the ep-1 run's
+    update (``update_gaps``); EP_LAYERS+EP_LAYERS+EP_LAYERS launches a
+    step per rank. The ep-1 reference runs here while the ranks start;
+    ms/step counts only the steps that began after it ended."""
+    import shutil
+    from horovod_tpu_torch.parallel import tensor_parallel as tpl
+    from horovod_tpu_torch.utils import checkpoint as tckpt
+    ckpt = os.path.join(P3M_DIR, "ep2-ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
+            sys.executable, "-m", "horovod_tpu_torch.train_lm", "--device",
+            dev.type, "--num-experts", str(MOE_EXPERTS), "--ep", "2",
+            "--num-layers", str(EP_LAYERS), "--steps", str(EP_STEPS),
+            "--checkpoint-dir", ckpt, "--checkpoint-every", str(EP_STEPS)]
+    want, ref_ms, ref = [], [], {}
+
+    def reference():
+        """The same config at ep 1 here, on the same rows of the same
+        batches, while the ranks start."""
+        cfg = dataclasses.replace(moe_config(), num_layers=EP_LAYERS)
+        mesh = mesh_lib.build_mesh(dp=1)
+        model, opt, step, _ = train_lm.build_gspmd_step(
+            cfg, EP_ROWS, TRAIN_SEQ, 1, dev, mesh)
+        ref["init"] = {n: tpl.local(p).detach().clone()
+                       for n, p in model.named_parameters()}
+        for i in range(EP_STEPS):
+            toks = train_lm.batch_at(0, i, cfg.vocab_size, EP_ROWS,
+                                     TRAIN_SEQ).to(dev)
+            t1 = time.perf_counter()
+            want.append(step(model, opt, toks)[2].item())
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+        ref["params"] = {n: tpl.local(p).detach()
+                         for n, p in model.named_parameters()}
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        ref["free_at"] = time.time()
+    t0 = time.perf_counter()
+    events = _module_run(args, dict(os.environ), P3M_RUN_S, "moe-ep2",
+                         meanwhile=reference)
+    wall = time.perf_counter() - t0
+    done = sorted((e for e in events if e.get("event") == "done"),
+                  key=lambda e: e["rank"])
+    if [e["rank"] for e in done] != [0, 1]:
+        raise AssertionError(f"ep 2: done events {done}")
+    if done[0]["losses"] != done[1]["losses"]:
+        raise AssertionError(f"ep 2 ranks' losses differ: "
+                             f"{[e['losses'] for e in done]}")
+    want_launches = kernel_steps(EP_LAYERS, EP_STEPS)
+    for e in done:
+        if e["launches"] != want_launches:
+            raise AssertionError(f"ep 2 rank {e['rank']} launched "
+                                 f"{e['launches']}, expected "
+                                 f"{want_launches}")
+    got = done[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not all(map(math.isfinite, got)) or max(rel) > 2 ** -8:
+        raise AssertionError(f"ep 2 losses {got} vs ep 1 {want}")
+    if tckpt.latest_step(ckpt) != EP_STEPS or \
+            tckpt.saved_layout(ckpt, EP_STEPS)["ep"] != 2:
+        raise AssertionError(f"ep 2: no step-{EP_STEPS} save of the ep-2 "
+                             f"layout in {ckpt}")
+    flat, _ = tckpt.restore(ckpt, step=EP_STEPS)
+    saved = {k[len("['params']['"):-2]: v for k, v in flat.items()
+             if k.startswith("['params']")}
+    del flat
+    if sorted(saved) != sorted(ref["params"]):
+        raise AssertionError(f"ep 2 saved leaves {sorted(saved)}")
+    gaps = hold_gaps(update_gaps(saved, ref["params"], ref["init"]),
+                     f"ep 2 after {EP_STEPS} steps", EP_GAP_MAX)
+    del saved, ref["params"], ref["init"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # rank 0's step events carry the time each step's loss was read; a
+    # step counts when it began after this process's reference ended
+    t = sorted((e["step"], e["t"]) for e in events
+               if e.get("event") == "step")
+    ep_ms = [(b - a) * 1e3 for (_, a), (_, b) in zip(t, t[1:])]
+    clean = [(b - a) * 1e3 for (_, a), (_, b) in zip(t, t[1:])
+             if a >= ref["free_at"]]
+    start = [e["t"] for e in events if e.get("event") == "start"]
+    log(card, f"phase 3m (b): hvdrun -np 2, train_lm --num-experts "
+              f"{MOE_EXPERTS} --ep 2 --num-layers {EP_LAYERS} --steps "
+              f"{EP_STEPS} --checkpoint-dir on one card (gloo between two "
+              f"processes on one card: not an interconnect figure), "
+              f"{EP_ROWS} x {TRAIN_SEQ} rows a step on both ranks, "
+              f"{MOE_EXPERTS // 2} experts each: losses "
+              f"{[round(v, 6) for v in got]} equal on both ranks, largest "
+              f"relative difference from ep 1 in this process "
+              f"{max(rel):.3e} (bound 2^-8); the step-{EP_STEPS} save "
+              f"(ep-2 layout), {gaps}; ms/step after the first on rank 0 "
+              f"{[round(v, 1) for v in ep_ms]}, of them begun after this "
+              f"process's reference ended {[round(v, 1) for v in clean]} "
+              f"(the reference ended {ref['free_at'] - min(start):+.1f} s "
+              f"from the ranks' loop start, their first step's loss read "
+              f"at {t[0][1] - min(start):+.1f} s; the loop's mean "
+              f"with the first {done[0]['ms_per_step']:.1f}), ep 1 here "
+              f"{[round(v, 1) for v in ref_ms[1:]]} (first "
+              f"{ref_ms[0]:.1f}); launches {done[0]['launches']} per "
+              f"rank; {wall:.1f} s wall")
+    return done[0]["launches"]
+
+
+def pipeline_config(**kw):
+    """Untied gpt2_small_tpu (flash, bf16 logits) at depth PP_LAYERS: the
+    pipeline keeps the embedding on stage 0 and the head on the last."""
+    return dataclasses.replace(
+        train_lm.flagship_config(True, tie_embeddings=False, **kw),
+        num_layers=PP_LAYERS)
+
+
+def pipeline_batches(cfg):
+    """PP_STEPS batches of TRAIN_BATCH rows of TRAIN_SEQ + 1 tokens (the
+    inputs and their shifted targets)."""
+    return [train_lm.batch_at(0, i, cfg.vocab_size, TRAIN_BATCH,
+                              TRAIN_SEQ + 1)[0] for i in range(PP_STEPS)]
+
+
+def _p3m_pipe_job():
+    """run(fn)'s worker of phase 3m (c): the pipeline step of ``cfg`` on a
+    pp-2 mesh over ``batches``, ``micro`` microbatches, on ``device``
+    ("cuda", or "cpu" for a rehearsal). After the first step it waits for
+    the file ``go`` (the caller's own work on the card is done), so the
+    steps it times share the card with nothing else; at the end each rank
+    saves its leaves' local values (its stage's layers, the replicated
+    rest) to ``out_dir``/pp-rank<r>.pt."""
+    def fn(cfg, batches, micro, device, go, out_dir):
+        import os
+        import time
+        import torch
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import optim
+        from horovod_tpu_torch.common import state
+        from horovod_tpu_torch.models import transformer as tr
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.parallel import mesh as mesh_lib
+        from horovod_tpu_torch.parallel import pipeline as pl
+        from horovod_tpu_torch.parallel import tensor_parallel as tpl
+        hvd.init(device=device)
+        dev = state.device()
+        on_card = dev.type == "cuda"
+        model = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev, train=True)
+        whole = pl.stack_pipeline_params(model, cfg.num_layers)
+        del model
+        mesh = mesh_lib.build_mesh(pp=2)
+        placed = pl.place_pipeline_params(whole, mesh_lib.tree_shardings(
+            pl.pipeline_param_specs(whole), mesh))
+        del whole
+        opt = optim.AdamW(pl.pipeline_leaves(placed), 3e-4,
+                          mu_dtype=torch.bfloat16)
+        step, _, _ = pl.make_pipeline_step(cfg, opt, mesh, micro, placed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, launches, waited = [], [], [], 0.0
+        for i, toks in enumerate(batches):
+            if i == 1:
+                t0 = time.perf_counter()
+                while not os.path.exists(go):
+                    if time.perf_counter() - t0 > 600:
+                        raise RuntimeError(f"no {go} in 600 s")
+                    time.sleep(0.01)
+                waited = time.perf_counter() - t0
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            placed, opt, loss = step(placed, opt, toks.to(dev))
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(fa.launch_counts))
+        torch.save({"layers": {n: tpl.local(t).detach().cpu()
+                               for n, t in placed["layers"].items()},
+                    "rest": {n: tpl.local(t).detach().cpu()
+                             for n, t in placed.items() if n != "layers"}},
+                   os.path.join(out_dir, f"pp-rank{hvd.rank()}.pt"))
+        out = {"rank": hvd.rank(), "losses": losses, "step_ms": step_ms,
+               "launches": launches, "backend": dist.get_backend(),
+               "stage": mesh.coordinate("pp"), "waited_s": waited,
+               "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if on_card else 0.0)}
+        mesh_lib.reset_global_mesh()
+        hvd.shutdown()
+        return out
+    return fn
+
+
+def run_pipeline(card, dev, meanwhile=None):
+    """Phase 3m (c): run(fn, num_proc=2) on the one card,
+    make_pipeline_step on a pp-2 mesh (gloo between the two processes; the
+    hop stages the activation through host memory), untied gpt2_small_tpu
+    at depth PP_LAYERS, PP_MICRO microbatches of b16 x s1024, AdamW,
+    PP_STEPS steps; the losses equal on both ranks and within 2^-8 of the
+    unpipelined GSPMD step in this process on the same batches; after the
+    steps every leaf's update (both stages' layers, the embedding, final
+    norm and head, the same on both ranks) within PP_GAP_MAX of the
+    unpipelined step's (``update_gaps``): a lost or zeroed cotangent on
+    the backward hop leaves stage 0 and the embedding unmoved; per rank
+    and step (M + P - 1) · L / P launches of each of B2, B4, B5. The
+    unpipelined reference, and ``meanwhile()`` before it, run here while
+    the ranks start; they time their steps after the first only once both
+    are done."""
+    import shutil
+    from horovod_tpu_torch import optim
+    from horovod_tpu_torch.parallel import tensor_parallel as tpl
+    from horovod_tpu_torch.run.launch import run
+    import torch.nn.functional as F
+    cfg = pipeline_config()
+    batches = pipeline_batches(cfg)
+    shutil.rmtree(P3M_DIR, ignore_errors=True)
+    os.makedirs(P3M_DIR)
+    go = os.path.join(P3M_DIR, "pp-go")
+    ranks = {}
+
+    def launch():
+        try:
+            ranks["res"] = run(_p3m_pipe_job(),
+                               args=(cfg, batches, PP_MICRO, dev.type, go,
+                                     P3M_DIR),
+                               num_proc=2, start_timeout_s=P3M_RUN_S)
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            ranks["error"] = exc
+    t0 = time.perf_counter()
+    launcher = threading.Thread(target=launch, daemon=True)
+    launcher.start()
+    if meanwhile is not None:
+        meanwhile()
+    # while the ranks start: the unpipelined GSPMD step on a one-card
+    # mesh, the same weights, optimizer, loss (the shifted split, logits
+    # as the last stage takes them) and batches
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev, train=True)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    mesh = mesh_lib.build_mesh(dp=1)
+    specs = tr.param_specs(model)
+    trainer.place(model, mesh, specs)
+    opt = optim.AdamW(model.parameters(), 3e-4, mu_dtype=torch.bfloat16)
+    trainer.init_opt_state(opt, model)
+
+    def loss_fn(m, toks):
+        toks = toks.to_local()
+        hidden, head = m.hidden_and_head(toks[:, :-1])
+        logits = F.linear(hidden.to(cfg.dtype), head.to(cfg.dtype)).float()
+        return trainer.softmax_cross_entropy(logits, toks[:, 1:])
+    step, _, _ = trainer.make_gspmd_step(loss_fn, opt, mesh, specs,
+                                         mesh_lib.P("dp", None))
+    want = [step(model, opt, t.to(dev))[2].item() for t in batches]
+    want_params = {n: tpl.local(p).detach()
+                   for n, p in model.named_parameters()}
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    open(go, "w").close()
+    launcher.join(P3M_RUN_S + 60)
+    if "error" in ranks or "res" not in ranks:
+        raise AssertionError(f"pp 2 ranks: {ranks.get('error')!r}")
+    res = ranks["res"]
+    wall = time.perf_counter() - t0
+    saved = [torch.load(os.path.join(P3M_DIR, f"pp-rank{r}.pt"))
+             for r in range(2)]
+    for n, t in saved[0]["rest"].items():
+        if not torch.equal(t, saved[1]["rest"][n]):
+            raise AssertionError(f"pp 2: {n} differs between the ranks")
+    got_params = dict(saved[0]["rest"])
+    per_stage = PP_LAYERS // 2
+    for r, rank_leaves in enumerate(saved):
+        for n, t in rank_leaves["layers"].items():
+            for j in range(per_stage):
+                got_params[f"layers.{r * per_stage + j}.{n}"] = t[j]
+    if sorted(got_params) != sorted(want_params):
+        raise AssertionError(f"pp 2 leaves {sorted(got_params)}")
+    gaps = hold_gaps(update_gaps(got_params, want_params, init),
+                     "pp 2 after the steps", PP_GAP_MAX)
+    del saved, got_params, want_params, init
+    ticks = PP_MICRO + 2 - 1
+    per_step = kernel_steps(ticks * PP_LAYERS // 2)
+    for r in res:
+        if any(got != per_step for got in r["launches"]):
+            raise AssertionError(f"pp 2 rank {r['rank']} launched "
+                                 f"{r['launches']}, expected {per_step} a "
+                                 f"step")
+    if res[0]["losses"] != res[1]["losses"]:
+        raise AssertionError(f"pp 2 ranks' losses differ: "
+                             f"{[r['losses'] for r in res]}")
+    got = res[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not all(map(math.isfinite, got)) or max(rel) > 2 ** -8:
+        raise AssertionError(f"pp 2 losses {got} vs unpipelined {want}")
+    best = min(min(r["step_ms"][1:]) for r in res)
+    log(card, f"phase 3m (c): run(fn, num_proc=2), make_pipeline_step on "
+              f"pp 2 ({res[0]['backend']} between two processes on one "
+              f"card, the hop through host memory: not an interconnect "
+              f"figure), untied gpt2_small_tpu depth {PP_LAYERS}, "
+              f"{PP_MICRO} microbatches of {TRAIN_BATCH // PP_MICRO} x "
+              f"{TRAIN_SEQ}, {PP_STEPS} AdamW steps: losses "
+              f"{[round(v, 6) for v in got]} equal on both ranks, largest "
+              f"relative difference from the unpipelined GSPMD step "
+              f"{max(rel):.3e} (bound 2^-8); embedding, final norm and "
+              f"head bit-equal on both ranks, {gaps}; ms/step by rank "
+              f"{[[round(v, 1) for v in r['step_ms']] for r in res]} "
+              f"(best after the first {best:.1f}; the steps after the "
+              f"first alone on the card, the ranks having waited "
+              f"{[round(r['waited_s'], 1) for r in res]} s for this "
+              f"process's reference to end); launches per rank "
+              f"{per_step} a step (bubble {1 / ticks:.2f} of the ticks"
+              f" a stage computes); peak memory by rank "
+              f"{[round(r['peak_gb'], 2) for r in res]} GB; {wall:.1f} s "
+              f"wall")
+    return {k: v * PP_STEPS for k, v in per_step.items()}
+
+
+def run_phase_3m(card, dev):
+    """Phase 3m, each part fatal; returns the launches of its paths (the
+    MoE steps of (a), rank 0's of (b) and (c))."""
+    t0 = time.perf_counter()
+    launches = {}
+    moe_launches, batch = train_moe(card, dev)
+    ep_launches = run_moe_ep(card, dev)
+    # (a)'s gradient check runs while (c)'s ranks start
+    pp_launches = run_pipeline(card, dev, meanwhile=lambda: check_moe_grads(
+        card, dev, batch))
+    for part in (moe_launches, ep_launches, pp_launches):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    log(card, f"phase 3m: launches of its paths {launches}; "
+              f"{time.perf_counter() - t0:.1f} s in all")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5402,6 +5987,14 @@ def main():
     for k in kernels[:len(fa.VARIANTS)]:
         k["routed_launches"] = p3l_launches.get(k["name"], 0)
         k["launches"] += k["routed_launches"]
+
+    # ---- phase 3m: MoE on ep, the pipeline on pp; B2, B4 and B5 launch
+    # in all three of its paths
+    p3m_launches = run_phase_3m(card, dev)
+    for k in kernels:
+        if k["name"] in p3m_launches:
+            k["moe_pipeline_launches"] = p3m_launches[k["name"]]
+            k["launches"] += k["moe_pipeline_launches"]
     log(card, f"chip_smoke: {time.perf_counter() - t_main:.1f} s from the "
               f"build to the result")
 
@@ -5414,4 +6007,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wire-ranks"]:
+        sys.exit(wire_ranks(sys.argv[2]))
     sys.exit(main())

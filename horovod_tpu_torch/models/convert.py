@@ -6,9 +6,12 @@ bridge between the two packages, and need neither jax nor flax: a tree is
 nested dicts of arrays.
 
 ``params_from_flax``: the ``TransformerLM`` param tree. Each Dense
-``kernel [in, out]`` becomes a ``weight [out, in]``; ``embed/embedding``,
-the RMSNorm ``scale``s and ``lm_head/kernel`` (absent when the embedding
-is tied) copy across.
+``kernel [in, out]`` becomes a ``weight [out, in]`` (the MoE router's
+``[d_model, E]`` too); ``embed/embedding``, the RMSNorm ``scale``s,
+``lm_head/kernel`` (absent when the embedding is tied) and the expert
+stacks ``w_gate``/``w_up``/``w_down`` (one layout in both packages) copy
+across. ``flax_from_params`` is its inverse: a model's tree in the flax
+layout, as numpy arrays.
 
 ``vision_from_flax``: a vision model's ``{"params", "batch_stats"}``. The
 port's vision modules carry the flax module names, so a dotted parameter
@@ -28,15 +31,43 @@ import torch
 from .transformer import TransformerLM, set_trainable
 
 
-def _dense_names(i):
+def _dense_names(i, moe=False):
     base = f"layer_{i}"
-    return {
+    names = {
         f"layers.{i}.attn.qkv.weight": (base, "attn", "qkv", "kernel"),
         f"layers.{i}.attn.out.weight": (base, "attn", "out", "kernel"),
+    }
+    if moe:
+        names[f"layers.{i}.mlp.router.weight"] = (base, "mlp", "router",
+                                                  "kernel")
+        return names
+    names.update({
         f"layers.{i}.mlp.gate.weight": (base, "mlp", "gate", "kernel"),
         f"layers.{i}.mlp.up.weight": (base, "mlp", "up", "kernel"),
         f"layers.{i}.mlp.down.weight": (base, "mlp", "down", "kernel"),
-    }
+    })
+    return names
+
+
+def flax_mapping(cfg):
+    """``{port parameter name: (flax path, transposed)}`` of a
+    ``TransformerLM`` of ``cfg``."""
+    moe = cfg.num_experts > 0
+    mapping = {"embed.weight": (("embed", "embedding"), False),
+               "ln_f.scale": (("ln_f", "scale"), False)}
+    for i in range(cfg.num_layers):
+        for ln in ("ln_attn", "ln_mlp"):
+            mapping[f"layers.{i}.{ln}.scale"] = (
+                (f"layer_{i}", ln, "scale"), False)
+        for name, path in _dense_names(i, moe).items():
+            mapping[name] = (path, True)
+        if moe:
+            for stack in ("w_gate", "w_up", "w_down"):
+                mapping[f"layers.{i}.mlp.{stack}"] = (
+                    (f"layer_{i}", "mlp", stack), False)
+    if not cfg.tie_embeddings:
+        mapping["lm_head.weight"] = (("lm_head", "kernel"), True)
+    return mapping
 
 
 def _leaf(tree, path):
@@ -63,17 +94,7 @@ def params_from_flax(tree, cfg, device=None, dtype=None, train=False,
     if param_dtype is None and train:
         param_dtype = torch.float32
     model = TransformerLM(cfg, device, param_dtype)
-    mapping = {"embed.weight": (("embed", "embedding"), False),
-               "ln_f.scale": (("ln_f", "scale"), False)}
-    for i in range(cfg.num_layers):
-        mapping[f"layers.{i}.ln_attn.scale"] = (
-            (f"layer_{i}", "ln_attn", "scale"), False)
-        mapping[f"layers.{i}.ln_mlp.scale"] = (
-            (f"layer_{i}", "ln_mlp", "scale"), False)
-        for name, path in _dense_names(i).items():
-            mapping[name] = (path, True)
-    if not cfg.tie_embeddings:
-        mapping["lm_head.weight"] = (("lm_head", "kernel"), True)
+    mapping = flax_mapping(cfg)
     params = dict(model.named_parameters())
     if set(params) != set(mapping):
         raise KeyError(f"model and mapping disagree: "
@@ -90,6 +111,22 @@ def params_from_flax(tree, cfg, device=None, dtype=None, train=False,
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(
                 device=p.device, dtype=p.dtype))
     return set_trainable(model, train)
+
+
+def flax_from_params(params, cfg):
+    """The flax param tree (nested dicts of fp32 numpy arrays) of a
+    ``TransformerLM`` of ``cfg``, or of a dict of its parameters by name
+    (whole tensors): ``params_from_flax``'s inverse."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    tree = {}
+    for name, (path, transpose) in flax_mapping(cfg).items():
+        arr = params[name].detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr.T.copy() if transpose else arr.copy()
+    return tree
 
 
 _NORM_NAME = re.compile(r"^(Tpu)?BatchNorm_(\d+)$")

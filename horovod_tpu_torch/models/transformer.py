@@ -71,8 +71,11 @@ class TransformerConfig:
     attention_impl: str = "full"
     # flash forward variant: 'auto' | 'online' | 'lazy' | 'twopass'
     flash_variant: str = "auto"
-    # Mixture-of-Experts is not ported yet: num_experts > 0 raises
+    # Mixture-of-Experts: num_experts > 0 replaces the dense MLP with
+    # models/moe.py's expert layer (experts shard over the 'ep' mesh axis)
     num_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 1.25
 
     @property
     def head_dim(self):
@@ -322,16 +325,32 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention and the MLP, each behind an RMSNorm and a residual; the
+    MLP is ``moe.MoEMLP`` when ``cfg.num_experts > 0``."""
+
     def __init__(self, cfg, param_dtype, device=None):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.attn = Attention(cfg, param_dtype, device)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.mlp = MLP(cfg, param_dtype, device)
+        if cfg.num_experts > 0:
+            from .moe import MoEMLP
+            self.mlp = MoEMLP(cfg, param_dtype, device)
+        else:
+            self.mlp = MLP(cfg, param_dtype, device)
 
-    def forward(self, x, positions, sp=None, sp_gather=False):
+    def forward(self, x, positions, sp=None, sp_gather=False,
+                return_aux=False):
+        """The block's output; with ``return_aux=True`` ``(output, aux)``,
+        aux the expert layer's load-balance loss (None for a dense MLP)."""
         x = x + self.attn(self.ln_attn(x), positions, sp, sp_gather)
-        return x + self.mlp(self.ln_mlp(x))
+        y, aux = self.ln_mlp(x), None
+        if isinstance(self.mlp, MLP):
+            y = self.mlp(y)
+        else:
+            y, aux = self.mlp(y, sp)
+        x = x + y
+        return (x, aux) if return_aux else x
 
 
 def _remat_context(name):
@@ -376,10 +395,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "the port has no Mixture-of-Experts layer yet "
-                "(num_experts must be 0)")
         device = resolve_device(device)
         param_dtype = cfg.dtype if param_dtype is None else param_dtype
         self.cfg = cfg
@@ -407,29 +422,35 @@ class TransformerLM(nn.Module):
         return tpl.tp_of(self.head_weight())
 
     def forward(self, tokens, return_hidden=False, sp=None,
-                sp_gather=False):
+                sp_gather=False, return_aux=False):
         """Logits ``[b, s, vocab]``; with ``return_hidden=True`` the
         final-norm hidden states ``[b, s, d_model]`` instead. Serving
-        callers run it under ``torch.no_grad()``.
+        callers run it under ``torch.no_grad()``. ``return_aux=True``
+        gives ``(that, auxes)``, auxes the list of the expert layers'
+        load-balance losses (``moe.aux_loss_from`` sums them; the JAX
+        package sows them).
 
         ``sp``: the ring (``parallel.ring``) the sequence is sharded over,
         ``tokens`` being this rank's shard: positions are global
         (``rank · s_loc + arange``) and attention crosses the shards (see
         ``_dispatch_attention``; ``sp_gather`` as there). Under tensor
         parallelism the logits are this rank's vocab shard."""
-        x, head = self.hidden_and_head(tokens, sp, sp_gather)
-        if return_hidden:
-            return x
-        tp = self.head_tp()
-        if tp is not None:
-            x = tpl.copy_to(x, tp)
-        return head_logits(self.cfg, x, head)
+        x, head, auxes = self.hidden_and_head(tokens, sp, sp_gather,
+                                              return_aux=True)
+        if not return_hidden:
+            tp = self.head_tp()
+            if tp is not None:
+                x = tpl.copy_to(x, tp)
+            x = head_logits(self.cfg, x, head)
+        return (x, auxes) if return_aux else x
 
-    def hidden_and_head(self, tokens, sp=None, sp_gather=False):
+    def hidden_and_head(self, tokens, sp=None, sp_gather=False,
+                        return_aux=False):
         """(final-norm hidden states, this rank's shard of the head
         weight): ``forward`` before the head. The tied table's shard is
         taken once for the lookup and the head, so that its two gradients
-        meet on the shard."""
+        meet on the shard. ``return_aux=True`` appends the expert layers'
+        load-balance losses (a list, one per layer)."""
         check_on(self.device, tokens)
         table = tpl.local(self.embed.weight)
         x = self.embed(tokens, table)
@@ -438,17 +459,20 @@ class TransformerLM(nn.Module):
         positions = (offset + torch.arange(s_loc, device=tokens.device))[None]
         remat = self.cfg.remat and torch.is_grad_enabled()
         context = _remat_context(self.cfg.remat_policy) if remat else None
+        auxes = []
         for layer in self.layers:
             if remat:
                 kw = {"context_fn": context} if context else {}
-                x = torch_checkpoint.checkpoint(layer, x, positions, sp,
-                                                sp_gather,
-                                                use_reentrant=False, **kw)
+                x, aux = torch_checkpoint.checkpoint(
+                    layer, x, positions, sp, sp_gather, True,
+                    use_reentrant=False, **kw)
             else:
-                x = layer(x, positions, sp, sp_gather)
+                x, aux = layer(x, positions, sp, sp_gather, True)
+            auxes.append(aux)
         head = table if self.lm_head is None else tpl.local(
             self.lm_head.weight)
-        return self.ln_f(x), head
+        out = (self.ln_f(x), head)
+        return out + (auxes,) if return_aux else out
 
 
 def set_trainable(model, train):
@@ -483,8 +507,11 @@ def init_params(cfg, generator=None, device=None, train=False,
             if name.endswith(".scale"):
                 p.fill_(1.0)
                 continue
-            std = (cfg.d_model ** -0.5 if name == "embed.weight"
-                   else p.shape[1] ** -0.5)
+            # fan_in as flax's initializers take it: the input dim, times
+            # the experts of a [E, in, out] stack
+            fan_in = (cfg.d_model if name == "embed.weight" else
+                      p.shape[1] * (p.shape[0] if p.dim() == 3 else 1))
+            std = fan_in ** -0.5
             draw = torch.randn(p.shape, generator=generator,
                                device=generator.device) * std
             p.copy_(draw.to(device=device, dtype=p.dtype))
@@ -504,6 +531,12 @@ _TP_RULES = (
     (("mlp", "gate", "weight"), P("tp", None)),
     (("mlp", "up", "weight"), P("tp", None)),
     (("mlp", "down", "weight"), P(None, "tp")),
+    # MoE expert stacks ([E, in, out], as the JAX package's): experts
+    # over 'ep', ffn dim over 'tp'; the router replicated
+    (("mlp", "w_gate"), P("ep", None, "tp")),
+    (("mlp", "w_up"), P("ep", None, "tp")),
+    (("mlp", "w_down"), P("ep", "tp", None)),
+    (("mlp", "router", "weight"), P()),
     (("lm_head", "weight"), P("tp", None)),          # vocab-sharded head
     (("embed", "weight"), P(None, None)),
 )
@@ -655,10 +688,14 @@ def _lm_batch(tokens):
     return tokens, sp, targets, weights, norm
 
 
-def lm_loss_fn(model, vocab_chunk=0):
+def lm_loss_fn(model, aux_weight=0.01, vocab_chunk=0):
     """Next-token loss for ``TransformerLM``: returns ``loss_fn(model,
     tokens) -> loss``, the model standing where the JAX package's params
-    stand.
+    stand. With experts (``cfg.num_experts > 0``) it adds ``aux_weight``
+    times the layers' load-balance losses (``moe.aux_loss_from``); their
+    statistics include the final token, whose target alone is unknowable.
+    A shard of a sequence ring adds its share of them (1/sp), so that the
+    shards' losses sum to the batch's.
 
     Full-length inputs, as the JAX package feeds them: the targets are the
     tokens rolled left by one, and the final position, whose target is
@@ -673,23 +710,30 @@ def lm_loss_fn(model, vocab_chunk=0):
     instead of materializing the full logits; under tensor parallelism the
     vocab-sharded head is gathered for it (every tp rank then computes the
     same loss), as the JAX package's chunking reshape forces a gather."""
-    if model.cfg.num_experts > 0:
-        raise NotImplementedError("the MoE auxiliary loss is not ported yet")
     from .. import trainer
+    from .moe import aux_loss_from
+    moe = model.cfg.num_experts > 0
 
     def loss_fn(model, tokens):
         tokens, sp, targets, weights, norm = _lm_batch(tokens)
         if vocab_chunk:
-            hidden, head = model.hidden_and_head(tokens, sp, sp_gather=True)
+            hidden, head, auxes = model.hidden_and_head(
+                tokens, sp, sp_gather=True, return_aux=True)
             tp = model.head_tp()
             if tp is not None:   # the whole [vocab, d_model] head
                 head = tpl.gather_replicated(head, tp)
-            return chunked_softmax_cross_entropy(
+            loss = chunked_softmax_cross_entropy(
                 hidden, head.t(), targets, chunk=vocab_chunk,
                 weights=weights, norm=norm)
-        logits = model(tokens, sp=sp, sp_gather=True)
-        return trainer.softmax_cross_entropy(logits, targets, weights,
-                                             norm=norm, tp=model.head_tp())
+        else:
+            logits, auxes = model(tokens, sp=sp, sp_gather=True,
+                                  return_aux=True)
+            loss = trainer.softmax_cross_entropy(
+                logits, targets, weights, norm=norm, tp=model.head_tp())
+        if moe:
+            share = 1 if sp is None else sp.size
+            loss = loss + aux_loss_from(auxes, weight=aux_weight) / share
+        return loss
     return loss_fn
 
 
@@ -698,7 +742,8 @@ def matmul_flops_per_token(cfg, seq):
     ``6·P_matmul + 12·L·seq·d_model``. P_matmul counts the qkv and out
     projections (4·d²), the gated MLP's three d×d_ff kernels and the
     lm_head. Head-count independent, so MFU numbers are comparable across
-    head shapes."""
+    head shapes. It counts a dense MLP, with experts too (where the
+    figure is no MoE step's work)."""
     p_matmul = (cfg.num_layers * (4 * cfg.d_model ** 2 +
                                   3 * cfg.d_model * cfg.d_ff) +
                 cfg.d_model * cfg.vocab_size)

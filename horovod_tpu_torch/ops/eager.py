@@ -545,7 +545,10 @@ class EagerCoordinator:
     @contextlib.contextmanager
     def hold_cycle(self):
         """While held, no cycle runs, so every collective enqueued inside
-        lands in one cycle on the next flush."""
+        lands in one cycle on the next flush. A background cycle that
+        read the pause just before the hold began re-reads it when it
+        takes the queue (``flush(unless_held=True)``), so it cannot take
+        what the held block enqueues."""
         prev = self._paused
         self._paused = True
         try:
@@ -567,7 +570,7 @@ class EagerCoordinator:
                 # non-blocking: a flush stuck in a transport collective
                 # must not swallow the stall deadline below. Under
                 # negotiation ONLY the background thread runs the cycle.
-                self.flush(blocking=False)
+                self.flush(blocking=False, unless_held=True)
             if entry.event.wait(timeout=max(
                     self._config.cycle_time_ms / 1000.0, 1e-3)):
                 break
@@ -595,7 +598,7 @@ class EagerCoordinator:
             if self._paused:
                 continue
             try:
-                self.flush()
+                self.flush(unless_held=True)
             except Exception as exc:  # noqa: BLE001 — never kill the loop
                 log.error("background flush failed: %s", exc)
             self._check_stalled()
@@ -626,22 +629,30 @@ class EagerCoordinator:
             self._ef.publish()
             self._mark_done(entries)
 
-    def flush(self, blocking=True):
-        """Drain the queue and execute everything in it (one cycle)."""
+    def flush(self, blocking=True, unless_held=False):
+        """Drain the queue and execute everything in it (one cycle).
+        ``unless_held``: take nothing while ``hold_cycle`` is held, read
+        under the queue lock, where enqueues land."""
         if not self._flush_lock.acquire(blocking):
             return
         try:
-            self._flush_locked()
+            self._flush_locked(unless_held)
         finally:
             self._flush_lock.release()
 
-    def _flush_locked(self):
-        if self._negotiator is not None:
-            self._negotiated_flush_locked()
-            return
+    def _take_queue(self, unless_held):
         with self._queue_lock:
+            if unless_held and self._paused:
+                return []
             batch = list(self._queue)
             self._queue.clear()
+        return batch
+
+    def _flush_locked(self, unless_held=False):
+        if self._negotiator is not None:
+            self._negotiated_flush_locked(unless_held)
+            return
+        batch = self._take_queue(unless_held)
         if batch:
             self._run_batch(batch)
 
@@ -796,7 +807,7 @@ class EagerCoordinator:
     # -- negotiated multi-process cycle (RunLoopOnce's coordinator
     # protocol, operations.cc:1246-1551, over the TCP control plane) --
 
-    def _negotiated_flush_locked(self):
+    def _negotiated_flush_locked(self, unless_held=False):
         """One negotiation round: announce newly queued entries, apply
         every response the coordinator has ordered since our last ack.
         Runs ONLY on the background thread — all data-plane collectives
@@ -813,9 +824,7 @@ class EagerCoordinator:
         if self._unannounced is not None:
             metas, hit_ids = self._unannounced
         else:
-            with self._queue_lock:
-                batch = list(self._queue)
-                self._queue.clear()
+            batch = self._take_queue(unless_held)
             if self.timeline and batch:
                 self.timeline.mark_cycle_start()
             metas, hit_ids = [], []

@@ -15,6 +15,13 @@ Megatron-LM:
                   this rank uses (all-gather forward, the rows' gradient
                   scattered and reduce-scattered back).
 
+The experts of a Mixture-of-Experts layer are sharded over the 'ep' axis
+the same way (``ep_of``): ``copy_to`` into the expert branch, whose
+gradient then sums over the expert shards, and ``reduce_from`` on the
+combine's partial sums. ``sum_over`` is the all-reduce whose gradient is
+the all-reduce of the gradient (JAX's ``psum`` in a per-device program):
+the MoE layer's load-balance statistics over the batch's shards.
+
 Every collective here runs over a *group object* (``parallel.ring``): a
 ``GroupRing`` over the mesh's tp process group in training, or, in
 serving, whatever the engine's mesh gives for its tp axis: a process
@@ -36,22 +43,34 @@ def local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def tp_of(weight):
-    """The tp group object (a ``GroupRing``) a weight is sharded over, or
-    None: a DTensor on a mesh whose 'tp' axis has more than one rank and
-    splits the weight."""
+def axis_of(weight, axis, sharded=True):
+    """The group object (a ``GroupRing``) of the mesh axis ``axis`` of a
+    weight placed on a mesh, or None: the weight is no DTensor, its mesh
+    has no such axis or one of a single rank, or (``sharded``) the axis
+    does not split the weight."""
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(weight, DTensor):
         return None
     mesh = weight.device_mesh
     names = mesh.mesh_dim_names or ()
-    if "tp" not in names:
+    if axis not in names:
         return None
-    i = names.index("tp")
-    if mesh.size(i) == 1 or not isinstance(weight.placements[i], Shard):
+    i = names.index(axis)
+    if mesh.size(i) == 1 or (
+            sharded and not isinstance(weight.placements[i], Shard)):
         return None
     from .ring import GroupRing
-    return GroupRing(mesh.get_group("tp"))
+    return GroupRing(mesh.get_group(axis))
+
+
+def tp_of(weight):
+    """The tp group object a weight is sharded over, or None."""
+    return axis_of(weight, "tp")
+
+
+def ep_of(weight):
+    """The ep group object an expert stack is sharded over, or None."""
+    return axis_of(weight, "ep")
 
 
 def _all_reduce(t, tp, op=dist.ReduceOp.SUM):
@@ -79,12 +98,30 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 def copy_to(x, tp):
     return _CopyTo.apply(x, tp)
 
 
 def reduce_from(x, tp):
     return _ReduceFrom.apply(x, tp)
+
+
+def sum_over(x, group):
+    """The sum of every rank's ``x`` over ``group``, whose gradient is the
+    sum of every rank's gradient: what each rank computes from the sum is
+    one term of a loss summed over the ranks."""
+    return _SumOver.apply(x, group)
 
 
 def all_reduce_max(x, tp):

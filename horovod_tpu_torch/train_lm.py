@@ -2,7 +2,8 @@
 
     python -m horovod_tpu_torch.train_lm [--device cuda|cpu] [--windows 3]
         [--size tiny|gpt2-small|gpt2-small-tpu|llama-1b] [--dp N] [--tp N]
-        [--sp N] [--attention full|flash|ring|ring_flash|ulysses]
+        [--sp N] [--ep N] [--num-experts E]
+        [--attention full|flash|ring|ring_flash|ulysses]
         [--seq-len S] [--vocab-chunk C] [--remat] [--remat-policy P]
 
     # 2-way tp x 2-way sp with ring-flash attention on 4 CPU workers
@@ -13,7 +14,7 @@ The port of the JAX package's LM benchmark recipe
 (``examples/bench_common.py``: ``build_transformer_step``,
 ``setup_transformer_lm``, ``transformer_lm_metrics``) with the CLI of
 ``examples/transformer_lm.py``: ``init()``, the mesh (the flags, else
-``HOROVOD_MESH``; dp absorbs the workers tp·sp leaves), the flagship
+``HOROVOD_MESH``; dp absorbs the workers tp·sp·ep leave), the flagship
 ``gpt2_small_tpu`` config (flash attention, tied embeddings, bf16
 logits) with seeded fp32 master weights placed by ``param_specs``,
 ``DistributedOptimizer`` (over the mesh's dp axis) around ``AdamW(3e-4,
@@ -21,11 +22,15 @@ mu_dtype=bfloat16)``, and ``make_gspmd_multi_step`` over a stacked
 ``[inner, batch · dp, seq]`` token array from
 ``numpy.random.RandomState(0)``, placed by ``batch_spec``. One warm-up
 window, then ``--windows`` timed windows of ``inner`` optimizer steps
-each, every window ending in a read of the loss.
+each, every window ending in a read of the loss. ``--num-experts E``
+makes every block's MLP a Mixture-of-Experts layer of E experts (top 2,
+capacity factor 1.25; ``models/moe.py``), whose experts ``--ep`` shards
+over the mesh's 'ep' axis; the loss then adds the load-balance term.
 
 Prints one JSON line: tokens/s per card and ms/step from the best window
 (mean and half-spread beside it), MFU against the card's dense-bf16 peak
-(H100 SXM 989 TFLOP/s, PCIe 756; none for another card), the first and
+(H100 SXM 989 TFLOP/s, PCIe 756; none for another card, and none with
+experts: ``matmul_flops_per_token`` counts a dense MLP), the first and
 last loss, the flash kernel launches per step, and the card's name and
 power limit. On CUDA it runs the flagship at batch 16 per card, seq 1024,
 10 inner steps; on the CPU (``--device cpu``) a tiny smoke configuration
@@ -178,22 +183,27 @@ def build_gspmd_step(cfg, batch, seq, inner, device, mesh, vocab_chunk=0,
 def mesh_of(args):
     """The mesh of the flags (dp inferred when not given), or of
     ``HOROVOD_MESH`` and its per-axis knobs when no flag is given."""
-    if args.dp is not None or args.tp != 1 or args.sp != 1:
-        return mesh_lib.build_mesh(dp=args.dp, tp=args.tp, sp=args.sp)
+    if (args.dp is not None or args.tp != 1 or args.sp != 1 or
+            args.ep != 1):
+        return mesh_lib.build_mesh(dp=args.dp, tp=args.tp, sp=args.sp,
+                                   ep=args.ep)
     return mesh_lib.mesh_from_env()
 
 
 def transformer_lm_metrics(window_s, meta, peak_flops=None):
     """Per-window seconds/step folded into the metrics: the best window
-    for tokens/s and MFU, the mean and half-spread beside it."""
+    for tokens/s and MFU, the mean and half-spread beside it. No MFU for
+    a config with experts: ``matmul_flops_per_token`` counts a dense
+    MLP."""
     best = min(window_s)
     mean = sum(window_s) / len(window_s)
     tps = meta["batch_per_chip"] * meta["seq"] / best
     flops = tr.matmul_flops_per_token(meta["cfg"], meta["seq"])
+    dense = meta["cfg"].num_experts == 0
     return {
         "model": meta["model"],
         "tokens_per_sec_per_chip": tps,
-        "mfu": tps * flops / peak_flops if peak_flops else None,
+        "mfu": tps * flops / peak_flops if peak_flops and dense else None,
         "seq_len": meta["seq"],
         "batch_per_chip": meta["batch_per_chip"],
         "ms_per_step": best * 1e3,
@@ -219,6 +229,10 @@ def parse_args(argv=None):
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ways (ring/ulysses attention)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ways (MoE experts shard over 'ep')")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="experts per MoE layer; 0 = dense MLP")
     p.add_argument("--attention", default="flash",
                    choices=["full", "ring", "ring_flash", "ulysses",
                             "flash"])
@@ -546,7 +560,8 @@ def main(argv=None):
     seq = args.seq_len or seq
     inner = args.inner_steps or inner
     cfg = flagship_config(on_card, args.size, attention_impl=args.attention,
-                          remat=args.remat, remat_policy=args.remat_policy)
+                          remat=args.remat, remat_policy=args.remat_policy,
+                          num_experts=args.num_experts)
     if args.num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     coord = state_mod.global_state().coordinator
@@ -577,7 +592,8 @@ def main(argv=None):
         losses.append(loss.item())   # the sync point
         window_s.append((time.perf_counter() - t0) / inner)
     # a card works on its dp way's batch rows, its sp way's sequence shard,
-    # and shares them with its tp ways: batch / (tp · sp) rows of seq
+    # and shares them with its tp and ep ways: batch / (tp · sp · ep) rows
+    # of seq
     shared = mesh.size // mesh.shape["dp"]
     meta = {"batch_per_chip": batch if shared == 1 else batch / shared,
             "seq": seq, "cfg": cfg,
@@ -586,6 +602,7 @@ def main(argv=None):
     out.update({
         "inner": inner, "workers": mpi_ops.size(),
         "mesh": mesh_lib.mesh_layout(mesh), "attention": cfg.attention_impl,
+        "num_experts": cfg.num_experts,
         "eager_allreduce": args.eager_allreduce,
         "loss_first": losses[0], "loss_last": losses[-1],
         "launches_per_step": {k: v / inner

@@ -103,6 +103,18 @@ def test_plan_cache_serves_a_repeated_batch(core):
     assert core.plan_cache.hits >= 2
 
 
+def test_a_cycle_begun_before_the_hold_leaves_the_held_burst(core):
+    # the background loop reads the pause, then flushes: a hold that
+    # begins between the two must still keep what it encloses queued
+    with core.hold_cycle():
+        h = mpi_ops.allreduce_async(torch.ones(2), name="held")
+        core.flush(unless_held=True)
+        assert not mpi_ops.poll(h)
+        core.flush(blocking=False, unless_held=True)
+        assert not mpi_ops.poll(h)
+    assert mpi_ops.synchronize(h).tolist() == [1.0, 1.0]
+
+
 def test_duplicate_name_raises(core):
     with core.hold_cycle():
         h = mpi_ops.allreduce_async(torch.ones(2), name="dup")

@@ -76,7 +76,10 @@ def test_scan_sees_every_module():
                  os.path.join("horovod_tpu_torch", "parallel", "mesh.py"),
                  os.path.join("horovod_tpu_torch", "parallel", "ring.py"),
                  os.path.join("horovod_tpu_torch", "parallel",
-                              "tensor_parallel.py")):
+                              "tensor_parallel.py"),
+                 os.path.join("horovod_tpu_torch", "models", "moe.py"),
+                 os.path.join("horovod_tpu_torch", "parallel",
+                              "pipeline.py")):
         assert want in files
 
 

@@ -125,9 +125,17 @@ class TestLayers:
                                    np.asarray(want, np.float32), **tol)
 
     def test_moe_config_raises(self):
+        """The model takes experts (an expert layer in every block, the
+        load-balance losses beside the logits); serving still refuses
+        them, as the JAX package's does."""
+        from horovod_tpu_torch.models.moe import MoEMLP
+        from horovod_tpu_torch.serving import decode
         cfg = ttr.TransformerConfig.tiny(num_experts=4)
-        with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
-            ttr.TransformerLM(cfg, device="cpu")
+        model = ttr.TransformerLM(cfg, device="cpu")
+        assert all(isinstance(b.mlp, MoEMLP) for b in model.layers)
+        with pytest.raises(NotImplementedError, match="dense configs only"):
+            decode.prefill_forward(cfg, model, torch.zeros((1, 4),
+                                                           dtype=torch.long))
 
     @pytest.mark.parametrize("impl", ["ring", "ring_flash", "ulysses"])
     def test_sequence_parallel_impls_name_their_slice(self, impl):
