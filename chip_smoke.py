@@ -172,7 +172,7 @@ on failure:
      (error feedback applied on both ranks) equal to
      stacked_wire_allreduce of both ranks' compensated inputs, ms/step
      per codec and the four runs' seconds; (c) word2vec --eager on 2
-     ranks through hvdrun, 200 steps: the loss falls, to_dense of the grouped sparse allreduce
+     ranks through hvdrun, in (b)'s launch, 200 steps: the loss falls, to_dense of the grouped sparse allreduce
      within 1e-6 of the dense allreduce of the densified gradients, 2
      fused allgather groups a step; (d) the flagship's full-depth state
      (1.5 GB) through CheckpointManager (blocking part and whole save,
@@ -284,12 +284,51 @@ on failure:
      20 steps after 3 warm-up steps, each setting timed twice, in turn),
      ring_flash W = 4 forward and backward beside flash on the whole
      sequence, and the d-256 and d-384 kernels beside d 128.
+  3n. (run after 3k, before phase 4) the numerics, memory and compile,
+     cost-model, attribution and autotuner planes on the flagship eager step
+     (gpt2_small_tpu, flash, tied, bf16 logits, b16 x s1024) at world 1
+     over NCCL: (a) HOROVOD_AUTOTUNE with a log on the live core until
+     the tuner has scored 5 windows, the log's rows and the adopted
+     threshold and cycle inside the tuner's bounds, ms/step before and
+     after adoption, fp32 masters after 3 steps with a tuner moving the
+     knobs bit-equal to a run without it; (b) clean steps flag no
+     anomaly, a gradient hook planting 3 NaNs in ln_f.scale's gradient
+     raises hvd_nonfinite_total by 3 a side with one numerics_anomaly
+     event, one flight dump, and the nonfinite alert firing, and the
+     plane's cost split (the stats' device ms a step, their host ms to
+     queue, their scratch bytes, the policy's host ms); (c) (inside
+     phase 3k (b)'s 2-rank launch, HOROVOD_AUTOTUNE=1) rank 1's reduced
+     copy of one named tensor scaled by 1 + 1e-2 and rank 0's
+     coordinator naming rank 1 in hvd_numerics_divergent_rank, both ranks
+     on identical tuned values after rank 0 freezes the tuner; (d) the
+     HBM ledger's params, optimizer and gradient bytes beside
+     torch.cuda.memory_allocated, hvd_step_peak_hbm_bytes equal to
+     max_memory_allocated for the same step, hbm_headroom_low firing at
+     frac 0.99, a churning compile site raising
+     hvd_recompile_storms_total; (e) trainer.instrument_step with
+     attrib_every 5 over 10 steps: hvd_mfu (beside phase 4's MFU), each
+     capture's op-class breakdown summing to within 10 % of the
+     profiler's own device tally, its device intervals inside the step's
+     span by CUDA events, "other" at most 10 % of it; and one
+     merged_timeline.capture of an eager allreduce at world 1, in a
+     fresh process of its own (``--merged-capture``): every launch call
+     with its device record, the device events merge() takes from the
+     live profiler on the exported trace's clock (host events of both
+     within 2 us; the device times anchored on their launch calls, the
+     timeline on the wall clock), and the ALLREDUCE span
+     overlapping the collective's device events (a one-rank NCCL
+     allreduce launches no kernel: the bf16 wire's casts are its device
+     work there); (f) phase 3k (a)'s on/off
+     windows now switch the numerics and memory planes too. Its B2, B4
+     and B5 launches ((a)'s tuning run, (e)'s steps) join the kernels
+     line.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 there is no CUDA device or the port is not beside this script.
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -297,6 +336,7 @@ import json
 import logging
 import math
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -310,7 +350,6 @@ if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import horovod_tpu_torch as hvd  # noqa: E402
@@ -331,6 +370,7 @@ from horovod_tpu_torch.serving.decode import (  # noqa: E402
 from horovod_tpu_torch.serving.engine import ServeEngine  # noqa: E402
 from horovod_tpu_torch.serving.queue import (  # noqa: E402
     AdmissionQueue, Request)
+from horovod_tpu_torch.utils import profiling  # noqa: E402
 
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3), NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12
@@ -405,10 +445,9 @@ def device_profile(fn, iters=20, events_if_empty=True):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0) +
-                                   e.time_range.elapsed_us() / 1e3 / iters)
+        # the port's own trace reader (utils/profiling.py)
+        by_name = {r.name: r.total_ms / iters
+                   for r in profiling.summarize_profile(prof).rows}
         if by_name:
             return sum(by_name.values()), by_name
     if not events_if_empty:
@@ -3246,7 +3285,6 @@ WIRE_STEPS = 2 * WIRE_INNER
 WIRE_RATIO_MAX = 0.26
 WIRE_RUN_S = 240
 W2V_STEPS = 200
-W2V_RUN_S = 180
 DRILL_LAYERS = 2     # the flagship's width, depth cut for time
 DRILL_STEPS, DRILL_EVERY, DRILL_PREEMPT, DRILL_KILL = 10, 2, 3, 6
 DRILL_RUN_S = 420
@@ -3369,19 +3407,30 @@ def wire_ranks(directory):
     HOROVOD_COMPRESSION=<codec>: what one train_lm process per codec does,
     main's own init and shutdown included, in one process. Each call after
     the first takes a rendezvous and a control port of its own (hvdrun's
-    port + 3000 + 2·index and the one after it): a rank that joins first
+    port + 3000 + 2·index and the one after it, or as far below it where
+    that would pass the last port): a rank that joins first
     must not reach the store or the coordinator of the run before. After
     main's JSON line, rank 0 prints the codec and the call's wall seconds
-    on a line of their own."""
+    on a line of their own. Then phase 3i (c) in the same two processes:
+    ``word2vec.main`` (``--eager --check-dense``, W2V_STEPS steps) under
+    the launch's own HOROVOD_COMPRESSION, its JSON line the last."""
+    from horovod_tpu_torch import word2vec
     from horovod_tpu_torch.ops import quantization as q
     host, _, port = os.environ["HVD_COORDINATOR_ADDR"].rpartition(":")
     rank = int(os.environ.get("HVD_PROCESS_ID", "0"))
+    codec_env = os.environ.get("HOROVOD_COMPRESSION")
+
+    def next_world(i):
+        # below hvdrun's port where above it would pass 65535
+        step = 3000 + 2 * i
+        rendezvous = int(port) + step if int(port) + step < 65535 \
+            else int(port) - step
+        os.environ["HVD_COORDINATOR_ADDR"] = f"{host}:{rendezvous}"
+        os.environ["HVD_CONTROL_ADDR"] = f"{host}:{rendezvous + 1}"
     for i, codec in enumerate(WIRE_CODECS):
         os.environ["HOROVOD_COMPRESSION"] = codec
         if i:
-            rendezvous = int(port) + 3000 + 2 * i
-            os.environ["HVD_COORDINATOR_ADDR"] = f"{host}:{rendezvous}"
-            os.environ["HVD_CONTROL_ADDR"] = f"{host}:{rendezvous + 1}"
+            next_world(i)
         argv = ["--device", "cuda", "--eager-allreduce", "--windows", "1",
                 "--num-layers", str(WIRE_LAYERS),
                 "--inner-steps", str(WIRE_INNER)]
@@ -3395,6 +3444,13 @@ def wire_ranks(directory):
                   flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+    if codec_env is None:
+        os.environ.pop("HOROVOD_COMPRESSION")
+    else:
+        os.environ["HOROVOD_COMPRESSION"] = codec_env
+    next_world(len(WIRE_CODECS))
+    word2vec.main(["--device", "cuda", "--eager", "--check-dense",
+                   "--steps", str(W2V_STEPS)])
     return 0
 
 
@@ -3408,7 +3464,9 @@ def run_quantized_wire(card, grad_bytes, layers):
     encoded wire bytes per step at most WIRE_RATIO_MAX of the fp32
     gradient bytes (``grad_bytes``, of the cut model); rank 0's last
     quantized bucket, error feedback applied, equal to
-    stacked_wire_allreduce of both ranks' compensated inputs."""
+    stacked_wire_allreduce of both ranks' compensated inputs. Returns
+    the ms/step by codec and the word2vec line the same launch printed
+    last (phase 3i (c))."""
     from horovod_tpu_torch.ops import quantization as q
     per_step = {"flash_fwd_lazy": float(layers),
                 "flash_bwd_sm90_dq": float(layers),
@@ -3419,6 +3477,7 @@ def run_quantized_wire(card, grad_bytes, layers):
             sys.executable, os.path.join(ROOT, "chip_smoke.py"),
             "--wire-ranks", P3I_DIR]
     lines = _module_run(args, dict(os.environ), WIRE_RUN_S, "wire")
+    w2v = lines.pop()
     # each train_lm.main line, then wire_ranks' line of its codec
     tags = [i for i, o in enumerate(lines) if "codec" in o]
     outs = {lines[i]["codec"]: (lines[i - 1], lines[i]["wall_s"])
@@ -3483,20 +3542,18 @@ def run_quantized_wire(card, grad_bytes, layers):
               "card: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
     log(card, f"phase 3i (b): {time.perf_counter() - t_wire:.1f} s in all "
               f"(one hvdrun launch, {len(WIRE_CODECS)} codecs at {layers} "
-              f"layers, {WIRE_STEPS} steps each)")
-    return ms
+              f"layers, {WIRE_STEPS} steps each, then word2vec)")
+    return ms, w2v
 
 
-def run_word2vec(card):
+def run_word2vec(card, out):
     """Phase 3i (c): word2vec --eager on 2 ranks through hvdrun at the
-    example's defaults: the loss falls, one step's to_dense of the reduced
-    slices equals the dense allreduce of the densified gradients, two
-    fused allgather groups a step."""
-    out = _module_run(
-        ["horovod_tpu_torch.run", "-np", "2", "-H", "localhost:2",
-         sys.executable, "-m", "horovod_tpu_torch.word2vec", "--device",
-         "cuda", "--eager", "--check-dense", "--steps", str(W2V_STEPS)],
-        dict(os.environ), W2V_RUN_S, "word2vec")[-1]
+    example's defaults, in phase 3i (b)'s launch (``out``, its line): the
+    loss falls, one step's to_dense of the reduced slices equals the
+    dense allreduce of the densified gradients, two fused allgather
+    groups a step."""
+    if out.get("vocab") is None or "loss_first" not in out:
+        raise AssertionError(f"word2vec printed {out}")
     if not out["loss_last"] < out["loss_first"]:
         raise AssertionError(f"word2vec loss {out}")
     # the sums of duplicate rows run in another order (index_add on the
@@ -3596,8 +3653,8 @@ def run_phase_3i(card, dev, model, opt, cfg):
     log(card, f"phase 3i: this process holds "
               f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
               f"while the ranks run")
-    ms = run_quantized_wire(card, grad_bytes, WIRE_LAYERS)
-    w2v = run_word2vec(card)
+    ms, w2v_line = run_quantized_wire(card, grad_bytes, WIRE_LAYERS)
+    w2v = run_word2vec(card, w2v_line)
     drill = run_drill(card)
     log(card, f"phase 3i: {time.perf_counter() - t0:.1f} s in all")
     return {"ms": ms, "w2v": w2v, "ckpt": ckpt, "drill": drill}
@@ -4064,22 +4121,26 @@ def run_mesh_checkpoint(card):
         if ev.get("event") == "step" and ev["step"] == CKPT_STOP - 1:
             stopped.send_signal(signal_mod.SIGTERM)
     ev_stop, rc = _events(stopped, stop)
-    ev_full, rc_full = _events(full)
-    if rc != PREEMPTED_EXIT_CODE or rc_full:
-        raise AssertionError(
-            f"tp 2 runs exited {rc} (stopped) and {rc_full} (whole): "
-            f"{open(stopped.err_path).read()[-2000:]}"
-            f"{open(full.err_path).read()[-2000:]}")
+    if rc != PREEMPTED_EXIT_CODE:
+        raise AssertionError(f"the stopped tp 2 run exited {rc}: "
+                             f"{open(stopped.err_path).read()[-2000:]}")
     pre = [e for e in ev_stop if e["event"] == "preempted"]
     saved = pre[0]["step"]
-    full_losses = {e["step"]: e["loss"] for e in ev_full
-                   if e["event"] == "step"}
+    # the resumes start while the uninterrupted run still runs (a cut
+    # for time: the two rounds of launches overlap)
     runs = {}
     for layout in ("tp", "dp"):
         d = os.path.join(base, f"resume-{layout}")
         shutil.copytree(os.path.join(base, "stopped"), d)
         runs[layout] = _hvdrun_lm([f"--{layout}", "2"], d, CKPT_STEPS, 100,
                                   f"ckpt-resume-{layout}")
+    ev_full, rc_full = _events(full)
+    if rc_full:
+        raise AssertionError(f"the uninterrupted tp 2 run exited "
+                             f"{rc_full}: "
+                             f"{open(full.err_path).read()[-2000:]}")
+    full_losses = {e["step"]: e["loss"] for e in ev_full
+                   if e["event"] == "step"}
     got = {}
     for layout, proc in runs.items():
         events, rc = _events(proc)
@@ -4152,10 +4213,15 @@ P3K_STAGES = ("enqueue", "negotiate", "fusion", "execute", "callback")
 
 
 def _planes(on, rank=0, history_dir=None):
-    """Every observability plane of this process on (fresh) or off."""
-    from horovod_tpu_torch.utils import alerts, history, metrics, tracing
+    """Every observability plane of this process on (fresh) or off: the
+    metrics, tracing, history and alert planes, and (phase 3n (f)) the
+    numerics and memory planes."""
+    from horovod_tpu_torch.utils import (alerts, history, memory, metrics,
+                                         numerics, tracing)
     metrics.reset(enabled=on)
     tracing.reset(enabled=on, rank=rank)
+    numerics.reset(enabled=on)
+    memory.reset(enabled=on)
     if on:
         # the writer's own interval (HVD_HISTORY_INTERVAL_S, 30 s by
         # default): the checks flush it
@@ -4166,10 +4232,19 @@ def _planes(on, rank=0, history_dir=None):
 
 
 def _observed_step(step, toks, i):
-    """One eager step, then the per-step ticks of the history and alert
-    planes (what the JAX package's ``instrument_step`` does each step)."""
-    from horovod_tpu_torch.utils import alerts, history
-    loss = step(toks[i % toks.shape[0]])
+    """One eager step with the per-step work of the memory plane around
+    it (the compile tracker's key, the allocator peak reset and read) and
+    the ticks of the history and alert planes after it: what
+    ``trainer.instrument_step`` does each step, without its sync."""
+    from horovod_tpu_torch.utils import alerts, history, memory
+    batch = toks[i % toks.shape[0]]
+    mem = memory.enabled()
+    if mem:
+        memory.get_tracker().observe("train:p3k", (batch,))
+        memory.reset_step_peak()
+    loss = step(batch)
+    if mem:
+        memory.step_peak_bytes()
     now = time.monotonic()
     history.poke(now)
     alerts.tick(now)
@@ -4357,8 +4432,14 @@ def _p3k_ranks_job():
     P3J_LAYERS, P3J_STEPS steps; rank 0 scrapes its aggregate until it
     covers both ranks; then, with ``stall``, rank 1 holds back one
     allreduce past the stall deadline and rank 0 reports the flight dumps
-    its coordinator wrote."""
-    def fn(layers, steps, stall):
+    its coordinator wrote. With ``tune`` (phase 3n (c), HOROVOD_AUTOTUNE=1
+    in the launch's env) the autotuner scores every negotiated cycle
+    while the steps run; at the end rank 1 scales its reduced copy of
+    P3N_DIV_NAME by 1 + P3N_DIV_REL (the core's test hook) through
+    P3N_DIV_ROUNDS grouped allreduces, rank 0 waits for its coordinator's
+    divergence verdict, then freezes the tuner, and both ranks report the
+    tuned values they hold after the collectives ordered since."""
+    def fn(layers, steps, stall, tune=False):
         import dataclasses
         import hashlib
         import json
@@ -4370,6 +4451,11 @@ def _p3k_ranks_job():
         from horovod_tpu_torch import train_lm, trainer
         from horovod_tpu_torch.common import state
         from horovod_tpu_torch.utils import metrics
+        from horovod_tpu_torch.utils import autotune
+        if tune:
+            # one scored window a negotiated cycle, so the knobs move in
+            # a short run
+            autotune.CYCLES_PER_SAMPLE = autotune.SAMPLES_PER_STEP = 1
         hvd.init(device="cuda")
         r = hvd.rank()
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -4440,9 +4526,60 @@ def _p3k_ranks_job():
                                 for e in d["events"])}
             else:
                 time.sleep(1.0)
+        if tune:
+            # after the stall's dumps: the sentinel's escalation solicits
+            # dumps too, once a job
+            out.update(_p3n_divergence_and_tuning(hvd, state, dev, r))
         hvd.shutdown()
         return out
     return fn
+
+
+P3N_DIV_NAME = "p3n.div.0"
+P3N_DIV_REL = 1e-2
+P3N_DIV_ROUNDS = 3
+
+
+def _p3n_divergence_and_tuning(hvd, state, dev, r):
+    """Phase 3n (c) inside phase 3k (b)'s 2-rank launch (see
+    ``_p3k_ranks_job``); returns what this rank saw."""
+    import time
+    coord = state.global_state().coordinator
+    cfg = state.global_state().config
+    gen = torch.Generator(device=dev).manual_seed(100 + r)
+    if r == 1:
+        coord.test_perturb = {P3N_DIV_NAME: P3N_DIV_REL}
+    for _ in range(P3N_DIV_ROUNDS):
+        hs = hvd.grouped_allreduce_async(
+            [torch.randn(4096, generator=gen, device=dev),
+             torch.randn(512, generator=gen, device=dev)], name="p3n.div")
+        for h in hs:
+            hvd.synchronize(h)
+    coord.test_perturb = {}
+    out = {}
+    if r == 0:
+        from horovod_tpu_torch.utils import metrics
+        svc = coord._negotiator.service
+        deadline = time.monotonic() + 20
+        while True:
+            flagged, first = svc.numerics_view()
+            if any(k[2] == "divergence" for k in flagged) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        snap = metrics.get_registry().snapshot()["metrics"]
+        out["div"] = {f"{c}|{t}|{k}": b for (c, t, k), b in flagged.items()
+                      if k == "divergence"}
+        out["div_first_bad"] = first
+        out["divergent_rank"] = snap["hvd_numerics_divergent_rank"][
+            "values"][0]["value"]
+        out["tuned_best"] = coord.freeze_autotune()
+    # collectives ordered after the freeze carry the frozen values
+    for i in range(3):
+        hvd.allreduce(torch.ones(2, device=dev), name=f"p3n.after{i}")
+    out["tuned"] = (int(cfg.fusion_threshold),
+                    round(float(cfg.cycle_time_ms), 6))
+    return out
 
 
 def run_observed_ranks(card):
@@ -4459,10 +4596,14 @@ def run_observed_ranks(card):
     base = {"HVD_METRICS_PORT": str(port), "HVD_METRICS_INTERVAL": "0.2",
             "HVD_FLIGHT_DIR": flight, "HVD_FLIGHT_SIGTERM": "0"}
     t0 = time.perf_counter()
-    clean = run(_p3k_ranks_job(), args=(P3J_LAYERS, P3J_STEPS, True),
-                num_proc=2, env=base, start_timeout_s=P3J_RUN_S)
+    # phase 3n (c) rides this launch: HOROVOD_AUTOTUNE=1, and the
+    # divergence drill after the steps
+    clean = run(_p3k_ranks_job(), args=(P3J_LAYERS, P3J_STEPS, True, True),
+                num_proc=2, env=dict(base, HOROVOD_AUTOTUNE="1"),
+                start_timeout_s=P3J_RUN_S)
     t1 = time.perf_counter()
     r0 = clean[0]
+    check_divergence_and_tuning(card, clean)
     if r0["agg_ranks"] != [0, 1] or r0["agg"][
             "hvd_negotiation_cycles_total"] <= 0:
         raise AssertionError(f"rank 0's aggregate: {r0['agg_ranks']} "
@@ -4498,6 +4639,38 @@ def run_observed_ranks(card):
               f"{[round(v, 6) for v in chaos[0]['losses']]}; "
               f"{time.perf_counter() - t1:.1f} s")
     return {"injected": injected}
+
+
+def check_divergence_and_tuning(card, ranks):
+    """Phase 3n (c): rank 0's coordinator named rank 1, the rank whose
+    reduced copy of P3N_DIV_NAME was scaled, in
+    ``hvd_numerics_divergent_rank``, for that tensor only; both ranks
+    hold identical tuned values after rank 0 froze the tuner."""
+    from horovod_tpu_torch.utils import autotune
+    r0, r1 = ranks
+    div = r0["div"]
+    if not div or {k.split("|")[1] for k in div} != {P3N_DIV_NAME} or \
+            set(div.values()) != {1} or r0["divergent_rank"] != 1.0:
+        raise AssertionError(f"phase 3n (c): the sentinel's verdicts {div}, "
+                             f"divergent rank {r0['divergent_rank']}")
+    thr, ct = r0["tuned"]
+    if r0["tuned"] != r1["tuned"] or r0["tuned_best"] is None or not (
+            autotune.THRESHOLD_BOUNDS[0] <= thr <=
+            autotune.THRESHOLD_BOUNDS[1] and
+            autotune.CYCLE_BOUNDS_MS[0] <= ct <= autotune.CYCLE_BOUNDS_MS[1]):
+        raise AssertionError(f"phase 3n (c): tuned values {r0['tuned']} "
+                             f"(rank 0, best {r0['tuned_best']}) vs "
+                             f"{r1['tuned']} (rank 1)")
+    log(card, f"phase 3n (c): 2 ranks on one card (gloo, negotiated), rank "
+              f"1 scaled its reduced copy of {P3N_DIV_NAME} by "
+              f"1 + {P3N_DIV_REL} in {P3N_DIV_ROUNDS} grouped allreduces: "
+              f"rank 0's coordinator flagged divergence {div} (cycle|tensor"
+              f"|kind: blamed rank), first bad cycle {r0['div_first_bad']}, "
+              f"hvd_numerics_divergent_rank {r0['divergent_rank']:.0f}; "
+              f"HOROVOD_AUTOTUNE=1: rank 0's frozen best (threshold, cycle "
+              f"ms, bytes/us) {r0['tuned_best']}, both ranks hold "
+              f"(threshold, cycle ms) {r0['tuned']} after the collectives "
+              f"ordered since")
 
 
 def check_observed_serving(card, dev, cfg, model):
@@ -5683,6 +5856,702 @@ def run_phase_3m(card, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the numerics sentinel, the memory and compile plane, the H100
+# cost model, device-trace attribution and the autotuner on the flagship
+# eager step (gpt2_small_tpu, flash, tied, bf16 logits, b16 x s1024) at
+# world 1 over NCCL: (a) the autotuner, (b) numerics, (d) the memory
+# plane, (e) instrument_step and one merged timeline. (c), two ranks,
+# rides phase 3k (b)'s launch; (f), the planes' overhead, is phase 3k
+# (a)'s on/off windows with the numerics and memory planes in "on".
+
+
+P3N_DIR = os.path.join(ROOT, "build", "phase3n")
+P3N_WINDOW = 5                 # steps a timing window
+P3N_TUNE_WINDOWS = 5           # scored windows the tuner must reach
+P3N_CYCLES, P3N_SAMPLES = 2, 2  # flushes a sample, samples a scored window
+P3N_TUNE_MAX_STEPS = 120
+P3N_PARITY_STEPS = 3
+P3N_NANS = 3
+P3N_ATTRIB_EVERY, P3N_ATTRIB_STEPS = 5, 10
+P3N_BREAKDOWN_TOL = 0.10       # the classes' sum against the profiler's
+P3N_OTHER_MAX = 0.10           # the largest share "other" may take
+P3N_CLOCK_US = 2.0             # the live profiler's clock against the trace's
+
+
+def _eager_flagship(dev, inner=P3N_WINDOW, seed=0):
+    return trainer.build_eager_lm_step(
+        train_lm.flagship_config(True), TRAIN_BATCH, TRAIN_SEQ, dev,
+        inner=inner, seed=seed)
+
+
+def _window_ms(step, toks, n=P3N_WINDOW):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        loss = step(toks[i % toks.shape[0]])
+    loss.item()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _log_rows(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def check_autotune_world1(card, dev):
+    """Phase 3n (a): HOROVOD_AUTOTUNE with a log on the live world-1 core
+    (init parsed the knobs at phase 3b; the core builds its tuner from
+    them), the flagship eager step driven until the tuner has scored
+    P3N_TUNE_WINDOWS windows of P3N_CYCLES x P3N_SAMPLES flushes; the
+    log's rows well formed, the adopted threshold and cycle inside the
+    bounds; ms/step before and after adoption; fp32 masters after
+    P3N_PARITY_STEPS steps with the tuner moving the knobs bit-equal to a
+    run without it at the threshold it ended on. Returns the tuning run's
+    launches."""
+    from horovod_tpu_torch.common import state
+    from horovod_tpu_torch.utils import autotune
+    t0 = time.perf_counter()
+    coord = state.global_state().coordinator
+    cfg = state.global_state().config
+    default = (cfg.fusion_threshold, cfg.cycle_time_ms)
+    log_path = os.path.join(P3N_DIR, "autotune.csv")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    step, model, _, toks = _eager_flagship(dev)
+    step(toks[0]).item()
+    before = [_window_ms(step, toks) for _ in range(2)]
+    saved = (autotune.CYCLES_PER_SAMPLE, autotune.SAMPLES_PER_STEP)
+
+    def tune(log_file):
+        cfg.autotune, cfg.autotune_log = True, log_file or ""
+        coord._init_autotune()
+    try:
+        autotune.CYCLES_PER_SAMPLE = P3N_CYCLES
+        autotune.SAMPLES_PER_STEP = P3N_SAMPLES
+        tune(log_path)
+        fa.reset_launch_counts()
+        n = 0
+        while len(_log_rows(log_path)) < 1 + P3N_TUNE_WINDOWS and \
+                n < P3N_TUNE_MAX_STEPS:
+            loss = step(toks[n % toks.shape[0]])
+            n += 1
+        loss.item()
+        launches = dict(fa.launch_counts)
+        best = coord.freeze_autotune()
+        coord.autotuner.close()
+        adopted = (cfg.fusion_threshold, cfg.cycle_time_ms)
+        after = [_window_ms(step, toks) for _ in range(2)]
+        rows = _log_rows(log_path)
+        if len(rows) < 1 + P3N_TUNE_WINDOWS or best is None or \
+                rows[0] != "threshold_bytes,cycle_time_ms,score_bytes_per_us":
+            raise AssertionError(f"phase 3n (a): {len(rows) - 1} scored "
+                                 f"windows in {n} steps, best {best}")
+        for row in rows[1:]:
+            thr, ct, score = (float(v) for v in row.split(","))
+            if not (autotune.THRESHOLD_BOUNDS[0] <= thr <=
+                    autotune.THRESHOLD_BOUNDS[1] and
+                    autotune.CYCLE_BOUNDS_MS[0] <= ct <=
+                    autotune.CYCLE_BOUNDS_MS[1] and score > 0):
+                raise AssertionError(f"phase 3n (a): log row {row}")
+        if not (autotune.THRESHOLD_BOUNDS[0] <= adopted[0] <=
+                autotune.THRESHOLD_BOUNDS[1] and
+                autotune.CYCLE_BOUNDS_MS[0] <= adopted[1] <=
+                autotune.CYCLE_BOUNDS_MS[1]):
+            raise AssertionError(f"phase 3n (a): adopted {adopted}")
+        del step, model, toks
+        # the tuner changes the schedule, not the math: a fresh tuner that
+        # moves the knobs every flush, against no tuner at the threshold
+        # it ended on
+        autotune.CYCLES_PER_SAMPLE = autotune.SAMPLES_PER_STEP = 1
+        cfg.fusion_threshold, cfg.cycle_time_ms = default
+        tune(None)
+        step_a, model_a, _, toks_a = _eager_flagship(
+            dev, inner=P3N_PARITY_STEPS)
+        knobs = set()
+        for i in range(P3N_PARITY_STEPS):
+            step_a(toks_a[i])
+            knobs.add((cfg.fusion_threshold, round(cfg.cycle_time_ms, 3)))
+        torch.cuda.synchronize()
+        ended = cfg.fusion_threshold
+        coord.autotuner = None
+        cfg.autotune = False
+        cfg.fusion_threshold, cfg.cycle_time_ms = ended, default[1]
+        step_b, model_b, _, _ = _eager_flagship(dev,
+                                                inner=P3N_PARITY_STEPS)
+        for i in range(P3N_PARITY_STEPS):
+            step_b(toks_a[i])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(model_a.parameters(), model_b.parameters()))
+        if not same:
+            raise AssertionError("phase 3n (a): masters with the tuner "
+                                 "differ from the run without it")
+    finally:
+        autotune.CYCLES_PER_SAMPLE, autotune.SAMPLES_PER_STEP = saved
+        coord.autotuner = None
+        cfg.autotune, cfg.autotune_log = False, ""
+        cfg.fusion_threshold, cfg.cycle_time_ms = default
+        coord._init_autotune()
+    log(card, f"phase 3n (a): HOROVOD_AUTOTUNE=1 on the flagship eager step "
+              f"(world 1 over NCCL): {len(rows) - 1} scored windows of "
+              f"{P3N_CYCLES} x {P3N_SAMPLES} flushes in {n} steps, log rows "
+              f"(threshold bytes, cycle ms, bytes/us) {rows[1:]}; adopted "
+              f"(threshold, cycle ms) {adopted} (best {best}, inside "
+              f"{autotune.THRESHOLD_BOUNDS} x {autotune.CYCLE_BOUNDS_MS}); "
+              f"ms/step (windows of {P3N_WINDOW}) before "
+              f"{[round(w, 3) for w in before]}, after adoption "
+              f"{[round(w, 3) for w in after]} (best {min(before):.3f} -> "
+              f"{min(after):.3f}); fp32 masters after {P3N_PARITY_STEPS} "
+              f"steps with a tuner moving the knobs ({sorted(knobs)}) "
+              f"bit-equal to a run without it at threshold {ended}; "
+              f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    del step_a, model_a, step_b, model_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _counter(reg, name, **labels):
+    fam = reg.snapshot()["metrics"].get(name, {"values": []})
+    return sum(v["value"] for v in fam["values"]
+               if all(v["labels"].get(k) == lv for k, lv in labels.items()))
+
+
+def _p3n_alerts(names=None, **knobs):
+    """A fresh alert manager ticking on demand over the stock rules (those
+    of ``names``, else all), built with their breaches firing at once
+    (HOROVOD_ALERT_FOR_S=0) and with ``knobs`` (HOROVOD_ALERT_<KEY>)
+    set."""
+    from horovod_tpu_torch.utils import alerts, history
+    os.makedirs(os.path.join(P3N_DIR, "incidents"), exist_ok=True)
+    env = {"HOROVOD_ALERT_FOR_S": "0"}
+    env.update({f"HOROVOD_ALERT_{k.upper()}": str(v)
+                for k, v in knobs.items()})
+    os.environ.update(env)
+    try:
+        rules = [r for r in alerts.default_rules()
+                 if names is None or r.name in names]
+        return alerts.reset(enabled=True, interval_s=0.0, rules=rules,
+                            incident_dir=os.path.join(P3N_DIR, "incidents"),
+                            history_writer=history.NullHistoryWriter())
+    finally:
+        for k in env:
+            del os.environ[k]
+
+
+def check_numerics_world1(card, dev):
+    """Phase 3n (b): clean flagship eager steps flag no anomaly; a
+    gradient hook on the final norm's scale makes its gradient hold
+    exactly P3N_NANS NaNs: hvd_nonfinite_total rises by that many on each
+    side (one rank's reduced copy is its contribution, as in the JAX
+    core), one numerics_anomaly event, one flight dump, and the
+    nonfinite alert rule fires on its next tick."""
+    import shutil
+    from horovod_tpu_torch.utils import alerts, metrics, numerics, tracing
+    t0 = time.perf_counter()
+    flight = os.path.join(P3N_DIR, "flight")
+    shutil.rmtree(flight, ignore_errors=True)
+    os.environ["HVD_FLIGHT_DIR"] = flight
+    reg = metrics.reset(enabled=True)
+    tracing.reset(enabled=True)
+    mon = numerics.reset(enabled=True)
+    mgr = _p3n_alerts()
+    try:
+        step, model, _, toks = _eager_flagship(dev, inner=4)
+        for i in range(3):
+            loss = step(toks[i])
+        loss.item()
+        mon.drain()
+        clean = [e for e in reg.events() if e["event"] == "numerics_anomaly"]
+        if clean or _counter(reg, "hvd_numerics_anomalies_total"):
+            raise AssertionError(f"phase 3n (b): clean steps flagged {clean}")
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        idx = names.index("ln_f.scale")
+        grad_name = f"hvd.eager_grads.{idx}"
+        param = dict(model.named_parameters())["ln_f.scale"]
+        n_el = param.numel()
+        where = torch.tensor([1, n_el // 2, n_el - 2], device=dev)
+
+        def plant(g):
+            return g.index_fill(0, where, float("nan"))
+        mgr.tick(0.0)
+        hook = param.register_hook(plant)
+        step(toks[3]).item()
+        hook.remove()
+        mon.drain()
+        local = _counter(reg, "hvd_nonfinite_total", tensor=grad_name,
+                         where="local")
+        reduced = _counter(reg, "hvd_nonfinite_total", tensor=grad_name,
+                           where="reduced")
+        others = _counter(reg, "hvd_nonfinite_total") - local - reduced
+        evs = [e for e in reg.events() if e["event"] == "numerics_anomaly"]
+        dumps = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+        reason = None
+        if dumps == ["flight-rank0.json"]:
+            with open(os.path.join(flight, dumps[0])) as f:
+                reason = json.load(f)["reason"]
+        # the firing alert dumps the flight recorder again, after the check
+        for now in (1.0, 2.0):
+            mgr.tick(now)
+        firing = mgr.firing()
+        if (local, reduced, others) != (P3N_NANS, P3N_NANS, 0) or \
+                len(evs) != 1 or evs[0]["tensor"] != grad_name or \
+                reason != "numerics_anomaly" or \
+                "nonfinite_burst" not in firing:
+            raise AssertionError(
+                f"phase 3n (b): nonfinite local {local}, reduced {reduced}, "
+                f"elsewhere {others}; events {evs}; dumps {dumps} (reason "
+                f"{reason}); firing {firing}")
+    finally:
+        del os.environ["HVD_FLIGHT_DIR"]
+        alerts.reset(enabled=False)
+    log(card, f"phase 3n (b): 3 clean flagship eager steps: no anomaly "
+              f"(hvd_numerics_tensors_observed_total "
+              f"{_counter(reg, 'hvd_numerics_tensors_observed_total'):.0f});"
+              f" {P3N_NANS} NaNs planted in {grad_name} (ln_f.scale) by a "
+              f"gradient hook: hvd_nonfinite_total local {local:.0f}, "
+              f"reduced {reduced:.0f}, elsewhere {others:.0f}; one "
+              f"numerics_anomaly event {evs[0]['anomaly']!r}; flight dumps "
+              f"{dumps} (reason {reason!r}); alerts firing on the next tick "
+              f"{firing}; {time.perf_counter() - t0:.1f} s")
+    del step, model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_numerics_cost(card, dev, stats_fn=None, reps=5):
+    """Phase 3n (b): the numerics plane's cost on the flagship's
+    gradients, split: the stats' device ms a step (``segment_stats`` over
+    each fusion bucket, the 86 gradients laid out in buckets of the
+    default 64 MiB threshold, by CUDA events, median of ``reps``), the
+    host ms to queue them, the scratch bytes above the buffers (allocator
+    peak), and the host ms of the policy (``ingest`` of the 86 rows). All
+    the planes' step overhead is phase 3k (f)'s on/off windows. Returns
+    the four figures."""
+    from horovod_tpu_torch.utils import numerics
+    stats_fn = stats_fn or numerics.segment_stats
+    cfg = train_lm.flagship_config(True)
+    sizes = [p.numel() for p in tr.TransformerLM(cfg, "meta", torch.float32)
+             .parameters()][::-1]
+    buckets, cur = [], []
+    for n in sizes:
+        if cur and (sum(cur) + n) * 4 > 64 * 1024 * 1024:
+            buckets.append(cur)
+            cur = []
+        cur.append(n)
+    buckets.append(cur)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flats = [torch.randn(sum(b), generator=gen, device=dev) for b in buckets]
+    for fl, b in zip(flats, buckets):
+        stats_fn(fl, b)
+    torch.cuda.synchronize()
+    device_ms, host_ms = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        h0 = time.perf_counter()
+        mats = [stats_fn(fl, b) for fl, b in zip(flats, buckets)]
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        ev[1].record()
+        ev[1].synchronize()
+        device_ms.append(ev[0].elapsed_time(ev[1]))
+    big = max(range(len(flats)), key=lambda i: flats[i].numel())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats_fn(flats[big], buckets[big])
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
+    mon = numerics.NumericsMonitor()
+    names = [f"p3n.cost.{i}" for i in range(len(sizes))]
+    rows = torch.cat(mats).cpu()
+    policy_ms = []
+    for _ in range(reps):
+        h0 = time.perf_counter()
+        mon.ingest(names, rows)
+        policy_ms.append((time.perf_counter() - h0) * 1e3)
+    out = {"device_ms": statistics.median(device_ms),
+           "host_queue_ms": statistics.median(host_ms),
+           "scratch_bytes": scratch,
+           "policy_host_ms": statistics.median(policy_ms)}
+    log(card, f"phase 3n (b): the numerics plane's cost on the flagship's "
+              f"{len(sizes)} gradients ({sum(sizes) * 4 / 1e6:.1f} MB fp32) "
+              f"in {len(buckets)} buckets of at most 64 MiB, a step "
+              f"(median of {reps}): stats {out['device_ms']:.3f} device ms "
+              f"(by CUDA events), {out['host_queue_ms']:.3f} host ms to "
+              f"queue; scratch of the largest bucket "
+              f"({flats[big].numel() * 4 / 1e6:.1f} MB) "
+              f"{scratch / 1e6:.1f} MB; the policy over the "
+              f"{len(sizes)} rows {out['policy_host_ms']:.3f} host ms")
+    del flats, mats
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_memory_plane(card, dev):
+    """Phase 3n (d): the ledger's params, optimizer and gradient
+    components after one flagship eager step beside the allocator's
+    bytes; hvd_step_peak_hbm_bytes of an instrumented step equal to
+    torch.cuda.max_memory_allocated() for that step; hbm_headroom_low
+    fires at HOROVOD_ALERT_HBM_HEADROOM_FRAC=0.99; a new shape at each
+    call of a compile site raises hvd_recompile_storms_total."""
+    from horovod_tpu_torch.utils import alerts, memory, metrics
+    t0 = time.perf_counter()
+    reg = metrics.reset(enabled=True)
+    memory.reset(enabled=True)
+    step, model, opt, toks = _eager_flagship(dev, inner=2)
+    step(toks[0]).item()
+    torch.cuda.synchronize()
+    ledger = memory.get_ledger()
+    ledger.account_tree("params", model)
+    ledger.account_tree("opt_state", opt)
+    ledger.account_tree("grads", [p.grad for p in model.parameters()])
+    snap = ledger.snapshot()
+    allocated = torch.cuda.memory_allocated(dev)
+    timed = trainer.instrument_step(step, name="p3n_mem", device=dev)
+    timed(toks[1])
+    peak = torch.cuda.max_memory_allocated(dev)
+    gauge = _counter(reg, "hvd_step_peak_hbm_bytes", loop="p3n_mem")
+    if gauge != peak:
+        raise AssertionError(f"phase 3n (d): hvd_step_peak_hbm_bytes "
+                             f"{gauge} != max_memory_allocated {peak}")
+    mgr = _p3n_alerts(("hbm_headroom_low",), hbm_headroom_frac=0.99)
+    ledger.publish()
+    for now in (0.0, 1.0):
+        mgr.tick(now)
+    firing = mgr.firing()
+    alerts.reset(enabled=False)
+    tracker = memory.get_tracker()
+    fed = 0
+    while not _counter(reg, "hvd_recompile_storms_total") and fed < 4 * \
+            tracker.min_misses:
+        fed += 1
+        tracker.observe("p3n:storm", (torch.zeros(fed, device=dev),))
+    storms = _counter(reg, "hvd_recompile_storms_total", site="p3n:storm")
+    if "hbm_headroom_low" not in firing or storms != 1:
+        raise AssertionError(f"phase 3n (d): firing {firing}, storms "
+                             f"{storms} after {fed} new shapes")
+    gib = 2 ** 30
+    log(card, f"phase 3n (d): the ledger after one flagship eager step: "
+              f"params {snap['components']['params'] / gib:.3f} GiB, "
+              f"opt_state {snap['components']['opt_state'] / gib:.3f}, "
+              f"grads {snap['components']['grads'] / gib:.3f} (total "
+              f"{snap['total_bytes'] / gib:.3f} GiB of capacity "
+              f"{snap['capacity_bytes'] / gib:.3f}) beside "
+              f"torch.cuda.memory_allocated {allocated / gib:.3f} GiB; "
+              f"hvd_step_peak_hbm_bytes {gauge:.0f} = max_memory_allocated "
+              f"{peak} of the same step; hbm_headroom_low firing at frac "
+              f"0.99 ({firing}); hvd_recompile_storms_total {storms:.0f} "
+              f"after {fed} new shapes (min misses {tracker.min_misses}); "
+              f"{time.perf_counter() - t0:.1f} s")
+    memory.reset(enabled=False)
+    del step, model, opt, toks, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _profiler_device_ms(prof):
+    """The device ms of a finished capture by the profiler's own tally
+    (``key_averages``' self device time of the card's events), beside the
+    port's reading of the same events (``profiling.summarize_profile``)."""
+    from torch.autograd import DeviceType
+    return sum(a.self_device_time_total for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA) / 1e3
+
+
+def _host_clock_offsets(trace, prof):
+    """µs by which the live profiler's host events (its start plus each
+    event's offset) lie after the same events of the exported trace
+    (``baseTimeNanoseconds`` plus their ``ts``), paired by name and order
+    where both hold a name equally often: the check that the device
+    events merge() takes from the profiler sit on the trace's clock."""
+    from torch.autograd import DeviceType
+    base = trace["baseTimeNanoseconds"] / 1e3
+    exported, live = collections.defaultdict(list), \
+        collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and \
+                e.get("cat") in ("cpu_op", "cuda_runtime", "user_annotation"):
+            exported[e["name"]].append(base + float(e["ts"]))
+    t0 = profiling.trace_start_us(prof)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            live[e.name].append(t0 + float(e.time_range.start))
+    out = []
+    for name, ts in exported.items():
+        if len(live.get(name, ())) == len(ts):
+            out += [b - a for a, b in zip(sorted(ts), sorted(live[name]))]
+    return out
+
+
+P3N_MERGED_DIR = os.path.join(P3N_DIR, "merged")
+P3N_MERGED_TIMEOUT_S = 180
+# the launcher's and the port's variables a fresh world-1 process drops
+P3N_MERGED_DROP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                       "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def merged_capture(directory):
+    """Phase 3n (e)'s merged timeline (``chip_smoke.py --merged-capture
+    DIR``), in a process of its own at world 1 over NCCL: late in this
+    script's long process torch.profiler has kept every host call of such
+    a capture and dropped all but the last of its device records
+    (PERF.md §7), which merged_timeline.capture reports in its file. The
+    timeline is set up as a user sets it (HOROVOD_TIMELINE before init),
+    the collective rides the bf16 wire, and a long cycle leaves it to
+    synchronize on this thread. One allreduce of 2^24 floats warms the
+    communicator; one merged_timeline.capture holds the next. Checks:
+    every launch call of the capture has its device record; the device
+    events merge() takes from the live profiler sit on the exported
+    trace's clock (host events of both within P3N_CLOCK_US); the
+    captured ALLREDUCE span overlaps the collective's device events in
+    the merged file (a one-rank NCCL allreduce launches no kernel of its
+    own: the casts to and from the wire dtype are its device work at
+    world 1; the nccl events found are counted). Prints one JSON line of
+    what it found; raises on a failed check."""
+    from horovod_tpu_torch.utils import merged_timeline, metrics
+    os.makedirs(directory, exist_ok=True)
+    tl_path, merged_path, trace_path = (
+        os.path.join(directory, n)
+        for n in ("timeline.json", "merged.json", "trace.json"))
+    os.environ.update(HOROVOD_TIMELINE=tl_path, HOROVOD_COMPRESSION="bf16",
+                      HOROVOD_CYCLE_TIME="60000")
+    dev = torch.device("cuda", 0)
+    hvd.init()
+    try:
+        x = torch.randn(1 << 24, device=dev)
+        hvd.synchronize(hvd.allreduce_async(x, name="p3n.warm",
+                                            average=False))
+        torch.cuda.synchronize()
+        drift_us = time.time_ns() / 1e3 - metrics.shared_clock().epoch_us()
+        with merged_timeline.capture(merged_path,
+                                     trace_path=trace_path) as prof:
+            hvd.synchronize(hvd.allreduce_async(
+                x, name="p3n.merged", average=False))
+            torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+    with open(merged_path) as f:
+        events = json.load(f)["traceEvents"]
+    with open(trace_path) as f:
+        trace = json.load(f)
+    exported_device = sum(1 for e in trace.get("traceEvents", [])
+                          if e.get("cat") in profiling.DEVICE_CATEGORIES)
+    offsets = _host_clock_offsets(trace, prof) \
+        if "baseTimeNanoseconds" in trace else []
+    gap_us = profiling.launch_gap_us(prof)
+    launched, unrecorded = profiling.unrecorded_launches(prof)
+    del prof
+    if not launched or unrecorded:
+        raise AssertionError(
+            f"phase 3n (e): {len(unrecorded)} of the capture's {launched} "
+            f"launch calls have no device record: {unrecorded[:12]}")
+    if not offsets or max(map(abs, offsets)) > P3N_CLOCK_US:
+        raise AssertionError(
+            f"phase 3n (e): the live profiler's host events against the "
+            f"exported trace's: {len(offsets)} paired, offsets "
+            f"{sorted(offsets)[:3]}..{sorted(offsets)[-3:]} us "
+            f"(baseTimeNanoseconds "
+            f"{'present' if 'baseTimeNanoseconds' in trace else 'absent'})")
+
+    def hvd_lane(e):
+        pid = e.get("pid", 0)
+        return isinstance(pid, int) and pid >= merged_timeline._HVD_PID_BASE
+    spans, open_at = [], {}
+    for e in events:
+        if not hvd_lane(e) or "ts" not in e:
+            continue
+        if e.get("ph") == "B":
+            open_at.setdefault(e["pid"], []).append((e["name"], e["ts"]))
+        elif e.get("ph") == "E" and open_at.get(e["pid"]):
+            name, ts = open_at[e["pid"]].pop()
+            spans.append((name, ts, e["ts"]))
+    # the captured allreduce's span: the later of the two
+    allreduce = sorted((b, e) for name, b, e in spans
+                       if name == "ALLREDUCE")[-1:]
+    device = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if not hvd_lane(e) and e.get("ph") == "X" and
+              e.get("cat") in profiling.DEVICE_CATEGORIES]
+    nccl = [k for k in device if "nccl" in k[2].lower()]
+    hits = [(k, s) for k in device for s in allreduce
+            if k[0] < s[1] and k[1] > s[0]]
+    if not hits:
+        raise AssertionError(f"phase 3n (e): ALLREDUCE spans {allreduce}, "
+                             f"device events {device[:6]}: no overlap "
+                             f"({len(device)} device events from the live "
+                             f"profiler, {exported_device} in the exported "
+                             f"trace; launch gap {gap_us} us, the shared "
+                             f"clock's drift {drift_us:.1f} us)")
+    records = [e["args"] for e in events if e.get("name") == "device_records"]
+    print(json.dumps({
+        "launch_calls": launched, "device_records": records,
+        "device_events": len(device), "exported_device_events":
+        exported_device, "host_events_paired": len(offsets),
+        "host_offset_max_us": round(max(map(abs, offsets)), 3),
+        "launch_gap_us": None if gap_us is None else round(gap_us, 1),
+        "clock_drift_us": round(drift_us, 1),
+        "allreduce_us": round(allreduce[0][1] - allreduce[0][0], 1),
+        "overlapping": sorted({k[2][:60] for k, _ in hits}),
+        "nccl_kernels": len(nccl)}), flush=True)
+    return 0
+
+
+def run_merged_capture():
+    """merged_capture in a fresh process at world 1 (the launcher's and
+    the port's variables left out of its environment); returns the JSON
+    it printed, raises with its output when it fails."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "HVD_")) and
+           k not in P3N_MERGED_DROP_ENV}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--merged-capture",
+         P3N_MERGED_DIR], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=P3N_MERGED_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(
+            f"phase 3n (e): the merged-timeline process exited "
+            f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-6000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def check_instrument_step(card, dev):
+    """Phase 3n (e): the flagship eager step under
+    trainer.instrument_step with attrib_every=P3N_ATTRIB_EVERY over
+    P3N_ATTRIB_STEPS steps: hvd_mfu (phase 4 prints it beside its MFU);
+    each capture's hvd_step_breakdown_ms classes summing to within
+    P3N_BREAKDOWN_TOL of the profiler's own device tally of the capture,
+    the union of its device intervals inside the step's span by CUDA
+    events, and "other" at most P3N_OTHER_MAX of it (its top kernels
+    printed, and its launch calls without a device record counted). Then
+    the merged timeline of an eager allreduce (merged_capture, in a
+    process of its own). Returns the instrumented steps' launches and
+    hvd_mfu."""
+    from horovod_tpu_torch.utils import costmodel, memory, metrics
+    t0 = time.perf_counter()
+    reg = metrics.reset(enabled=True)
+    memory.reset(enabled=True)
+    cfg = train_lm.flagship_config(True)
+    step, model, _, toks = _eager_flagship(dev, inner=P3N_ATTRIB_STEPS)
+    step(toks[0]).item()
+    spans = []
+
+    def marked(t):
+        # CUDA events around the step: its device span, a clock of its
+        # own (the end behind every stream's work, the numerics side pass
+        # on the collective stream included)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(t)
+        torch.cuda.synchronize()
+        ev[1].record()
+        spans.append(ev)
+        return out
+    timed = trainer.instrument_step(
+        marked, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, name="p3n",
+        flops_per_token=tr.matmul_flops_per_token(cfg, TRAIN_SEQ),
+        attrib_every=P3N_ATTRIB_EVERY, device=dev)
+    caps = []
+    fa.reset_launch_counts()
+    for i in range(P3N_ATTRIB_STEPS):
+        timed(toks[i])
+        if (i + 1) % P3N_ATTRIB_EVERY == 0:
+            prof = timed.last_profile
+            caps.append((timed.last_decomposition,
+                         spans[-1][0].elapsed_time(spans[-1][1]),
+                         _profiler_device_ms(prof) if prof else None,
+                         profiling.summarize_profile(prof) if prof
+                         else None))
+    launches = dict(fa.launch_counts)
+    mfu = _counter(reg, "hvd_mfu", loop="p3n")
+    spec = costmodel.chip_spec(dev)
+    errs = [e for e in reg.events() if e["event"] == "perf_attrib_error"]
+    seen = [c for c in caps if c[0] and c[0]["device_ms_per_step"] > 0]
+    if errs or len(seen) != len(caps) or not caps or not mfu or \
+            spec is None:
+        raise AssertionError(f"phase 3n (e): attribution errors {errs}, "
+                             f"captures {[c[0] for c in caps]}, hvd_mfu "
+                             f"{mfu}, spec {spec}")
+    checks = []
+    for dec, span_ms, tally_ms, summary in seen:
+        classes = {c["class"]: c for c in dec["classes"]}
+        total = sum(c["ms_per_step"] for c in dec["classes"])
+        union = profiling._span_ms(profiling._merge_intervals(
+            [(e.start_ms, e.end_ms) for e in summary.events]))
+        other = classes.get("other", {"ms_per_step": 0.0, "top_ops": []})
+        others = sorted((r for r in summary.rows
+                         if profiling.classify_op(r) == "other"),
+                        key=lambda r: -r.total_ms)[:8]
+        checks.append({
+            "classes_ms": round(total, 3), "profiler_ms": round(tally_ms, 3),
+            "gap": abs(total - tally_ms) / tally_ms,
+            "union_ms": round(union, 3), "span_ms": round(span_ms, 3),
+            "other_frac": other["ms_per_step"] / total,
+            "unrecorded": (dec["launch_calls"],
+                           dec["unrecorded_launches"]),
+            "other_top": [(r.name[:90], round(r.total_ms, 3))
+                          for r in others]})
+    bad = [c for c in checks if c["gap"] > P3N_BREAKDOWN_TOL or
+           c["union_ms"] > c["span_ms"] * 1.01 or
+           c["other_frac"] > P3N_OTHER_MAX]
+    if bad:
+        raise AssertionError(f"phase 3n (e): captures {bad}")
+    last = seen[-1][0]
+    breakdown = {c["class"]: c["ms_per_step"] for c in last["classes"]}
+    del step, model, toks, timed, caps, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one merged timeline of an eager allreduce at world 1, in a process
+    # of its own (merged_capture)
+    merged = run_merged_capture()
+    worst = max(checks, key=lambda c: c["other_frac"])
+    log(card, f"phase 3n (e): instrument_step over {P3N_ATTRIB_STEPS} "
+              f"flagship eager steps, attrib_every {P3N_ATTRIB_EVERY}: "
+              f"hvd_mfu {mfu:.4f} (against {spec.kind} "
+              f"{spec.peak_flops:.3g} FLOP/s); hvd_steps_total "
+              f"{_counter(reg, 'hvd_steps_total', loop='p3n'):.0f}; "
+              f"captures: classes' sum ms / the profiler's own tally / "
+              f"union of the device intervals / the step's span by CUDA "
+              f"events {[(c['classes_ms'], c['profiler_ms'], c['union_ms'], c['span_ms']) for c in checks]}"
+              f" (gaps within {max(c['gap'] for c in checks):.2e}), "
+              f"launch calls / those without their device record "
+              f"{[c['unrecorded'] for c in checks]}, busy "
+              f"{last.get('device_busy_frac')}; last breakdown ms "
+              f"{breakdown}; 'other' at most {worst['other_frac']:.4f} of "
+              f"the device ms, its top kernels {worst['other_top'][:4]}; "
+              f"overlap {last.get('overlap', {}).get('lanes')}; merged "
+              f"timeline of a fresh process: {merged}; launches "
+              f"{launches}; {time.perf_counter() - t0:.1f} s")
+    memory.reset(enabled=False)
+    return launches, mfu
+
+
+def run_phase_3n(card, dev):
+    """Phase 3n at world 1, each part fatal; returns the launches of its
+    flagship eager runs ((a)'s tuning run, (e)'s instrumented steps) and
+    (e)'s hvd_mfu."""
+    from horovod_tpu_torch.utils import metrics, numerics, tracing
+    t0 = time.perf_counter()
+    os.makedirs(P3N_DIR, exist_ok=True)
+    launches = check_autotune_world1(card, dev)
+    check_numerics_world1(card, dev)
+    check_numerics_cost(card, dev)
+    check_memory_plane(card, dev)
+    e_launches, mfu = check_instrument_step(card, dev)
+    for k, v in e_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    metrics.reset(enabled=False)
+    tracing.reset(enabled=False)
+    numerics.reset(enabled=False)
+    log(card, f"phase 3n: launches of its paths {launches}; "
+              f"{time.perf_counter() - t0:.1f} s in all")
+    return launches, mfu
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5887,6 +6756,14 @@ def main():
     # ranks, chaos and serving
     run_phase_3k(card, dev, cfg, model)
 
+    # ---- phase 3n: the numerics, memory and compile, cost-model,
+    # attribution and autotuner planes on the flagship eager step; B2, B4
+    # and B5 launch in (a)'s tuning run and (e)'s instrumented steps. Run
+    # before phase 4: late in the script torch.profiler's exported traces
+    # came back without device events (two whole runs), and it leaves
+    # every plane off for the timings
+    p3n_launches, p3n_mfu = run_phase_3n(card, dev)
+
     # phase 3b's weights, generation 2 of phase 3l (after phase 4), kept
     # on the host so that phase 4's memory readings do not count them
     trained = {n: p.detach().cpu() for n, p in t_model.named_parameters()}
@@ -5923,6 +6800,9 @@ def main():
     time_head_dim_cost(card, dev)
     kernels.extend(time_bwd_kernels(card, dev, launches, errs))
     multi = time_training(card, dev, t_model, t_opt, t_batch, train_cfg)
+    log(card, f"phase 4: make_multi_step MFU {multi['mfu']:.4f} beside "
+              f"phase 3n (e)'s hvd_mfu {p3n_mfu:.4f} of the instrumented "
+              f"eager step")
     time_gspmd(card, dev, g_model, g_opt, g_step, t_batch, multi)
     del g_model, g_opt, g_step
     time_memory_and_remat(card, dev, t_model, t_opt, train_cfg, t_batch)
@@ -5995,6 +6875,10 @@ def main():
         if k["name"] in p3m_launches:
             k["moe_pipeline_launches"] = p3m_launches[k["name"]]
             k["launches"] += k["moe_pipeline_launches"]
+    for k in kernels:
+        if k["name"] in p3n_launches:
+            k["p3n_launches"] = p3n_launches[k["name"]]
+            k["launches"] += k["p3n_launches"]
     log(card, f"chip_smoke: {time.perf_counter() - t_main:.1f} s from the "
               f"build to the result")
 
@@ -6009,4 +6893,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--wire-ranks"]:
         sys.exit(wire_ranks(sys.argv[2]))
+    if sys.argv[1:2] == ["--merged-capture"]:
+        sys.exit(merged_capture(sys.argv[2]))
     sys.exit(main())

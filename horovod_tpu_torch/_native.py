@@ -1,13 +1,16 @@
 """ctypes binding to the native host core (libhvd_core.so).
 
 The port's counterpart of ``horovod_tpu/_native/__init__.py``: the same
-flat extern-C surface for the fusion planner ``hvd_plan_buckets`` and
-the timeline writer, compiled from ``csrc/host/`` by the host C++ compiler
+flat extern-C surface for the fusion planner ``hvd_plan_buckets``, the
+timeline writer and the autotuner's GP engine (``hvd_autotune_*``),
+compiled from ``csrc/host/`` by the host C++ compiler
 at first use into ``build/horovod_tpu_torch/`` at the root of the
 checkout, and loaded with ``ctypes.CDLL`` (reference
 horovod/common/basics.py:25-28). The build never runs at import. A
 failed build raises with the compiler's error: nothing falls back to a
-Python implementation.
+Python implementation, except where the JAX package's own rule does:
+the autotuner takes its random-search engine when ``available()`` is
+False, and says so.
 """
 
 import ctypes
@@ -17,7 +20,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc", "host")
-SOURCES = ("hvd_core.cc", "timeline.cc")
+SOURCES = ("hvd_core.cc", "timeline.cc", "autotune.cc")
 HEADERS = ("hvd_core.h",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libhvd_core.so")
@@ -50,6 +53,21 @@ def _configure(lib):
     lib.hvd_timeline_cycle.argtypes = [c.c_void_p]
     lib.hvd_timeline_pending.restype = c.c_int64
     lib.hvd_timeline_pending.argtypes = [c.c_void_p]
+
+    lib.hvd_autotune_create.restype = c.c_void_p
+    lib.hvd_autotune_create.argtypes = [c.c_double, c.c_double, c.c_double,
+                                        c.c_double, c.c_uint64]
+    lib.hvd_autotune_destroy.argtypes = [c.c_void_p]
+    lib.hvd_autotune_record.argtypes = [c.c_void_p, c.c_double, c.c_double,
+                                        c.c_double]
+    lib.hvd_autotune_suggest.argtypes = [c.c_void_p, c.POINTER(c.c_double),
+                                         c.POINTER(c.c_double)]
+    lib.hvd_autotune_num_samples.restype = c.c_int64
+    lib.hvd_autotune_num_samples.argtypes = [c.c_void_p]
+    lib.hvd_autotune_best.restype = c.c_int
+    lib.hvd_autotune_best.argtypes = [c.c_void_p, c.POINTER(c.c_double),
+                                      c.POINTER(c.c_double),
+                                      c.POINTER(c.c_double)]
     return lib
 
 
@@ -88,3 +106,16 @@ def load():
             build()
             _lib = _configure(ctypes.CDLL(LIB_PATH))
         return _lib
+
+
+def available():
+    """Whether the native core loads (building it if need be); False,
+    never an exception, when the host compiler refuses it or
+    ``HVD_DISABLE_NATIVE=1`` is set (the JAX package's switch)."""
+    if os.environ.get("HVD_DISABLE_NATIVE", "") in ("1", "true"):
+        return False
+    try:
+        load()
+    except NativeBuildError:
+        return False
+    return True

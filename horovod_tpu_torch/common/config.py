@@ -55,8 +55,12 @@ def env_str(name, default=None):
 
 ENV_REGISTRY = (
     ("HOROVOD_AUTOTUNE", True, "0", "common/config.py",
-     "The online fusion-parameter autotuner: not ported yet; "
-     "init() raises NotImplementedError when it is set."),
+     "Enable the online fusion-parameter autotuner."),
+    ("HOROVOD_AUTOTUNE_LOG", True, None, "common/config.py",
+     "CSV file the autotuner appends sampled points to."),
+    ("HOROVOD_AUTOTUNE_SYNC_COLLECTIVES", True, "32", "common/config.py",
+     "Adopt tuned values every N replicated collectives (keeps ranks "
+     "in lockstep)."),
     ("HOROVOD_ALERT", True, "1", "utils/alerts.py",
      "Set 0 to replace the AlertManager with a no-op (no rule "
      "evaluation, no incidents; the hvd_alert_state gauges never "
@@ -175,6 +179,19 @@ ENV_REGISTRY = (
      "Framework log level (TRACE/DEBUG/INFO/WARNING/ERROR/FATAL)."),
     ("HOROVOD_LOG_TIMESTAMP", True, "0", "common/config.py",
      "Prefix log lines with timestamps."),
+    ("HOROVOD_MEM", True, "1", "utils/memory.py",
+     "Set 0 to disable the memory & compile observability plane (HBM "
+     "ledger gauges, compile-site tracking, recompile-storm ladder, "
+     "resharding sentinel reporting)."),
+    ("HOROVOD_MEM_STORM_DECAY", True, "0.8", "utils/memory.py",
+     "EMA decay of the per-site compile-miss rate the recompile-storm "
+     "detector maintains (closer to 1 = longer memory)."),
+    ("HOROVOD_MEM_STORM_EMA", True, "0.5", "utils/memory.py",
+     "Miss-rate EMA threshold above which an instrumented compile site "
+     "is declared in a recompile storm."),
+    ("HOROVOD_MEM_STORM_MIN", True, "3", "utils/memory.py",
+     "Minimum distinct compile misses at a site before the storm "
+     "ladder may fire (the first compile is always free)."),
     ("HOROVOD_METRICS", True, "1", "utils/metrics.py",
      "Set 0 to replace the metrics registry with no-op instruments."),
     ("HOROVOD_METRICS_EVENT_LOG", True, None, "utils/metrics.py",
@@ -185,6 +202,23 @@ ENV_REGISTRY = (
     ("HOROVOD_METRICS_PORT", True, "0", "common/config.py",
      "Base HTTP port of /metrics and /metrics.json: rank r binds it + "
      "r, rank 0 also serving the aggregate (0 disables)."),
+    ("HOROVOD_NUMERICS", True, "1", "utils/numerics.py",
+     "Set 0 to replace the numerics plane (gradient health stats + "
+     "divergence sentinel) with no-ops."),
+    ("HOROVOD_NUMERICS_DIGEST_CYCLES", True, "32", "utils/numerics.py",
+     "How many recent cycles the coordinator retains cross-rank "
+     "digests for."),
+    ("HOROVOD_NUMERICS_EMA_BETA", True, "0.9", "utils/numerics.py",
+     "Decay of the per-tensor gradient-norm EMA the spike policy "
+     "compares against."),
+    ("HOROVOD_NUMERICS_EMA_K", True, "8.0", "utils/numerics.py",
+     "Flag a norm_spike anomaly when a gradient norm exceeds k times "
+     "its EMA."),
+    ("HOROVOD_NUMERICS_TOLERANCE", True, "1e-4", "utils/numerics.py",
+     "Relative cross-rank disagreement tolerance for post-allreduce "
+     "digest records."),
+    ("HOROVOD_NUMERICS_WARMUP", True, "5", "utils/numerics.py",
+     "Per-tensor observations before the norm-spike policy arms."),
     ("HOROVOD_OVERLAP_EAGER", True, "0", "optim.py",
      "Overlap plane: allreduce_gradients and the eager step enqueue in "
      "reverse order and drain every filled fusion bucket while later "
@@ -196,6 +230,10 @@ ENV_REGISTRY = (
     ("HOROVOD_OVERLAP_LOCAL_SIZE", True, "0", "ops/eager.py",
      "Processes per host of the two-level split (0: the launcher's "
      "HVD_LOCAL_SIZE); must divide the world size."),
+    ("HOROVOD_PERF_ATTRIB_EVERY", True, "0", "trainer.py",
+     "Capture + attribute every Nth instrumented step (torch.profiler "
+     "trace -> per-class hvd_step_breakdown_ms / overlap gauges); 0 "
+     "(the default) keeps the capture off the hot path."),
     ("HOROVOD_QUANT_BLOCK", True, "256", "common/config.py",
      "Elements per block-scaled quantization block (one f32 scale "
      "each)."),
@@ -309,8 +347,14 @@ class HorovodConfig:
     # the seconds between a worker's piggybacked snapshots to rank 0.
     metrics_port: int = 0
     metrics_interval: float = 5.0
-    # The autotuner of fusion_threshold / cycle_time_ms (not ported yet).
+    # Online autotuning of fusion_threshold / cycle_time_ms
+    # (utils/autotune.py): rank 0 tunes, every rank adopts at the same
+    # agreed point; autotune_log is the CSV of scored points, and without
+    # a coordinator the ranks adopt every autotune_sync_collectives
+    # collectives.
     autotune: bool = False
+    autotune_log: str = ""
+    autotune_sync_collectives: int = 32
     # Wire codec of the eager core's allreduces (and the default of
     # DistributedOptimizer's): "none" keeps full width, "fp16"/"bf16"
     # cast, "int8"/"fp8" are block-scaled with one f32 max-abs scale per
@@ -368,6 +412,9 @@ class HorovodConfig:
             metrics_port=env_int("METRICS_PORT", 0),
             metrics_interval=env_float("METRICS_INTERVAL", 5.0),
             autotune=env_bool("AUTOTUNE", False),
+            autotune_log=env_str("AUTOTUNE_LOG", "") or "",
+            autotune_sync_collectives=env_int("AUTOTUNE_SYNC_COLLECTIVES",
+                                              32),
             compression=(env_str("COMPRESSION", "none") or "none")
             .strip().lower(),
             quant_block=env_int("QUANT_BLOCK", 256),

@@ -1,6 +1,5 @@
 // horovod_tpu_torch native host core: the port's copy of
-// horovod_tpu/_native/src/hvd_core.h without the autotuner (its source,
-// autotune.cc, is not ported yet).
+// horovod_tpu/_native/src/hvd_core.h.
 //
 // Re-implementation of the reference's C++ runtime services
 // (horovod/common/): the pieces that remain host-side work when the data
@@ -10,6 +9,10 @@
 //   fusion planner <- FuseResponses look-ahead bucketing
 //                     (horovod/common/operations.cc:450-573)
 //   timeline       <- horovod/common/timeline.{h,cc} (writer thread + queue)
+//   autotuner      <- ParameterManager + BayesianOptimization +
+//                     GaussianProcessRegressor
+//                     (horovod/common/parameter_manager.{h,cc},
+//                      horovod/common/optim/*)
 //
 // The JAX package's core also carries logging, an LRU cache, a tensor
 // table and a byte hash; the port's eager core keeps its plan cache,
@@ -56,6 +59,23 @@ HVD_EXPORT void hvd_timeline_event(void* timeline, const char* tensor,
                                    const char* activity, int phase);
 HVD_EXPORT void hvd_timeline_cycle(void* timeline);
 HVD_EXPORT int64_t hvd_timeline_pending(void* timeline);
+
+// ---- autotuner (Gaussian process + expected improvement) -----------------
+// Tunes (fusion_threshold_bytes, cycle_time_ms) to maximize a throughput
+// score (bytes/us like the reference). Bounds mirror the reference's
+// 0..64MB / 1..100ms (parameter_manager.cc:46-54).
+HVD_EXPORT void* hvd_autotune_create(double thr_lo, double thr_hi,
+                                     double ct_lo, double ct_hi,
+                                     uint64_t seed);
+HVD_EXPORT void hvd_autotune_destroy(void* tuner);
+HVD_EXPORT void hvd_autotune_record(void* tuner, double threshold,
+                                    double cycle_ms, double score);
+HVD_EXPORT void hvd_autotune_suggest(void* tuner, double* threshold_out,
+                                     double* cycle_ms_out);
+HVD_EXPORT int64_t hvd_autotune_num_samples(void* tuner);
+// Best observed (threshold, cycle_ms, score); returns 0 if no samples.
+HVD_EXPORT int hvd_autotune_best(void* tuner, double* threshold_out,
+                                 double* cycle_ms_out, double* score_out);
 
 // ---- misc -----------------------------------------------------------------
 HVD_EXPORT const char* hvd_core_version();

@@ -71,11 +71,27 @@ stacked row i to port rank i).
     ``HVD_METRICS=0`` and ``HVD_TRACE=0`` give the null objects. The
     queue, flush and handle locks opt into ``HVD_LOCKDEP``.
 
-Left for later: the JAX core's numerics calls and the autotuner
-(``HOROVOD_AUTOTUNE`` raises here until then). ``tally()`` reads the
-overlap plane's ``hvd_overlap_*`` and ``optim``'s ``hvd_grad_*`` counters
-back from the registry, flat, as ``quantization.tally()`` reads the wire
-bytes.
+  * the numerics plane (``utils/numerics.py``): every executed
+    allreduce bucket's per-tensor health stats, queued on the collective
+    stream after the bucket's completion event (no caller waits on
+    them; the host reads them once their event has fired), the local
+    contribution's before the collective where the world has more than
+    one rank; under negotiation their records ride the next cycle
+    request as the digest the coordinator's divergence sentinel
+    compares. ``test_perturb`` ({name: relative}) scales this rank's
+    reduced copy of a named tensor, the hook a divergence drill uses.
+  * the autotuner (``HOROVOD_AUTOTUNE``, ``utils/autotune.py``): only
+    rank 0 tunes, scoring the bytes each flush moved over the time
+    between flushes; on one rank it applies each suggestion at once,
+    under negotiation the coordinator reads rank 0's live config and
+    the values ride every response, and without a coordinator the
+    ranks adopt rank 0's values every
+    ``HOROVOD_AUTOTUNE_SYNC_COLLECTIVES`` collectives
+    (``_sync_tuned_params``, one allgather).
+
+``tally()`` reads the overlap plane's ``hvd_overlap_*`` and ``optim``'s
+``hvd_grad_*`` counters back from the registry, flat, as
+``quantization.tally()`` reads the wire bytes.
 """
 
 import collections
@@ -95,6 +111,7 @@ from ..common.exceptions import (DuplicateNameError, MismatchError,
                                  StalledError)
 from ..utils import lockdep
 from ..utils import metrics as hvd_metrics
+from ..utils import numerics as hvd_numerics
 from ..utils import timeline as timeline_mod
 from ..utils import tracing as hvd_tracing
 from . import compression as compression_mod
@@ -322,10 +339,6 @@ class EagerCoordinator:
 
     def __init__(self, state):
         self._config = state.config
-        if getattr(self._config, "autotune", False):
-            raise NotImplementedError(
-                "HOROVOD_AUTOTUNE: the autotuner is not ported yet "
-                "(ROADMAP.md). Unset HOROVOD_AUTOTUNE.")
         # validate HOROVOD_COMPRESSION at init, not mid-step
         compression_mod.Compression.from_name(
             getattr(self._config, "compression", "none"))
@@ -419,6 +432,16 @@ class EagerCoordinator:
             else:
                 self._negotiator = neg.NegotiationWorker(
                     self._rank, self._world, self._config, addrs, key)
+        self._init_autotune()
+        # numerics plane: the digest awaiting piggyback, the seq being
+        # executed (None: a local flush) and the staged stats of the
+        # allreduce bucket being executed
+        self._numerics_pending = None
+        self._numerics_cycle = None
+        self._numerics_staged = None
+        #: test hook: {tensor name: relative} scales this rank's reduced
+        #: copy of the named tensor (a divergence drill)
+        self.test_perturb = {}
         self._finalize_q = queue.SimpleQueue()
         self._finalizer = None
         if self._sync.cuda:
@@ -440,6 +463,108 @@ class EagerCoordinator:
         self._thread = threading.Thread(
             target=self._background_loop, daemon=True, name="hvd-background")
         self._thread.start()
+
+    def _init_autotune(self):
+        """The autotuner's state (the JAX core's constructor). Without a
+        coordinator and with more than one rank, per-rank tuning would
+        diverge the ranks' plans, so rank 0 tunes and every rank adopts
+        its values at the same agreed point in the collective order
+        (``_sync_tuned_params``). Under negotiation fusion happens at
+        the coordinator with rank 0's live config, and the values ride
+        every response."""
+        cfg = self._config
+        self.autotuner = None
+        self._autotune_defer = (cfg.autotune and self._world > 1 and
+                                self._negotiator is None)
+        sync_every = int(getattr(cfg, "autotune_sync_collectives", 32))
+        if self._autotune_defer and sync_every <= 0:
+            raise ValueError(
+                "HOROVOD_AUTOTUNE_SYNC_COLLECTIVES must be >= 1 (got "
+                f"{sync_every}); to disable autotuning, unset "
+                "HOROVOD_AUTOTUNE instead")
+        self._autotune_sync_every = sync_every if self._autotune_defer \
+            else 0
+        self._replicated_count = 0
+        self._proposed_params = None
+        # set by _sync_tuned_params: the adoption flush is not scored
+        self._adopted_this_flush = False
+        # between staging a suggestion and its adoption, cycles run under
+        # the old knobs: scoring pauses
+        self._autotune_pending_adoption = False
+        # passive scoring: (flush start, bytes) of the previous flush;
+        # a flush scores prev_bytes / (this start - prev start)
+        self._at_prev_flush = None
+        if cfg.autotune and self._rank == 0:
+            from ..utils import autotune as autotune_mod
+            self.autotuner = autotune_mod.Autotuner(
+                cfg, log_path=getattr(cfg, "autotune_log", "") or None)
+
+    def _apply_suggestion(self):
+        """Adopt the autotuner's current knobs: at once on one rank or
+        under negotiation, staged for the next agreed sync point
+        without a coordinator."""
+        if self._autotune_defer:
+            self._proposed_params = (self.autotuner.threshold,
+                                     self.autotuner.cycle_time_ms)
+            self._autotune_pending_adoption = True
+        else:
+            self._config.fusion_threshold = int(self.autotuner.threshold)
+            self._config.cycle_time_ms = float(self.autotuner.cycle_time_ms)
+
+    def _score_flush(self, t0, batch):
+        """The non-negotiated cycle's autotune scoring (the JAX core's
+        ``_flush_locked`` tail)."""
+        if (self.autotuner is None or self.autotuner.frozen
+                or self._autotune_pending_adoption):
+            return
+        total = sum(_entry_nbytes(e) for e in batch)
+        prev = self._at_prev_flush
+        self._at_prev_flush = (t0, total)
+        # a pause in traffic is not collective time: a window much
+        # longer than the cycle pacing is the app going idle
+        idle_cap = max(10 * self._config.cycle_time_ms / 1000.0, 1.0)
+        if self._adopted_this_flush:
+            # the interval straddles two knob settings: restart it
+            self._at_prev_flush = None
+        elif prev is not None and (t0 - prev[0]) < idle_cap:
+            if self.autotuner.record_cycle(prev[1], t0 - prev[0]):
+                self._at_prev_flush = None
+                self._apply_suggestion()
+
+    def freeze_autotune(self):
+        """End the tuning phase: adopt the best scored point and stop
+        scoring (the reference ParameterManager's converged state).
+        Without a coordinator the values still travel through the next
+        agreed sync point. Returns (threshold, cycle_ms, score) or None
+        (not rank 0, or nothing scored)."""
+        if self.autotuner is None:
+            return None
+        # under the flush lock: a cycle scoring concurrently would apply
+        # its own suggestion after this freeze
+        with self._flush_lock:
+            best = self.autotuner.freeze()
+            if best is not None:
+                self._apply_suggestion()
+        return best
+
+    def _sync_tuned_params(self):
+        """Adopt rank 0's (possibly staged) tuned parameters on every
+        rank at this agreed point of the collective order: one int64
+        allgather of (threshold, cycle µs), every rank reaching it by the
+        count-scheduled call site."""
+        if self._proposed_params is not None:
+            thr, ct = self._proposed_params
+        else:
+            thr, ct = (self._config.fusion_threshold,
+                       self._config.cycle_time_ms)
+        mine = torch.tensor([int(thr), int(round(ct * 1000))],
+                            dtype=torch.int64, device=self._device)
+        rows = self._proc_engine.allgather_rows(mine).cpu().tolist()
+        self._config.fusion_threshold = int(rows[0][0])
+        self._config.cycle_time_ms = float(rows[0][1]) / 1000.0
+        self._proposed_params = None
+        self._autotune_pending_adoption = False
+        self._adopted_this_flush = True
 
     @property
     def _m(self):
@@ -654,11 +779,12 @@ class EagerCoordinator:
             return
         batch = self._take_queue(unless_held)
         if batch:
-            self._run_batch(batch)
+            self._score_flush(self._run_batch(batch), batch)
 
     def _run_batch(self, batch):
         """Plan + execute one drained batch — the body of a
-        non-negotiated cycle. Caller holds _flush_lock."""
+        non-negotiated cycle. Caller holds _flush_lock. Returns the
+        flush start time (the autotune scorer's window anchor)."""
         if self.timeline:
             self.timeline.mark_cycle_start()
             for e in batch:
@@ -686,9 +812,11 @@ class EagerCoordinator:
                 fused[i] = len(idxs)
         tracer.close_many(fusion, [{"fused": n} for n in fused],
                           plan_cache_hit=hit)
+        self._adopted_this_flush = False
         self._execute(batch, plan)
         m.flush_s.observe(time.perf_counter() - t0)
         m.flush_tensors.observe(len(batch))
+        return t0
 
     def flush_ready(self):
         """Overlap plane: dispatch every fusion group that has FILLED,
@@ -868,14 +996,24 @@ class EagerCoordinator:
         if self._flight_send_pending:
             self._flight_send_pending = False
             flight = tracer.flight_snapshot("coordinator_request")
+        # numerics digest piggyback: the records of every bucket whose
+        # stats have been read since the last cycle
+        for cyc, recs in hvd_numerics.get_monitor().take_records().items():
+            self._numerics_pending = hvd_numerics.fold_digest(
+                self._numerics_pending, cyc, recs, rank=self._rank)
+        digest, self._numerics_pending = self._numerics_pending, None
         t0 = time.perf_counter()
         try:
             resp = self._negotiator.cycle(
                 metas, self._applied_seq, req_id=self._cycle_req_id,
                 hits=neg.encode_hits(hit_ids), metrics=push, flight=flight,
+                digest=digest,
                 codec_fp=compression_mod.config_fingerprint(self._config))
         except Exception as exc:  # noqa: BLE001 — transient TCP hiccups
             self._unannounced = (metas, hit_ids)
+            if digest is not None:
+                # the retry cycle carries it instead
+                self._numerics_pending = digest
             m.neg_failures.inc()
             now = time.monotonic()
             self._cycle_failures += 1
@@ -922,7 +1060,13 @@ class EagerCoordinator:
         self._cycle_failures = 0
         self._cycle_fail_since = None
         self._cycle_backoff_until = 0.0
-        self._apply_cycle_response(resp)
+        executed_bytes = self._apply_cycle_response(resp)
+        if self.autotuner is not None and executed_bytes > 0:
+            if self.autotuner.record_cycle(executed_bytes,
+                                           time.perf_counter() - t0):
+                # rank 0 applies directly: the coordinator fuses with
+                # this config, and workers mirror it off the responses
+                self._apply_suggestion()
 
     @staticmethod
     def _meta_of(e, neg):
@@ -949,13 +1093,17 @@ class EagerCoordinator:
             e.ex_span = ex
         m = self._m
         t0 = time.perf_counter()
+        self._numerics_staged = None
         try:
             with self._sync.collective_stream(
                     [e.ready_event for e in entries]):
                 exec_fn(entries)
                 self._sync.keep_alive([e.tensor for e in entries])
                 ev = self._sync.completion_event()
+                # gradient health, queued behind the completion event
+                self._observe_numerics(entries)
         except Exception as exc:  # noqa: BLE001 — status carries it
+            self._numerics_staged = None
             self._fail(entries, exc)
             return
         m.coll_bytes.labels(op=op).inc(sum(_entry_nbytes(e)
@@ -970,6 +1118,37 @@ class EagerCoordinator:
             self._mark_done(entries)
         else:
             self._finalize_q.put((ev, entries))
+
+    def _observe_numerics(self, entries):
+        """The gradient-health side pass of an executed allreduce bucket
+        (the JAX core's ``_finish_entries`` numerics block): per-slice
+        stats of the reduced buffer the bucket staged (beside its local
+        stats when the world has more than one rank), handed to the
+        monitor, which parks them on the card and reads them at once on
+        the CPU. Records of a negotiated cycle fold into the digest. On
+        the card the stats run after the completion event the caller's
+        stream waits on, so they read what the bucket produced only while
+        the caller reads its results without writing into them, as the
+        eager step and ``allreduce_gradients`` do."""
+        staged, self._numerics_staged = self._numerics_staged, None
+        mon = hvd_numerics.get_monitor()
+        if staged is None or not mon.enabled:
+            return
+        names, sizes, reduced, loc_mat = staged
+        mat = hvd_numerics.segment_stats(reduced, sizes)
+        if loc_mat is not None:
+            mat = torch.cat([mat, loc_mat], dim=1)
+        cyc = self._numerics_cycle
+        recs = mon.ingest_async(names, mat, cycle=cyc)
+        if recs and cyc is not None:
+            self._numerics_pending = hvd_numerics.fold_digest(
+                self._numerics_pending, cyc, recs, rank=self._rank)
+        for e in entries:
+            rec = recs.get(e.name)
+            if rec is not None:
+                e.ex_span.annotate(
+                    grad_l2=rec[hvd_numerics.R_RED_L2],
+                    nonfinite=rec[hvd_numerics.R_RED_NONFINITE])
 
     def _fail(self, entries, exc):
         """Complete the entries not yet completed with ``exc``."""
@@ -1007,7 +1186,9 @@ class EagerCoordinator:
         tracer.close_many(callbacks)
 
     def _apply_cycle_response(self, resp):
-        """Apply coordinator responses strictly in seq order."""
+        """Apply coordinator responses strictly in seq order; returns the
+        bytes the executed responses moved (the autotune score's
+        numerator)."""
         from . import negotiation as neg
         tracer = self._tracer
         try:
@@ -1019,7 +1200,7 @@ class EagerCoordinator:
             tracer.dump("ranks_lost")
             self._fail_pending_negotiated(exc)
             self._negotiation_dead = True
-            return
+            return 0
         if getattr(resp, "stale_ack", False):
             # this rank fell behind the coordinator's bounded response
             # log: fail pending work and tell the peers
@@ -1035,7 +1216,8 @@ class EagerCoordinator:
                                        req_id=self._cycle_req_id)
             except Exception:  # noqa: BLE001 — plane gone too
                 pass
-            return
+            return 0
+        executed_bytes = 0
         for off, r in enumerate(resp.responses):
             seq = resp.base_seq + off
             if seq <= self._applied_seq:
@@ -1087,6 +1269,11 @@ class EagerCoordinator:
                         self._neg_cache_ids.pop(old[0], None)
                     self._neg_cache[e.name] = (cid, e.signature())
                     self._neg_cache_ids[cid] = e.name
+            # the digest key of the bucket about to execute: seq is the
+            # same on every rank
+            self._numerics_cycle = seq
+            if r.kind != r.ERROR:
+                executed_bytes += sum(_entry_nbytes(e) for e in entries)
             if r.kind == r.ERROR:
                 exc = MismatchError(r.error)
                 self._fail(entries, exc)
@@ -1101,6 +1288,7 @@ class EagerCoordinator:
                 self._finish_entries(
                     entries, lambda es: self._exec_single(es[0], r.op))
             self._applied_seq = seq
+        self._numerics_cycle = None
         for cid in getattr(resp, "unknown_ids", ()):
             # the coordinator no longer holds this id: re-announce in full
             name = self._neg_cache_ids.pop(cid, None)
@@ -1115,6 +1303,7 @@ class EagerCoordinator:
             self._config.cycle_time_ms = float(resp.params[1])
         if resp.shutdown:
             self._fail_pending_negotiated(ShutdownError())
+        return executed_bytes
 
     def _blocking_trace_id(self):
         """Trace id of the oldest tensor still waiting on negotiation,
@@ -1203,6 +1392,12 @@ class EagerCoordinator:
         nbytes = fused.numel() * fused.element_size()
         engine = self._allreduce_engine()
         hier = engine if engine is self._hier else None
+        mon = hvd_numerics.get_monitor()
+        sizes = [f.numel() for f in flats]
+        # this rank's contribution, before the sum takes the buffer in
+        # place (on one rank the reduced buffer is the contribution)
+        loc_mat = hvd_numerics.segment_stats(fused, sizes) \
+            if mon.enabled and self._world > 1 else None
         if codec is not None and quant_mod.is_quantized(codec):
             summed = self._quantized_allreduce(fused, names, codec, average,
                                                hier)
@@ -1229,7 +1424,12 @@ class EagerCoordinator:
         for e, flat in zip(entries, flats):
             n = flat.numel()
             e.result = summed[offset:offset + n].view(e.tensor.shape)
+            rel = self.test_perturb.get(e.name)
+            if rel:
+                e.result.mul_(1.0 + rel)
             offset += n
+        if mon.enabled:
+            self._numerics_staged = (names, sizes, summed, loc_mat)
         if tl:
             for n in names:
                 tl.end_activity(n)
@@ -1260,6 +1460,8 @@ class EagerCoordinator:
                 fused, codec, block, average=average, residual=residual)
             if ef_on:
                 self._ef.update(key, comp, dec_own, block, anchor=names[0])
+            hvd_numerics.get_monitor().observe_compression(
+                names[0], comp, dec_own, codec)
             wire_inter = quant_mod.encoded_nbytes(shard_len, codec, block)
             quant_mod.account(codec, nbytes, wire_inter)
             quant_mod.account_leg("intra", None, nbytes)
@@ -1277,6 +1479,8 @@ class EagerCoordinator:
         dec_own = quant_mod.decode(payload, scales, block, total)
         if ef_on:
             self._ef.update(key, comp, dec_own, block, anchor=names[0])
+        hvd_numerics.get_monitor().observe_compression(names[0], comp,
+                                                       dec_own, codec)
         if self.record_quantized:
             self.last_quantized = {"names": names, "codec": codec,
                                    "comp": comp, "out": out[:total],
@@ -1346,6 +1550,14 @@ class EagerCoordinator:
         tl = self.timeline
         if tl:
             tl.start_activity(entry.name, op.upper())
+        # without a coordinator every rank executes the same collectives
+        # in the same order (errors included), so a count of them keeps
+        # the tuned-value sync schedule in lockstep
+        sync_params = False
+        if self._autotune_sync_every:
+            self._replicated_count += 1
+            sync_params = (
+                self._replicated_count % self._autotune_sync_every == 0)
         try:
             # without a coordinator, verify on the FIRST occurrence of
             # each collective signature (op/dtype/shape/root, not name);
@@ -1372,6 +1584,8 @@ class EagerCoordinator:
             else:
                 raise ValueError(f"Unknown op {op}")
         finally:
+            if sync_params:
+                self._sync_tuned_params()
             if tl:
                 tl.end_activity(entry.name)
 

@@ -29,8 +29,10 @@ dumps its own flight recorder and raises ``dump_requested`` on every
 later response, persisting the dump each worker then sends
 (``utils/tracing.write_remote_dump``). The chaos plane's injection
 points sit in the transport (``run/network.py``) under the service name
-``hvd.negotiation``. Left out until its slice: the numerics sentinel
-(``_numerics_scan``); its ``digest`` field stays on ``CycleRequest``.
+``hvd.negotiation``. The numerics divergence sentinel
+(``_numerics_scan``) compares the digests workers piggyback on
+``CycleRequest.digest``, keyed by cycle and tensor, and names the
+divergent rank on ``hvd_numerics_divergent_rank``.
 
 Protocol: each worker's background cycle sends
 ``CycleRequest(rank, new entry metas, last applied seq, shutdown)``; the
@@ -53,6 +55,7 @@ from ..common.exceptions import RanksLostError
 from ..utils import lockdep
 from ..run import network, secret
 from ..utils import metrics as hvd_metrics
+from ..utils import numerics as hvd_numerics
 from ..utils import tracing as hvd_tracing
 from . import compression as compression_mod
 
@@ -534,6 +537,15 @@ class CoordinatorService(network.BasicService):
         self._tracer = hvd_tracing.get_tracer()
         self._dump_requested = False  # guarded_by: _lock
         self.flight_dumps = {}  # guarded_by: _lock
+        # divergence sentinel (utils/numerics.py): per-cycle digests by
+        # rank, compared as they arrive; a disagreement past tolerance
+        # escalates once per (cycle, tensor, kind) through the standard
+        # path (event -> warning -> dump solicitation)
+        self._digests = {}  # guarded_by: _lock; cycle -> rank -> records
+        # (cycle, tensor, kind) -> blamed rank: the flag upgrades once a
+        # culprit is known
+        self._numerics_flagged = {}    # guarded_by: _lock
+        self._numerics_first_bad = {}  # guarded_by: _lock
         # wire-codec agreement: rank 0's codec-config fingerprint is the
         # negotiated truth; a rank whose fingerprint differs is recorded
         # here and every subsequently ready tensor becomes an ERROR
@@ -568,6 +580,14 @@ class CoordinatorService(network.BasicService):
         self._m_lost_ranks = reg.gauge(
             "hvd_lost_ranks",
             "Ranks declared LOST by the liveness ledger (terminal).")
+        self._m_numerics_anomalies = reg.counter(
+            "hvd_coordinator_numerics_anomalies_total",
+            "Anomalies the coordinator's divergence sentinel flagged "
+            "from piggybacked digests, by kind.", labels=("kind",))
+        self._m_divergent_rank = reg.gauge(
+            "hvd_numerics_divergent_rank",
+            "Rank the divergence sentinel blames (-1 = none).")
+        self._m_divergent_rank.set(-1)
         super().__init__(SERVICE_NAME, key)
 
     # bind to one of the agreed candidate ports instead of an ephemeral
@@ -605,6 +625,8 @@ class CoordinatorService(network.BasicService):
                     # looking freshly idle
                     self.load_snapshots[req.rank] = dict(
                         req.load, ts=time.monotonic())
+                if getattr(req, "digest", None) is not None:
+                    self._numerics_scan(req.rank, req.digest)
                 fp = getattr(req, "codec_fp", None)
                 if (fp is not None and fp != self._codec_fp
                         and req.rank not in self._codec_mismatch):
@@ -676,6 +698,95 @@ class CoordinatorService(network.BasicService):
                     unknown_ids=unknown,
                     lost_ranks=sorted(self._lost_ranks))
         raise NotImplementedError(req)
+
+    def _numerics_scan(self, rank, digest):
+        """The cross-rank divergence sentinel, called from _handle under
+        self._lock with one rank's piggybacked digest (the JAX
+        coordinator's). Post-allreduce state is replicated, so two
+        ranks' records for the same (cycle, tensor) disagreeing past
+        tolerance is silent corruption; ``numerics.blame_rank`` names
+        the rank. Escalation: numerics_anomaly event -> warning -> flight
+        dump solicitation."""
+        if not isinstance(digest, dict) or \
+                digest.get("v") != hvd_numerics.DIGEST_VERSION:
+            return
+        tol = hvd_numerics.tolerance()
+        for cycle in sorted(digest.get("cycles", ())):
+            records = digest["cycles"][cycle]
+            by_rank = self._digests.setdefault(int(cycle), {})
+            by_rank.setdefault(rank, {}).update(records)
+            for name in sorted(records):
+                rec = records[name]
+                nf_loc = int(rec[hvd_numerics.R_LOC_NONFINITE])
+                nf_red = int(rec[hvd_numerics.R_RED_NONFINITE])
+                if nf_loc or nf_red:
+                    blamed = rank if nf_loc else None
+                    if blamed is None:
+                        # reduced-side poison with clean local stats:
+                        # look for a peer whose local digest carries it
+                        for peer in sorted(by_rank):
+                            prec = by_rank[peer].get(name)
+                            if prec is not None and int(
+                                    prec[hvd_numerics.R_LOC_NONFINITE]):
+                                blamed = peer
+                                break
+                    self._numerics_flag(
+                        hvd_numerics.ANOMALY_NONFINITE, cycle, name,
+                        blamed, {"nonfinite_local": nf_loc,
+                                 "nonfinite_reduced": nf_red})
+                for peer in sorted(by_rank):
+                    if peer == rank:
+                        continue
+                    other = by_rank[peer].get(name)
+                    if other is None or not hvd_numerics.records_disagree(
+                            rec, other, tol):
+                        continue
+                    holders = {r: by_rank[r][name]
+                               for r in sorted(by_rank)
+                               if name in by_rank[r]}
+                    self._numerics_flag(
+                        hvd_numerics.ANOMALY_DIVERGENCE, cycle, name,
+                        hvd_numerics.blame_rank(holders),
+                        {"ranks": sorted(holders)})
+        # bound the digest store to the recent window
+        window = hvd_numerics.digest_window()
+        while len(self._digests) > window:
+            self._digests.pop(min(self._digests))
+
+    def _numerics_flag(self, kind, cycle, tensor, blamed, detail):
+        key = (int(cycle), tensor, kind)
+        prior = self._numerics_flagged.get(key, _UNFLAGGED)
+        if prior is not _UNFLAGGED and (prior is not None or
+                                        blamed is None):
+            return  # already flagged with blame at least as good
+        self._numerics_flagged[key] = blamed
+        first = min(self._numerics_first_bad.get(tensor, int(cycle)),
+                    int(cycle))
+        self._numerics_first_bad[tensor] = first
+        self._m_numerics_anomalies.labels(kind=kind).inc()
+        if blamed is not None:
+            self._m_divergent_rank.set(blamed)
+        trace_id = self._tracer.trace_id_for(tensor)
+        self._metrics.event(
+            "numerics_anomaly", anomaly=kind, tensor=tensor,
+            cycle=int(cycle), divergent_rank=blamed,
+            first_bad_cycle=first, trace_id=trace_id, **detail)
+        log.warning(
+            "numerics sentinel: %s on tensor '%s' at cycle %s "
+            "(divergent rank %s, first bad cycle %s, trace %s): %s",
+            kind, tensor, cycle, blamed, first, trace_id, detail)
+        if not self._dump_requested:
+            # escalate like a stall: dump our own flight ring and solicit
+            # every rank's on their next cycle
+            self._dump_requested = True
+            self._tracer.dump("numerics_anomaly")
+
+    def numerics_view(self):
+        """Copies of the sentinel's verdicts: {(cycle, tensor, kind):
+        blamed rank} and {tensor: first bad cycle}."""
+        with self._lock:
+            return (dict(self._numerics_flagged),
+                    dict(self._numerics_first_bad))
 
     # Locked snapshot accessors: every thread other than the handler
     # (rank 0's metrics HTTP server, the drills) reads these copies,
@@ -985,6 +1096,9 @@ class CoordinatorService(network.BasicService):
                 error=f"RanksLostError: {op} '{name}' cannot complete: "
                       f"{reason}.{suffix}"))
         self._order = []
+
+
+_UNFLAGGED = object()
 
 
 def raise_if_ranks_lost(resp, trace_id=None):

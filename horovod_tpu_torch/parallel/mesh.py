@@ -586,3 +586,12 @@ def decode_head_sharding(num_heads, mesh=None):
     if tp > 1 and num_heads % tp == 0:
         return HeadSharding(mesh, num_heads)
     return None
+
+
+def account_axis_bytes(axis, nbytes, codec="none"):
+    """Attribute collective payload bytes to a mesh axis on the
+    ``hvd_wire_bytes_total{codec,axis}`` counter, so a reader can split
+    tp-axis traffic from dp. The mesh path is uncompressed, so raw ==
+    wire."""
+    from ..ops import quantization
+    quantization.account(codec, int(nbytes), int(nbytes), axis=axis)

@@ -49,7 +49,11 @@ per live generation over all slots (the other cohorts' rows parked at
 once no active request decodes on it. Under tp every rank swaps at the
 same step: the ranks agree on the armed generation over the tp group.
 
-Left for later slices of the port: the memory plane's compile tracker.
+The memory plane rides it as in the JAX engine: the weights and the KV
+cache go into the HBM ledger at build, the weights again on every swap,
+and each prefill (keyed by its padded length) and decode step reports
+its abstract-shape key to the compile tracker (``serve_prefill``,
+``serve_decode``).
 """
 
 import time
@@ -148,6 +152,10 @@ class ServeEngine:
         self.kv = KVCache(cfg, num_slots, max_len=max_len,
                           block_size=kv_block, total_blocks=total_blocks,
                           device=self.device, mesh=mesh)
+        if hvd_memory.enabled():
+            ledger = hvd_memory.get_ledger()
+            ledger.account_tree("params", self.model)
+            ledger.account_kv(self.kv)
         self.scheduler = SlotScheduler(num_slots, policy=policy)
         self.queue = queue if queue is not None else AdmissionQueue()
         self._clock = clock
@@ -395,6 +403,10 @@ class ServeEngine:
                 leaf.record_stream(stream)
         old_gen, gen = self._generation, rec.generation
         self.model = model_from_tree(self.cfg, rec.params, self.device)
+        # re-state the params component: a swapped-in generation may
+        # differ in dtype or shape from the one it replaces
+        if hvd_memory.enabled():
+            hvd_memory.get_ledger().account_tree("params", self.model)
         new_params = self._place_params(self.model)
         self.params = new_params
         self._params_by_gen[gen] = new_params
@@ -492,6 +504,9 @@ class ServeEngine:
         s_pad = self._pad_len(prompt_len)
         tokens = torch.zeros((1, s_pad), dtype=torch.int64)
         tokens[0, :prompt_len] = torch.as_tensor(req.prompt)
+        # each distinct padded prompt length is a new shape at this site
+        if hvd_memory.enabled():
+            hvd_memory.get_tracker().observe("serve_prefill", (tokens,))
         logits, pk, pv = prefill_forward(self.cfg, self.params,
                                          tokens.to(self.device))
         tok = sample_tokens(logits[0, prompt_len - 1][None],
@@ -542,6 +557,11 @@ class ServeEngine:
                 tokens[slot] = st.next_token
                 positions[slot] = st.next_pos
                 temps[slot] = st.request.temperature
+            # decode is shape-static: one miss at the first step, hits
+            # after it
+            if hvd_memory.enabled():
+                hvd_memory.get_tracker().observe(
+                    "serve_decode", (tokens, positions, temps))
             logits, _, _ = decode_step(
                 self.cfg, self._params_by_gen[gen],
                 torch.from_numpy(tokens).to(self.device),

@@ -91,9 +91,9 @@ from .ops import quantization as quant_mod
 from .parallel import mesh as mesh_lib
 from .parallel import tensor_parallel as tpl
 from .utils import checkpoint as hvd_checkpoint
+from .utils import costmodel
 
 # NVIDIA's published dense bf16 tensor-core peaks, by H100 variant
-H100_PEAK_BF16 = {"sxm": 989e12, "pcie": 756e12}
 
 # (batch per dp way, seq, inner steps): the flagship on the card, a smoke
 # run on the CPU
@@ -106,13 +106,11 @@ SIZES = {"tiny": tr.TransformerConfig.tiny,
 
 
 def peak_bf16_flops(device):
-    """The card's dense-bf16 peak, or None when it is not an H100."""
+    """The card's dense-bf16 peak (``costmodel.peak_flops``), or None on
+    the CPU and on a card the ChipSpec table does not know."""
     if device.type != "cuda":
         return None
-    name = torch.cuda.get_device_name(device)
-    if "H100" not in name:
-        return None
-    return H100_PEAK_BF16["pcie" if "PCIe" in name else "sxm"]
+    return costmodel.peak_flops(device)
 
 
 def card_line():
@@ -449,6 +447,21 @@ def _save_ms(ckptr):
             "save_ms": stats["save_s"] * 1e3}
 
 
+def axis_wire_bytes(cfg, model, mesh, rows, seq):
+    """Analytic payload bytes of one step's collectives by mesh axis (the
+    JAX CLI's per-axis wire attribution): the dp leg is the gradient
+    allreduce (every parameter), the tp leg the Megatron activation
+    allreduces (2 forward + 2 backward a layer of one dp way's [rows/dp,
+    S, D] residual). Returns (dp bytes, tp bytes), 0 for an axis of 1."""
+    dp = mesh_lib.mesh_axis_size(mesh, "dp")
+    tp = mesh_lib.mesh_axis_size(mesh, "tp")
+    dp_bytes = sum(p.numel() * p.element_size()
+                   for p in model.parameters()) if dp > 1 else 0
+    tp_bytes = (4 * cfg.num_layers * (rows // dp) * seq * cfg.d_model *
+                cfg.dtype.itemsize) if tp > 1 else 0
+    return dp_bytes, tp_bytes
+
+
 def train_loop(args, cfg, model, opt, step, rows, seq, device, mesh):
     """``--steps``: the GSPMD ``step`` driven one optimizer step at a time
     on ``rows`` rows of ``batch_at``, with the checkpoint contract (see
@@ -489,13 +502,26 @@ def train_loop(args, cfg, model, opt, step, rows, seq, device, mesh):
                           args.checkpoint_dir, start), ms=ms,
                       digest=hvd_checkpoint.tree_digest(whole)
                       if digest else None)
+    # the step's telemetry (trainer.instrument_step): step time, tokens/s
+    # and MFU per card, the allocator peak, the compile tracker, the
+    # history and alert ticks, HOROVOD_PERF_ATTRIB_EVERY captures
+    dense = cfg.num_experts == 0
+    timed = trainer.instrument_step(
+        step, tokens_per_step=rows * seq // n, name="train_lm",
+        flops_per_token=tr.matmul_flops_per_token(cfg, seq) if dense
+        else None, device=device)
+    dp_bytes, tp_bytes = axis_wire_bytes(cfg, model, mesh, rows, seq)
     losses = []
     t0 = time.perf_counter()
     for i in range(start, steps):
         try:
             toks = batch_at(args.seed, i, cfg.vocab_size, rows,
                             seq).to(device)
-            loss = step(model, opt, toks)[2].item()
+            loss = timed(model, opt, toks)[2].item()
+            if dp_bytes:
+                mesh_lib.account_axis_bytes("dp", dp_bytes)
+            if tp_bytes:
+                mesh_lib.account_axis_bytes("tp", tp_bytes)
             losses.append(loss)
             if rank == 0:
                 _emit("step", step=i + 1, loss=loss, workers=n,

@@ -20,22 +20,228 @@ core between the backward and the update, the JAX package's
 
 ``Checkpointer`` is the train loop's checkpoint contract (periodic async
 saves, auto-resume, preemption-safe exit with ``PREEMPTED_EXIT_CODE``).
+
+``instrument_step`` wraps a step with its telemetry: step time, tokens/s,
+MFU against the card's ``costmodel.chip_spec``, the allocator peak, the
+compile tracker, the history and alert ticks and, every Nth step, a
+``torch.profiler`` capture attributed by op class
+(``utils/profiling.py``).
 """
 
+import functools
 import signal
 import threading
+import time
 
 import torch
 
 from . import mpi_ops, optim
 from .common.config import env_bool, env_int
 from .common.exceptions import PREEMPTED_EXIT_CODE  # noqa: F401
+from .utils import alerts as hvd_alerts
 from .utils import checkpoint as hvd_checkpoint
+from .utils import history as hvd_history
+from .utils import memory as hvd_memory
 from .utils import metrics as hvd_metrics
+from .utils import tracing as hvd_tracing
 from .ops.compression import Compression
 from .parallel import mesh as mesh_lib
 from .parallel import tensor_parallel as tpl
 from .parallel.mesh import P
+
+
+def _step_device(device):
+    if device is not None:
+        return torch.device(device)
+    from .common import state
+    return state.device() if state.is_initialized() else torch.device("cpu")
+
+
+def instrument_step(step_fn, tokens_per_step=None, name="train",
+                    flops_per_token=None, attrib_every=None, spec=None,
+                    device=None):
+    """Wrap a train step with step-path telemetry (the JAX package's
+    ``trainer.instrument_step``): an ``hvd_step_seconds`` histogram, an
+    ``hvd_steps_total`` counter and, given ``tokens_per_step``, an
+    ``hvd_tokens_per_second`` gauge, all labeled ``loop=name``.
+
+    The step's end is stamped after ``torch.cuda.synchronize(device)``
+    (``device``: the worker's by default): without it the host clock
+    would time the launches, not the step. So it is a per-step host sync,
+    right for a loop that reads the loss every step. With metrics off
+    (``HVD_METRICS=0``) the step is returned as it is.
+
+      * ``flops_per_token`` with ``tokens_per_step`` publishes
+        ``hvd_mfu`` against the card's peak (``spec``, a
+        ``costmodel.ChipSpec``, found from the card when omitted); no
+        gauge on the CPU.
+      * ``attrib_every=N`` (default ``HOROVOD_PERF_ATTRIB_EVERY``, 0 =
+        off) wraps every Nth step, never step 1, in a ``torch.profiler``
+        capture and publishes ``hvd_step_device_busy_frac``, per-class
+        ``hvd_step_breakdown_ms`` and ``_drift`` and the exposed/hidden
+        comm gauges (``profiling.profile_decomposition``). The wrapper
+        keeps the last decomposition and the profiler it came from
+        (``last_decomposition``, ``last_profile``); the decomposition
+        also counts the capture's launch calls and those the profiler
+        kept no device record for (``launch_calls``,
+        ``unrecorded_launches``: work missing from the breakdown). A
+        capture that fails emits ``perf_attrib_error`` and never breaks
+        the step.
+      * The memory plane (``HVD_MEM``): each call reports its
+        abstract-shape key to the compile tracker at ``train:<name>``,
+        and ``hvd_step_peak_hbm_bytes`` holds the allocator peak of the
+        step (reset at its start); no gauge on the CPU.
+      * The history writer and the alert manager tick every step.
+    """
+    reg = hvd_metrics.get_registry()
+    if not reg.enabled:
+        return step_fn
+    dev = _step_device(device)
+    on_card = dev.type == "cuda"
+    step_s = reg.histogram(
+        "hvd_step_seconds", "Wall time of one training step (synced).",
+        labels=("loop",))
+    steps = reg.counter(
+        "hvd_steps_total", "Training steps executed.", labels=("loop",))
+    tps = reg.gauge(
+        "hvd_tokens_per_second",
+        "Throughput of the most recent step (tokens_per_step / step "
+        "seconds).", labels=("loop",))
+    if attrib_every is None:
+        attrib_every = env_int("PERF_ATTRIB_EVERY", 0)
+    flops_per_step = ((flops_per_token or 0) * (tokens_per_step or 0)) or None
+    if flops_per_step and spec is None and on_card:
+        from .utils import costmodel
+        spec = costmodel.chip_spec(dev)
+    if spec is not None and spec.kind == "cpu":
+        spec = None  # the stand-in peak would make MFU noise
+    mfu = reg.gauge(
+        "hvd_mfu", "Model FLOPs utilization of the most recent step "
+        "(flops_per_step / peak / step seconds).",
+        labels=("loop",)) if flops_per_step and spec else None
+    peak_hbm = reg.gauge(
+        "hvd_step_peak_hbm_bytes",
+        "Peak allocated device bytes on this card in the most recent "
+        "step (memory plane; absent on the CPU).",
+        labels=("loop",)) if hvd_memory.enabled() \
+        and hvd_memory.step_peak_bytes(dev) is not None else None
+    if attrib_every:
+        busy = reg.gauge(
+            "hvd_step_device_busy_frac",
+            "Device-busy fraction of the last attributed step "
+            "(device-op time / wall).", labels=("loop",))
+        breakdown = reg.gauge(
+            "hvd_step_breakdown_ms",
+            "Per-op-class device ms of the last attributed step.",
+            labels=("loop", "op_class"))
+        drift = reg.gauge(
+            "hvd_step_breakdown_drift",
+            "Per-op-class ms drift of the last attributed step vs its "
+            "running mean (relative; +0.1 = 10% slower than usual).",
+            labels=("loop", "op_class"))
+        exposed = reg.gauge(
+            "hvd_step_exposed_comm_ms",
+            "Collective ms NOT hidden under compute in the last "
+            "attributed step.", labels=("loop",))
+        hidden = reg.gauge(
+            "hvd_step_hidden_comm_ms",
+            "Collective ms overlapped with compute in the last "
+            "attributed step.", labels=("loop",))
+        ovl_frac = reg.gauge(
+            "hvd_step_overlap_frac",
+            "hidden / (hidden + exposed) collective ms of the last "
+            "attributed step.", labels=("loop",))
+    ema = {}  # op_class -> running-mean ms, for the drift gauge
+    counter = [0]
+
+    def _attribute(prof, dt):
+        from .utils import profiling
+        dec = profiling.profile_decomposition(
+            profiling.summarize_profile(prof), wall_ms=dt * 1e3, steps=1)
+        launched, lost = profiling.unrecorded_launches(prof)
+        dec["launch_calls"], dec["unrecorded_launches"] = launched, len(lost)
+        wrapped.last_decomposition = dec
+        if dec.get("device_busy_frac") is not None:
+            busy.labels(loop=name).set(dec["device_busy_frac"])
+        for c in dec["classes"]:
+            cls, ms = c["class"], c["ms_per_step"]
+            breakdown.labels(loop=name, op_class=cls).set(ms)
+            prev = ema.get(cls)
+            if prev:
+                drift.labels(loop=name, op_class=cls).set(
+                    round(ms / prev - 1.0, 4))
+            ema[cls] = ms if prev is None else 0.8 * prev + 0.2 * ms
+        ov = dec.get("overlap")
+        if ov:
+            exposed.labels(loop=name).set(ov["exposed_comm_ms"])
+            hidden.labels(loop=name).set(ov["hidden_comm_ms"])
+            if ov["overlap_frac"] is not None:
+                ovl_frac.labels(loop=name).set(ov["overlap_frac"])
+
+    tracer = hvd_tracing.get_tracer()
+
+    def _start_capture():
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if on_card:
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    @functools.wraps(step_fn)
+    def wrapped(*args, **kwargs):
+        counter[0] += 1
+        capture = attrib_every and counter[0] % attrib_every == 0 \
+            and counter[0] > 1
+        prof = None
+        if capture:
+            try:
+                prof = _start_capture()
+            except Exception as exc:  # noqa: BLE001 — never break the step
+                reg.event("perf_attrib_error", phase="start",
+                          error=type(exc).__name__)
+                prof = None
+        if hvd_memory.enabled():
+            hvd_memory.get_tracker().observe(f"train:{name}",
+                                             (args, kwargs))
+            if peak_hbm is not None:
+                hvd_memory.reset_step_peak(dev)
+        t0 = time.perf_counter()
+        # the step span: the root every per-tensor span of this step
+        # hangs under in the postmortem timeline
+        with tracer.span(hvd_tracing.STEP, tensor=name) as span:
+            out = step_fn(*args, **kwargs)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            span.annotate(seconds=dt)
+        if prof is not None:
+            try:
+                prof.stop()
+                wrapped.last_profile = prof
+                _attribute(prof, dt)
+            except Exception as exc:  # noqa: BLE001 — never break the step
+                reg.event("perf_attrib_error", phase="attribute",
+                          error=type(exc).__name__)
+        step_s.labels(loop=name).observe(dt)
+        steps.labels(loop=name).inc()
+        if tokens_per_step and dt > 0:
+            tps.labels(loop=name).set(tokens_per_step / dt)
+        if mfu is not None and dt > 0:
+            mfu.labels(loop=name).set(
+                flops_per_step / (spec.peak_flops * dt))
+        if peak_hbm is not None and hvd_memory.enabled():
+            pb = hvd_memory.step_peak_bytes(dev)
+            if pb is not None:
+                peak_hbm.labels(loop=name).set(pb)
+        hvd_history.poke()
+        hvd_alerts.tick()
+        return out
+
+    wrapped.last_decomposition = None
+    wrapped.last_profile = None
+    return wrapped
 
 
 def softmax_cross_entropy(logits, labels, weights=None, norm=None,

@@ -16,9 +16,14 @@ ALLREDUCE, MEMCPY_OUT_FUSION_BUFFER, ALLGATHER, BROADCAST, NEGOTIATE_*.
 Events use the Chrome trace "ph" codes "M" metadata, "B"/"E"
 begin/end, "i" instant. The writer takes the shared clock of
 ``utils/metrics.py``: its ``ts`` and ``clock_sync`` epoch are the ones
-metric events and spans carry. The device-trace capture (the JAX
-package's ``profile()``) is not ported.
+metric events and spans carry. ``profile(logdir)`` captures a
+``torch.profiler`` device trace over a block (the JAX package's
+``jax.profiler`` capture); ``utils/merged_timeline.py`` merges such a
+trace with this timeline on one clock.
 """
+
+import contextlib
+import os
 
 # Activity names (reference common.h:30-51).
 QUEUE = "QUEUE"
@@ -87,3 +92,28 @@ def create_from_env(config, is_coordinator):
         return None
     return NativeTimeline(config.timeline_filename,
                           mark_cycles=config.timeline_mark_cycles)
+
+
+@contextlib.contextmanager
+def profile(logdir):
+    """Capture a ``torch.profiler`` trace (CPU and, with a card, CUDA
+    activity) over the context and export it as ``logdir/trace.json``
+    (Chrome trace; ``utils/profiling.py`` summarizes it). Yields the
+    profiler.
+
+        with hvd.utils.timeline.profile("/tmp/torch-trace"):
+            ... training steps / eager collectives ...
+    """
+    import torch
+    from torch.profiler import ProfilerActivity
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -25,9 +25,9 @@ also solicit a remote rank's dump over the negotiation wire (the
 
 Cost: a span open/close is two clock reads, a dict update and a deque
 append under a lock. With ``HVD_TRACE=0`` every call lands on a shared
-null object. The JAX package's flight dumps also carry its memory
-plane's section; the port's memory plane has no ledger yet, so the
-section is None.
+null object. Flight dumps also carry the memory plane's section
+(``utils/memory.flight_section``: the HBM ledger and the compile
+sites), None while nothing has been accounted.
 """
 
 import collections
@@ -398,6 +398,7 @@ class Tracer:
             dropped = self._spans_dropped
         spans = [s.to_dict() for s in spans]
         reg = metrics_mod.get_registry()
+        from . import memory as memory_mod
         return {
             "version": FLIGHT_VERSION,
             "rank": self.rank,
@@ -409,7 +410,7 @@ class Tracer:
             "cycles": cycles,
             "spans_dropped": dropped,
             "events": reg.events(),
-            "memory": None,
+            "memory": memory_mod.flight_section(),
         }
 
     def dump(self, reason="", path=None):

@@ -196,7 +196,6 @@ def test_timeline_holds_negotiate_and_allreduce_spans(tmp_path,
 
 
 @pytest.mark.parametrize("var,value,err", [
-    ("HOROVOD_AUTOTUNE", "1", NotImplementedError),
     ("HOROVOD_COMPRESSION", "zstd", ValueError)])
 def test_init_refuses_what_is_not_ported(monkeypatch, var, value, err):
     monkeypatch.setenv(var, value)

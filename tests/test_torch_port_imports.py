@@ -348,3 +348,34 @@ def test_router_exports_match_the_reference():
     assert trouter.__all__ == ref
     assert tfleet.__all__ == ["ArmedGeneration", "WeightPublisher",
                               "WeightSubscriber"]
+
+
+PLANE_MODULES = (
+    "horovod_tpu_torch.utils.costmodel", "horovod_tpu_torch.utils.memory",
+    "horovod_tpu_torch.utils.numerics", "horovod_tpu_torch.utils.autotune",
+    "horovod_tpu_torch.utils.profiling",
+    "horovod_tpu_torch.utils.merged_timeline",
+    "horovod_tpu_torch.tools.hvd_mem")
+
+
+@pytest.mark.parametrize("module", PLANE_MODULES)
+def test_numerics_memory_cost_and_tuning_modules_are_scanned_and_import(
+        module):
+    """The numerics, memory and compile, cost-model, profiling, merged
+    timeline and autotuner modules and the hvd_mem tool are in the scan,
+    import neither jax nor the JAX package, and import without starting
+    a thread or building anything."""
+    import importlib
+    import threading
+    path = os.path.join(*module.split(".")) + ".py"
+    assert path in _port_files()
+    assert not _imported_roots(os.path.join(ROOT, path)) & set(FORBIDDEN)
+    before = threading.active_count()
+    importlib.import_module(module)
+    assert threading.active_count() == before
+
+
+def test_the_native_core_builds_the_autotuner():
+    from horovod_tpu_torch import _native
+    assert "autotune.cc" in _native.SOURCES
+    assert os.path.exists(os.path.join(_native.SRC_DIR, "autotune.cc"))
