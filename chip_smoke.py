@@ -9,11 +9,13 @@ on failure:
 
   1. the card's name and power limit, then the build of every kernel
      source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu,
-     flash_bwd_sm90.cu, batch_norm.cu) and its time, and beside it the
-     wgmma/TMA sources (forward B1, B2, B3: 24 instantiations; backward
-     B4, B5: 12) each alone through nvcc -Xptxas -v: each instantiation's
-     registers and spills, where any spill fails the run, and ptxas's
-     performance warnings (C7514/C7520, "wgmma serialized"), printed;
+     flash_bwd_sm90.cu, flash_dyn.cu, batch_norm.cu, segment_stats.cu)
+     and its time, and beside it the wgmma/TMA sources (forward B1, B2,
+     B3: 30 instantiations, d 16-256; backward B4, B5: 12), the run-time-d
+     kernels and the stats kernel each alone through nvcc -Xptxas -v: each
+     instantiation's registers and spills, where any spill fails the run,
+     and ptxas's performance warnings (C7514/C7520, "wgmma serialized"),
+     printed;
   2. every flash-attention forward kernel (online, lazy, twopass) held
      against its plain PyTorch version walking the same tiles on the card,
      on O and lse, in bf16 and fp32, causal and not, on unit-scale inputs
@@ -27,12 +29,16 @@ on failure:
      forced (64 and 128 query rows) with the adversaries at its 128-key
      tiles, at s 16, 64, 100 and 1000 and sq 100 x sk 300 (partial last
      tiles; causal and not, both CTA shapes), and at the training shape
-     (b=16 h=6 d=128 s=1024, causal); then the fp32 CUDA-core forward and
+     (b=16 h=6 d=128 s=1024, causal), and at d 256 (64-key tiles, both
+     CTA shapes, causal and not, s 192, the partial last tiles of sq 200,
+     sq 1000 and sq 100 x sk 300, the rising-max adversaries for each walk
+     order); then the fp32 CUDA-core forward and
      backward at partial-tile lengths (s 100, sq 100 x sk 300), and both
      dtypes at head dims 80 and 96 (zero-padded to 128 on the host) through
      the public autograd path against the plain walks at the true head
-     dim; then head dims 160, 192 and 256 on the CUDA-core kernels, fp32
-     and bf16, forward and backward, at partial-tile lengths, every
+     dim; then head dims 160, 192 and 256 (the bf16 forward on the wgmma
+     kernel, the fp32 forward and both dtypes' backward on the CUDA-core
+     kernels), forward and backward, at partial-tile lengths, every
      forward walk at d 256, and a ring pair's call patterns (non-causal
      forward; the backward under a merged lse with +1e30 rows, those
      rows' dq exactly 0; a wholly future pair with 1e3-offset keys
@@ -60,7 +66,12 @@ on failure:
      plain versions, both held to a float64 sum on the card within 1e-5
      of the per-channel sum of magnitudes, in bf16 and fp32, on
      unit-scale and 1e3-offset inputs (never zeros), at every (rows, C)
-     of a ResNet-50 step at batch 32 x 224 and at ragged shapes;
+     of a ResNet-50 step at batch 32 x 224 and at ragged shapes. Then the
+     numerics plane's stats kernel (segment_stats.cu) against float64 and
+     its plain version, fp32 and bf16: each of the flagship's fusion
+     buckets with NaN, +-inf and zeros planted (aligned and one element
+     in), a layout with empty and sub-chunk slices, and one 607.6 MB
+     slice; counts exact, L2, max-abs and checksum within 1e-6 relative;
   3. the serving path: ServeEngine over GPT-2-small (gpt2_small_tpu, 6 x
      128 heads, full width, bf16, seeded weights) answers requests with
      prompts of 16-960 tokens, so prefill runs both the one-tile (online)
@@ -105,18 +116,22 @@ on failure:
      split over 4, which is refused) forward against exact attention;
      chunked_softmax_cross_entropy (vocab 50304, chunk 8192) against the
      full loss, value and gradients;
-  3e. head dim 256 on the CUDA-core kernels through the user's entry
-     points: the flagship's width (d_model 768, vocab 50304) over 3 heads
-     of 256, depth cut to 2 layers, serves four requests (prompts 16-100:
-     the online and lazy walks) and one more under
-     HVD_FLASH_VARIANT=twopass, then trains 4 steps at batch 16 x seq 1024
-     through make_gspmd_multi_step on the one-card mesh. Launch counts
-     are zeroed just before and read just after: each of the five
-     CUDA-core kernels (flash_fwd_cc_{online,lazy,twopass},
-     flash_bwd_cc_{dq,dkv}) must have launched and nothing else; the
-     loss must fall, and the first batch's loss on the kernel path must
-     equal the plain path's within 2^-8; then the same over 2 heads of
-     384 on the run-time-d kernels (flash_fwd_dyn_*, flash_bwd_dyn_*);
+  3e. head dim 256 through the user's entry points: the flagship's
+     width (d_model 768, vocab 50304) over 3 heads of 256 serves, at the
+     full depth of 12 layers, four requests (prompts 16-100: the online
+     and lazy walks) and one more under HVD_FLASH_VARIANT=twopass, then,
+     depth cut to 2 layers, trains 4 steps at batch 16 x seq 1024 through
+     make_gspmd_multi_step on the one-card mesh. Launch counts are zeroed
+     just before and read just after: each of the wgmma forward's walks
+     (flash_fwd_{online,lazy,twopass}) and the CUDA-core backward
+     (flash_bwd_cc_{dq,dkv}) must have launched and nothing else (no
+     CUDA-core forward); the same requests served again by the 2-layer
+     model in fp32 must launch each CUDA-core forward walk
+     (flash_fwd_cc_*) and nothing else; the loss must fall, and the first
+     batch's loss on the kernel path at 12 layers must equal the plain
+     path's within 2^-8; then the same over 2 heads of 384, served and
+     trained at 2 layers, on the run-time-d kernels (flash_fwd_dyn_*,
+     flash_bwd_dyn_*);
   3f. serving on the tensor-parallel mesh: GPT-2-small (bf16, full width
      and depth) served by tp engines of 2, 3 and 4 ranks, the ranks
      threads of this process on the one card (at tp 4 the 6 heads do not
@@ -149,7 +164,8 @@ on failure:
      plane over CUDA tensors, HMAC control plane): 16 names submitted in
      opposite orders, a subset submission reported stalled, a rank that
      exits unannounced failing the other's pending handle with
-     RanksLostError, every join under a deadline; (c) the --eager-allreduce
+     RanksLostError, every join under a deadline (on a track of its own
+     in the process lane, see 3j); (c) the --eager-allreduce
      paths of train_lm (the flagship) and synthetic_benchmark (ResNet-50,
      norm_impl tpu) 10 steps each: losses falling, 12+12+12 and 53+53
      launches a step, the parameters after 3 steps equal to the
@@ -183,7 +199,8 @@ on failure:
      ledger confirms the loss -> exit 44 -> shrink to one
      rank -> resume of the 2-rank checkpoint, to step 10, every restore
      crc-verified and equal to the saving ranks' digest, each restart's
-     recovery time printed;
+     recovery time printed; the drill runs in the process lane (see
+     3j), so its recovery times are taken beside the untimed checks;
   3j. the collectives' op and axis_name, the launch plane, the overlap
      plane and checkpointing on the tp mesh, each part under its own
      deadline: (a) at world 1 over NCCL allreduce with op sum, average,
@@ -195,7 +212,8 @@ on failure:
      exception reported at the launcher with its rank, and whether
      cloudpickle imports; (c) two train_lm --steps processes with only
      mpirun's env and HVD_RENDEZVOUS_DIR: both finish with equal losses,
-     the rendezvous file removed, whether mpirun is on PATH; (d) the
+     the rendezvous file removed, whether mpirun is on PATH, whether their
+     losses equal (a, b)'s; (d) the
      flagship eager step at full size at world 1 with
      HOROVOD_OVERLAP_EAGER 0 and 1: fp32 masters bit-equal after 3
      steps, ready flushes only with it on, ms/step (best of 3 windows of
@@ -204,7 +222,18 @@ on failure:
      --tp 2 --steps 6 at depth 2 on 2 ranks, SIGTERM during step 3
      (emergency save, exit 45) beside an uninterrupted tp-2 run, resumed
      at tp 2 (the later losses bit-equal) and at dp 2 (within 2^-8),
-     save (blocking, whole) and restore ms; the phase's seconds;
+     save (blocking, whole) and restore ms; the phase's seconds.
+     The process lane: 3i's drill, (c) and (a, b)'s two ranks, in that
+     order, on a thread (each started once the card has 30 GB free), and
+     3h (b)'s two small processes on another, run beside the checks that
+     record no time (3b-3d, 3g, 3h (a), 3i (a), (a) at world 1, 3k (b,
+     c)), which therefore run after 3e and 3f (these set
+     HVD_FLASH_VARIANT for a while, and the lane's ranks take this
+     process's environment); the lane is joined before 3h (c), and 3h
+     (c), the checkpoint of 3i, 3i (b, c), (d), (e), 3k (a) and (d) run
+     after it, each with the card and the host alone; the lane's seconds
+     by job, the free memory at each job's start and the lowest free
+     memory while it ran are printed;
   3k. the observability planes: (a) the flagship eager step at full size
      at world 1 over NCCL, 10 steps with the metrics, tracing, history
      and alert planes on: the port's MetricsServer scraped over localhost
@@ -294,9 +323,16 @@ on failure:
      knobs bit-equal to a run without it; (b) clean steps flag no
      anomaly, a gradient hook planting 3 NaNs in ln_f.scale's gradient
      raises hvd_nonfinite_total by 3 a side with one numerics_anomaly
-     event, one flight dump, and the nonfinite alert firing, and the
-     plane's cost split (the stats' device ms a step, their host ms to
-     queue, their scratch bytes, the policy's host ms); (c) (inside
+     event, one flight dump, and the nonfinite alert firing; the
+     reference's <=2 % contract as bench.py holds it (numerics off and on
+     over interleaved windows of the flagship eager step, every other
+     plane at its default, the side that runs first alternating by round,
+     the best window of each side, more rounds only while over budget, up
+     to 3; fatal above 2 %), then the stats kernels' share of the step's
+     device ms from torch.profiler, fatal above 2 %; and the plane's cost
+     split for the stats kernel and for its plain version (the stats'
+     device ms a step, their host ms to queue, their scratch bytes, the
+     policy's host ms); (c) (inside
      phase 3k (b)'s 2-rank launch, HOROVOD_AUTOTUNE=1) rank 1's reduced
      copy of one named tensor scaled by 1 + 1e-2 and rank 0's
      coordinator naming rank 1 in hvd_numerics_divergent_rank, both ranks
@@ -382,18 +418,27 @@ BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd_sm90.cu"
 CC_FWD_SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
 CC_BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
 BN_SOURCE = "horovod_tpu_torch/csrc/batch_norm.cu"
+STATS_SOURCE = "horovod_tpu_torch/csrc/segment_stats.cu"
 REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "lazy": "horovod_tpu/ops/flash_attention.py:220",
             "twopass": "horovod_tpu/ops/flash_attention.py:312",
             "dq": "horovod_tpu/ops/flash_attention.py:467",
             "dkv": "horovod_tpu/ops/flash_attention.py:531",
             "bn_moments": "horovod_tpu/ops/batch_norm.py:78",
-            "bn_moments2": "horovod_tpu/ops/batch_norm.py:95"}
+            "bn_moments2": "horovod_tpu/ops/batch_norm.py:95",
+            # no Pallas kernel: the reference's one compiled pass per
+            # slice layout
+            "segment_stats": "horovod_tpu/utils/numerics.py:228"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
-# phase 3e: the flagship's d_model 768 over 3 heads of 256, depth cut
+# phase 3e: the flagship's d_model 768 over 3 heads of 256: served at full
+# depth, trained at depth WIDE_LAYERS; bf16 forwards on the wgmma kernel,
+# the backward and the fp32 forwards on the CUDA cores
 WIDE_HEADS, WIDE_LAYERS, WIDE_STEPS = 3, 2, 4
-CC_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy", "twopass")
-                 ) + ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
+WIDE_SERVE_LAYERS = 12
+WIDE_NAMES = tuple(f"flash_fwd_{v}" for v in ("online", "lazy", "twopass")
+                   ) + ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
+CC_FWD_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy",
+                                                    "twopass"))
 # phase 3e again: the flagship's width over 2 heads of 384, on the
 # run-time-d kernels
 DYN_HEADS = 2
@@ -414,6 +459,12 @@ def card_line():
 
 def log(card, msg):
     print(f"[{card}] {msg}", flush=True)
+
+
+def stamp(card, what, t_main):
+    """The seconds since the build began, at the end of ``what``."""
+    log(card, f"{what} done at {time.perf_counter() - t_main:.1f} s from "
+              f"the build")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -703,10 +754,14 @@ def check_sm90_kernel(card, dev, errs):
     non-causal sk != sq, both CTA shapes forced with the rising-max
     adversaries at 128-key tiles, one partial tile (s 16, 64, 100: the
     serving prompts' nk = 1), partial last tiles (s 1000, sq 100 x sk 300)
-    at both CTA shapes, causal and not, and the training shape. Folds the
-    largest O error into ``errs``."""
+    at both CTA shapes, causal and not, and the training shape; then head
+    dim 256 (64-key tiles): both CTA shapes, causal and not, at s 192, the
+    partial last tiles of sq 200 x sk 200, sq 1000 and sq 100 x sk 300,
+    and the rising-max adversaries for each walk order. Folds the largest
+    O error into ``errs`` (``fwd_d256`` for d 256)."""
     ramp = {"down": torch.linspace(4.0, 0.5, 512),
             "up": torch.linspace(0.5, 4.0, 512)}
+    errs.setdefault("fwd_d256", 0.0)
     cases = []   # (bh, sq, sk, d, causal, cta_rows, ramp)
     for causal in (True, False):
         for d in (16, 32, 64, 128):
@@ -724,6 +779,12 @@ def check_sm90_kernel(card, dev, errs):
             cases.append((4, 100, 300, 128, causal, rows, None))
     cases.append((TRAIN_BATCH * 6, TRAIN_SEQ, TRAIN_SEQ, 128, True, None,
                   None))
+    for rows in (64, 128):
+        for causal in (True, False):
+            for sq, sk in ((192, 192), (200, 200), (1000, 1000), (100, 300)):
+                cases.append((4, sq, sk, 256, causal, rows, None))
+            for name in ramp:
+                cases.append((6, 512, 512, 256, causal, rows, name))
     share = 0.0
     n_cmp = 0
     for n, (bh, sq, sk, d, causal, rows, name) in enumerate(cases):
@@ -747,14 +808,18 @@ def check_sm90_kernel(card, dev, errs):
                 err, frac = hold(got, want, what, torch.bfloat16, label)
                 share = max(share, frac)
                 if what == "O":
-                    errs[variant] = max(errs[variant], err)
+                    key = "fwd_d256" if d == 256 else variant
+                    errs[key] = max(errs[key], err)
                 n_cmp += 1
     log(card, f"phase 2: {n_cmp} wgmma/TMA forward kernel/plain comparisons "
               f"(bf16 online, lazy and twopass, O and lse; d 16/32/64/128, s "
               f"192 and 960 at b·h >= 2, sq 192 x sk 320, CTA rows 64 and "
               f"128, rising-max adversaries, s 16/64/100/1000 and sq 100 x sk "
-              f"300 causal and not, the training shape) passed; largest "
-              f"error as a share of its tolerance {share:.3f}")
+              f"300 causal and not, the training shape; d 256 at 64-key "
+              f"tiles, CTA rows 64 and 128, causal and not, s 192, sq 200, "
+              f"1000 and 100 x sk 300, the adversaries) passed; largest "
+              f"error as a share of its tolerance {share:.3f}; largest d-256 "
+              f"|error| {errs['fwd_d256']:.3e}")
 
 
 def check_bwd_kernels(card, dev):
@@ -973,21 +1038,24 @@ WIDE_DIMS = (160, 192, 256)
 
 
 def check_wide_head_dims(card, dev, errs):
-    """Head dims above 128 on the CUDA-core kernels: d 160, 192 and 256
-    (zero-padded to 256 on the host below it) through the public autograd
-    path at s 200 (a partial 64-row tile and a partial 32-key tile), fp32
-    and bf16, causal and not, against the plain walks at the true d and
-    the kernels' tiles, O and dq, dk, dv; then every forward walk at d 256
-    through the launch wrapper at sq 130 causal and sq 64 x sk 200, O and
-    lse. Folds the largest bf16 errors into ``errs`` (fwd_d256, dq_d256,
-    dkv_d256)."""
-    for key in ("fwd_d256", "dq_d256", "dkv_d256"):
+    """Head dims above 128: d 160, 192 and 256 (zero-padded to 256 on the
+    host below it) through the public autograd path at s 200 (partial q,
+    k and 32-key tiles), fp32 and bf16, causal and not, against the plain
+    walks at the true d and the kernels' tiles, O and dq, dk, dv: the bf16
+    forward on the wgmma kernel, the fp32 forward and the backward on the
+    CUDA cores; then every forward walk at d 256 through the launch
+    wrapper at sq 130 causal and sq 64 x sk 200, O and lse. Folds the
+    largest errors into ``errs`` (fwd_d256 bf16, fwd_d256_fp32, and the
+    bf16 dq_d256, dkv_d256)."""
+    for key in ("fwd_d256", "fwd_d256_fp32", "dq_d256", "dkv_d256"):
         errs.setdefault(key, 0.0)
     share, n_cmp = {"bfloat16": 0.0, "float32": 0.0}, 0
-    want_launches = {"flash_fwd_cc_online": 1, "flash_bwd_cc_dq": 1,
-                     "flash_bwd_cc_dkv": 1}
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
+        fwd_key = "fwd_d256" if dtype == torch.bfloat16 else "fwd_d256_fp32"
+        want_launches = {"flash_fwd_online" if dtype == torch.bfloat16
+                         else "flash_fwd_cc_online": 1,
+                         "flash_bwd_cc_dq": 1, "flash_bwd_cc_dkv": 1}
         for d in WIDE_DIMS:
             for causal in (True, False):
                 q, k, v = qkv(1400 + d, b=2, s=200, h=3, d=d, dtype=dtype,
@@ -1013,8 +1081,7 @@ def check_wide_head_dims(card, dev, errs):
                 err, frac = hold(flat(out.detach()), want[0], "O", dtype,
                                  label)
                 share[dt] = max(share[dt], frac)
-                if dtype == torch.bfloat16:
-                    errs["fwd_d256"] = max(errs["fwd_d256"], err)
+                errs[fwd_key] = max(errs[fwd_key], err)
                 n_cmp += 1
                 for name, t, w in zip(("dq", "dk", "dv"), ts, want[1:]):
                     err, frac = hold_grad(flat(t.grad), w, dtype,
@@ -1038,16 +1105,18 @@ def check_wide_head_dims(card, dev, errs):
                     err, frac = hold(got, w, what, dtype,
                                      f"{variant} {dt} d=256 sq={sq} sk={sk}")
                     share[dt] = max(share[dt], frac)
-                    if dtype == torch.bfloat16 and what == "O":
-                        errs["fwd_d256"] = max(errs["fwd_d256"], err)
+                    if what == "O":
+                        errs[fwd_key] = max(errs[fwd_key], err)
                     n_cmp += 1
     fa.reset_launch_counts()
-    log(card, f"phase 2: {n_cmp} comparisons of head dims 160/192/256 on the "
-              f"CUDA-core kernels (public autograd path at s 200, fp32 and "
+    log(card, f"phase 2: {n_cmp} comparisons of head dims 160/192/256 (bf16 "
+              f"forward on the wgmma kernel; fp32 forward and the backward "
+              f"on the CUDA cores; public autograd path at s 200, fp32 and "
               f"bf16, causal and not; each walk at d 256 at partial tiles) "
               f"passed; largest error as a share of its tolerance {share}; "
-              f"largest bf16 |error| fwd {errs['fwd_d256']:.3e}, dq "
-              f"{errs['dq_d256']:.3e}, dk/dv {errs['dkv_d256']:.3e}")
+              f"largest |error| fwd bf16 {errs['fwd_d256']:.3e}, fp32 "
+              f"{errs['fwd_d256_fp32']:.3e}, bf16 dq {errs['dq_d256']:.3e}, "
+              f"dk/dv {errs['dkv_d256']:.3e}")
 
 
 BEYOND_DIMS = (288, 384, 512, 1024)
@@ -1161,10 +1230,11 @@ def check_beyond_256(card, dev, errs):
 def check_ring_pairs(card, dev, errs):
     """The call patterns of a ring_flash pair after the first: at the
     model's attention width (b 4, h 6, d 128, s 1024, bf16, the wgmma
-    kernels), at fp32 (b 1) and at d 256 (b 1, bf16; the CUDA-core
-    kernels). The forward non-causal at sq = sk against the plain walk;
-    the backward under a merged lse (the pair's own plus another block of
-    equal mass) whose odd rows are +1e30 (a future pair for those rows),
+    kernels), at fp32 (b 1) and at d 256 (b 1, bf16; the wgmma forward
+    and the CUDA-core backward). The forward non-causal at sq = sk
+    against the plain walk; the backward under a merged lse (the pair's
+    own plus another block of equal mass) whose odd rows are +1e30 (a
+    future pair for those rows),
     against the plain walks, those rows' dq exactly 0; and a wholly future
     pair whose keys are offset by 1e3 (logits in the thousands): dq, dk
     and dv exactly 0."""
@@ -1784,42 +1854,70 @@ def check_chunked_ce(card, dev, cfg):
 # phase 3e: head dim 256 through the user's entry points
 
 
+def serve_all_walks(cfg, model, requests, dev):
+    """requests[:4] (prompts 16-100: the online and lazy walks), then
+    requests[3] again under HVD_FLASH_VARIANT=twopass."""
+    serve(cfg, model, requests[:4], dev)
+    os.environ["HVD_FLASH_VARIANT"] = "twopass"
+    try:
+        serve(cfg, model, requests[3:4], dev)
+    finally:
+        del os.environ["HVD_FLASH_VARIANT"]
+
+
+def hold_launches(launches, names, what):
+    missing = [n for n in names if not launches.get(n)]
+    if missing or set(launches) - set(names):
+        raise AssertionError(f"{what} launched {launches}; missing "
+                             f"{missing}")
+
+
 def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
-                   names=CC_NAMES, phase="3e"):
+                   names=WIDE_NAMES, phase="3e",
+                   serve_layers=WIDE_SERVE_LAYERS, fp32_names=CC_FWD_NAMES):
     """The flagship's width (d_model 768, vocab 50304, d_ff 3072) over
-    ``heads`` heads (WIDE_HEADS: 256 each, on the CUDA-core kernels;
-    DYN_HEADS: 384 each, on the run-time-d ones), depth cut to
-    WIDE_LAYERS: the serving engine answers requests[:4] (prompts 16-100:
-    the online and lazy walks) and requests[3] again under
-    HVD_FLASH_VARIANT=twopass, then the model trains WIDE_STEPS steps on
-    one batch of TRAIN_BATCH x TRAIN_SEQ through make_gspmd_multi_step on
-    a one-card mesh. The counts are zeroed just before and read just
+    ``heads`` heads (WIDE_HEADS: 256 each, bf16 forwards on the wgmma
+    kernel and the backward on the CUDA cores; DYN_HEADS: 384 each, on
+    the run-time-d kernels): the serving engine, at ``serve_layers``
+    layers, answers requests[:4] (prompts 16-100: the online and lazy
+    walks) and requests[3] again under HVD_FLASH_VARIANT=twopass, then
+    the model, depth cut to WIDE_LAYERS, trains WIDE_STEPS steps on one
+    batch of TRAIN_BATCH x TRAIN_SEQ through make_gspmd_multi_step on a
+    one-card mesh. The counts are zeroed just before and read just
     after: each of the five kernels ``names`` must have launched, and no
-    other kernel. The loss must fall, and the training batch's loss
-    through the kernels must equal the plain path's within 2^-8
-    (launches of that comparison not counted). Returns the run's
-    launches."""
+    other kernel. With ``fp32_names`` the same requests are served again
+    by the WIDE_LAYERS model in fp32, counted apart: each of those
+    kernels must launch, and no other. The loss must fall, and the
+    training batch's loss through the kernels must equal the plain
+    path's within 2^-8 (launches of that comparison not counted).
+    Returns the runs' launches."""
     cfg = dataclasses.replace(train_cfg, num_heads=heads,
                               num_layers=WIDE_LAYERS)
-    serve_model = tr.init_params(cfg, torch.Generator().manual_seed(0),
+    serve_cfg = dataclasses.replace(cfg, num_layers=serve_layers)
+    serve_model = tr.init_params(serve_cfg, torch.Generator().manual_seed(0),
                                  device=dev)
     mesh = mesh_lib.build_mesh(dp=1)
     model, opt, step, toks = train_lm.build_gspmd_step(
         cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, mesh)
     fa.reset_launch_counts()
-    serve(cfg, serve_model, requests[:4], dev)
-    os.environ["HVD_FLASH_VARIANT"] = "twopass"
-    try:
-        serve(cfg, serve_model, requests[3:4], dev)
-    finally:
-        del os.environ["HVD_FLASH_VARIANT"]
+    t0 = time.perf_counter()
+    serve_all_walks(serve_cfg, serve_model, requests, dev)
+    serve_s = time.perf_counter() - t0
     losses = [step(model, opt, toks)[2].item() for _ in range(WIDE_STEPS)]
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)
-    missing = [n for n in names if not launches.get(n)]
-    if missing or set(launches) - set(names):
-        raise AssertionError(f"the head-dim-{cfg.head_dim} run launched "
-                             f"{launches}; missing {missing}")
+    hold_launches(launches, names, f"the head-dim-{cfg.head_dim} run")
+    fp32 = {}
+    if fp32_names:
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model32 = tr.init_params(cfg32, torch.Generator().manual_seed(0),
+                                 device=dev)
+        fa.reset_launch_counts()
+        serve_all_walks(cfg32, model32, requests, dev)
+        fp32 = dict(fa.launch_counts)
+        hold_launches(fp32, fp32_names,
+                      f"the head-dim-{cfg.head_dim} fp32 serving run")
+        del model32
     if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
         raise AssertionError(f"head-dim-{cfg.head_dim} losses {losses}")
     loss_fn = tr.lm_loss_fn(serve_model)
@@ -1832,15 +1930,19 @@ def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
         raise AssertionError(f"head-dim-{cfg.head_dim} loss {got} vs plain "
                              f"{want}")
     fa.reset_launch_counts()
+    fp32_note = (f"; fp32 serving at {cfg.num_layers} layers launched {fp32}"
+                 if fp32 else "")
     log(card, f"phase {phase}: d_model {cfg.d_model} over {cfg.num_heads} "
-              f"heads "
-              f"of {cfg.head_dim}, {cfg.num_layers} layers: served 5 "
-              f"requests (one under twopass), trained {WIDE_STEPS} GSPMD "
-              f"steps at b{TRAIN_BATCH} x s{TRAIN_SEQ}: loss "
-              f"{[round(x, 4) for x in losses]}; launches {launches}; loss "
-              f"through the kernels {got:.6f} vs plain path {want:.6f} "
-              f"(|diff| / loss {rel:.3e}, bound 2^-8)")
-    return launches
+              f"heads of {cfg.head_dim}: served 5 requests (one under "
+              f"twopass) at {serve_layers} layers in {serve_s:.2f} s, "
+              f"trained {WIDE_STEPS} GSPMD steps at {cfg.num_layers} layers "
+              f"at b{TRAIN_BATCH} x s{TRAIN_SEQ}: loss "
+              f"{[round(x, 4) for x in losses]}; launches {launches}"
+              f"{fp32_note}; loss at {serve_layers} layers through the "
+              f"kernels "
+              f"{got:.6f} vs plain path {want:.6f} (|diff| / loss "
+              f"{rel:.3e}, bound 2^-8)")
+    return {**launches, **fp32}
 
 
 # ---------------------------------------------------------------------------
@@ -2617,22 +2719,25 @@ def time_memory_and_remat(card, dev, model, opt, cfg, batch):
 
 
 def time_wide_kernels(card, dev, errs, launches):
-    """The CUDA-core kernels at d 256 and the run-time-d ones at d 384
-    beside the wgmma ones at d 128 (bf16, causal, b 4 h 6 s 1024): device
-    ms per call of each forward walk (online, lazy, twopass), dq and
-    dk/dv, against the bound (operations at the bf16 peak, or the bytes),
-    their plain versions at the kernels' tiles and SDPA's forward and
-    backward (whichever backend SDPA takes at that d); returns the
-    CUDA-core and run-time-d kernels' JSON entries, each with its
-    launches in phase 3e's runs (``launches``)."""
+    """The head dims above 128 beside the wgmma kernels at d 128 (causal,
+    b 4 h 6 s 1024): at d 256 the bf16 forward on the wgmma kernel, the
+    bf16 backward on the CUDA cores and the fp32 forward on the CUDA
+    cores; at d 384 the run-time-d kernels, bf16. Device ms per call of
+    each forward walk (online, lazy, twopass), dq and dk/dv, against the
+    bound (operations at the dtype's peak, or the bytes), their plain
+    versions at the kernels' tiles and SDPA's forward and backward
+    (whichever backend SDPA takes there); returns the d-256 and d-384
+    entries, each with its launches in phase 3e's runs (``launches``)."""
     b, s, h = 4, 1024, 6
     dyn_d = 768 // DYN_HEADS
     entries, rows = [], {}
-    for d in (128, 256, dyn_d):
-        q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=torch.bfloat16,
-                      device=dev)
+    for d, dtype in ((128, torch.bfloat16), (256, torch.bfloat16),
+                     (256, torch.float32), (dyn_d, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        tag = f"d{d}" + ("" if bf16 else " fp32")
+        q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=dtype, device=dev)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
-            d)).to(dev, torch.bfloat16)
+            d)).to(dev, dtype)
         qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
         scale = d ** -0.5
         out, lse = fa._kernel_fwd(qf, kf, vf, True, scale, "online")
@@ -2641,7 +2746,7 @@ def time_wide_kernels(card, dev, errs, launches):
         args = (True, float(scale * fa.LOG2E), float(scale))
         dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
         dq_walk, dkv_walk = fa.bwd_kernel_blocks(qf, kf)
-        if fa.on_sm90(qf):
+        if fa.on_sm90_bwd(qf):
             k_dq = lambda: ext.flash_bwd_sm90_dq(qf, kf, vf, gf, lse, delta,
                                                  dq, *args, dq_walk[0])
             k_dkv = lambda: ext.flash_bwd_sm90_dkv(qf, kf, vf, gf, lse,
@@ -2669,49 +2774,57 @@ def time_wide_kernels(card, dev, errs, launches):
             "bwd": lambda: torch.autograd.grad(o, (qs, ks, vs), go,
                                                retain_graph=True)}
         lib = {n_: time_pair(fn) for n_, fn in library.items()}
+        item = dtype.itemsize
         calls = {
             variant: (lambda variant=variant: fa._kernel_fwd(
                 qf, kf, vf, True, scale, variant),
                 lambda variant=variant: plain_fwd(qf, kf, vf, True, scale,
                                                   variant),
-                attention_work(b * h, s, d, True, 2), lib["fwd"])
+                attention_work(b * h, s, d, True, item), lib["fwd"])
             for variant in fa.VARIANTS}
-        calls.update({
-            "dq": (k_dq, lambda: ref.flash_bwd_dq(qf, kf, vf, gf, lse, delta,
-                                                  True, *dq_walk, scale),
-                   bwd_work(b * h, s, d, True, 2, "dq"), lib["bwd"]),
-            "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(
-                qf, kf, vf, gf, lse, delta, True, *dkv_walk, scale),
-                bwd_work(b * h, s, d, True, 2, "dkv"), lib["bwd"])})
+        if bf16:
+            calls.update({
+                "dq": (k_dq, lambda: ref.flash_bwd_dq(
+                    qf, kf, vf, gf, lse, delta, True, *dq_walk, scale),
+                    bwd_work(b * h, s, d, True, item, "dq"), lib["bwd"]),
+                "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(
+                    qf, kf, vf, gf, lse, delta, True, *dkv_walk, scale),
+                    bwd_work(b * h, s, d, True, item, "dkv"), lib["bwd"])})
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
         for name, (kernel, plain, (ops, nbytes), lib_t) in calls.items():
             kt = time_pair(kernel, iters=20)
             plain_ms = device_ms(plain, 2) or time_ms(plain, 2, 1)
-            b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
-            rows[f"d{d} {name}"] = (round(kt[2], 5), round(b_ms, 5),
-                                    round(plain_ms, 3), round(lib_t[2], 5))
-            if d > 128:
-                fwd = name in fa.VARIANTS
-                family = "dyn" if d == dyn_d else "cc"
-                counter = f"flash_{'fwd' if fwd else 'bwd'}_{family}_{name}"
-                suffix = "dyn" if d == dyn_d else "d256"
-                entries.append({
-                    "name": counter, "head_dim": d,
-                    "route": "cuda",
-                    "source": DYN_SOURCE if d == dyn_d else (
-                        CC_FWD_SOURCE if fwd else CC_BWD_SOURCE),
-                    "replaces": REPLACES[name],
-                    "launches": launches.get(counter, 0),
-                    "max_abs_err": errs[f"fwd_{suffix}" if fwd else
-                                        f"{name}_{suffix}"],
-                    "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_t[2]})
+            b_ms, b_by = bound(ops, nbytes, peak)
+            rows[f"{tag} {name}"] = (round(kt[2], 5), round(b_ms, 5),
+                                     round(plain_ms, 3), round(lib_t[2], 5))
+            if d == 128:
+                continue
+            fwd = name in fa.VARIANTS
+            if fwd:
+                counter = fa.fwd_launch_name(qf, name)
+                source = (SM90_SOURCE if fa.on_sm90_fwd(qf) else
+                          DYN_SOURCE if fa.on_dyn(d) else CC_FWD_SOURCE)
+                err_key = ("fwd_dyn" if fa.on_dyn(d) else "fwd_d256" if bf16
+                           else "fwd_d256_fp32")
+            else:
+                counter = fa.bwd_launch_names(qf)[name == "dkv"]
+                source = DYN_SOURCE if fa.on_dyn(d) else CC_BWD_SOURCE
+                err_key = f"{name}_{'dyn' if fa.on_dyn(d) else 'd256'}"
+            entries.append({
+                "name": counter, "head_dim": d, "dtype": str(dtype)[6:],
+                "route": "cuda", "source": source,
+                "replaces": REPLACES[name],
+                "launches": launches.get(counter, 0),
+                "max_abs_err": errs[err_key],
+                "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_t[2]})
         del o, qs, ks, vs
     fa.reset_launch_counts()
-    log(card, f"phase 4: bf16 causal b={b} h={h} s={s}, d 256 on the "
-              f"CUDA-core kernels and d {dyn_d} on the run-time-d ones "
-              f"beside d 128 on the wgmma ones, (kernel "
-              f"ms, bound ms, plain ms, SDPA ms; bwd: SDPA's whole "
-              f"backward): {rows}; d{dyn_d} / d256: online "
+    log(card, f"phase 4: causal b={b} h={h} s={s}, d 256 (bf16 forward on "
+              f"the wgmma kernel, bf16 backward and fp32 forward on the CUDA "
+              f"cores) and d {dyn_d} on the run-time-d kernels beside d 128 "
+              f"on the wgmma ones, (kernel ms, bound ms, plain ms, SDPA ms; "
+              f"bwd: SDPA's whole backward): {rows}; d{dyn_d} / d256: online "
               f"{rows[f'd{dyn_d} online'][0] / rows['d256 online'][0]:.2f}, "
               f"dq {rows[f'd{dyn_d} dq'][0] / rows['d256 dq'][0]:.2f}, dk/dv "
               f"{rows[f'd{dyn_d} dkv'][0] / rows['d256 dkv'][0]:.2f}; "
@@ -2720,7 +2833,10 @@ def time_wide_kernels(card, dev, errs, launches):
               f"{rows['d256 lazy'][0] / rows['d128 lazy'][0]:.2f}, twopass "
               f"{rows['d256 twopass'][0] / rows['d128 twopass'][0]:.2f}, dq "
               f"{rows['d256 dq'][0] / rows['d128 dq'][0]:.2f}, dk/dv "
-              f"{rows['d256 dkv'][0] / rows['d128 dkv'][0]:.2f}")
+              f"{rows['d256 dkv'][0] / rows['d128 dkv'][0]:.2f}; d256 / "
+              f"SDPA: " + ", ".join(
+                  f"{v} {rows[f'd256 {v}'][0] / rows[f'd256 {v}'][3]:.2f}"
+                  for v in fa.VARIANTS))
     return entries
 
 
@@ -3634,20 +3750,45 @@ def run_drill(card):
               f"{r2['saved_layout']} ({r2['ms']:.1f} ms restore); every "
               f"restore crc-verified and equal to the saving ranks' digest, "
               f"extra {r2['extra']}; final step {report['done']['step']}; "
-              f"RTO (exit to first step) "
+              f"RTO (exit to first step, in the process lane beside the "
+              f"untimed checks) "
               f"{[round(v, 2) for v in report['rto_s']]} s; losses "
               f"{[round(v, 4) for v in losses]}")
     return report
 
 
+def in_background(fn, *args):
+    """Start ``fn(*args)`` on a thread; returns a join() that waits for it
+    and returns its result or raises its exception (``quiet``: returns
+    None instead). The process lane's tracks run this way."""
+    box = {}
+
+    def body():
+        try:
+            box["result"] = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 — re-raised by join
+            box["error"] = exc
+    th = threading.Thread(target=body, daemon=True)
+    th.start()
+
+    def join(quiet=False):
+        th.join()
+        if "error" in box and not quiet:
+            raise box["error"]
+        return box.get("result")
+    return join
+
+
 def run_phase_3i(card, dev, model, opt, cfg):
-    """Phase 3i, each part fatal and under its own deadline."""
+    """Phase 3i's timed parts, each fatal and under its own deadline, with
+    the card and the host to themselves: the checkpoint's save and
+    restore, then (b) and (c) in one launch. (a), the codecs, runs beside
+    the process lane, and (d), the drill, in it."""
     t0 = time.perf_counter()
     # the fp32 gradient bytes of the depth-cut model phase 3i (b) trains
     cut = tr.TransformerLM(dataclasses.replace(cfg, num_layers=WIRE_LAYERS),
                            "meta", torch.float32)
     grad_bytes = sum(p.numel() * 4 for p in cut.parameters())
-    check_codecs(card, dev, model)
     ckpt = time_checkpoint(card, model, opt)
     torch.cuda.empty_cache()
     log(card, f"phase 3i: this process holds "
@@ -3655,9 +3796,102 @@ def run_phase_3i(card, dev, model, opt, cfg):
               f"while the ranks run")
     ms, w2v_line = run_quantized_wire(card, grad_bytes, WIRE_LAYERS)
     w2v = run_word2vec(card, w2v_line)
-    drill = run_drill(card)
-    log(card, f"phase 3i: {time.perf_counter() - t0:.1f} s in all")
-    return {"ms": ms, "w2v": w2v, "ckpt": ckpt, "drill": drill}
+    log(card, f"phase 3i (b), (c) and the checkpoint: "
+              f"{time.perf_counter() - t0:.1f} s in all")
+    return {"ms": ms, "w2v": w2v, "ckpt": ckpt}
+
+
+LANE_FREE_GB = 30.0      # card memory free before a lane job starts: two
+                         # ranks of the flagship's width at depth 2
+LANE_FREE_WAIT_S = 300   # for the main thread's phase to give it back
+LANE_SAMPLE_S = 0.5
+
+
+def card_free_gb():
+    return torch.cuda.mem_get_info(0)[0] / 1e9
+
+
+class ProcessLane:
+    """The checks that are mostly process starts and waits, on threads
+    beside the main thread's checks that record no time: 3i (d)'s elastic
+    drill, 3j (c)'s mpirun ranks and 3j (a, b)'s run(fn) ranks one after
+    another (two ranks of the flagship's width at depth 2 each), and 3h
+    (b)'s two small eager-core processes on a track of their own. Before
+    each job of the first track the card must have LANE_FREE_GB free
+    (waited for up to LANE_FREE_WAIT_S, then fatal); a sampler records
+    the card's lowest free memory while the lane is open. Each job is
+    fatal and under its own deadline."""
+
+    def __init__(self, card):
+        self.card = card
+        self.jobs = (("3i (d)", run_drill), ("3j (c)", run_mpirun),
+                     ("3j (a, b)", run_fn_ranks))
+        self.t0 = time.perf_counter()
+        os.makedirs(P3J_DIR, exist_ok=True)
+        self.stop = threading.Event()
+        self.low_free = card_free_gb()
+        self.starts, self.seconds = {}, {}
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+        self._main = in_background(self._run)
+        self._small = in_background(self._timed, "3h (b)",
+                                    check_eager_processes)
+
+    def _sample(self):
+        while not self.stop.wait(LANE_SAMPLE_S):
+            self.low_free = min(self.low_free, card_free_gb())
+
+    def _timed(self, name, fn):
+        t = time.perf_counter()
+        out = fn(self.card)
+        self.seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    def _run(self):
+        results = {}
+        for name, fn in self.jobs:
+            if self.stop.is_set():
+                break
+            deadline = time.monotonic() + LANE_FREE_WAIT_S
+            free = card_free_gb()
+            while free < LANE_FREE_GB:
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"the process lane's {name}: {free:.2f} GB of the "
+                        f"card free after {LANE_FREE_WAIT_S} s, below "
+                        f"{LANE_FREE_GB} GB")
+                time.sleep(1.0)
+                free = card_free_gb()
+            self.starts[name] = round(free, 2)
+            results[name] = self._timed(name, fn)
+        return results
+
+    def join(self, quiet=False):
+        """Wait for both tracks; returns the first track's results by job.
+        ``quiet`` (after a failure elsewhere): start no further job and
+        return None whatever the lane raised."""
+        if quiet:
+            self.stop.set()
+        results, errors = None, []
+        for i, track in enumerate((self._main, self._small)):
+            try:   # both tracks end before this returns or raises
+                out = track(quiet)
+                results = out if i == 0 else results
+            except BaseException as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+        self.stop.set()
+        self._sampler.join()
+        if errors:
+            raise errors[0]
+        if not quiet:
+            log(self.card, f"the process lane: "
+                           f"{time.perf_counter() - self.t0:.1f} s; seconds "
+                           f"by job {self.seconds}; the card's free GB at "
+                           f"each job's start {self.starts} (at least "
+                           f"{LANE_FREE_GB} needed); the lowest free while "
+                           f"the lane was open {self.low_free:.2f} GB "
+                           f"(sampled every {LANE_SAMPLE_S} s)")
+        return results
 
 
 # ---------------------------------------------------------------------------
@@ -3831,11 +4065,11 @@ def _launch_env(extra):
     return env
 
 
-def run_mpirun(card, want_losses):
+def run_mpirun(card):
     """Phase 3j (c): two train_lm processes with only the env mpirun
     exports (OMPI_COMM_WORLD_*, its job id) and HVD_RENDEZVOUS_DIR: rank
     0 publishes the rendezvous through the filesystem; both finish, with
-    the same losses."""
+    the same losses, which it returns."""
     import shutil
     rdzv = os.path.join(P3J_DIR, "rdzv")
     shutil.rmtree(rdzv, ignore_errors=True)
@@ -3881,17 +4115,17 @@ def run_mpirun(card, want_losses):
     if os.listdir(rdzv):
         raise AssertionError(f"rendezvous file left behind: "
                              f"{os.listdir(rdzv)}")
-    same = done[0]["losses"] == want_losses
     log(card, f"phase 3j (c): mpirun on PATH: "
               f"{shutil.which('mpirun') is not None} (the drill sets only "
               f"its env, the same either way); two train_lm --steps "
               f"{P3J_STEPS} --num-layers {P3J_LAYERS} processes with "
               f"OMPI_COMM_WORLD_* and HVD_RENDEZVOUS_DIR only formed their "
               f"world through run/mpi.py, both finished, losses equal "
-              f"{[round(v, 6) for v in done[0]['losses']]} (equal to the "
-              f"run(fn) ranks': {same}); launches per rank "
+              f"{[round(v, 6) for v in done[0]['losses']]}; launches per "
+              f"rank "
               f"{done[0]['launches']}; the rendezvous file removed; "
               f"{time.perf_counter() - t0:.1f} s")
+    return done[0]["losses"]
 
 
 def _overlap_run(dev, cfg, on, layers_cfg):
@@ -4182,16 +4416,13 @@ def run_mesh_checkpoint(card):
 
 
 def run_phase_3j(card, dev):
-    """Phase 3j, each part fatal and under its own deadline."""
+    """Phase 3j (d) and (e), each part fatal and under its own deadline,
+    with the card and the host to themselves; (a) at world 1 runs beside
+    the process lane, and (a, b)'s ranks and (c) in it."""
     t0 = time.perf_counter()
-    os.makedirs(P3J_DIR, exist_ok=True)
-    check_op_axis(card, dev)
-    losses = run_fn_ranks(card)
-    run_mpirun(card, losses)
-    overlap = run_overlap(card, dev)
-    ckpt = run_mesh_checkpoint(card)
-    log(card, f"phase 3j: {time.perf_counter() - t0:.1f} s in all")
-    return {"overlap": overlap, "ckpt": ckpt}
+    run_overlap(card, dev)
+    run_mesh_checkpoint(card)
+    log(card, f"phase 3j (d), (e): {time.perf_counter() - t0:.1f} s in all")
 
 
 # ---------------------------------------------------------------------------
@@ -4720,17 +4951,16 @@ def check_observed_serving(card, dev, cfg, model):
     return pct
 
 
-def run_phase_3k(card, dev, cfg, model):
-    """Phase 3k, each part fatal."""
+def run_phase_3k(card, dev, cfg, model, ranks):
+    """Phase 3k (a) and (d), each part fatal; (b) and (c), whose result is
+    ``ranks``, ran beside the process lane."""
     t0 = time.perf_counter()
-    os.makedirs(P3K_DIR, exist_ok=True)
     eager = check_observed_eager(card, dev)
-    ranks = run_observed_ranks(card)
     serving = check_observed_serving(card, dev, cfg, model)
     # phase 4 times kernels and steps with every plane off (the history
     # writer's thread closed)
     _planes(False)
-    log(card, f"phase 3k: {time.perf_counter() - t0:.1f} s in all")
+    log(card, f"phase 3k (a), (d): {time.perf_counter() - t0:.1f} s in all")
     return {"eager": eager, "ranks": ranks, "serving": serving}
 
 
@@ -5874,6 +6104,9 @@ P3N_TUNE_MAX_STEPS = 120
 P3N_PARITY_STEPS = 3
 P3N_NANS = 3
 P3N_ATTRIB_EVERY, P3N_ATTRIB_STEPS = 5, 10
+P3N_GATE_WINDOW = 10           # steps a window of the numerics gate
+P3N_GATE_ROUNDS = 3            # the cap on its rounds (bench.py's)
+P3N_GATE_BUDGET = 2.0          # % (the reference's contract)
 P3N_BREAKDOWN_TOL = 0.10       # the classes' sum against the profiler's
 P3N_OTHER_MAX = 0.10           # the largest share "other" may take
 P3N_CLOCK_US = 2.0             # the live profiler's clock against the trace's
@@ -6122,27 +6355,21 @@ def check_numerics_world1(card, dev):
     torch.cuda.empty_cache()
 
 
-def check_numerics_cost(card, dev, stats_fn=None, reps=5):
+def check_numerics_cost(card, dev, stats_fn=None, reps=5, label="kernel"):
     """Phase 3n (b): the numerics plane's cost on the flagship's
     gradients, split: the stats' device ms a step (``segment_stats`` over
     each fusion bucket, the 86 gradients laid out in buckets of the
     default 64 MiB threshold, by CUDA events, median of ``reps``), the
     host ms to queue them, the scratch bytes above the buffers (allocator
-    peak), and the host ms of the policy (``ingest`` of the 86 rows). All
-    the planes' step overhead is phase 3k (f)'s on/off windows. Returns
-    the four figures."""
+    peak), and the host ms of the policy (``ingest`` of the 86 rows);
+    ``stats_fn`` (the stats kernel's wrapper by default) names what is
+    timed, ``label`` what the line calls it. The plane's step overhead is
+    the gate's (``check_numerics_gate``) and phase 3k (f)'s on/off
+    windows. Returns the four figures and the bytes a step reads."""
     from horovod_tpu_torch.utils import numerics
     stats_fn = stats_fn or numerics.segment_stats
-    cfg = train_lm.flagship_config(True)
-    sizes = [p.numel() for p in tr.TransformerLM(cfg, "meta", torch.float32)
-             .parameters()][::-1]
-    buckets, cur = [], []
-    for n in sizes:
-        if cur and (sum(cur) + n) * 4 > 64 * 1024 * 1024:
-            buckets.append(cur)
-            cur = []
-        cur.append(n)
-    buckets.append(cur)
+    buckets = flagship_buckets()
+    sizes = [n for b in buckets for n in b]
     gen = torch.Generator(device=dev).manual_seed(0)
     flats = [torch.randn(sum(b), generator=gen, device=dev) for b in buckets]
     for fl, b in zip(flats, buckets):
@@ -6176,9 +6403,11 @@ def check_numerics_cost(card, dev, stats_fn=None, reps=5):
     out = {"device_ms": statistics.median(device_ms),
            "host_queue_ms": statistics.median(host_ms),
            "scratch_bytes": scratch,
-           "policy_host_ms": statistics.median(policy_ms)}
-    log(card, f"phase 3n (b): the numerics plane's cost on the flagship's "
-              f"{len(sizes)} gradients ({sum(sizes) * 4 / 1e6:.1f} MB fp32) "
+           "policy_host_ms": statistics.median(policy_ms),
+           "bytes": sum(sizes) * 4}
+    log(card, f"phase 3n (b): the numerics plane's cost ({label}) on the "
+              f"flagship's {len(sizes)} gradients "
+              f"({sum(sizes) * 4 / 1e6:.1f} MB fp32) "
               f"in {len(buckets)} buckets of at most 64 MiB, a step "
               f"(median of {reps}): stats {out['device_ms']:.3f} device ms "
               f"(by CUDA events), {out['host_queue_ms']:.3f} host ms to "
@@ -6187,6 +6416,200 @@ def check_numerics_cost(card, dev, stats_fn=None, reps=5):
               f"{scratch / 1e6:.1f} MB; the policy over the "
               f"{len(sizes)} rows {out['policy_host_ms']:.3f} host ms")
     del flats, mats
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_buckets():
+    """The flagship's gradient sizes in reverse (the eager core's order)
+    laid out in fusion buckets of the default 64 MiB threshold."""
+    cfg = train_lm.flagship_config(True)
+    sizes = [p.numel() for p in tr.TransformerLM(cfg, "meta", torch.float32)
+             .parameters()][::-1]
+    buckets, cur = [], []
+    for n in sizes:
+        if cur and (sum(cur) + n) * 4 > 64 * 1024 * 1024:
+            buckets.append(cur)
+            cur = []
+        cur.append(n)
+    buckets.append(cur)
+    return buckets
+
+
+def _f64_stats(x, sizes):
+    """S_* rows of each slice of ``x`` in float64 on the card."""
+    rows, off = [], 0
+    f = x.double()
+    for n in sizes:
+        seg = f[off:off + n]
+        fin = torch.isfinite(seg)
+        safe = torch.where(fin, seg, 0.0)
+        rows.append(torch.stack([
+            safe.square().sum().sqrt(),
+            safe.abs().max() if n else safe.new_zeros(()),
+            (~fin).sum().double(), (seg == 0).sum().double() / max(n, 1),
+            safe.sum()]))
+        off += n
+    return torch.stack(rows).cpu()
+
+
+def check_stats_kernel(card, dev):
+    """The numerics plane's stats kernel (csrc/segment_stats.cu) against
+    its plain version and float64 on the card, fp32 and bf16: each of the
+    flagship's fusion buckets with NaN, +inf, -inf and zeros planted (and
+    the same buffer one element in, unaligned), a layout with empty
+    slices and slices shorter than a chunk, and one slice of 607.6 MB
+    (the flagship's gradients in one). Counts exact and equal
+    to the plain version's; L2, max-abs and checksum within 1e-6 of
+    float64, relative. Returns the largest |kernel - plain| over the
+    float columns."""
+    from horovod_tpu_torch.utils import numerics
+    t0 = time.perf_counter()
+    buckets = flagship_buckets()
+    total = sum(sum(b) for b in buckets)
+    layouts = {f"flagship bucket {i}": b for i, b in enumerate(buckets)}
+    layouts.update({
+        "empty slices": [0, 5, 0, 0, 70000, 1, 0, 16384, 16385, 0, 3],
+        "one slice of 607.6 MB": [total]})
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst, n_cmp = 0.0, 0
+    for label, sizes in layouts.items():
+        for dt in (torch.float32, torch.bfloat16):
+            n = sum(sizes)
+            x = torch.randn(n, generator=gen, device=dev).to(dt)
+            plant = torch.tensor([1, n // 3, n // 2, n - 2, 3, 4, 7],
+                                 device=dev)
+            x[plant] = torch.tensor([float("nan"), float("inf"),
+                                     -float("inf"), float("nan"), 0.0, -0.0,
+                                     0.0], device=dev).to(dt)
+            cases = [(x, sizes)]
+            if sizes[0] > 1:
+                cases.append((x[1:], [sizes[0] - 1] + list(sizes[1:])))
+            for buf, sz in cases:
+                numerics.reset_launch_counts()
+                got = numerics.segment_stats(buf, sz)
+                if numerics.launch_counts["segment_stats"] != 1:
+                    raise AssertionError(f"stats {label}: the kernel did not "
+                                         f"launch")
+                got = got.double().cpu()
+                plain = numerics.segment_stats_plain(buf, sz).double().cpu()
+                want = _f64_stats(buf, sz)
+                if not torch.equal(got[:, 2], want[:, 2]) or \
+                        not torch.equal(got[:, 2], plain[:, 2]):
+                    raise AssertionError(f"stats {label} {dt}: nonfinite "
+                                         f"counts {got[:, 2].tolist()} vs "
+                                         f"{want[:, 2].tolist()}")
+                torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0,
+                                           atol=1e-7)
+                for c in (0, 1, 4):
+                    torch.testing.assert_close(
+                        got[:, c], want[:, c], rtol=1e-6, atol=1e-30,
+                        msg=lambda m: f"stats {label} {dt} column {c}: {m}")
+                worst = max(worst, (got - plain)[:, [0, 1, 3, 4]].abs()
+                            .max().item())
+                n_cmp += 1
+            del x, cases
+    numerics.reset_launch_counts()
+    torch.cuda.empty_cache()
+    log(card, f"phase 2: {n_cmp} stats kernel comparisons (segment_stats.cu "
+              f"against float64 and the plain version; fp32 and bf16; the "
+              f"flagship's {len(buckets)} buckets with NaN, +-inf and zeros "
+              f"planted, aligned and one element in; empty and sub-chunk "
+              f"slices; one "
+              f"slice of {total * 4 / 1e6:.1f} MB) passed: counts exact, L2, "
+              f"max-abs and checksum within 1e-6 of float64; largest "
+              f"|kernel - plain| {worst:.3e}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def check_numerics_gate(card, dev):
+    """Phase 3n (b): the reference's <=2 % contract on the flagship eager
+    step at world 1 over NCCL (phase 3k (a)'s step, every other plane at
+    its default), by bench.py's protocol (numerics.overhead_gate): an off
+    and an on window of P3N_GATE_WINDOW steps each after an untimed step,
+    the side that runs first alternating by round; the best window of
+    each side; more rounds only while over budget, up to P3N_GATE_ROUNDS;
+    fatal above P3N_GATE_BUDGET %. Then the same budget on the card's own
+    clock, where host noise cannot hide a cost: one profiled on window
+    of two steps, the stats kernels' device ms against every device ms
+    of the step (``device_share``; None when torch.profiler recorded no
+    device event, and run_phase_3n then holds the stats' CUDA-event ms
+    against the best on window's ms). Returns the gate's figures and the
+    stats kernel's launches in it."""
+    from horovod_tpu_torch.utils import (alerts, history, memory, metrics,
+                                         numerics, tracing)
+    t0 = time.perf_counter()
+    for plane in (metrics, tracing, memory, history, alerts):
+        plane.reset(enabled=None)
+    step, model, _, toks = _eager_flagship(dev, inner=P3N_GATE_WINDOW)
+    for i in range(3):
+        loss = _observed_step(step, toks, i)
+    loss.item()
+    numerics.reset_launch_counts()
+
+    def window(enabled):
+        numerics.reset(enabled=enabled)
+        _observed_step(step, toks, 0).item()   # the toggle's own step
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(P3N_GATE_WINDOW):
+            loss = _observed_step(step, toks, i)
+        loss.item()
+        numerics.get_monitor().drain()
+        return (time.perf_counter() - t1) / P3N_GATE_WINDOW * 1e3
+    try:
+        out = numerics.overhead_gate(window, budget_pct=P3N_GATE_BUDGET,
+                                     rounds=P3N_GATE_ROUNDS)
+        out["launches"] = numerics.launch_counts["segment_stats"]
+        numerics.reset(enabled=True)
+
+        def two_steps():
+            for i in range(2):
+                _observed_step(step, toks, i)
+            numerics.get_monitor().drain()
+        busy, by_name = device_profile(two_steps, iters=1,
+                                       events_if_empty=False)
+    finally:
+        numerics.reset()
+    if not out["launches"]:
+        raise AssertionError("the numerics gate's on windows never launched "
+                             "the stats kernel")
+    out["device_share"] = None
+    if by_name:
+        stats_ms = sum(ms for name, ms in by_name.items()
+                       if "seg_partial_kernel" in name
+                       or "seg_final_kernel" in name) / 2
+        if not stats_ms:
+            raise AssertionError(f"the profiled on steps ran no stats "
+                                 f"kernel: {top_kernels(by_name)}")
+        out["device_share"] = {"stats_ms": stats_ms, "step_ms": busy / 2,
+                               "pct": stats_ms / busy * 2 * 100}
+        if out["device_share"]["pct"] > P3N_GATE_BUDGET:
+            raise AssertionError(f"the stats kernels take "
+                                 f"{out['device_share']} of the step's "
+                                 f"device time, over {P3N_GATE_BUDGET} %")
+    n_buckets = len(flagship_buckets())
+    log(card, f"phase 3n (b): numerics gate (bench.py's protocol: off and "
+              f"on windows of {P3N_GATE_WINDOW} flagship eager steps a "
+              f"round, the first side alternating, best of each side, at "
+              f"most {P3N_GATE_ROUNDS} rounds) over "
+              f"{out['rounds']} round(s): best off {out['off_best_ms']:.3f} "
+              f"ms/step, best on {out['on_best_ms']:.3f}, overhead "
+              f"{out['overhead_pct']:+.2f} % (budget {P3N_GATE_BUDGET} %); "
+              f"windows off {[round(w, 3) for w in out['off_ms']]}, on "
+              f"{[round(w, 3) for w in out['on_ms']]}; stats kernel launches "
+              f"{out['launches']} (one a bucket, two kernels each; the "
+              f"flagship's {n_buckets} buckets a step); on the card's clock "
+              + (f"the stats kernels {out['device_share']['stats_ms']:.3f} "
+                 f"of the step's {out['device_share']['step_ms']:.3f} device "
+                 f"ms (torch.profiler, 2 steps), "
+                 f"{out['device_share']['pct']:.3f} % (budget "
+                 f"{P3N_GATE_BUDGET} %)" if out["device_share"] else
+                 "not measured (torch.profiler recorded no device event)")
+              + f"; {time.perf_counter() - t0:.1f} s")
+    del step, model, toks
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -6532,14 +6955,29 @@ def check_instrument_step(card, dev):
 
 def run_phase_3n(card, dev):
     """Phase 3n at world 1, each part fatal; returns the launches of its
-    flagship eager runs ((a)'s tuning run, (e)'s instrumented steps) and
-    (e)'s hvd_mfu."""
+    flagship eager runs ((a)'s tuning run, (e)'s instrumented steps),
+    (e)'s hvd_mfu, and (b)'s numerics gate and stats cost."""
     from horovod_tpu_torch.utils import metrics, numerics, tracing
     t0 = time.perf_counter()
     os.makedirs(P3N_DIR, exist_ok=True)
     launches = check_autotune_world1(card, dev)
     check_numerics_world1(card, dev)
-    check_numerics_cost(card, dev)
+    gate = check_numerics_gate(card, dev)
+    cost = check_numerics_cost(card, dev)
+    plain = check_numerics_cost(card, dev, numerics.segment_stats_plain,
+                                label="plain version")
+    if gate["device_share"] is None:
+        # the stats' CUDA-event ms of a step against the step's best wall
+        # ms: the wall ms is at least the device ms, so this share is a
+        # lower bound of the device one
+        pct = cost["device_ms"] / gate["on_best_ms"] * 100
+        log(card, f"phase 3n (b): the stats' {cost['device_ms']:.3f} device "
+                  f"ms a step (CUDA events) against the best on window's "
+                  f"{gate['on_best_ms']:.3f} ms/step: {pct:.3f} % (budget "
+                  f"{P3N_GATE_BUDGET} %)")
+        if pct > P3N_GATE_BUDGET:
+            raise AssertionError(f"the stats take {pct:.3f} % of the step")
+    stats = {"gate": gate, "cost": cost, "plain_ms": plain["device_ms"]}
     check_memory_plane(card, dev)
     e_launches, mfu = check_instrument_step(card, dev)
     for k, v in e_launches.items():
@@ -6549,7 +6987,7 @@ def run_phase_3n(card, dev):
     numerics.reset(enabled=False)
     log(card, f"phase 3n: launches of its paths {launches}; "
               f"{time.perf_counter() - t0:.1f} s in all")
-    return launches, mfu
+    return launches, mfu, stats
 
 
 def main():
@@ -6565,25 +7003,54 @@ def main():
     t_main = time.perf_counter()
 
     # ---- phase 1: build
-    # the register reports of the wgmma/TMA sources: each alone through
-    # nvcc -Xptxas -v, all started beside the extension's build
+    t0 = time.perf_counter()
+    _build.extension()
+    log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
+              f"{time.perf_counter() - t0:.1f} s")
+    # the register reports of the wgmma/TMA sources, the run-time-d
+    # kernels and the stats kernel: each alone through nvcc -Xptxas -v,
+    # all started once the build has the cores back, read after phase 2
     ptxas = {}
-    for name in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dyn"):
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dyn",
+                 "segment_stats"):
         cubin = os.path.join(ROOT, "build", "flash_fwd_ab", f"{name}.cubin")
         os.makedirs(os.path.dirname(cubin), exist_ok=True)
         ptxas[name] = subprocess.Popen(
             fwd_ab.nvcc_cmd([os.path.join(_build.CSRC, f"{name}.cu")], cubin,
                             cubin=True),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    t0 = time.perf_counter()
-    _build.extension()
-    log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
-              f"{time.perf_counter() - t0:.1f} s")
-    # 24 forward instantiations (d x walk x warpgroups), 12 backward (dq:
-    # d x warpgroups; dk/dv: d); the run-time-d kernels: 6 forward (dtype
-    # x walk), 4 backward
-    for name, n_kernels in (("flash_fwd_sm90", 24), ("flash_bwd_sm90", 12),
-                            ("flash_dyn", 10)):
+
+    # ---- phase 2: kernels vs plain versions
+    try:
+        errs = check_kernels(card, dev)
+        check_sm90_kernel(card, dev, errs)
+        errs.update(check_bwd_kernels(card, dev))
+        check_sm90_bwd(card, dev, errs)
+        check_partial_tiles_and_head_dims(card, dev, errs)
+        check_wide_head_dims(card, dev, errs)
+        check_beyond_256(card, dev, errs)
+        check_ring_pairs(card, dev, errs)
+        # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
+        step_shapes = vision_bn_shapes(
+            models.build("resnet50", norm_impl="tpu", device=dev).train(),
+            vision_batch(dev, VISION_BATCH)[0])
+        if len(step_shapes) != BN_PER_STEP:
+            raise AssertionError(f"ResNet-50 has {len(step_shapes)} "
+                                 f"BatchNorms")
+        errs.update(check_bn_kernels(card, dev, step_shapes))
+        errs["segment_stats"] = check_stats_kernel(card, dev)
+    except BaseException:
+        for proc in ptxas.values():
+            proc.kill()
+            proc.communicate()
+        raise
+
+    # ---- phase 1's register reports: 30 forward instantiations (d 16-256
+    # x walk x warpgroups), 12 backward (dq: d x warpgroups; dk/dv: d); the
+    # run-time-d kernels: 6 forward (dtype x walk), 4 backward; the stats
+    # kernel's first pass (3 dtypes) and its reduction
+    for name, n_kernels in (("flash_fwd_sm90", 30), ("flash_bwd_sm90", 12),
+                            ("flash_dyn", 10), ("segment_stats", 4)):
         out, _ = ptxas[name].communicate(timeout=900)
         report = fwd_ab.ptxas_report(out)
         if ptxas[name].returncode or len(report) != n_kernels:
@@ -6602,23 +7069,7 @@ def main():
                   f"entry, spill store bytes, spill load bytes) {report}; "
                   f"{note}ptxas 'wgmma serialized' warnings: "
                   f"{serialized or 'none'}")
-
-    # ---- phase 2: kernels vs plain versions
-    errs = check_kernels(card, dev)
-    check_sm90_kernel(card, dev, errs)
-    errs.update(check_bwd_kernels(card, dev))
-    check_sm90_bwd(card, dev, errs)
-    check_partial_tiles_and_head_dims(card, dev, errs)
-    check_wide_head_dims(card, dev, errs)
-    check_beyond_256(card, dev, errs)
-    check_ring_pairs(card, dev, errs)
-    # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
-    step_shapes = vision_bn_shapes(
-        models.build("resnet50", norm_impl="tpu", device=dev).train(),
-        vision_batch(dev, VISION_BATCH)[0])
-    if len(step_shapes) != BN_PER_STEP:
-        raise AssertionError(f"ResNet-50 has {len(step_shapes)} BatchNorms")
-    errs.update(check_bn_kernels(card, dev, step_shapes))
+    stamp(card, "phases 1-2", t_main)
 
     # ---- phase 3: serve GPT-2-small through the kernels
     cfg = tr.TransformerConfig.gpt2_small_tpu(attention_impl="flash")
@@ -6704,57 +7155,95 @@ def main():
     log(card, "phase 3: fp32 cached greedy == no-cache greedy on 2 requests")
     del model32
 
-    # ---- phase 3b: train the flagship through the kernels
+    # ---- phase 3b's world (NCCL at world 1), then the phases that set
+    # HVD_FLASH_VARIANT for a while (3e, 3f): they run before the process
+    # lane starts, whose ranks take this process's environment
     hvd.init()
     check_nccl(card, dev)
     train_cfg = train_lm.flagship_config(True)
-    t_model, t_opt, t_batch, train_launches, train_losses = train_flagship(
-        card, dev, train_cfg)
-    launches.update({k: train_launches[k]
-                     for k in ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")})
-    check_train_grads(card, dev, train_cfg, t_batch)
 
-    # ---- phase 3c: train ResNet-50 through the BatchNorm kernels
-    launches.update(train_vision(card, dev))
-    check_vision_grads(card, dev)
-
-    # ---- phase 3d: the parallel path on one card
-    g_model, g_opt, g_step, gspmd_launches = train_gspmd(
-        card, dev, train_cfg, t_batch, train_losses)
-    ring_launches = check_ring_flash(card, dev)
-    check_seq_parallel_fwd(card, dev)
-    check_chunked_ce(card, dev, train_cfg)
-    log(card, f"phase 3d: launches of this slice's paths: GSPMD flagship "
-              f"{gspmd_launches}, ring_flash W={RING_W} {ring_launches}")
-
-    # ---- phase 3e: head dim 256 on the CUDA-core kernels, 384 on the
+    # ---- phase 3e: head dim 256 (the bf16 forward on the wgmma kernel,
+    # the backward and the fp32 forward on the CUDA cores), 384 on the
     # run-time-d ones
     wide_launches = run_wide_heads(card, dev, train_cfg, requests)
     wide_launches.update(run_wide_heads(card, dev, train_cfg, requests,
-                                        heads=DYN_HEADS, names=DYN_NAMES))
+                                        heads=DYN_HEADS, names=DYN_NAMES,
+                                        serve_layers=WIDE_LAYERS,
+                                        fp32_names=()))
 
     # ---- phase 3f: serving on the tensor-parallel mesh
     check_serving_mesh(card, dev, cfg, model, requests)
+    stamp(card, "phases 3, 3e, 3f", t_main)
 
-    # ---- phase 3g: the collective backends
-    check_collective_backends(card, dev, t_model, cfg.vocab_size)
+    # the process lane (3i (d)'s drill, 3j (c)'s mpirun ranks, 3j (a, b)'s
+    # run(fn) ranks; 3h (b)'s two small processes on a track of their
+    # own) beside the checks that record no time: 3b-3d, 3g, 3h (a),
+    # 3i (a), 3j (a) at world 1 and 3k (b, c). It is joined before the
+    # first timed phase, which then has the card and the host alone.
+    torch.cuda.empty_cache()
+    lane = ProcessLane(card)
+    try:
+        # ---- phase 3b: train the flagship through the kernels
+        t_model, t_opt, t_batch, train_launches, train_losses = \
+            train_flagship(card, dev, train_cfg)
+        launches.update({k: train_launches[k]
+                         for k in ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")})
+        check_train_grads(card, dev, train_cfg, t_batch)
+        torch.cuda.empty_cache()
 
-    # ---- phase 3h: the eager coordination core
+        # ---- phase 3c: train ResNet-50 through the BatchNorm kernels
+        launches.update(train_vision(card, dev))
+        check_vision_grads(card, dev)
+        torch.cuda.empty_cache()
+
+        # ---- phase 3d: the parallel path on one card
+        g_model, g_opt, g_step, gspmd_launches = train_gspmd(
+            card, dev, train_cfg, t_batch, train_losses)
+        ring_launches = check_ring_flash(card, dev)
+        check_seq_parallel_fwd(card, dev)
+        check_chunked_ce(card, dev, train_cfg)
+        log(card, f"phase 3d: launches of this slice's paths: GSPMD "
+                  f"flagship {gspmd_launches}, ring_flash W={RING_W} "
+                  f"{ring_launches}")
+        torch.cuda.empty_cache()
+
+        # ---- phase 3g: the collective backends
+        check_collective_backends(card, dev, t_model, cfg.vocab_size)
+        # ---- phase 3h (a): the eager coordination core at world 1
+        check_eager_core(card, dev)
+        # ---- phase 3i (a): the wire codecs
+        check_codecs(card, dev, t_model)
+        # ---- phase 3j (a) at world 1: op and axis_name
+        check_op_axis(card, dev)
+        torch.cuda.empty_cache()
+        # ---- phase 3k (b, c): two ranks over gloo, a stall, chaos
+        os.makedirs(P3K_DIR, exist_ok=True)
+        p3k_ranks = run_observed_ranks(card)
+    except BaseException:
+        lane.join(quiet=True)   # its processes end before this one does
+        raise
+    lane_out = lane.join()
+    log(card, f"phase 3j (c): the mpirun ranks' losses equal to the run(fn) "
+              f"ranks': {lane_out['3j (c)'] == lane_out['3j (a, b)']}")
+    stamp(card, "phases 3b-3d, 3g-3k (c) beside the process lane", t_main)
+
+    # ---- the timed phases, each alone on the card and the host
+    # ---- phase 3h (c): the eager entry points
     t3h = time.perf_counter()
-    check_eager_core(card, dev)
-    check_eager_processes(card)
     run_eager_entry_points(card, dev, train_cfg)
-    log(card, f"phase 3h: {time.perf_counter() - t3h:.1f} s in all")
+    log(card, f"phase 3h (c): {time.perf_counter() - t3h:.1f} s")
 
-    # ---- phase 3i: the quantized and sparse wire, checkpoint, the drill
+    # ---- phase 3i (b), (c): the quantized and sparse wire; checkpoint
     run_phase_3i(card, dev, t_model, t_opt, train_cfg)
 
-    # ---- phase 3j: op/axis_name, run(fn), mpirun, overlap, tp checkpoint
+    # ---- phase 3j (d), (e): overlap, tp checkpoint
     run_phase_3j(card, dev)
+    stamp(card, "phases 3h (c), 3i (b, c), 3j (d, e)", t_main)
 
-    # ---- phase 3k: the observability planes on the eager core, two
-    # ranks, chaos and serving
-    run_phase_3k(card, dev, cfg, model)
+    # ---- phase 3k (a), (d): the observability planes on the eager core
+    # and serving
+    run_phase_3k(card, dev, cfg, model, p3k_ranks)
+    stamp(card, "phase 3k", t_main)
 
     # ---- phase 3n: the numerics, memory and compile, cost-model,
     # attribution and autotuner planes on the flagship eager step; B2, B4
@@ -6762,7 +7251,8 @@ def main():
     # before phase 4: late in the script torch.profiler's exported traces
     # came back without device events (two whole runs), and it leaves
     # every plane off for the timings
-    p3n_launches, p3n_mfu = run_phase_3n(card, dev)
+    p3n_launches, p3n_mfu, p3n_stats = run_phase_3n(card, dev)
+    stamp(card, "phase 3n", t_main)
 
     # phase 3b's weights, generation 2 of phase 3l (after phase 4), kept
     # on the host so that phase 4's memory readings do not count them
@@ -6860,10 +7350,12 @@ def main():
               f"{top_kernels(by_name)}")
 
     time_vision(card, dev, step_shapes)
+    stamp(card, "phase 4", t_main)
 
     # ---- phase 3l: the fleet and router planes; its B1/B2 launches go
     # into the kernels line
     p3l_launches, _ = run_phase_3l(card, dev, trained)
+    stamp(card, "phase 3l", t_main)
     for k in kernels[:len(fa.VARIANTS)]:
         k["routed_launches"] = p3l_launches.get(k["name"], 0)
         k["launches"] += k["routed_launches"]
@@ -6871,14 +7363,31 @@ def main():
     # ---- phase 3m: MoE on ep, the pipeline on pp; B2, B4 and B5 launch
     # in all three of its paths
     p3m_launches = run_phase_3m(card, dev)
+    # their launches are at the flagship's head dim 128: not the d-256
+    # and d-384 entries, which carry phase 3e's
     for k in kernels:
-        if k["name"] in p3m_launches:
+        if k["name"] in p3m_launches and "head_dim" not in k:
             k["moe_pipeline_launches"] = p3m_launches[k["name"]]
             k["launches"] += k["moe_pipeline_launches"]
     for k in kernels:
-        if k["name"] in p3n_launches:
+        if k["name"] in p3n_launches and "head_dim" not in k:
             k["p3n_launches"] = p3n_launches[k["name"]]
             k["launches"] += k["p3n_launches"]
+    # the stats kernel over the flagship's buckets of a step (one count a
+    # bucket, two kernels each): its launches in phase 3n (b)'s gate (the eager step with
+    # numerics on by default), its time and the plain version's a step,
+    # the bound of reading the 607.6 MB once
+    cost = p3n_stats["cost"]
+    kernels.append({
+        "name": "segment_stats", "route": "cuda", "source": STATS_SOURCE,
+        "replaces": REPLACES["segment_stats"],
+        "launches": p3n_stats["gate"]["launches"],
+        "max_abs_err": errs["segment_stats"], "ms": cost["device_ms"],
+        "plain_ms": p3n_stats["plain_ms"],
+        "bound_ms": cost["bytes"] / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "per": f"the flagship's {len(flagship_buckets())} buckets of one "
+               f"step"})
     log(card, f"chip_smoke: {time.perf_counter() - t_main:.1f} s from the "
               f"build to the result")
 

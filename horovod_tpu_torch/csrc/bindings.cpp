@@ -64,6 +64,11 @@ extern "C" cudaError_t hvd_bn_moments(const void* a, const void* b,
                                       float* out0, float* out1, float* part,
                                       long long rows, int c, int dtype,
                                       int two, cudaStream_t stream);
+extern "C" cudaError_t hvd_segment_stats(const void* x, int dtype,
+                                         const long long* chunk_starts,
+                                         int n_chunks, const int* slice_first,
+                                         int n_slices, double* part,
+                                         float* out, cudaStream_t stream);
 
 namespace {
 
@@ -104,27 +109,27 @@ void check_fwd(const char* which, const torch::Tensor& q,
               ": lse must be fp32");
 }
 
-// The forward (variant 0 online, 1 lazy, 2 twopass) on the CUDA cores
-// (flash_fwd.cu): fp32 at every compiled head dim, bf16 at d 256.
+// The fp32 forward (variant 0 online, 1 lazy, 2 twopass) on the CUDA cores
+// (flash_fwd.cu) at every compiled head dim; bf16 runs on flash_fwd_sm90.
 void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, torch::Tensor& out, torch::Tensor& lse,
                int64_t variant, bool causal, double scale2) {
   check_fwd("flash_fwd", q, k, v, out, lse);
-  int dtype = kernel_dtype(q, "flash_fwd");
-  for (const auto& t : {k, v, out})
-    TORCH_CHECK(t.scalar_type() == q.scalar_type(),
-                "flash_fwd: q, k, v and out must share a dtype");
+  for (const auto& t : {q, k, v, out})
+    TORCH_CHECK(t.scalar_type() == torch::kFloat32,
+                "flash_fwd: q, k, v and out must be float32");
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_fwd", hvd_flash_fwd(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       lse.data_ptr<float>(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), dtype, static_cast<int>(variant),
+      static_cast<int>(q.size(2)), 0, static_cast<int>(variant),
       causal ? 1 : 0, static_cast<float>(scale2), stream_of(q)));
 }
 
 // The bf16 forward (variant 0 online, 1 lazy, 2 twopass) on wgmma and TMA
-// (flash_fwd_sm90.cu), with cta_rows (64 or 128) query rows per CTA.
+// (flash_fwd_sm90.cu) at d 16-256, with cta_rows (64 or 128) query rows per
+// CTA.
 void flash_fwd_sm90(const torch::Tensor& q, const torch::Tensor& k,
                     const torch::Tensor& v, torch::Tensor& out,
                     torch::Tensor& lse, int64_t variant, bool causal,
@@ -387,13 +392,60 @@ void bn_moments(const torch::Tensor& a, const torch::Tensor& b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Per-slice gradient-health statistics of a fused buffer (segment_stats.cu):
+// x contiguous fp32, bf16 or fp16; chunk_starts int64 [n_chunks + 1] and
+// slice_first int32 [n_slices + 1], the cached layout; part float64
+// [n_chunks * 5] scratch and out float32 [n_slices, 5], allocated by the
+// Python wrapper (utils/numerics.py).
+void segment_stats(const torch::Tensor& x, const torch::Tensor& chunk_starts,
+                   const torch::Tensor& slice_first, torch::Tensor& part,
+                   torch::Tensor& out) {
+  for (const auto& t : {x, chunk_starts, slice_first, part, out}) {
+    TORCH_CHECK(t.is_cuda() && t.is_contiguous(),
+                "segment_stats: every tensor must be contiguous on a CUDA "
+                "device");
+    TORCH_CHECK(t.device() == x.device(),
+                "segment_stats: every tensor must be on x's device");
+  }
+  int dtype = -1;
+  if (x.scalar_type() == torch::kFloat32) dtype = 0;
+  if (x.scalar_type() == torch::kBFloat16) dtype = 1;
+  if (x.scalar_type() == torch::kFloat16) dtype = 2;
+  TORCH_CHECK(dtype >= 0, "segment_stats: x must be fp32, bf16 or fp16");
+  TORCH_CHECK(chunk_starts.scalar_type() == torch::kInt64 &&
+                  slice_first.scalar_type() == torch::kInt32,
+              "segment_stats: the layout is int64 chunk starts and int32 "
+              "slice firsts");
+  const int64_t n_chunks = chunk_starts.numel() - 1;
+  const int64_t n_slices = slice_first.numel() - 1;
+  TORCH_CHECK(n_chunks >= 0 && n_chunks <= INT32_MAX && n_slices >= 1 &&
+                  n_slices <= INT32_MAX,
+              "segment_stats: layout out of range");
+  TORCH_CHECK(part.scalar_type() == torch::kFloat64 &&
+                  part.numel() == n_chunks * 5,
+              "segment_stats: part must be float64 [n_chunks * 5]");
+  TORCH_CHECK(out.scalar_type() == torch::kFloat32 &&
+                  out.numel() == n_slices * 5,
+              "segment_stats: out must be float32 [n_slices, 5]");
+  const c10::cuda::CUDAGuard guard(x.device());
+  cudaError_t err = hvd_segment_stats(
+      x.data_ptr(), dtype,
+      reinterpret_cast<const long long*>(chunk_starts.data_ptr<int64_t>()),
+      static_cast<int>(n_chunks), slice_first.data_ptr<int32_t>(),
+      static_cast<int>(n_slices), part.data_ptr<double>(),
+      out.data_ptr<float>(), stream_of(x));
+  TORCH_CHECK(err == cudaSuccess, "segment_stats: kernel launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
         "Flash-attention forward, online/lazy/twopass, on the CUDA cores "
-        "(fp32, and bf16 at d 256)");
+        "(fp32)");
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
-        "Flash-attention forward, bf16 online/lazy/twopass, on wgmma and "
-        "TMA");
+        "Flash-attention forward, bf16 online/lazy/twopass up to head dim "
+        "256, on wgmma and TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
         "Flash-attention backward, dq, on the CUDA cores (fp32, and bf16 "
         "at d 256)");
@@ -411,6 +463,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Flash-attention backward, dq, at a run-time head dim");
   m.def("flash_bwd_dyn_dkv", &flash_bwd_dyn_dkv,
         "Flash-attention backward, dk and dv, at a run-time head dim");
+  m.def("segment_stats", &segment_stats,
+        "Per-slice gradient-health statistics of a fused buffer, one pass "
+        "and a reduction of its partials, for sm_90a");
   m.def("bn_moments", &bn_moments,
         "BatchNorm statistics (sum, sum of squares or of products) for "
         "sm_90a");

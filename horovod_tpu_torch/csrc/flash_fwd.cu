@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: every
-// fp32 forward, and the bf16 forward at head dims above 128. The bf16
-// forward up to d 128 runs on wgmma and TMA in flash_fwd_sm90.cu.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: the fp32
+// forward at head dims 16-256. The bf16 forward up to d 256 runs on wgmma
+// and TMA in flash_fwd_sm90.cu.
 //
 // Replaces the Pallas TPU kernels behind pl.pallas_call in
 // horovod_tpu/ops/flash_attention.py (_flash_fwd):
@@ -10,11 +10,9 @@
 //   twopass -> _fwd_kernel_twopass   (pass 1 row max, pass 2 accumulate)
 //
 // Contract (same as the TPU kernels): q/k/v are [b*h, s, d] contiguous
-// fp32 or bf16; O is in their dtype; lse is the natural-log row
-// log-sum-exp, fp32, [b*h, sq] (one row per query, not the TPU's 8-sublane
-// replicated layout). Logits are fp32 products of the input-dtype values;
-// P is rounded to V's dtype before P@V (a no-op in fp32) while the row sum
-// l takes it unrounded; O accumulates in fp32. The softmax runs in the
+// fp32; O is fp32; lse is the natural-log row log-sum-exp, fp32, [b*h, sq]
+// (one row per query, not the TPU's 8-sublane replicated layout). The
+// products run in fp32 and O accumulates in fp32. The softmax runs in the
 // exp2 domain with log2(e) folded into the logit scale; masked logits take
 // the finite sentinel -1e30, never -inf: a row whose first tile is fully
 // masked accumulates exp2(0) = 1 garbage that the next tile's
@@ -29,15 +27,14 @@
 // Design. One CTA per (b*h, 64-row q tile), TPR threads per query row
 // (2 up to d 128, 4 at d 256: 128 or 256 threads); each thread computes
 // the logits of every TPR-th key and owns D/TPR output columns. K/V tiles
-// of 64 rows go through shared memory as fp32, and the products run in
-// full fp32 (no TF32) through a probabilities tile in shared memory. At
+// of 64 rows go through shared memory, and the products run in full fp32
+// (no TF32) through a probabilities tile in shared memory. At
 // d 256 the Q, K and V tiles take 197 KB of the 227 KB a block may use.
 //
 // What bounds it: 4*d operations per visible (q, k) pair against q, k, v
 // read once and O written once; at 67 TFLOP/s of fp32 the CUDA cores are
-// the bound at every shape the port runs. These kernels are on no main
-// path: they are the reference-precision path and the head dims the
-// wgmma kernels do not take; a simple kernel that is right.
+// the bound at every shape the port runs. These kernels are the
+// reference-precision path; a simple kernel that is right.
 //
 // The lazy predicate is taken per warp (32/TPR rows) where the TPU kernel
 // takes it per 64-row block: a row whose max did not rise gets
@@ -86,7 +83,7 @@ struct FwdLayout {
 // TPR threads own one query row: thread `part` computes the logits of
 // keys part, part+TPR, ... and the output columns
 // [part*D/TPR, (part+1)*D/TPR). Row statistics are shared among them.
-template <typename T, int D, int V, int TPR>
+template <int D, int V, int TPR>
 __global__ void __launch_bounds__(kBlock * TPR)
 flash_fwd_cc_kernel(Params p) {
   using L = FwdLayout<D>;
@@ -105,12 +102,15 @@ flash_fwd_cc_kernel(Params p) {
   const int part = tid % TPR;
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
-  const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.sq * D;
-  const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(bh) * p.sk * D;
-  const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(bh) * p.sk * D;
+  const float* q = static_cast<const float*>(p.q) +
+                   static_cast<size_t>(bh) * p.sq * D;
+  const float* k = static_cast<const float*>(p.k) +
+                   static_cast<size_t>(bh) * p.sk * D;
+  const float* v = static_cast<const float*>(p.v) +
+                   static_cast<size_t>(bh) * p.sk * D;
   const int row = qi * kBlock + r;
 
-  load_tile<T, D, kBlock, kNT>(sQ, q, qi * kBlock, p.sq, tid);
+  load_tile<float, D, kBlock, kNT>(sQ, q, qi * kBlock, p.sq, tid);
 
   float m = kNegInf;
   float l = 0.f;      // partial: this thread's keys
@@ -131,8 +131,8 @@ flash_fwd_cc_kernel(Params p) {
 
   auto load = [&](int kb, bool with_v) {
     __syncthreads();
-    load_tile<T, D, kBlock, kNT>(sK, k, kb * kBlock, p.sk, tid);
-    if (with_v) load_tile<T, D, kBlock, kNT>(sV, v, kb * kBlock, p.sk, tid);
+    load_tile<float, D, kBlock, kNT>(sK, k, kb * kBlock, p.sk, tid);
+    if (with_v) load_tile<float, D, kBlock, kNT>(sV, v, kb * kBlock, p.sk, tid);
     __syncthreads();
   };
 
@@ -163,14 +163,14 @@ flash_fwd_cc_kernel(Params p) {
     for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
   };
 
-  // p = exp2(s - m): l takes it as computed, the shared probabilities row
-  // (the P@V operand) rounded to V's dtype
+  // p = exp2(s - m) into l and the shared probabilities row (the P@V
+  // operand)
   auto accumulate = [&](const float (&s)[kKeys]) {
 #pragma unroll
     for (int c = 0; c < kKeys; ++c) {
       float pv = exp2f(s[c] - m);
       l += pv;
-      prow[TPR * c + part] = round_to<T>(pv);
+      prow[TPR * c + part] = pv;
     }
     __syncwarp();
     const float* vcol = sV + part * kCols;
@@ -228,10 +228,10 @@ flash_fwd_cc_kernel(Params p) {
     lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
   float lr = fmaxf(lsum, 1e-30f);
   if (row < p.sq) {
-    T* o = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.sq * D +
-           static_cast<size_t>(row) * D + part * kCols;
+    float* o = static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.sq * D +
+               static_cast<size_t>(row) * D + part * kCols;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) o[i] = from_f32<T>(acc[i] / lr);
+    for (int i = 0; i < kCols; ++i) o[i] = acc[i] / lr;
     if (part == 0)
       p.lse[static_cast<size_t>(bh) * p.sq + row] = (m + log2f(lr)) * kLn2;
   }
@@ -240,10 +240,10 @@ flash_fwd_cc_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-template <typename T, int D, int V>
+template <int D, int V>
 cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
   constexpr int kTpr = fwd_tpr<D>();
-  auto kernel = flash_fwd_cc_kernel<T, D, V, kTpr>;
+  auto kernel = flash_fwd_cc_kernel<D, V, kTpr>;
   constexpr int smem = FwdLayout<D>::kSmemBytes;
   static std::atomic<uint32_t> opted_in{0};
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
@@ -253,13 +253,13 @@ cudaError_t launch(int bh, const Params& p, cudaStream_t stream) {
   return cudaSuccess;   // launch errors are read by the caller
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t dispatch(int variant, int bh, const Params& p,
                      cudaStream_t stream) {
   switch (variant) {
-    case kOnline: return launch<T, D, kOnline>(bh, p, stream);
-    case kLazy: return launch<T, D, kLazy>(bh, p, stream);
-    case kTwopass: return launch<T, D, kTwopass>(bh, p, stream);
+    case kOnline: return launch<D, kOnline>(bh, p, stream);
+    case kLazy: return launch<D, kLazy>(bh, p, stream);
+    case kTwopass: return launch<D, kTwopass>(bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -267,8 +267,8 @@ cudaError_t dispatch(int variant, int bh, const Params& p,
 }  // namespace
 
 // Plain C entry point (no PyTorch headers here: they stay in bindings.cpp).
-// dtype 0: fp32 at d 16/32/64/128/256; dtype 1: bf16 at d 256 (bf16 up to
-// d 128 runs on hvd_flash_fwd_sm90). variant: 0 online, 1 lazy, 2 twopass.
+// fp32 at d 16/32/64/128/256 (bf16 runs on hvd_flash_fwd_sm90); dtype
+// must be 0. variant: 0 online, 1 lazy, 2 twopass.
 // scale2 is the softmax scale times log2(e), rounded once by the caller.
 // Returns a configuration error; the launch itself is checked by the
 // caller with cudaGetLastError.
@@ -279,15 +279,13 @@ extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
                                      float scale2, cudaStream_t stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return cudaErrorInvalidValue;
   Params p{q, k, v, o, lse, sq, sk, scale2, causal};
-  if (dtype == 1)
-    return d == 256 ? dispatch<__nv_bfloat16, 256>(variant, bh, p, stream)
-                    : cudaErrorInvalidValue;
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (d) {
-    case 16: return dispatch<float, 16>(variant, bh, p, stream);
-    case 32: return dispatch<float, 32>(variant, bh, p, stream);
-    case 64: return dispatch<float, 64>(variant, bh, p, stream);
-    case 128: return dispatch<float, 128>(variant, bh, p, stream);
-    case 256: return dispatch<float, 256>(variant, bh, p, stream);
+    case 16: return dispatch<16>(variant, bh, p, stream);
+    case 32: return dispatch<32>(variant, bh, p, stream);
+    case 64: return dispatch<64>(variant, bh, p, stream);
+    case 128: return dispatch<128>(variant, bh, p, stream);
+    case 256: return dispatch<256>(variant, bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }

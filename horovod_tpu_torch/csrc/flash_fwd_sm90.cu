@@ -12,7 +12,7 @@
 // The fp32 variants stay on the CUDA cores in flash_fwd.cu.
 //
 // Contract (flash_fwd.cu's): q/k/v are [b*h, s, d] contiguous bf16,
-// d in {16, 32, 64, 128}; O is bf16; lse is the natural-log row
+// d in {16, 32, 64, 128, 256}; O is bf16; lse is the natural-log row
 // log-sum-exp, fp32, [b*h, sq]. The softmax runs in the exp2 domain with
 // log2(e) folded into the logit scale; masked logits take the finite
 // sentinel -1e30, never -inf. The causal k loop stops at the diagonal
@@ -89,6 +89,23 @@
 // bytes of spill stores and loads and no ptxas warning in all 24
 // instantiations.
 //
+// Head dim 256 (bf16 d 160-256, zero-padded on the host). At the table's
+// shape (b4 h6 s1024 causal) the bound is the bytes, 0.01505 ms; the
+// CUDA-core kernel took 3.5-6.0 ms there. The shared-memory and register
+// budgets set the tile: a 128-key K or V tile would be 64 KB, so a k tile
+// is 64 keys (S m64n64, 32 fp32 registers a thread; Q K^T walks d in 16
+// k-steps over four 64-column boxes) and P@V is one m64n256k16 per k-step
+// into O's 128 registers a thread. Live at once under a P@V: O 128, S 32,
+// P 16 (bf16 pairs) registers; one consumer warpgroup compiles at 204-206
+// registers, two at the 168 launch bound with the consumers at 240 after
+// setmaxnreg, no spill (nvcc 12.9). The ring is 3 stages of K + V at one
+// consumer warpgroup (224 KB), 2 at two (192 KB); with 2 stages a K
+// stage would wait one P@V more for its release, so at d 256 K and V are
+// released on barriers of their own (the producer waits for each before
+// refilling it). With two consumer warpgroups (128 query rows) over
+// 64-key tiles, the upper warpgroup's last causal tile lies wholly past
+// its diagonal: the lazy walk starts on it (kDeadTiles in the kernel).
+//
 // Masks. TMA zero-fills rows past the end of a head (the tensor maps are
 // 3-D, [b*h, s, d], so a partial tile never reads the next head's rows),
 // and a zero key gives a logit of 0, not -1e30: the col < sk mask stays.
@@ -110,18 +127,28 @@ namespace {
 // flash_fwd.cu's variant numbers
 enum Walk { kOnlineWalk = 0, kLazyWalk = 1, kTwopassWalk = 2 };
 
-constexpr int kKeys = 128;      // keys per k tile
-constexpr int kStages = 3;      // K/V stages in the ring
 constexpr int kWgRows = 64;     // query rows per consumer warpgroup
+constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
 
 // Shared-memory plan for head dim D and NWG consumer warpgroups; each
-// tile in the swizzled layout of flash_sm90.cuh.
+// tile in the swizzled layout of flash_sm90.cuh. Up to d = 128: 128 keys
+// per k tile and 3 K/V stages. At d = 256 a 128-key K or V tile alone is
+// 64 KB, so the tile is 64 keys (32 KB) and the ring as deep as fits: 3
+// stages beside one consumer warpgroup's Q (32 + 6 x 32 = 224 KB), 2 beside
+// two (64 + 4 x 32 = 192 KB); there K and V are released on barriers of
+// their own (kSplitRelease), so a K stage refills as soon as its Q K^T is
+// done instead of one P@V later.
 template <int D, int NWG>
 struct Plan {
+  static constexpr int kKeys = D > 128 ? 64 : 128;   // keys per k tile
   static constexpr int kQRows = kWgRows * NWG;
   static constexpr int kThreads = 128 * (NWG + 1);
   static constexpr int kQBytes = kQRows * D * 2;
   static constexpr int kKVBytes = kKeys * D * 2;
+  static constexpr bool kSplitRelease = D > 128;
+  static constexpr int kStages =
+      D <= 128 ? 3
+      : kQBytes + 6 * kKVBytes + 128 + 1024 <= kMaxSmem ? 3 : 2;
   // Q | K stages | V stages | barriers; every tile a multiple of 1024 B
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKVBytes;
@@ -129,6 +156,8 @@ struct Plan {
   static constexpr int kSmemBytes = kBarOff + 128 + 1024;   // + alignment
   static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0,
                 "tiles must keep the 1024-byte swizzle alignment");
+  static_assert(kSmemBytes <= kMaxSmem, "the plan must fit a block");
+  static_assert(8 * (1 + 4 * kStages) <= 128, "barriers must fit 128 bytes");
 };
 
 struct Sm90Params {
@@ -157,6 +186,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tv,
                       Sm90Params p) {
   using P = Plan<D, NWG>;
+  constexpr int kKeys = P::kKeys;
+  constexpr int kStages = P::kStages;
+  constexpr int kSN = kKeys / 2;   // S accumulators per consumer thread
+  // a warpgroup may meet k tiles wholly past its causal diagonal (d 256
+  // with two consumer warpgroups: 128 query rows over 64-key tiles)
+  constexpr bool kDeadTiles = P::kQRows > kKeys;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -166,7 +201,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full_q = bars;
   auto full_k = [&](int st) { return bars + 8u * (1 + st); };
   auto full_v = [&](int st) { return bars + 8u * (1 + kStages + st); };
+  // the stage's K (and, unless kSplitRelease, its V) released by every
+  // consumer warp; with kSplitRelease its V on a barrier of its own
   auto empty = [&](int st) { return bars + 8u * (1 + 2 * kStages + st); };
+  [[maybe_unused]] auto empty_v = [&](int st) {
+    return bars + 8u * (1 + 3 * kStages + st);
+  };
 
   // heaviest (latest) causal q tiles first
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -190,6 +230,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(full_k(st), 1);
       mbar_init(full_v(st), 1);
       mbar_init(empty(st), 4 * NWG);   // one arrival per consumer warp
+      if constexpr (P::kSplitRelease) mbar_init(empty_v(st), 4 * NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -208,6 +249,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         const int row = tile_of(i) * kKeys;
         mbar_expect_tx(full_k(st), P::kKVBytes);
         tma_tile<D, kKeys>(sK + st * P::kKVBytes, &tk, full_k(st), row, bh);
+        if constexpr (P::kSplitRelease)
+          mbar_wait(empty_v(st), ((i / kStages) & 1) ^ 1);
         if (with_v(i)) {
           mbar_expect_tx(full_v(st), P::kKVBytes);
           tma_tile<D, kKeys>(sV + st * P::kKVBytes, &tv, full_v(st), row,
@@ -250,10 +293,23 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));
     };
+    // kSplitRelease: item i's K once its Q K^T is done, its V once its
+    // P@V is (both at once where the item had no V)
+    auto release_k = [&](int i) {
+      if constexpr (P::kSplitRelease) release(i % kStages);
+    };
+    auto release_v = [&](int i) {
+      if constexpr (P::kSplitRelease) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_v(i % kStages));
+      } else {
+        release(i % kStages);
+      }
+    };
 
     // S = Q K^T of item i: waits for its K tile, issues the k-steps as
     // one wgmma group and does not wait for it
-    auto issue_qk = [&](int i, float (&s)[64]) {
+    auto issue_qk = [&](int i, float (&s)[kSN]) {
       const int st = i % kStages;
       mbar_wait(full_k(st), (i / kStages) & 1);
       wgmma_fence();
@@ -280,14 +336,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // item i's S, done, masked (in raw units: the scale is folded into
     // the exponent, and the max of the rounded scaled logits is the
     // rounded scaled max, scale2 > 0)
-    auto mask = [&](int i, float (&s)[64]) {
+    auto mask = [&](int i, float (&s)[kSN]) {
       fence_regs(s);
       const int col0 = tile_of(i) * kKeys;
       const bool masked = (p.causal && col0 + kKeys - 1 > wg_row0) ||
                           col0 + kKeys > p.sk;
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = col0 + 8 * j + 2 * t + (e & 1);
@@ -299,10 +355,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     };
     // this thread's max of row r of a masked S, in log2 units
-    auto row_max = [&](const float (&s)[64], int r) {
+    auto row_max = [&](const float (&s)[kSN], int r) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kKeys / 8; ++j)
         mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
       return mx * p.scale2;
     };
@@ -310,7 +366,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // logits to p = exp2(s - m) in place, after raising m: on every tile
     // in the online walk, after the lazy walk's vote (per warp); returns
     // whether o and l need alpha
-    auto probs = [&](int i, float (&s)[64], float (&alpha)[2]) {
+    auto probs = [&](int i, float (&s)[kSN], float (&alpha)[2]) {
       mask(i, s);
       bool rescale = false;
       if constexpr (W == kOnlineWalk) {
@@ -340,14 +396,26 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
 #pragma unroll
-      for (int j = 0; j < 64; ++j)
+      for (int j = 0; j < kSN; ++j)
         s[j] = fast_exp2(fmaf(s[j], p.scale2, -m[(j >> 1) & 1]));
+      if constexpr (kDeadTiles) {
+        // A row whose keys so far are all masked (lazy's diagonal-first
+        // walk starts on such a tile for the upper warpgroup) has m =
+        // -1e30 * scale2 rounded, and the FMA above leaves that rounding
+        // (up to ~1e21), not 0, in the exponent: its p is 0 instead. The
+        // plain walk gives those keys p = 1 and the next tile's alpha = 0
+        // clears them, so the two agree.
+        const float dead = 0.5f * kNegInf * p.scale2;
+#pragma unroll
+        for (int j = 0; j < kSN; ++j)
+          s[j] = m[(j >> 1) & 1] > dead ? s[j] : 0.f;
+      }
       return rescale;
     };
 
     // with the previous P@V done: o and l times alpha, l += rowsum(p),
     // p rounded to bf16 as the next P@V's A fragments
-    auto fold = [&](const float (&s)[64], bool rescale,
+    auto fold = [&](const float (&s)[kSN], bool rescale,
                     const float (&alpha)[2]) {
       if (W == kOnlineWalk || rescale) {
 #pragma unroll
@@ -361,7 +429,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
 #pragma unroll
-      for (int j = 0; j < 64; ++j) l[(j >> 1) & 1] += s[j];
+      for (int j = 0; j < kSN; ++j) l[(j >> 1) & 1] += s[j];
       acc_to_frags(pa, s);
     };
 
@@ -390,12 +458,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // wait below is unconditional (a conditional one makes ptxas
     // serialize the products).
     auto accumulate = [&](int first) {
-      float s[64];
+      float s[kSN];
       float alpha[2] = {1.f, 1.f};
       my_turn();
       issue_qk(first, s);
       pass_turn(false);
       wgmma_wait<0>();
+      release_k(first);
       fold(s, probs(first, s, alpha), alpha);
       for (int i = first + 1; i < n_items; ++i) {
         my_turn();
@@ -403,11 +472,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         issue_pv(i - 1);
         pass_turn(false);
         wgmma_wait<1>();   // S done; the previous P@V runs on
+        release_k(i);
         const bool rescale = probs(i, s, alpha);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
-        release((i - 1) % kStages);
+        release_v(i - 1);
         fold(s, rescale, alpha);
       }
       my_turn();
@@ -416,7 +486,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
-      release((n_items - 1) % kStages);
+      release_v(n_items - 1);
     };
 
     mbar_wait(full_q, 0);
@@ -425,13 +495,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     } else {
       // pass 1: row max only, K stream alone
       for (int i = 0; i < nk; ++i) {
-        float s[64];
+        float s[kSN];
         issue_qk(i, s);
         wgmma_wait<0>();
         mask(i, s);
         m[0] = fmaxf(m[0], row_max(s, 0));
         m[1] = fmaxf(m[1], row_max(s, 1));
-        release(i % kStages);
+        release_k(i);
+        release_v(i);
       }
       m[0] = quad_max(m[0]);
       m[1] = quad_max(m[1]);
@@ -466,8 +537,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, int bh,
   using P = Plan<D, NWG>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map<D>(&tq, q, p.sq, bh, P::kQRows);
-  if (err == cudaSuccess) err = make_map<D>(&tk, k, p.sk, bh, kKeys);
-  if (err == cudaSuccess) err = make_map<D>(&tv, v, p.sk, bh, kKeys);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, p.sk, bh, P::kKeys);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, p.sk, bh, P::kKeys);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_sm90_kernel<D, W, NWG>;
   static std::atomic<uint32_t> opted_in{0};
@@ -493,7 +564,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int bh,
 }
 
 bool valid_shape(int d, int walk, int cta_rows) {
-  return (d == 16 || d == 32 || d == 64 || d == 128) &&
+  return (d == 16 || d == 32 || d == 64 || d == 128 || d == 256) &&
          (walk == kOnlineWalk || walk == kLazyWalk ||
           walk == kTwopassWalk) &&
          (cta_rows == 64 || cta_rows == 128);
@@ -523,6 +594,7 @@ extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
     case 16: return dispatch<16>(q, k, v, bh, variant, nwg, p, stream);
     case 32: return dispatch<32>(q, k, v, bh, variant, nwg, p, stream);
     case 64: return dispatch<64>(q, k, v, bh, variant, nwg, p, stream);
-    default: return dispatch<128>(q, k, v, bh, variant, nwg, p, stream);
+    case 128: return dispatch<128>(q, k, v, bh, variant, nwg, p, stream);
+    default: return dispatch<256>(q, k, v, bh, variant, nwg, p, stream);
   }
 }

@@ -19,7 +19,8 @@
 // Shared-memory tiles are stored as TMA writes them: a row of D bf16 is
 // kHalves boxes of kBoxCols columns, one swizzle span (kSwBytes) each, so
 // a tile of R rows is [kHalves][R][kSwBytes] bytes (128 B swizzle for
-// D >= 64, d = 128 as two boxes; 64 B at D = 32; 32 B at D = 16).
+// D >= 64, d = 128 as two boxes and d = 256 as four; 64 B at D = 32; 32 B
+// at D = 16).
 
 #pragma once
 
@@ -195,6 +196,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
             "%40, %41, %42, %43, %44, %45, %46, %47, " \
             "%48, %49, %50, %51, %52, %53, %54, %55, " \
             "%56, %57, %58, %59, %60, %61, %62, %63"
+#define HVD_R0_127 \
+  HVD_R0_63 ", %64, %65, %66, %67, %68, %69, %70, %71, " \
+            "%72, %73, %74, %75, %76, %77, %78, %79, " \
+            "%80, %81, %82, %83, %84, %85, %86, %87, " \
+            "%88, %89, %90, %91, %92, %93, %94, %95, " \
+            "%96, %97, %98, %99, %100, %101, %102, %103, " \
+            "%104, %105, %106, %107, %108, %109, %110, %111, " \
+            "%112, %113, %114, %115, %116, %117, %118, %119, " \
+            "%120, %121, %122, %123, %124, %125, %126, %127"
 #define HVD_F8(d, i)                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -235,6 +245,25 @@ struct WgmmaSS<64> {
 // memory (the B-transpose bit)
 template <int N>
 struct WgmmaRS;
+
+// the widest shape (the forward's P V at head dim 256): 128 accumulators a
+// thread
+template <>
+struct WgmmaRS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{" HVD_R0_127 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24),
+          HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56),
+          HVD_F8(d, 64), HVD_F8(d, 72), HVD_F8(d, 80), HVD_F8(d, 88),
+          HVD_F8(d, 96), HVD_F8(d, 104), HVD_F8(d, 112), HVD_F8(d, 120)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct WgmmaRS<128> {

@@ -16,7 +16,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
 SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu",
            "flash_bwd_sm90.cu", "flash_dyn.cu", "batch_norm.cu",
-           "bindings.cpp")
+           "segment_stats.cu", "bindings.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17",
               "-gencode=arch=compute_90a,code=sm_90a")
 

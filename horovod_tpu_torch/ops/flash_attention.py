@@ -2,13 +2,13 @@
 
 The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
 backward. A CUDA tensor goes to the hand-written Hopper kernels: every
-bf16 forward (online, lazy, twopass) up to head dim 128 on wgmma and TMA
+bf16 forward (online, lazy, twopass) up to head dim 256 on wgmma and TMA
 in ``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels
 up to head dim 128 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
-fp32 forward and backward, and bf16 at head dims above 128, on the CUDA
-cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, and every head
-dim above 256, forward and backward, in ``csrc/flash_dyn.cu``, which takes
-d at run time. A CPU tensor goes to their plain PyTorch versions
+fp32 forward and backward, and the bf16 backward at head dims above 128,
+on the CUDA cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, and
+every head dim above 256, forward and backward, in ``csrc/flash_dyn.cu``,
+which takes d at run time. A CPU tensor goes to their plain PyTorch versions
 in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
 CUDA tensor takes the plain version unless the caller asks for it with
 ``interpret=True`` (the port's counterpart of Pallas interpret mode): if
@@ -26,7 +26,7 @@ divide is refused unless the call is causal self-attention. The kernels
 need no such blocks: each masks a partial last q tile and a partial last
 k tile itself, so every accepted length runs unpadded. The CUDA-core
 kernels walk 64-row tiles (the backward's k tiles are 32 rows at d 256);
-the wgmma kernels walk 128 keys per k tile and
+the wgmma kernels walk 128 keys per k tile (the forward 64 at d 256) and
 64 or 128 query rows per CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA
 and 64 queries per q tile). ``kernel_blocks`` and ``bwd_kernel_blocks``
 name the walks of the kernels a call reaches, so their plain versions
@@ -34,7 +34,8 @@ can walk the same. On the CPU, and under ``interpret=True``, the plain
 walks take the fitted blocks.
 
 Head dims. The kernels are compiled for d in {16, 32, 64, 128, 256}
-(the wgmma ones up to 128, the CUDA-core ones at every one of them); on
+(the wgmma forward at every one of them, the wgmma backward up to 128,
+the CUDA-core ones at every one of them); on
 the card any other d up to 256 is zero-padded on the host to the next of
 those (``pad_head_dim``), with the softmax scale of the true d: a zero
 column adds nothing to any dot product, and the padded output columns
@@ -84,9 +85,13 @@ DEFAULT_BLOCK = 512
 #: d ≤ 256 is zero-padded to the next of these (``pad_head_dim``).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
-#: The largest head dim of the wgmma/TMA kernels; bf16 above it runs on
-#: the CUDA-core kernels.
+#: The largest head dim of the wgmma/TMA backward kernels; the bf16
+#: backward above it runs on the CUDA-core kernels.
 SM90_MAX_HEAD_DIM = 128
+
+#: The largest head dim of the wgmma/TMA forward kernel: every compiled
+#: head dim.
+SM90_FWD_MAX_HEAD_DIM = 256
 
 #: Rows per tile of the run-time-d kernels (``csrc/flash_dyn.cu``), which
 #: take every head dim above ``KERNEL_HEAD_DIMS[-1]``; d is walked in
@@ -112,6 +117,10 @@ MAX_SMEM = 232448
 #: Keys per k tile of the wgmma/TMA kernels (forward, dq; dk/dv's keys
 #: per CTA).
 SM90_BLOCK_K = 128
+
+#: Keys per k tile of the wgmma/TMA forward at a head dim above 128, where
+#: a 128-key K or V tile would take 64 KB of shared memory.
+SM90_BLOCK_K_WIDE = 64
 
 #: Queries per q tile of the wgmma/TMA dk/dv kernel.
 SM90_DKV_BLOCK_Q = 64
@@ -294,11 +303,25 @@ def sm90_cta_rows(bh, sq, sm_count):
     return 128 if bh * -(-sq // 128) >= sm_count else 64
 
 
-def on_sm90(qf):
-    """Whether a ``[b·h, s, d]`` call runs on the wgmma/TMA kernels: bf16
-    up to head dim 128. fp32, and bf16 above 128, run on the CUDA-core
-    kernels."""
+def on_sm90_fwd(qf):
+    """Whether the forward of a ``[b·h, s, d]`` call runs on the wgmma/TMA
+    kernel: bf16 at every head dim up to 256 (a d between the compiled
+    ones padded up). fp32 runs on the CUDA-core kernel, d above 256 on the
+    run-time-d one."""
+    return qf.dtype == torch.bfloat16 and \
+        qf.shape[2] <= SM90_FWD_MAX_HEAD_DIM
+
+
+def on_sm90_bwd(qf):
+    """Whether the backward of a ``[b·h, s, d]`` call runs on the
+    wgmma/TMA kernels: bf16 up to head dim 128. fp32, and bf16 above 128,
+    run on the CUDA-core kernels (above 256 on the run-time-d ones)."""
     return qf.dtype == torch.bfloat16 and qf.shape[2] <= SM90_MAX_HEAD_DIM
+
+
+def sm90_block_k(d):
+    """Keys per k tile of the wgmma/TMA forward at head dim ``d``."""
+    return SM90_BLOCK_K if kernel_head_dim(d) <= 128 else SM90_BLOCK_K_WIDE
 
 
 def fwd_launch_name(qf, variant):
@@ -306,7 +329,7 @@ def fwd_launch_name(qf, variant):
     to: ``flash_fwd_{variant}`` on the wgmma/TMA kernel,
     ``flash_fwd_cc_{variant}`` on the CUDA-core one,
     ``flash_fwd_dyn_{variant}`` on the run-time-d one."""
-    if on_sm90(qf):
+    if on_sm90_fwd(qf):
         return f"flash_fwd_{variant}"
     return f"flash_fwd_{_cc_family(qf)}_{variant}"
 
@@ -318,18 +341,18 @@ def _cc_family(qf):
 def bwd_launch_names(qf):
     """The launch counts (dq, dk/dv) a backward call on ``[b·h, s, d]``
     operands adds to, one per kernel family."""
-    family = "sm90" if on_sm90(qf) else _cc_family(qf)
+    family = "sm90" if on_sm90_bwd(qf) else _cc_family(qf)
     return f"flash_bwd_{family}_dq", f"flash_bwd_{family}_dkv"
 
 
 def kernel_blocks(qf, kf, variant, cta_rows=None):
     """(block_q, block_k) of the tile walk that the forward kernel a
-    ``[b·h, s, d]`` call reaches takes: the plain version walks the same
-    tiles at these blocks."""
-    if on_sm90(qf):
+    ``[b·h, s, d]`` call reaches takes (at the head dim it is padded to):
+    the plain version walks the same tiles at these blocks."""
+    if on_sm90_fwd(qf):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
-        return rows, SM90_BLOCK_K
+        return rows, sm90_block_k(qf.shape[2])
     if on_dyn(qf.shape[2]):
         return min(DYN_BLOCK, qf.shape[1]), min(DYN_BLOCK, kf.shape[1])
     return fit_block(qf.shape[1]), fit_block(kf.shape[1])
@@ -338,8 +361,8 @@ def kernel_blocks(qf, kf, variant, cta_rows=None):
 def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None,
                 workspace=False):
     """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 up to
-    d 128 on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
-    shape), fp32 and bf16 above d 128 on the CUDA-core one, every d above
+    d 256 on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
+    shape), fp32 on the CUDA-core one, every d above
     256 on the run-time-d one (``workspace=True`` puts its accumulators
     in device memory even where shared memory would hold them)."""
     _check_operands(qf, kf, vf)
@@ -351,7 +374,7 @@ def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None,
             qf, kf, vf, out, lse,
             _workspace("fwd", qf, qf.shape[1], workspace),
             VARIANTS.index(variant), bool(causal), scale2)
-    elif on_sm90(qf):
+    elif on_sm90_fwd(qf):
         rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
         extension().flash_fwd_sm90(qf, kf, vf, out, lse,
                                    VARIANTS.index(variant), bool(causal),
@@ -371,7 +394,7 @@ def bwd_kernel_blocks(qf, kf, cta_rows=None):
     the rows; dk/dv over 128 keys × 64 queries), fp32 and bf16 above d 128
     the CUDA-core ones at 64-row tiles (32-key tiles above d 128), above
     d 256 the run-time-d ones at 32-row tiles."""
-    if on_sm90(qf):
+    if on_sm90_bwd(qf):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return (rows, SM90_BLOCK_K), (SM90_DKV_BLOCK_Q, SM90_BLOCK_K)
@@ -409,7 +432,7 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None,
         ext.flash_bwd_dyn_dkv(qf, kf, vf, dof, lse, delta, dk, dv,
                               _workspace("dkv", qf, kf.shape[1], workspace),
                               *args)
-    elif on_sm90(qf):
+    elif on_sm90_bwd(qf):
         (rows, _), _ = bwd_kernel_blocks(qf, kf, cta_rows)
         ext.flash_bwd_sm90_dq(qf, kf, vf, dof, lse, delta, dq, *args, rows)
         ext.flash_bwd_sm90_dkv(qf, kf, vf, dof, lse, delta, dk, dv, *args)

@@ -15,15 +15,18 @@ the full extension build.
 Forward: ``--check`` holds each tree's bf16 online, lazy and twopass
 kernels against the plain walks (``flash_attention_ref``) at the kernel's
 tiles (bf16 O two ulps + 1 % of its largest value, lse 1e-3), partial
-last tiles and sq != sk among the cases; ``--time`` prints device ms per
-call by torch.profiler and by CUDA events over 50 back-to-back calls,
-side by side in one process, at the training shape (b16 h6 s1024 d128
-causal) and serving shapes (b1 h6 s16/64/640/960/1024), beside the bound,
-SDPA's forward and (for the online walk) its plain version; then an empty
-kernel's time launched back to back (the launch floor) and the host µs
-per launch. A tree whose ``flash_fwd_sm90.cu`` has no online walk runs
-bf16 online on its ``flash_fwd.cu`` (mma.sync), and a tree without
-``flash_fwd_sm90.cu`` runs every bf16 walk there.
+last tiles and sq != sk among the cases, at head dims 16-128 and 256;
+``--time`` prints device ms per call by torch.profiler and by CUDA events
+over 50 back-to-back calls, side by side in one process, at the training
+shape (b16 h6 s1024 d128 causal), serving shapes (b1 h6
+s16/64/640/960/1024) and head dim 256 (b4 h6 s1024 causal), beside the
+bound, SDPA's forward and (for the online walk) its plain version; then
+an empty kernel's time launched back to back (the launch floor) and the
+host µs per launch. A tree whose ``flash_fwd_sm90.cu`` has no online walk
+runs bf16 online on its ``flash_fwd.cu`` (mma.sync), a tree without
+``flash_fwd_sm90.cu`` runs every bf16 walk there, and a tree whose
+``flash_fwd_sm90.cu`` stops at head dim 128 runs bf16 d 256 on its
+``flash_fwd.cu`` (the CUDA cores).
 
 Backward (``--bwd``): ``--check`` holds each tree's bf16 dq and dk/dv
 against the plain walks at the kernels' tiles (two bf16 ulps + 1 % of each
@@ -55,6 +58,7 @@ WALKS = {"online": 0, "lazy": 1, "twopass": 2}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 H100_SMS = 132
+CUDA_ERROR_INVALID_VALUE = 1
 
 # An empty kernel and its launcher: the floor under any launch's device time
 EMPTY_KERNEL = r"""
@@ -136,6 +140,7 @@ class Tree:
         # the bf16 walks this tree runs on the wgmma kernel; the others run
         # on its flash_fwd.cu (mma.sync, 64-row tiles)
         self.sm90_walks = ()
+        self.sm90_max_d = 128
         if os.path.exists(sm90):
             sources.append(sm90)
             with open(sm90) as f:
@@ -144,19 +149,40 @@ class Tree:
                 "lazy", "twopass")
         lib, self.build_s, self.report, self.warnings = build(sources, label)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if len(self.sm90_walks) < len(WALKS):
-            # bf16 (dtype 1) on flash_fwd.cu
-            lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
-            lib.hvd_flash_fwd.restype = i
         if self.sm90_walks:
             lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
             lib.hvd_flash_fwd_sm90.restype = i
+            self.sm90_max_d = self._sm90_max_d(lib)
+        if len(self.sm90_walks) < len(WALKS) or self.sm90_max_d < 256:
+            # bf16 (dtype 1) on flash_fwd.cu
+            lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
+            lib.hvd_flash_fwd.restype = i
         self.lib = lib
 
-    def cta_rows(self, variant, rows):
+    def _sm90_max_d(self, lib):
+        """The largest head dim the built wgmma forward takes: a d-256
+        call on a tiny input either runs (256) or is refused with
+        cudaErrorInvalidValue (128)."""
+        q = torch.zeros(1, 64, 256, dtype=torch.bfloat16, device="cuda")
+        o = torch.empty_like(q)
+        lse = torch.empty(1, 64, device="cuda")
+        err = lib.hvd_flash_fwd_sm90(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), 1, 64, 64, 256, WALKS["lazy"], 1, LOG2E / 16, 64,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err not in (0, CUDA_ERROR_INVALID_VALUE):
+            raise RuntimeError(f"{self.label}: the d-256 probe of "
+                               f"hvd_flash_fwd_sm90 returned {err}")
+        return 256 if err == 0 else 128
+
+    def on_sm90(self, variant, d):
+        return variant in self.sm90_walks and d <= self.sm90_max_d
+
+    def cta_rows(self, variant, rows, d=128):
         """The CTA rows a call walks: ``rows`` on the wgmma kernel (the
         host's pick when None), 64 on the mma.sync one."""
-        return (rows or 64) if variant in self.sm90_walks else 64
+        return (rows or 64) if self.on_sm90(variant, d) else 64
 
     def forward(self, q, k, v, causal, variant, cta_rows=64):
         """(O, lse) of bf16 ``[b·h, s, d]`` operands."""
@@ -167,7 +193,7 @@ class Tree:
                 lse.data_ptr(), bh, sq, k.shape[1], d)
         stream = torch.cuda.current_stream().cuda_stream
         scale2 = d ** -0.5 * LOG2E
-        if variant in self.sm90_walks:
+        if self.on_sm90(variant, d):
             err = self.lib.hvd_flash_fwd_sm90(*args, WALKS[variant],
                                               int(causal), scale2, cta_rows,
                                               stream)
@@ -179,8 +205,10 @@ class Tree:
                                f"{err}")
         return o, lse
 
-    def blocks(self, variant, cta_rows):
-        return (cta_rows, 128) if variant in self.sm90_walks else (64, 64)
+    def blocks(self, variant, cta_rows, d=128):
+        if self.on_sm90(variant, d):
+            return cta_rows, (128 if d <= 128 else 64)
+        return 64, 64
 
 
 def operands(seed, bh, sq, sk, d, k_ramp=None):
@@ -203,15 +231,21 @@ def check(tree):
     cases += [(4, 100, 300, 128, c, None) for c in (True, False)]
     cases += [(4, 192, 320, 128, False, None), (2, 40, 40, 128, True, None)]
     cases += [(6, 512, 512, 128, c, r) for c in (True, False) for r in ramps]
+    # head dim 256: 64-key tiles on the wgmma kernel
+    cases += [(3, 192, 192, 256, c, None) for c in (True, False)]
+    cases += [(2, s, s, 256, c, None) for s in (64, 200, 1000)
+              for c in (True, False)]
+    cases += [(4, 100, 300, 256, c, None) for c in (True, False)]
+    cases += [(6, 512, 512, 256, c, r) for c in (True, False) for r in ramps]
     bad = []
     for n, (bh, sq, sk, d, causal, ramp) in enumerate(cases):
         q, k, v = operands(n, bh, sq, sk, d, ramps.get(ramp))
         for variant in WALKS:
-            for rows in ((64, 128) if variant in tree.sm90_walks else (64,)):
+            for rows in ((64, 128) if tree.on_sm90(variant, d) else (64,)):
                 o, lse = tree.forward(q, k, v, causal, variant, rows)
                 torch.cuda.synchronize()
                 p_o, p_lse = ref.FWD[variant](q, k, v, causal,
-                                              *tree.blocks(variant, rows))
+                                              *tree.blocks(variant, rows, d))
                 p_o = p_o.float()
                 atol = 1e-2 * p_o.abs().max().item()
                 o_ok = torch.isfinite(o).all() and (
@@ -274,26 +308,29 @@ def timings(trees):
     profiler and by CUDA events, beside the bound, SDPA's forward and the
     plain online walk at the wgmma kernel's tiles."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, s in ((16, 1024), (1, 16), (1, 64), (1, 640), (1, 960), (1, 1024)):
+    for b, s, d in ((16, 1024, 128), (1, 16, 128), (1, 64, 128),
+                    (1, 640, 128), (1, 960, 128), (1, 1024, 128),
+                    (4, 1024, 256)):
         bh = b * 6
-        q, k, v = operands(9, bh, s, s, 128)
+        q, k, v = operands(9, bh, s, s, d)
         rows = 128 if bh * -(-s // 128) >= sms else 64
         sdpa = torch.nn.functional.scaled_dot_product_attention
         calls = {"sdpa": lambda: sdpa(
-            *(t.view(b, 6, s, 128) for t in (q, k, v)), is_causal=True)}
+            *(t.view(b, 6, s, d) for t in (q, k, v)), is_causal=True)}
         for tree in trees:
             for variant in WALKS:
-                r = tree.cta_rows(variant, rows)
+                r = tree.cta_rows(variant, rows, d)
                 calls[f"{tree.label} {variant} ({r} rows)"] = (
                     lambda tree=tree, variant=variant, r=r:
                     tree.forward(q, k, v, True, variant, r))
         row = {name: (round(device_ms(fn), 6), round(event_ms(fn), 6))
                for name, fn in calls.items()}
-        plain = (lambda: ref.flash_fwd_online(q, k, v, True, rows, 128))
+        plain = (lambda: ref.flash_fwd_online(
+            q, k, v, True, rows, 128 if d <= 128 else 64))
         row["plain online"] = (round(device_ms(plain, 3), 5),
                                round(event_ms(plain, 3, 1), 5))
-        print(f"device ms (profiler, events) b{b} h6 s{s} d128 causal bf16, "
-              f"bound {forward_bound_ms(bh, s, 128):.6f} ms: "
+        print(f"device ms (profiler, events) b{b} h6 s{s} d{d} causal bf16, "
+              f"bound {forward_bound_ms(bh, s, d):.6f} ms: "
               f"{json.dumps(row)}", flush=True)
     ev, prof = launch_floor()
     print(f"empty kernel launched back to back: event ms {ev:.6f}, profiler "

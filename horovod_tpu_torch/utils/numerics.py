@@ -6,20 +6,23 @@ module answers "is the math still right". Two layers:
 
 **Per-tensor gradient health.** ``tensor_stats`` computes the L2 norm,
 max-abs, nan/inf count, zero fraction and a checksum of one tensor;
-``segment_stats`` the same for every tensor of a fused buffer at once,
-in a fixed number of launches whatever the tensor count. They are plain
-torch reductions, queued on the current CUDA stream
+``segment_stats`` the same for every tensor of a fused buffer at once:
+on the card one hand-written kernel (``csrc/segment_stats.cu``, two
+launches whatever the tensor count, the reference's one compiled pass
+per slice layout), on the CPU its plain torch version
+``segment_stats_plain``. Both are queued on the current CUDA stream
 behind the gradients they read (the eager core queues them on its
 collective stream after a bucket's completion event, so no caller waits
 on them). ``NumericsMonitor.observe`` / ``ingest_async`` park the
 result with one CUDA event per call (the stats matrix is copied
-into pinned host memory on the same stream before the event), and the
-host reads a group once ``event.query()`` is true: a flush never
-synchronizes a stream. On the CPU the stats are read at once. The
-policy then publishes ``hvd_grad_norm{tensor}`` and its EMA drift, the
-``hvd_nonfinite_total`` counter, and flags an anomaly on a nan/inf or on
-an L2 norm above ``HOROVOD_NUMERICS_EMA_K`` times its moving average:
-``numerics_anomaly`` event -> warning -> one flight dump.
+into pinned host memory, taken from a small pool the monitor reuses,
+on the same stream before the event), and the host reads a group once
+``event.query()`` is true: a flush never synchronizes a stream. On the
+CPU the stats are read at once. The policy then publishes
+``hvd_grad_norm{tensor}`` and its EMA drift, the ``hvd_nonfinite_total``
+counter, and flags an anomaly on a nan/inf or on an L2 norm above
+``HOROVOD_NUMERICS_EMA_K`` times its moving average: ``numerics_anomaly``
+event -> warning -> one flight dump.
 
 **Cross-rank divergence sentinel.** Replicas of one allreduce must hold
 identical post-reduce state. Each cycle's per-tensor records fold into a
@@ -41,16 +44,20 @@ equals the sum (or mean) of the local checksums, the one linear
 statistic of the records, so the replica whose checksum strays from it
 is the one that diverged.
 
-On by default under the reference's <=2 % overhead contract;
-``HVD_NUMERICS=0`` lands every call on a shared null object.
+On by default under the reference's <=2 % overhead contract, which
+``overhead_gate`` holds as ``bench.py``'s ``_bench_numerics_overhead``
+does; ``HVD_NUMERICS=0`` lands every call on a shared null object.
 """
 
 import collections
+import math
+import threading
 
 import torch
 
 from ..common import hvd_logging as log
 from ..common.config import env_bool, env_float, env_int
+from ..ops._build import extension
 from . import lockdep
 from . import metrics as metrics_mod
 from . import tracing as tracing_mod
@@ -69,6 +76,9 @@ R_RED_L2, R_RED_MAX, R_RED_NONFINITE, R_RED_SUM, \
 ANOMALY_NONFINITE = "nonfinite"
 ANOMALY_NORM_SPIKE = "norm_spike"
 ANOMALY_DIVERGENCE = "divergence"
+
+# pinned host buffers the monitor keeps for reuse, per (shape, dtype)
+_PINNED_KEEP = 4
 
 # EMA floor below which the norm-spike policy stays disarmed: an all-zero
 # warmup must not flag the first real gradient as an explosion
@@ -177,9 +187,94 @@ def _boundary_sums(chunks, rows, lanes):
 def segment_stats(flat, sizes):
     """Per-slice S_* stats of a fused buffer: ``sizes`` are the element
     counts of its slices in order; returns an [n, 5] float32 tensor on
-    the buffer's device. About twenty launches whatever the slice count,
-    and twelve bytes an element of scratch: one float32 buffer of three
-    rows padded to whole rows of ``_CHUNK``, the finite values (the
+    the buffer's device. A buffer on the CPU runs the plain version
+    (``segment_stats_plain``); any other goes to the kernel
+    (``csrc/segment_stats.cu``, ``_kernel_stats``), which raises if it
+    cannot build or launch."""
+    sizes = tuple(int(s) for s in sizes)
+    if flat.device.type == "cpu":
+        return segment_stats_plain(flat, sizes)
+    return _kernel_stats(flat, sizes)
+
+
+# bytes of the buffer each CTA of the kernel's first pass reads
+KERNEL_CHUNK_BYTES = 64 * 1024
+
+# the dtypes the kernel reads as they are; any other is read as float32,
+# as the plain version reads every dtype
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+_KERNEL_LAYOUTS = collections.OrderedDict()  # (sizes, item, device) -> layout
+_kernel_layouts_lock = threading.Lock()
+
+#: Launches of the stats kernel, counted where each call launches it.
+launch_counts = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    with _count_lock:
+        launch_counts.clear()
+
+
+def kernel_layout(sizes, itemsize, device):
+    """The kernel's cached layout of one slice layout on ``device``:
+    (chunk starts, int64 ``[n_chunks + 1]``: each chunk of
+    ``KERNEL_CHUNK_BYTES // itemsize`` elements lies inside one slice and
+    the last entry is the buffer's end; slice firsts, int32 ``[n + 1]``:
+    slice i's chunks are ``first[i] .. first[i + 1]``; n_chunks). Built
+    on the host once per (layout, element size, device) and copied to the
+    device once, so a flush makes no host-to-device copy."""
+    key = (sizes, itemsize, str(device))
+    with _kernel_layouts_lock:
+        hit = _KERNEL_LAYOUTS.get(key)
+        if hit is not None:
+            _KERNEL_LAYOUTS.move_to_end(key)
+            return hit
+    per = KERNEL_CHUNK_BYTES // itemsize
+    starts, first, off = [], [0], 0
+    for n in sizes:
+        starts.extend(range(off, off + n, per))
+        off += n
+        first.append(len(starts))
+    starts.append(off)
+    hit = (torch.tensor(starts, dtype=torch.int64).to(device),
+           torch.tensor(first, dtype=torch.int32).to(device),
+           len(starts) - 1)
+    with _kernel_layouts_lock:
+        _KERNEL_LAYOUTS[key] = hit
+        if len(_KERNEL_LAYOUTS) > _LAYOUTS_MAX:
+            _KERNEL_LAYOUTS.popitem(last=False)
+    return hit
+
+
+def _kernel_stats(flat, sizes):
+    """``segment_stats`` on the kernel: two launches over the buffer in
+    its own dtype, float64 partials of 40 bytes per chunk as the only
+    scratch."""
+    x = flat.detach().reshape(-1)
+    if x.dtype not in _KERNEL_DTYPES:
+        x = x.float()
+    if x.numel() != sum(sizes):
+        raise ValueError(f"segment_stats: the buffer holds {x.numel()} "
+                         f"elements, the slices {sum(sizes)}")
+    out = torch.empty((len(sizes), 5), dtype=torch.float32, device=x.device)
+    if not sizes:
+        return out
+    starts, first, n_chunks = kernel_layout(sizes, x.element_size(),
+                                            x.device)
+    part = torch.empty(n_chunks * 5, dtype=torch.float64, device=x.device)
+    extension().segment_stats(x.contiguous(), starts, first, part, out)
+    with _count_lock:
+        launch_counts["segment_stats"] += 1
+    return out
+
+
+def segment_stats_plain(flat, sizes):
+    """The plain torch version of ``segment_stats`` (the CPU's, and what
+    the kernel is held against). About twenty launches whatever the slice
+    count, and twelve bytes an element of scratch: one float32 buffer of
+    three rows padded to whole rows of ``_CHUNK``, the finite values (the
     nonfinite ones zeroed, ``nan_to_num``), a nonfinite indicator and a
     zero indicator; the norms of every slice by ``torch._foreach_norm``
     over the first row (L2 and max-abs over the finite values), and the
@@ -212,6 +307,37 @@ def segment_stats(flat, sizes):
         buf.view(3, m, _CHUNK), rows, lanes).float()
     return torch.stack([norms(2), norms(float("inf")), nonfinite,
                         zeros * inv, checksum], dim=1)
+
+
+def overhead_gate(window, budget_pct=2.0, rounds=3):
+    """The reference's overhead contract as ``bench.py``'s
+    ``_bench_numerics_overhead`` holds it: ``window(enabled)`` runs one
+    timed window of steps with the plane on or off and returns its ms per
+    step. Each round runs an off window and an on window; the side that
+    runs first alternates from round to round (``bench.py`` runs off first
+    each round), so that drift or warm-up across a round favours neither.
+    The best window of each side is kept, and another round runs only
+    while the best on lies more than ``budget_pct`` % above the best off,
+    up to ``rounds`` rounds. Returns the figures; raises AssertionError
+    past the budget."""
+    best = {True: math.inf, False: math.inf}
+    seen = {True: [], False: []}
+    for r in range(rounds):
+        for enabled in ((False, True) if r % 2 == 0 else (True, False)):
+            ms = float(window(enabled))
+            seen[enabled].append(ms)
+            best[enabled] = min(best[enabled], ms)
+        if best[True] <= best[False] * (1.0 + budget_pct / 100.0):
+            break
+    overhead_pct = (best[True] - best[False]) / best[False] * 100.0
+    out = {"off_best_ms": best[False], "on_best_ms": best[True],
+           "overhead_pct": overhead_pct, "budget_pct": budget_pct,
+           "rounds": len(seen[True]), "off_ms": seen[False],
+           "on_ms": seen[True]}
+    if overhead_pct > budget_pct:
+        raise AssertionError(f"numerics plane overhead {overhead_pct:.2f}% "
+                             f"exceeds the {budget_pct}% budget: {out}")
+    return out
 
 
 def _round(v):
@@ -319,6 +445,9 @@ class NumericsMonitor:
         self._pending_lock = lockdep.lock("NumericsMonitor._pending_lock")
         self._parked = collections.deque()  # guarded_by: _pending_lock
         self._records = {}    # guarded_by: _pending_lock; cycle -> records
+        # pinned host buffers of ingested groups, by (shape, dtype), for
+        # the next parks to reuse
+        self._pinned = {}     # guarded_by: _pending_lock
         self._flagged = set()  # guarded_by: _lock; one event per (tensor, kind)
         self._dumped = False   # guarded_by: _lock; one flight dump per process
         reg = metrics_mod.get_registry()
@@ -398,9 +527,15 @@ class NumericsMonitor:
         return {}
 
     def _park(self, what, mat):
-        """Copy ``mat`` into pinned host memory on the current stream,
-        record an event behind the copy, and queue it for ``_drain``."""
-        host = torch.empty(mat.shape, dtype=mat.dtype, pin_memory=True)
+        """Copy ``mat`` into pinned host memory (a buffer of the pool when
+        one of its shape is free) on the current stream, record an event
+        behind the copy, and queue it for ``_drain``."""
+        key = (tuple(mat.shape), mat.dtype)
+        with self._pending_lock:
+            free = self._pinned.get(key)
+            host = free.pop() if free else None
+        if host is None:
+            host = torch.empty(mat.shape, dtype=mat.dtype, pin_memory=True)
         host.copy_(mat, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(mat.device))
@@ -437,12 +572,23 @@ class NumericsMonitor:
                 ev.synchronize()
             if what[0] == "compression":
                 self._set_compression(what[1], what[2], host.tolist())
+                self._give_back(host)
                 continue
             _, names, cycle = what
             recs = self.ingest(names, host, cycle=cycle)
+            self._give_back(host)
             if recs:
                 with self._pending_lock:
                     self._records.setdefault(int(cycle), {}).update(recs)
+
+    def _give_back(self, host):
+        """Return a read pinned buffer to the pool (a few of each shape
+        are kept: a bucket layout parks the same shapes every step)."""
+        with self._pending_lock:
+            free = self._pinned.setdefault((tuple(host.shape), host.dtype),
+                                           [])
+            if len(free) < _PINNED_KEEP:
+                free.append(host)
 
     def ingest(self, names, mat, cycle=None):
         """Policy half of ``observe``: ``mat`` is an [n, 10] host stats

@@ -302,8 +302,11 @@ def _plain_grads(qf, kf, vf, gf, lse, delta, causal, cta_rows=None):
                                    *dkv_walk))
 
 
-def _on_sm90(dtype, d):
-    return dtype == torch.bfloat16 and d <= fa.SM90_MAX_HEAD_DIM
+def _on_sm90(dtype, d, forward=False):
+    """Whether a call runs on the wgmma kernels: the bf16 forward up to
+    d 256, the bf16 backward up to 128."""
+    top = fa.SM90_FWD_MAX_HEAD_DIM if forward else fa.SM90_MAX_HEAD_DIM
+    return dtype == torch.bfloat16 and d <= top
 
 
 def _family(d):
@@ -313,7 +316,7 @@ def _family(d):
 def _fwd_name(dtype, variant, d=128):
     """The launch count of a forward: the wgmma kernel's, or the CUDA-core
     or run-time-d kernel's own."""
-    return (f"flash_fwd_{variant}" if _on_sm90(dtype, d)
+    return (f"flash_fwd_{variant}" if _on_sm90(dtype, d, forward=True)
             else f"flash_fwd_{_family(d)}_{variant}")
 
 
@@ -462,10 +465,11 @@ def test_backward_refuses_what_it_cannot_take(card):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_wide_head_dims_through_the_kernels(card, dtype, causal, d):
-    """Head dims above 128 run on the CUDA-core kernels (zero-padded to
-    256 on the host below it), forward and backward, at a partial-tile
-    length, and agree with the plain walks at the true d and the kernels'
-    tiles (64-row tiles; 32-key tiles in the backward)."""
+    """Head dims above 128 (zero-padded to 256 on the host below it): the
+    bf16 forward on the wgmma kernel (64-key tiles), the fp32 forward and
+    the backward on the CUDA-core kernels (64-row tiles; 32-key tiles in
+    the backward), at a partial-tile length, agree with the plain walks
+    at the true d and the kernels' tiles."""
     q, k, v = _qkv(70 + d, 1, 200, 3, d, dtype, card)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
         card, dtype)
@@ -490,15 +494,16 @@ def test_wide_head_dims_through_the_kernels(card, dtype, causal, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,causal", [(130, 130, True), (64, 200, False)])
 def test_d256_forward_every_walk(card, variant, dtype, sq, sk, causal):
-    """Each forward walk at d 256 on the CUDA-core kernel against its
-    plain version at the kernel's 64-row tiles."""
+    """Each forward walk at d 256 against its plain version at the
+    kernel's tiles: bf16 on the wgmma kernel (64-key tiles), fp32 on the
+    CUDA-core one (64-row tiles)."""
     g = torch.Generator().manual_seed(sq + sk)
     qf = torch.randn(2, sq, 256, generator=g)
     kf, vf = (torch.randn(2, sk, 256, generator=g) for _ in range(2))
     qf, kf, vf = (t.to(card, dtype) for t in (qf, kf, vf))
     fa.reset_launch_counts()
     out, lse = fa._kernel_fwd(qf, kf, vf, causal, 256 ** -0.5, variant)
-    assert dict(fa.launch_counts) == {f"flash_fwd_cc_{variant}": 1}
+    assert dict(fa.launch_counts) == {_fwd_name(dtype, variant, 256): 1}
     p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
                                     *fa.kernel_blocks(qf, kf, variant))
     _assert_kernel_close(out, p_out, "O", dtype)
@@ -873,3 +878,34 @@ def test_quantized_allreduce_world_one_on_nccl(card, codec, monkeypatch):
     want, _ = q.stacked_wire_allreduce(x[None], 256, codec, False, 10_000)
     assert torch.equal(out.cpu().view(torch.int32),
                        want[0].contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sizes", [[5, 0, 70000, 1, 0, 16384, 16385],
+                                   [3 * 16384 + 7], [0]])
+def test_segment_stats_kernel_matches_plain(card, dtype, sizes):
+    """The stats kernel (csrc/segment_stats.cu) against its plain version
+    on the same buffer: counts exact, L2, max-abs and checksum within
+    1e-6, the zero fraction within 1e-7; NaN, +-inf and zeros planted,
+    and the same buffer one element in (an unaligned start)."""
+    from horovod_tpu_torch.utils import numerics
+    n = sum(sizes)
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(dtype)
+    if n > 8:
+        x[[1, n // 2, n - 2, 4]] = torch.tensor(
+            [float("nan"), float("inf"), -float("inf"), 0.0]).to(dtype)
+    x = x.to(card)
+    cases = [(x, sizes)]
+    if sizes[0] > 1:
+        cases.append((x[1:], [sizes[0] - 1] + sizes[1:]))
+    for buf, sz in cases:
+        numerics.reset_launch_counts()
+        got = numerics.segment_stats(buf, sz).double().cpu()
+        assert numerics.launch_counts["segment_stats"] == 1
+        want = numerics.segment_stats_plain(buf, sz).double().cpu()
+        assert torch.equal(got[:, 2], want[:, 2])
+        torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0, atol=1e-7)
+        for c in (0, 1, 4):
+            torch.testing.assert_close(got[:, c], want[:, c], rtol=1e-6,
+                                       atol=1e-6)

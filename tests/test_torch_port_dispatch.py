@@ -2,14 +2,15 @@
 
 The compiled extension is replaced by a stub that records its calls, so
 the dispatch in ``ops/flash_attention.py`` runs here on the CPU. Forward:
-every bf16 variant up to head dim 128 goes to the wgmma/TMA entry point
+every bf16 variant up to head dim 256 goes to the wgmma/TMA entry point
 (``flash_fwd_sm90``, with the CTA shape the host picks or the caller
-forces), every fp32 variant and bf16 above d 128 to ``flash_fwd``, and
+forces; 64-key tiles at d 256), every fp32 variant to ``flash_fwd``, and
 the launch counts keep one name per variant; a head dim between the
-compiled ones reaches the kernel zero-padded, with the true d's scale. Backward: bf16 goes to the wgmma/TMA pair
+compiled ones reaches the kernel zero-padded, with the true d's scale.
+Backward: bf16 up to d 128 goes to the wgmma/TMA pair
 (``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
-forces, ``flash_bwd_sm90_dkv``), fp32 to ``flash_bwd_dq`` and
-``flash_bwd_dkv``, each counted under its own name. Every head dim above
+forces, ``flash_bwd_sm90_dkv``), fp32 and bf16 above 128 to
+``flash_bwd_dq`` and ``flash_bwd_dkv``, each counted under its own name. Every head dim above
 256 reaches the run-time-d entry points (``flash_fwd_dyn``,
 ``flash_bwd_dyn_dq``, ``flash_bwd_dyn_dkv``) unpadded, with a device
 workspace only where the accumulators do not fit shared memory. The
@@ -295,17 +296,22 @@ def test_run_time_d_accumulators_leave_shared_memory_only_when_full(
 @pytest.mark.parametrize("d", [160, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
-    """d in (128, 256] is zero-padded to 256 with the true d's scale and
-    runs on the CUDA-core kernels in both dtypes (the wgmma ones stop at
-    128): forward on ``flash_fwd``, backward on ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` over 32-key tiles, each counted under its own
-    ``_cc_`` name."""
+    """d in (128, 256] is zero-padded to 256 with the true d's scale. The
+    bf16 forward runs on the wgmma/TMA kernel (``flash_fwd_sm90``, 64-key
+    tiles at d 256, the CTA rows the host picks), counted as
+    ``flash_fwd_{variant}``; the fp32 forward on the CUDA-core
+    ``flash_fwd``. The backward stays on the CUDA-core ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` over 32-key tiles in both dtypes (the wgmma
+    backward stops at 128), each counted under its own ``_cc_`` name."""
     qf, kf, vf = _flat(2, 200, d, dtype)
     scale = d ** -0.5
     out, lse = fa.pad_head_dim(
         lambda q, k, v: fa._kernel_fwd(q, k, v, True, scale, "online"),
         (qf, kf, vf), 1)
-    assert stub.calls == [("flash_fwd", 0, True, None)]
+    bf16 = dtype == torch.bfloat16
+    rows = fa.sm90_cta_rows(2, 200, H100_SMS)
+    assert stub.calls == [("flash_fwd_sm90", 0, True, rows) if bf16
+                          else ("flash_fwd", 0, True, None)]
     assert stub.head_dims == [(256, pytest.approx(scale * fa.LOG2E))]
     assert out.shape == qf.shape
     delta = torch.zeros(2, 200)
@@ -316,10 +322,13 @@ def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
                                               "flash_bwd_dkv"]
     assert dq.shape == dk.shape == dv.shape == qf.shape
     assert fa.bwd_kernel_blocks(qf, kf) == ((64, 32), (64, 32))
-    assert fa.kernel_blocks(qf, kf, "online") == (64, 64)
-    assert dict(fa.launch_counts) == {"flash_fwd_cc_online": 1,
-                                      "flash_bwd_cc_dq": 1,
-                                      "flash_bwd_cc_dkv": 1}
+    assert fa.kernel_blocks(qf, kf, "online") == (
+        (rows, fa.SM90_BLOCK_K_WIDE) if bf16 else (64, 64))
+    assert fa.kernel_blocks(qf, kf, "lazy", 128) == (
+        (128, 64) if bf16 else (64, 64))
+    assert dict(fa.launch_counts) == {
+        "flash_fwd_online" if bf16 else "flash_fwd_cc_online": 1,
+        "flash_bwd_cc_dq": 1, "flash_bwd_cc_dkv": 1}
 
 
 def test_build_lists_every_cuda_source():

@@ -17,6 +17,8 @@ the CPU:
     package's.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,19 @@ from horovod_tpu_torch import trainer as ttrainer
 from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.utils import memory as tmem
 from horovod_tpu_torch.utils import metrics as tm
+
+# another test file in the same worker may leave HOROVOD_MESH* set, and
+# train_lm.main with no layout flag builds its mesh from them
+_MESH_ENV = ("HOROVOD_MESH", "HOROVOD_MESH_TP", "HOROVOD_MESH_SP",
+             "HOROVOD_MESH_PP", "HOROVOD_MESH_EP")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_mesh_env():
+    saved = {k: os.environ.pop(k) for k in _MESH_ENV if k in os.environ}
+    yield
+    os.environ.update(saved)
+
 
 FAMILIES = ("hvd_step_seconds", "hvd_steps_total", "hvd_tokens_per_second",
             "hvd_mfu", "hvd_step_peak_hbm_bytes")

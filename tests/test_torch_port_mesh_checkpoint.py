@@ -17,6 +17,7 @@ is then
     same.
 """
 
+import os
 import shutil
 
 import numpy as np
@@ -28,6 +29,18 @@ from horovod_tpu_torch.utils import checkpoint as tckpt
 
 RUN_TIMEOUT_S = 180.0
 ARGS = ["--device", "cpu", "--checkpoint-every", "3"]
+
+# another test file in the same worker may leave HOROVOD_MESH* set, and
+# train_lm.main with no layout flag builds its mesh from them
+_MESH_ENV = ("HOROVOD_MESH", "HOROVOD_MESH_TP", "HOROVOD_MESH_SP",
+             "HOROVOD_MESH_PP", "HOROVOD_MESH_EP")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_mesh_env():
+    saved = {k: os.environ.pop(k) for k in _MESH_ENV if k in os.environ}
+    yield
+    os.environ.update(saved)
 
 
 def _train_job():

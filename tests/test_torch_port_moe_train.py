@@ -17,6 +17,7 @@ Every run's losses are finite and the same on both ranks.
 """
 
 import math
+import os
 import shutil
 
 import pytest
@@ -27,6 +28,18 @@ from horovod_tpu_torch.utils import checkpoint as tckpt
 RUN_TIMEOUT_S = 180.0
 ARGS = ["--device", "cpu", "--num-experts", "4", "--checkpoint-every", "2",
         "--checkpoint-digest"]
+
+# another test file in the same worker may leave HOROVOD_MESH* set, and
+# train_lm.main with no layout flag builds its mesh from them
+_MESH_ENV = ("HOROVOD_MESH", "HOROVOD_MESH_TP", "HOROVOD_MESH_SP",
+             "HOROVOD_MESH_PP", "HOROVOD_MESH_EP")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_mesh_env():
+    saved = {k: os.environ.pop(k) for k in _MESH_ENV if k in os.environ}
+    yield
+    os.environ.update(saved)
 
 
 def _train_job():
