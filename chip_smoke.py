@@ -11,7 +11,8 @@ on failure:
      source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu,
      flash_bwd_sm90.cu, flash_dyn.cu, batch_norm.cu, segment_stats.cu)
      and its time, and beside it the wgmma/TMA sources (forward B1, B2,
-     B3: 30 instantiations, d 16-256; backward B4, B5: 12), the run-time-d
+     B3: 30 instantiations, d 16-256; backward B4, B5: 14, d 16-256), the
+     run-time-d
      kernels and the stats kernel each alone through nvcc -Xptxas -v: each
      instantiation's registers and spills, where any spill fails the run,
      and ptxas's performance warnings (C7514/C7520, "wgmma serialized"),
@@ -36,8 +37,8 @@ on failure:
      backward at partial-tile lengths (s 100, sq 100 x sk 300), and both
      dtypes at head dims 80 and 96 (zero-padded to 128 on the host) through
      the public autograd path against the plain walks at the true head
-     dim; then head dims 160, 192 and 256 (the bf16 forward on the wgmma
-     kernel, the fp32 forward and both dtypes' backward on the CUDA-core
+     dim; then head dims 160, 192, 224 and 256 (bf16 forward and backward
+     on the wgmma kernels, fp32 forward and backward on the CUDA-core
      kernels), forward and backward, at partial-tile lengths, every
      forward walk at d 256, and a ring pair's call patterns (non-causal
      forward; the backward under a merged lse with +1e30 rows, those
@@ -55,7 +56,10 @@ on failure:
      alone at every head dim, both dq CTA shapes forced (with the
      adversaries), partial last
      tiles with b·h >= 2 (s 960, 1000), non-causal sq != sk both ways and
-     the training shape; fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
+     the training shape, and at d 256 (64 x 64 walks: s 192, the partial
+     last tiles of s 1000 and sq 192 x sk 320 and 320 x 200, the
+     rising-max adversaries for each walk order, causal and not, and b4
+     h6 s1024); fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
      plus 1 % of that gradient's largest magnitude. Then the
      head dims above 256 on the run-time-d kernels (flash_dyn.cu): d 288,
      384, 512 and 1024, fp32 and bf16, every forward walk, dq and dk/dv
@@ -123,11 +127,12 @@ on failure:
      depth cut to 2 layers, trains 4 steps at batch 16 x seq 1024 through
      make_gspmd_multi_step on the one-card mesh. Launch counts are zeroed
      just before and read just after: each of the wgmma forward's walks
-     (flash_fwd_{online,lazy,twopass}) and the CUDA-core backward
-     (flash_bwd_cc_{dq,dkv}) must have launched and nothing else (no
-     CUDA-core forward); the same requests served again by the 2-layer
-     model in fp32 must launch each CUDA-core forward walk
-     (flash_fwd_cc_*) and nothing else; the loss must fall, and the first
+     (flash_fwd_{online,lazy,twopass}) and the wgmma backward
+     (flash_bwd_sm90_{dq,dkv}) must have launched and nothing else (no
+     CUDA-core kernel); the same requests served again by the 2-layer
+     model in fp32, and one batch-2 gradient of its loss, must launch each
+     CUDA-core forward walk (flash_fwd_cc_*) and the CUDA-core backward
+     (flash_bwd_cc_{dq,dkv}) and nothing else; the loss must fall, and the first
      batch's loss on the kernel path at 12 layers must equal the plain
      path's within 2^-8; then the same over 2 heads of 384, served and
      trained at 2 layers, on the run-time-d kernels (flash_fwd_dyn_*,
@@ -372,6 +377,7 @@ import json
 import logging
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -431,14 +437,15 @@ REPLACES = {"online": "horovod_tpu/ops/flash_attention.py:129",
             "segment_stats": "horovod_tpu/utils/numerics.py:228"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
 # phase 3e: the flagship's d_model 768 over 3 heads of 256: served at full
-# depth, trained at depth WIDE_LAYERS; bf16 forwards on the wgmma kernel,
-# the backward and the fp32 forwards on the CUDA cores
+# depth, trained at depth WIDE_LAYERS; bf16 on the wgmma kernels, fp32 on
+# the CUDA cores
 WIDE_HEADS, WIDE_LAYERS, WIDE_STEPS = 3, 2, 4
 WIDE_SERVE_LAYERS = 12
 WIDE_NAMES = tuple(f"flash_fwd_{v}" for v in ("online", "lazy", "twopass")
-                   ) + ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
+                   ) + ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")
 CC_FWD_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy",
                                                     "twopass"))
+CC_BWD_NAMES = ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
 # phase 3e again: the flagship's width over 2 heads of 384, on the
 # run-time-d kernels
 DYN_HEADS = 2
@@ -465,6 +472,12 @@ def stamp(card, what, t_main):
     """The seconds since the build began, at the end of ``what``."""
     log(card, f"{what} done at {time.perf_counter() - t_main:.1f} s from "
               f"the build")
+
+
+# calls of a plain walk under torch.profiler: each records thousands of
+# small kernels, whose trace takes seconds to process (9 s for two calls
+# at d 384), and one call's device time is that of every call
+PLAIN_ITERS = 1
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -826,8 +839,10 @@ def check_bwd_kernels(card, dev):
     """The backward kernels against their plain versions on dq, dk and
     dv: the forward checks' shapes, a partial tile, the rising-max
     adversaries, the training shape, and the ragged causal s=1000
-    through the autograd path (unpadded)."""
-    errs = {"dq": 0.0, "dkv": 0.0}   # bf16, the wgmma/TMA kernels
+    through the autograd path (unpadded). Returns the largest errors:
+    ``dq``, ``dkv`` of bf16 (the wgmma/TMA kernels), ``dq_fp32``,
+    ``dkv_fp32`` of fp32 (the CUDA-core ones)."""
+    errs = {"dq": 0.0, "dkv": 0.0, "dq_fp32": 0.0, "dkv_fp32": 0.0}
     share = {f"{k} {dt}": 0.0 for k in errs
              for dt in ("bfloat16", "float32")}
     ramps = {"down": torch.linspace(4.0, 0.5, 512),
@@ -847,8 +862,8 @@ def check_bwd_kernels(card, dev):
     def record(name, got, want, dtype, label):
         kernel = "dq" if name == "dq" else "dkv"
         err, frac = hold_grad(got, want, dtype, f"{name} {label}")
-        if dtype == torch.bfloat16:
-            errs[kernel] = max(errs[kernel], err)
+        err_key = kernel if dtype == torch.bfloat16 else f"{kernel}_fp32"
+        errs[err_key] = max(errs[err_key], err)
         key = f"{kernel} {str(dtype).split('.')[1]}"
         share[key] = max(share[key], frac)
 
@@ -898,8 +913,11 @@ def check_sm90_bwd(card, dev, errs):
     sequences that end in a partial tile of the kernels (s 960: 128-key
     tiles; s 1000: 64-query tiles too) with b·h >= 2, where a flat tensor
     map would read the next head's rows, non-causal sq != sk both ways,
-    and the training shape. lse and delta come from the plain forward.
-    Folds the largest errors into ``errs``."""
+    and the training shape; at d 256 (64 x 64 walks, one dq CTA shape)
+    s 192, s 1000, the adversaries, sq != sk both ways and phase 4's b4 h6
+    s1024. lse and delta come from the plain forward. Folds the largest
+    errors into ``errs`` (``dq``, ``dkv``; ``dq_d256``, ``dkv_d256`` at
+    d 256)."""
     ramp = {"down": torch.linspace(4.0, 0.5, 512),
             "up": torch.linspace(0.5, 4.0, 512)}
     cases = []   # (bh, sq, sk, d, causal, cta_rows, ramp)
@@ -917,6 +935,18 @@ def check_sm90_bwd(card, dev, errs):
         cases.append((4, 320, 200, 32, False, rows, None))
     cases.append((TRAIN_BATCH * 6, TRAIN_SEQ, TRAIN_SEQ, 128, True, None,
                   None))
+    # head dim 256: dq over 64 rows x 64 keys, dk/dv over 64 keys x 64
+    # queries, with its two consumer warpgroups splitting the columns
+    for causal in (True, False):
+        cases.append((3, 192, 192, 256, causal, None, None))
+        cases.append((2, 1000, 1000, 256, causal, None, None))
+        for name in ramp:
+            cases.append((6, 512, 512, 256, causal, None, name))
+    cases.append((4, 192, 320, 256, False, None, None))
+    cases.append((4, 320, 200, 256, False, None, None))
+    cases.append((24, 1024, 1024, 256, True, None, None))
+    for key in ("dq_d256", "dkv_d256"):
+        errs.setdefault(key, 0.0)
     share = 0.0
     n_cmp = 0
     for n, (bh, sq, sk, d, causal, rows, name) in enumerate(cases):
@@ -943,15 +973,19 @@ def check_sm90_bwd(card, dev, errs):
         for grad, a, w in zip(("dq", "dk", "dv"), got, want):
             err, frac = hold_grad(a, w, torch.bfloat16, f"{grad} {label}")
             kernel = "dq" if grad == "dq" else "dkv"
+            if d == 256:
+                kernel += "_d256"
             errs[kernel] = max(errs[kernel], err)
             share = max(share, frac)
             n_cmp += 1
     fa.reset_launch_counts()
     log(card, f"phase 2: {n_cmp} wgmma/TMA backward kernel/plain comparisons "
-              f"(bf16 dq, dk, dv; d 16/32/64/128, s 960 and 1000 at b·h >= "
-              f"2, sq 192 x sk 320 and 320 x 200, dq CTA rows 64 and 128, "
-              f"rising-max adversaries, the training shape) passed; largest "
-              f"error as a share of its tolerance {share:.3f}")
+              f"(bf16 dq, dk, dv; d 16/32/64/128/256, s 960 and 1000 at b·h "
+              f">= 2, sq 192 x sk 320 and 320 x 200, dq CTA rows 64 and 128 "
+              f"up to d 128, rising-max adversaries, the training shape, "
+              f"b4 h6 s1024 d256) passed; largest error as a share of its "
+              f"tolerance {share:.3f}; largest |error| at d 256: dq "
+              f"{errs['dq_d256']:.3e}, dk/dv {errs['dkv_d256']:.3e}")
 
 
 def check_partial_tiles_and_head_dims(card, dev, errs):
@@ -1034,28 +1068,32 @@ def check_partial_tiles_and_head_dims(card, dev, errs):
               f"tolerance {share}")
 
 
-WIDE_DIMS = (160, 192, 256)
+WIDE_DIMS = (160, 192, 224, 256)
 
 
 def check_wide_head_dims(card, dev, errs):
-    """Head dims above 128: d 160, 192 and 256 (zero-padded to 256 on the
-    host below it) through the public autograd path at s 200 (partial q,
-    k and 32-key tiles), fp32 and bf16, causal and not, against the plain
-    walks at the true d and the kernels' tiles, O and dq, dk, dv: the bf16
-    forward on the wgmma kernel, the fp32 forward and the backward on the
-    CUDA cores; then every forward walk at d 256 through the launch
-    wrapper at sq 130 causal and sq 64 x sk 200, O and lse. Folds the
-    largest errors into ``errs`` (fwd_d256 bf16, fwd_d256_fp32, and the
-    bf16 dq_d256, dkv_d256)."""
-    for key in ("fwd_d256", "fwd_d256_fp32", "dq_d256", "dkv_d256"):
+    """Head dims above 128: d 160, 192, 224 and 256 (zero-padded to 256 on
+    the host below it) through the public autograd path at s 200 (partial
+    q and k tiles), fp32 and bf16, causal and not, against the plain walks
+    at the true d and the kernels' tiles, O and dq, dk, dv: bf16 on the
+    wgmma kernels, fp32 on the CUDA cores; then every forward walk at
+    d 256 through the launch wrapper at sq 130 causal and sq 64 x sk 200,
+    O and lse. Folds the largest errors into ``errs`` (fwd_d256 bf16,
+    fwd_d256_fp32, dq_d256 and dkv_d256 bf16, dq_d256_fp32 and
+    dkv_d256_fp32)."""
+    for key in ("fwd_d256", "fwd_d256_fp32", "dq_d256", "dkv_d256",
+                "dq_d256_fp32", "dkv_d256_fp32"):
         errs.setdefault(key, 0.0)
     share, n_cmp = {"bfloat16": 0.0, "float32": 0.0}, 0
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
-        fwd_key = "fwd_d256" if dtype == torch.bfloat16 else "fwd_d256_fp32"
-        want_launches = {"flash_fwd_online" if dtype == torch.bfloat16
+        bf16 = dtype == torch.bfloat16
+        fwd_key = "fwd_d256" if bf16 else "fwd_d256_fp32"
+        family = "sm90" if bf16 else "cc"
+        want_launches = {"flash_fwd_online" if bf16
                          else "flash_fwd_cc_online": 1,
-                         "flash_bwd_cc_dq": 1, "flash_bwd_cc_dkv": 1}
+                         f"flash_bwd_{family}_dq": 1,
+                         f"flash_bwd_{family}_dkv": 1}
         for d in WIDE_DIMS:
             for causal in (True, False):
                 q, k, v = qkv(1400 + d, b=2, s=200, h=3, d=d, dtype=dtype,
@@ -1087,9 +1125,9 @@ def check_wide_head_dims(card, dev, errs):
                     err, frac = hold_grad(flat(t.grad), w, dtype,
                                           f"{name} {label}")
                     share[dt] = max(share[dt], frac)
-                    key = "dq_d256" if name == "dq" else "dkv_d256"
-                    if dtype == torch.bfloat16:
-                        errs[key] = max(errs[key], err)
+                    key = ("dq_d256" if name == "dq" else "dkv_d256") + (
+                        "" if bf16 else "_fp32")
+                    errs[key] = max(errs[key], err)
                     n_cmp += 1
         for variant in fa.VARIANTS:
             for sq, sk, causal in ((130, 130, True), (64, 200, False)):
@@ -1109,14 +1147,16 @@ def check_wide_head_dims(card, dev, errs):
                         errs[fwd_key] = max(errs[fwd_key], err)
                     n_cmp += 1
     fa.reset_launch_counts()
-    log(card, f"phase 2: {n_cmp} comparisons of head dims 160/192/256 (bf16 "
-              f"forward on the wgmma kernel; fp32 forward and the backward "
-              f"on the CUDA cores; public autograd path at s 200, fp32 and "
+    log(card, f"phase 2: {n_cmp} comparisons of head dims 160/192/224/256 "
+              f"(bf16 forward and backward on the wgmma kernels; fp32 on "
+              f"the CUDA cores; public autograd path at s 200, fp32 and "
               f"bf16, causal and not; each walk at d 256 at partial tiles) "
               f"passed; largest error as a share of its tolerance {share}; "
               f"largest |error| fwd bf16 {errs['fwd_d256']:.3e}, fp32 "
               f"{errs['fwd_d256_fp32']:.3e}, bf16 dq {errs['dq_d256']:.3e}, "
-              f"dk/dv {errs['dkv_d256']:.3e}")
+              f"dk/dv {errs['dkv_d256']:.3e}, fp32 dq "
+              f"{errs['dq_d256_fp32']:.3e}, dk/dv "
+              f"{errs['dkv_d256_fp32']:.3e}")
 
 
 BEYOND_DIMS = (288, 384, 512, 1024)
@@ -1476,7 +1516,10 @@ def check_train_grads(card, dev, cfg, batch):
     """One step's gradients at batch 2 on the kernel path against the same
     step with every launch replaced by its plain version: in bf16 against
     each gradient's scale (one rounding flip moves every later layer, as
-    for the serving logits), in fp32 to 1e-4 of it."""
+    for the serving logits), in fp32 to 1e-4 of it. Returns the fp32
+    kernel path's launches (the CUDA-core forward and backward at the
+    flagship's head dim 128)."""
+    fp32_launches = {}
     for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
         c = dataclasses.replace(cfg, dtype=dtype)
         model = tr.init_params(c, torch.Generator().manual_seed(1),
@@ -1489,7 +1532,10 @@ def check_train_grads(card, dev, cfg, batch):
             loss.backward()
             return loss.item(), {n: p.grad.clone()
                                  for n, p in model.named_parameters()}
+        fa.reset_launch_counts()
         got_loss, got = grads()
+        if dtype == torch.float32:
+            fp32_launches = dict(fa.launch_counts)
         with plain_path():
             want_loss, want = grads()
         if not math.isclose(got_loss, want_loss, rel_tol=tol):
@@ -1510,6 +1556,13 @@ def check_train_grads(card, dev, cfg, batch):
                   f"{len(want)} parameters (tolerance {tol})")
         del model, got, want
     torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    if not all(fp32_launches.get(n) for n in CC_BWD_NAMES):
+        raise AssertionError(f"the fp32 batch-2 step launched "
+                             f"{fp32_launches}")
+    log(card, f"phase 3b: the fp32 batch-2 step on the kernel path launched "
+              f"{fp32_launches}")
+    return fp32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1874,11 +1927,12 @@ def hold_launches(launches, names, what):
 
 def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
                    names=WIDE_NAMES, phase="3e",
-                   serve_layers=WIDE_SERVE_LAYERS, fp32_names=CC_FWD_NAMES):
+                   serve_layers=WIDE_SERVE_LAYERS,
+                   fp32_names=CC_FWD_NAMES + CC_BWD_NAMES):
     """The flagship's width (d_model 768, vocab 50304, d_ff 3072) over
-    ``heads`` heads (WIDE_HEADS: 256 each, bf16 forwards on the wgmma
-    kernel and the backward on the CUDA cores; DYN_HEADS: 384 each, on
-    the run-time-d kernels): the serving engine, at ``serve_layers``
+    ``heads`` heads (WIDE_HEADS: 256 each, bf16 on the wgmma kernels;
+    DYN_HEADS: 384 each, on the run-time-d kernels): the serving engine,
+    at ``serve_layers``
     layers, answers requests[:4] (prompts 16-100: the online and lazy
     walks) and requests[3] again under HVD_FLASH_VARIANT=twopass, then
     the model, depth cut to WIDE_LAYERS, trains WIDE_STEPS steps on one
@@ -1886,8 +1940,10 @@ def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
     one-card mesh. The counts are zeroed just before and read just
     after: each of the five kernels ``names`` must have launched, and no
     other kernel. With ``fp32_names`` the same requests are served again
-    by the WIDE_LAYERS model in fp32, counted apart: each of those
-    kernels must launch, and no other. The loss must fall, and the
+    by the WIDE_LAYERS model in fp32, and the training model of that seed
+    takes one gradient of its loss on a batch of 2 x TRAIN_SEQ tokens,
+    counted apart: each of those kernels (the CUDA-core forward walks and
+    backward) must launch, and no other. The loss must fall, and the
     training batch's loss through the kernels must equal the plain
     path's within 2^-8 (launches of that comparison not counted).
     Returns the runs' launches."""
@@ -1912,12 +1968,20 @@ def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         model32 = tr.init_params(cfg32, torch.Generator().manual_seed(0),
                                  device=dev)
+        train32 = tr.init_params(cfg32, torch.Generator().manual_seed(0),
+                                 device=dev, train=True)
+        batch32 = torch.randint(cfg.vocab_size, (2, TRAIN_SEQ),
+                                generator=torch.Generator().manual_seed(7)
+                                ).to(dev)
         fa.reset_launch_counts()
         serve_all_walks(cfg32, model32, requests, dev)
+        tr.lm_loss_fn(train32)(train32, batch32).backward()
+        torch.cuda.synchronize()
         fp32 = dict(fa.launch_counts)
         hold_launches(fp32, fp32_names,
-                      f"the head-dim-{cfg.head_dim} fp32 serving run")
-        del model32
+                      f"the head-dim-{cfg.head_dim} fp32 serving run and "
+                      f"gradient")
+        del model32, train32
     if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
         raise AssertionError(f"head-dim-{cfg.head_dim} losses {losses}")
     loss_fn = tr.lm_loss_fn(serve_model)
@@ -1930,8 +1994,8 @@ def run_wide_heads(card, dev, train_cfg, requests, heads=WIDE_HEADS,
         raise AssertionError(f"head-dim-{cfg.head_dim} loss {got} vs plain "
                              f"{want}")
     fa.reset_launch_counts()
-    fp32_note = (f"; fp32 serving at {cfg.num_layers} layers launched {fp32}"
-                 if fp32 else "")
+    fp32_note = (f"; fp32 serving and a batch-2 gradient at "
+                 f"{cfg.num_layers} layers launched {fp32}" if fp32 else "")
     log(card, f"phase {phase}: d_model {cfg.d_model} over {cfg.num_heads} "
               f"heads of {cfg.head_dim}: served 5 requests (one under "
               f"twopass) at {serve_layers} layers in {serve_s:.2f} s, "
@@ -2419,7 +2483,7 @@ def time_bwd_kernels(card, dev, launches, errs):
     entries = []
     for name, (kernel, plain) in calls.items():
         kt = time_pair(kernel)
-        plain_ms = device_ms(plain, 2) or time_ms(plain, 2, 1)
+        plain_ms = device_ms(plain, PLAIN_ITERS) or time_ms(plain, 2, 1)
         ops, nbytes = bwd_work(b * h, s, d, True, 2, name)
         b_ms, b_by = bound(ops, nbytes, PEAK_BF16_FLOPS)
         entries.append({
@@ -2463,7 +2527,7 @@ def time_fwd(card, dev, variant, b, s, h, d, seed):
             *(t.view(b, h, s, d) for t in (qf, kf, vf)), is_causal=True)}
     ev = {k_: time_ms(fn, *((2, 1) if k_ == "plain" else ()))
           for k_, fn in calls.items()}
-    dvc = {k_: device_ms(fn, 2 if k_ == "plain" else 20, False)
+    dvc = {k_: device_ms(fn, PLAIN_ITERS if k_ == "plain" else 20, False)
            for k_, fn in calls.items()}
     ms = {k_: dvc[k_] if dvc[k_] is not None else ev[k_] for k_ in ev}
     ops, nbytes = attention_work(b * h, s, d, True, 2)
@@ -2718,22 +2782,29 @@ def time_memory_and_remat(card, dev, model, opt, cfg, batch):
               f"on / off: {ratios[0]:.3f}, {ratios[1]:.3f}")
 
 
-def time_wide_kernels(card, dev, errs, launches):
+def time_wide_kernels(card, dev, errs, launches, fp32_launches):
     """The head dims above 128 beside the wgmma kernels at d 128 (causal,
-    b 4 h 6 s 1024): at d 256 the bf16 forward on the wgmma kernel, the
-    bf16 backward on the CUDA cores and the fp32 forward on the CUDA
-    cores; at d 384 the run-time-d kernels, bf16. Device ms per call of
-    each forward walk (online, lazy, twopass), dq and dk/dv, against the
-    bound (operations at the dtype's peak, or the bytes), their plain
-    versions at the kernels' tiles and SDPA's forward and backward
-    (whichever backend SDPA takes there); returns the d-256 and d-384
-    entries, each with its launches in phase 3e's runs (``launches``)."""
+    b 4 h 6 s 1024): at d 256 the bf16 forward and backward on the wgmma
+    kernels and the fp32 forward and backward on the CUDA cores; at d 384
+    the run-time-d kernels, bf16; at d 128 the fp32 backward on the CUDA
+    cores too. Device ms per call of each forward walk (online, lazy,
+    twopass), dq and dk/dv, against the bound (operations at the dtype's
+    peak, or the bytes), their plain versions at the kernels' tiles and
+    SDPA's forward and backward in the same dtype (whichever backend SDPA
+    takes there); returns the d-256 and d-384 entries, each with its
+    launches in phase 3e's runs (``launches``), and the d-128 fp32
+    backward's, with its launches in phase 3b's fp32 step
+    (``fp32_launches``)."""
     b, s, h = 4, 1024, 6
     dyn_d = 768 // DYN_HEADS
     entries, rows = [], {}
-    for d, dtype in ((128, torch.bfloat16), (256, torch.bfloat16),
-                     (256, torch.float32), (dyn_d, torch.bfloat16)):
+    t0, plain_s = time.perf_counter(), 0.0
+    for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                     (256, torch.bfloat16), (256, torch.float32),
+                     (dyn_d, torch.bfloat16)):
         bf16 = dtype == torch.bfloat16
+        # the fp32 forward at d 128 is not timed here: only its backward
+        fwd_rows = bf16 or d != 128
         tag = f"d{d}" + ("" if bf16 else " fp32")
         q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=dtype, device=dev)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
@@ -2773,6 +2844,8 @@ def time_wide_kernels(card, dev, errs, launches):
                 qs.detach(), ks.detach(), vs.detach(), is_causal=True),
             "bwd": lambda: torch.autograd.grad(o, (qs, ks, vs), go,
                                                retain_graph=True)}
+        if not fwd_rows:
+            del library["fwd"]
         lib = {n_: time_pair(fn) for n_, fn in library.items()}
         item = dtype.itemsize
         calls = {
@@ -2781,23 +2854,25 @@ def time_wide_kernels(card, dev, errs, launches):
                 lambda variant=variant: plain_fwd(qf, kf, vf, True, scale,
                                                   variant),
                 attention_work(b * h, s, d, True, item), lib["fwd"])
-            for variant in fa.VARIANTS}
-        if bf16:
-            calls.update({
-                "dq": (k_dq, lambda: ref.flash_bwd_dq(
-                    qf, kf, vf, gf, lse, delta, True, *dq_walk, scale),
-                    bwd_work(b * h, s, d, True, item, "dq"), lib["bwd"]),
-                "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(
-                    qf, kf, vf, gf, lse, delta, True, *dkv_walk, scale),
-                    bwd_work(b * h, s, d, True, item, "dkv"), lib["bwd"])})
+            for variant in (fa.VARIANTS if fwd_rows else ())}
+        calls.update({
+            "dq": (k_dq, lambda: ref.flash_bwd_dq(
+                qf, kf, vf, gf, lse, delta, True, *dq_walk, scale),
+                bwd_work(b * h, s, d, True, item, "dq"), lib["bwd"]),
+            "dkv": (k_dkv, lambda: ref.flash_bwd_dkv(
+                qf, kf, vf, gf, lse, delta, True, *dkv_walk, scale),
+                bwd_work(b * h, s, d, True, item, "dkv"), lib["bwd"])})
         peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
         for name, (kernel, plain, (ops, nbytes), lib_t) in calls.items():
             kt = time_pair(kernel, iters=20)
-            plain_ms = device_ms(plain, 2) or time_ms(plain, 2, 1)
+            t_plain = time.perf_counter()
+            plain_ms = (device_ms(plain, PLAIN_ITERS) or
+                        time_ms(plain, 2, 1))
+            plain_s += time.perf_counter() - t_plain
             b_ms, b_by = bound(ops, nbytes, peak)
             rows[f"{tag} {name}"] = (round(kt[2], 5), round(b_ms, 5),
                                      round(plain_ms, 3), round(lib_t[2], 5))
-            if d == 128:
+            if d == 128 and bf16:
                 continue
             fwd = name in fa.VARIANTS
             if fwd:
@@ -2808,23 +2883,37 @@ def time_wide_kernels(card, dev, errs, launches):
                            else "fwd_d256_fp32")
             else:
                 counter = fa.bwd_launch_names(qf)[name == "dkv"]
-                source = DYN_SOURCE if fa.on_dyn(d) else CC_BWD_SOURCE
-                err_key = f"{name}_{'dyn' if fa.on_dyn(d) else 'd256'}"
+                source = (DYN_SOURCE if fa.on_dyn(d) else BWD_SOURCE
+                          if fa.on_sm90_bwd(qf) else CC_BWD_SOURCE)
+                err_key = name + ("_dyn" if fa.on_dyn(d) else
+                                  "_d256" if d == 256 else "") + (
+                    "" if bf16 else "_fp32")
             entries.append({
                 "name": counter, "head_dim": d, "dtype": str(dtype)[6:],
                 "route": "cuda", "source": source,
                 "replaces": REPLACES[name],
-                "launches": launches.get(counter, 0),
+                "launches": (launches if d != 128 else fp32_launches).get(
+                    counter, 0),
                 "max_abs_err": errs[err_key],
                 "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_t[2]})
         del o, qs, ks, vs
     fa.reset_launch_counts()
-    log(card, f"phase 4: causal b={b} h={h} s={s}, d 256 (bf16 forward on "
-              f"the wgmma kernel, bf16 backward and fp32 forward on the CUDA "
-              f"cores) and d {dyn_d} on the run-time-d kernels beside d 128 "
-              f"on the wgmma ones, (kernel ms, bound ms, plain ms, SDPA ms; "
-              f"bwd: SDPA's whole backward): {rows}; d{dyn_d} / d256: online "
+    log(card, f"phase 4: causal b={b} h={h} s={s}, d 256 (bf16 on the wgmma "
+              f"kernels, fp32 on the CUDA cores) and d {dyn_d} on the "
+              f"run-time-d kernels beside d 128 (bf16 on the wgmma kernels, "
+              f"the fp32 backward on the CUDA cores), (kernel ms, bound ms, "
+              f"plain ms, SDPA ms in the same dtype; bwd: SDPA's whole "
+              f"backward): {rows}; d256 bf16 backward / SDPA's: dq "
+              f"{rows['d256 dq'][0] / rows['d256 dq'][3]:.2f}, dk/dv "
+              f"{rows['d256 dkv'][0] / rows['d256 dkv'][3]:.2f}; fp32 "
+              f"backward / SDPA's: d128 dq "
+              f"{rows['d128 fp32 dq'][0] / rows['d128 fp32 dq'][3]:.2f}, "
+              f"dk/dv {rows['d128 fp32 dkv'][0] / rows['d128 fp32 dkv'][3]:.2f}"
+              f", d256 dq "
+              f"{rows['d256 fp32 dq'][0] / rows['d256 fp32 dq'][3]:.2f}, "
+              f"dk/dv {rows['d256 fp32 dkv'][0] / rows['d256 fp32 dkv'][3]:.2f}"
+              f"; d{dyn_d} / d256: online "
               f"{rows[f'd{dyn_d} online'][0] / rows['d256 online'][0]:.2f}, "
               f"dq {rows[f'd{dyn_d} dq'][0] / rows['d256 dq'][0]:.2f}, dk/dv "
               f"{rows[f'd{dyn_d} dkv'][0] / rows['d256 dkv'][0]:.2f}; "
@@ -2836,7 +2925,9 @@ def time_wide_kernels(card, dev, errs, launches):
               f"{rows['d256 dkv'][0] / rows['d128 dkv'][0]:.2f}; d256 / "
               f"SDPA: " + ", ".join(
                   f"{v} {rows[f'd256 {v}'][0] / rows[f'd256 {v}'][3]:.2f}"
-                  for v in fa.VARIANTS))
+                  for v in fa.VARIANTS) +
+        f"; {time.perf_counter() - t0:.1f} s, {plain_s:.1f} of it timing "
+        f"the plain walks")
     return entries
 
 
@@ -4271,26 +4362,98 @@ def run_overlap(card, dev):
 def _hvdrun_lm(layout, directory, steps, every, name):
     """hvdrun -np 2 on the one card: train_lm's --steps loop at
     ``layout`` (e.g. ["--tp", "2"]), depth P3J_LAYERS, checkpointing to
-    ``directory``; a Popen with stdout piped, stderr to a file."""
+    ``directory``; a Popen with stdout piped, hvdrun's stderr to
+    ``<name>.err`` and each rank's to ``<name>.rank<r>.err``. The ranks
+    run under PYTHONFAULTHANDLER, with no core file: a SIGABRT prints
+    every thread's Python stack (``_dump_rank_stacks``)."""
+    base = os.path.join(P3J_DIR, name)
+    # the rank's stderr to a file of its own; its stdout (the JSON
+    # events) stays hvdrun's
+    wrap = ["sh", "-c",
+            'ulimit -c 0; exec "$@" 2>"$0.rank$HVD_PROCESS_ID.err"', base]
     args = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "-H",
-            "localhost:2", sys.executable, "-m",
+            "localhost:2"] + wrap + [
+            sys.executable, "-m",
             "horovod_tpu_torch.train_lm", "--device", "cuda", "--steps",
             str(steps), "--num-layers", str(P3J_LAYERS),
             "--checkpoint-dir", directory, "--checkpoint-every",
             str(every)] + layout
-    err = open(os.path.join(P3J_DIR, f"{name}.err"), "w")
-    proc = subprocess.Popen(args, cwd=ROOT, env=dict(os.environ),
+    err = open(base + ".err", "w")
+    proc = subprocess.Popen(args, cwd=ROOT,
+                            env=dict(os.environ, PYTHONFAULTHANDLER="1"),
                             stdout=subprocess.PIPE, stderr=err, text=True,
                             start_new_session=True)
     proc.err_path = err.name
+    proc.rank_err = [f"{base}.rank{r}.err" for r in range(2)]
     err.close()
     return proc
 
 
+def _stderr_tails(proc, n=2000):
+    """hvdrun's stderr tail and each rank's, for an error message."""
+    out = []
+    for label, path in [("hvdrun", proc.err_path)] + [
+            (f"rank {r}", p) for r, p in enumerate(proc.rank_err)]:
+        try:
+            with open(path, errors="replace") as f:
+                text = f.read()[-n:]
+        except OSError as exc:
+            text = f"<{exc}>"
+        out.append(f"--- {label} stderr ---\n{text}")
+    return "\n".join(out)
+
+
+def _children(pid):
+    """The pids of ``pid``'s children (read from /proc)."""
+    kids = []
+    try:
+        for tid in os.listdir(f"/proc/{pid}/task"):
+            with open(f"/proc/{pid}/task/{tid}/children") as f:
+                kids += [int(k) for k in f.read().split()]
+    except OSError:
+        pass
+    return kids
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _dump_rank_stacks(proc, wait_s=10.0):
+    """At a run's deadline: SIGABRT to each rank of the hvdrun ``proc``
+    (faulthandler writes every thread's stack to the rank's stderr),
+    then SIGKILL to what is left, hvdrun's group and the ranks' own
+    (hvdrun starts each rank in a session of its own)."""
+    ranks = _children(proc.pid)
+    for pid in ranks:
+        try:
+            os.kill(pid, signal.SIGABRT)
+        except OSError:
+            pass
+    deadline = time.monotonic() + wait_s
+    while any(_alive(p) for p in ranks) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for pid in ranks:
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except OSError:
+        pass
+    proc.wait()
+    return ranks
+
+
 def _events(proc, on_event=None, timeout=P3J_RUN_S):
     """The JSON events of ``proc``'s stdout until it exits (or the
-    deadline: then its group is killed), ``on_event`` called on each.
-    Returns (events, exit code)."""
+    deadline: then every rank's stacks are dumped and the job killed),
+    ``on_event`` called on each. Returns (events, exit code)."""
     import queue as queue_mod
     lines = queue_mod.Queue()
 
@@ -4309,10 +4472,11 @@ def _events(proc, on_event=None, timeout=P3J_RUN_S):
         if ln is None:
             break
         if time.monotonic() > deadline:
-            os.killpg(proc.pid, 9)
-            proc.wait()
-            raise AssertionError(f"no end within {timeout} s; stderr: "
-                                 f"{open(proc.err_path).read()[-3000:]}")
+            ranks = _dump_rank_stacks(proc)
+            raise AssertionError(
+                f"no end within {timeout} s; stacks of ranks (pids "
+                f"{ranks}) dumped by SIGABRT:\n"
+                f"{_stderr_tails(proc, 6000)}")
         for ev in _json_objects(ln):
             events.append(ev)
             if on_event is not None:
@@ -4337,7 +4501,6 @@ def run_mesh_checkpoint(card):
     (the later losses bit-equal to the uninterrupted run's) and at dp 2
     (within 2^-8). Save (blocking, whole) and restore ms recorded."""
     import shutil
-    import signal as signal_mod
     from horovod_tpu_torch.common.exceptions import PREEMPTED_EXIT_CODE
     base = os.path.join(P3J_DIR, "ckpt")
     shutil.rmtree(base, ignore_errors=True)
@@ -4353,11 +4516,11 @@ def run_mesh_checkpoint(card):
         # the emergency save (a slow forward could let it land later,
         # and the checks below take the step the save names)
         if ev.get("event") == "step" and ev["step"] == CKPT_STOP - 1:
-            stopped.send_signal(signal_mod.SIGTERM)
+            stopped.send_signal(signal.SIGTERM)
     ev_stop, rc = _events(stopped, stop)
     if rc != PREEMPTED_EXIT_CODE:
         raise AssertionError(f"the stopped tp 2 run exited {rc}: "
-                             f"{open(stopped.err_path).read()[-2000:]}")
+                             f"{_stderr_tails(stopped)}")
     pre = [e for e in ev_stop if e["event"] == "preempted"]
     saved = pre[0]["step"]
     # the resumes start while the uninterrupted run still runs (a cut
@@ -4371,8 +4534,7 @@ def run_mesh_checkpoint(card):
     ev_full, rc_full = _events(full)
     if rc_full:
         raise AssertionError(f"the uninterrupted tp 2 run exited "
-                             f"{rc_full}: "
-                             f"{open(full.err_path).read()[-2000:]}")
+                             f"{rc_full}: {_stderr_tails(full)}")
     full_losses = {e["step"]: e["loss"] for e in ev_full
                    if e["event"] == "step"}
     got = {}
@@ -4380,7 +4542,7 @@ def run_mesh_checkpoint(card):
         events, rc = _events(proc)
         if rc:
             raise AssertionError(f"resume at {layout} 2 exited {rc}: "
-                                 f"{open(proc.err_path).read()[-3000:]}")
+                                 f"{_stderr_tails(proc, 3000)}")
         res = [e for e in events if e["event"] == "resume"][0]
         if res["step"] != saved or res["saved_layout"]["tp"] != 2:
             raise AssertionError(f"resume at {layout} 2: {res}")
@@ -7046,10 +7208,11 @@ def main():
         raise
 
     # ---- phase 1's register reports: 30 forward instantiations (d 16-256
-    # x walk x warpgroups), 12 backward (dq: d x warpgroups; dk/dv: d); the
+    # x walk x warpgroups), 14 backward (dq: d 16-128 x warpgroups and d
+    # 256 at one; dk/dv: d 16-128, and d 256's split-column kernel); the
     # run-time-d kernels: 6 forward (dtype x walk), 4 backward; the stats
     # kernel's first pass (3 dtypes) and its reduction
-    for name, n_kernels in (("flash_fwd_sm90", 30), ("flash_bwd_sm90", 12),
+    for name, n_kernels in (("flash_fwd_sm90", 30), ("flash_bwd_sm90", 14),
                             ("flash_dyn", 10), ("segment_stats", 4)):
         out, _ = ptxas[name].communicate(timeout=900)
         report = fwd_ab.ptxas_report(out)
@@ -7162,9 +7325,8 @@ def main():
     check_nccl(card, dev)
     train_cfg = train_lm.flagship_config(True)
 
-    # ---- phase 3e: head dim 256 (the bf16 forward on the wgmma kernel,
-    # the backward and the fp32 forward on the CUDA cores), 384 on the
-    # run-time-d ones
+    # ---- phase 3e: head dim 256 (bf16 on the wgmma kernels, fp32 on the
+    # CUDA cores), 384 on the run-time-d ones
     wide_launches = run_wide_heads(card, dev, train_cfg, requests)
     wide_launches.update(run_wide_heads(card, dev, train_cfg, requests,
                                         heads=DYN_HEADS, names=DYN_NAMES,
@@ -7188,7 +7350,7 @@ def main():
             train_flagship(card, dev, train_cfg)
         launches.update({k: train_launches[k]
                          for k in ("flash_bwd_sm90_dq", "flash_bwd_sm90_dkv")})
-        check_train_grads(card, dev, train_cfg, t_batch)
+        fp32_launches = check_train_grads(card, dev, train_cfg, t_batch)
         torch.cuda.empty_cache()
 
         # ---- phase 3c: train ResNet-50 through the BatchNorm kernels
@@ -7300,7 +7462,8 @@ def main():
     del t_model, t_opt
     torch.cuda.empty_cache()
     time_ring(card, dev)
-    kernels.extend(time_wide_kernels(card, dev, errs, wide_launches))
+    kernels.extend(time_wide_kernels(card, dev, errs, wide_launches,
+                                     fp32_launches))
     # the three variants side by side at the serving max_len
     for dt in (torch.bfloat16, torch.float32):
         qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in qkv(

@@ -172,9 +172,8 @@ void check_bwd(const char* which, std::initializer_list<torch::Tensor> ts,
               which, ": lse and delta must be [b*h, sq]");
 }
 
-// Every backward operand in one dtype: fp32 (or bf16 at d 256) for the
-// CUDA-core kernels (flash_bwd.cu), bf16 for the wgmma/TMA ones
-// (flash_bwd_sm90.cu).
+// Every backward operand in one dtype: fp32 for the CUDA-core kernels
+// (flash_bwd.cu), bf16 for the wgmma/TMA ones (flash_bwd_sm90.cu).
 void check_dtype(const char* which, std::initializer_list<torch::Tensor> ts,
                  torch::ScalarType dtype) {
   for (const auto& t : ts)
@@ -206,41 +205,40 @@ void check_dkv(const char* which, const torch::Tensor& q,
   check_dtype(which, {q, k, v, dout, dk, dv}, dtype);
 }
 
-// dq on the CUDA cores: fp32 at every compiled head dim, bf16 at d 256
+// dq on the CUDA cores: fp32 at every compiled head dim (bf16 runs on
+// flash_bwd_sm90)
 void flash_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
                   const torch::Tensor& v, const torch::Tensor& dout,
                   const torch::Tensor& lse, const torch::Tensor& delta,
                   torch::Tensor& dq, bool causal, double scale2,
                   double scale) {
-  int dtype = kernel_dtype(q, "flash_bwd_dq");
-  check_dq("flash_bwd_dq", q, k, v, dout, lse, delta, dq, q.scalar_type());
+  check_dq("flash_bwd_dq", q, k, v, dout, lse, delta, dq, torch::kFloat32);
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_bwd_dq", hvd_flash_bwd_dq(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
       static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
-      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), dtype,
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)), 0,
       causal ? 1 : 0, static_cast<float>(scale2), static_cast<float>(scale),
       stream_of(q)));
 }
 
-// dk and dv on the CUDA cores: fp32 at every compiled head dim, bf16 at
-// d 256
+// dk and dv on the CUDA cores: fp32 at every compiled head dim (bf16 runs
+// on flash_bwd_sm90)
 void flash_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v, const torch::Tensor& dout,
                    const torch::Tensor& lse, const torch::Tensor& delta,
                    torch::Tensor& dk, torch::Tensor& dv, bool causal,
                    double scale2, double scale) {
-  int dtype = kernel_dtype(q, "flash_bwd_dkv");
   check_dkv("flash_bwd_dkv", q, k, v, dout, lse, delta, dk, dv,
-            q.scalar_type());
+            torch::kFloat32);
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_bwd_dkv", hvd_flash_bwd_dkv(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
       dv.data_ptr(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), dtype, causal ? 1 : 0,
+      static_cast<int>(q.size(2)), 0, causal ? 1 : 0,
       static_cast<float>(scale2), static_cast<float>(scale), stream_of(q)));
 }
 
@@ -447,15 +445,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Flash-attention forward, bf16 online/lazy/twopass up to head dim "
         "256, on wgmma and TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
-        "Flash-attention backward, dq, on the CUDA cores (fp32, and bf16 "
-        "at d 256)");
+        "Flash-attention backward, dq, on the CUDA cores (fp32)");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
-        "Flash-attention backward, dk and dv, on the CUDA cores (fp32, "
-        "and bf16 at d 256)");
+        "Flash-attention backward, dk and dv, on the CUDA cores (fp32)");
   m.def("flash_bwd_sm90_dq", &flash_bwd_sm90_dq,
-        "Flash-attention backward, dq, bf16 on wgmma and TMA");
+        "Flash-attention backward, dq, bf16 up to head dim 256, on wgmma "
+        "and TMA");
   m.def("flash_bwd_sm90_dkv", &flash_bwd_sm90_dkv,
-        "Flash-attention backward, dk and dv, bf16 on wgmma and TMA");
+        "Flash-attention backward, dk and dv, bf16 up to head dim 256, on "
+        "wgmma and TMA");
   m.def("flash_fwd_dyn", &flash_fwd_dyn,
         "Flash-attention forward, online/lazy/twopass, at a run-time head "
         "dim (d > 256) on the CUDA cores, fp32 and bf16");

@@ -1,7 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a) on the CUDA cores: the
 // two backward kernels of horovod_tpu/ops/flash_attention.py for every
-// fp32 call and for bf16 at head dims above 128. bf16 up to d 128 runs on
-// wgmma and TMA in flash_bwd_sm90.cu.
+// fp32 call. bf16 up to d 256 runs on wgmma and TMA in flash_bwd_sm90.cu.
 //
 // Replaces the Pallas TPU kernels behind pl.pallas_call in
 // horovod_tpu/ops/flash_attention.py (_flash_bwd):
@@ -9,7 +8,7 @@
 //   dkv -> _dkv_kernel   (one CTA per k tile, Q/dO/lse/delta streamed)
 //
 // Contract (same as the TPU kernels): q/k/v/dO are [b*h, s, d] contiguous
-// fp32 or bf16, the gradients in their dtype; lse is the forward's
+// fp32, the gradients in their dtype; lse is the forward's
 // natural-log row log-sum-exp and delta = rowsum(dO * O), both fp32
 // [b*h, sq] (one row per query, not the TPU's 8-sublane replicated
 // layout). Each probability is rebuilt from lse as
@@ -19,9 +18,9 @@
 //   ds = p * (dP - delta),  dP = dO V^T
 //   dq = scale * sum_k ds K          (dq kernel)
 //   dv = sum_q p^T dO,  dk = scale * sum_q ds^T Q   (dkv kernel)
-// with ds rounded to the input dtype before ds K and ds^T Q, p rounded to
-// dO's before p^T dO (no-ops in fp32), fp32 accumulation, and the softmax
-// scale applied once after the loop, to dq and dk and never to dv. The
+// with fp32 accumulation (the bf16 kernels round ds and p before their
+// products; in fp32 that is a no-op), and the softmax scale applied once
+// after the loop, to dq and dk and never to dv. The
 // two-kernel split of the TPU is kept: no atomics, every gradient is
 // written once, and the result is deterministic.
 //
@@ -99,7 +98,7 @@ struct DqLayout {
 // TPR threads own one query row: thread `part` computes the pair products
 // of keys part, part+TPR, ... and accumulates the dq columns
 // [part*D/TPR, (part+1)*D/TPR).
-template <typename T, int D, int KB, int TPR>
+template <int D, int KB, int TPR>
 __global__ void __launch_bounds__(kBlock * TPR)
 flash_bwd_dq_cc_kernel(BwdParams p) {
   using L = DqLayout<D, KB>;
@@ -120,17 +119,17 @@ flash_bwd_dq_cc_kernel(BwdParams p) {
   const int bh = blockIdx.y;
   const size_t q_off = static_cast<size_t>(bh) * p.sq * D;
   const size_t k_off = static_cast<size_t>(bh) * p.sk * D;
-  const T* k = static_cast<const T*>(p.k) + k_off;
-  const T* v = static_cast<const T*>(p.v) + k_off;
+  const float* k = static_cast<const float*>(p.k) + k_off;
+  const float* v = static_cast<const float*>(p.v) + k_off;
   const int row = qi * kBlock + r;
   const size_t stat = static_cast<size_t>(bh) * p.sq + row;
   const float lse2 = row < p.sq ? p.lse[stat] * kLog2e : 0.f;
   const float dlt = row < p.sq ? p.delta[stat] : 0.f;
 
-  load_tile<T, D, kBlock, kNT>(sQ, static_cast<const T*>(p.q) + q_off,
-                               qi * kBlock, p.sq, tid);
-  load_tile<T, D, kBlock, kNT>(sDO, static_cast<const T*>(p.dout) + q_off,
-                               qi * kBlock, p.sq, tid);
+  load_tile<float, D, kBlock, kNT>(
+      sQ, static_cast<const float*>(p.q) + q_off, qi * kBlock, p.sq, tid);
+  load_tile<float, D, kBlock, kNT>(
+      sDO, static_cast<const float*>(p.dout) + q_off, qi * kBlock, p.sq, tid);
 
   float acc[kCols];
 #pragma unroll
@@ -145,8 +144,8 @@ flash_bwd_dq_cc_kernel(BwdParams p) {
 
   for (int kb = 0; kb < nk; ++kb) {
     __syncthreads();
-    load_tile<T, D, KB, kNT>(sK, k, kb * KB, p.sk, tid);
-    load_tile<T, D, KB, kNT>(sV, v, kb * KB, p.sk, tid);
+    load_tile<float, D, KB, kNT>(sK, k, kb * KB, p.sk, tid);
+    load_tile<float, D, KB, kNT>(sV, v, kb * KB, p.sk, tid);
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < KB / TPR; ++c) {
@@ -160,7 +159,7 @@ flash_bwd_dq_cc_kernel(BwdParams p) {
         dp = fmaf(dorow[d], vrow[d], dp);
       }
       float sv = visible(p, row, kb * KB + j) ? s * p.scale2 : kNegInf;
-      srow[j] = round_to<T>(exp2f(sv - lse2) * (dp - dlt));
+      srow[j] = exp2f(sv - lse2) * (dp - dlt);
     }
     __syncwarp();
     const float* kcol = sK + part * kCols;
@@ -174,10 +173,10 @@ flash_bwd_dq_cc_kernel(BwdParams p) {
   }
 
   if (row < p.sq) {
-    T* dq = static_cast<T*>(p.dq) + q_off + static_cast<size_t>(row) * D +
-            part * kCols;
+    float* dq = static_cast<float*>(p.dq) + q_off +
+                static_cast<size_t>(row) * D + part * kCols;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) dq[i] = from_f32<T>(acc[i] * p.scale);
+    for (int i = 0; i < kCols; ++i) dq[i] = acc[i] * p.scale;
   }
 }
 
@@ -196,7 +195,7 @@ struct DkvLayout {
 // TPR threads own one key row: thread `part` computes the pair products
 // of queries part, part+TPR, ... and accumulates the dk and dv columns
 // [part*D/TPR, (part+1)*D/TPR).
-template <typename T, int D, int KB, int TPR>
+template <int D, int KB, int TPR>
 __global__ void __launch_bounds__(KB * TPR)
 flash_bwd_dkv_cc_kernel(BwdParams p) {
   using L = DkvLayout<D, KB>;
@@ -220,16 +219,16 @@ flash_bwd_dkv_cc_kernel(BwdParams p) {
   const int bh = blockIdx.y;
   const size_t q_off = static_cast<size_t>(bh) * p.sq * D;
   const size_t k_off = static_cast<size_t>(bh) * p.sk * D;
-  const T* q = static_cast<const T*>(p.q) + q_off;
-  const T* dout = static_cast<const T*>(p.dout) + q_off;
+  const float* q = static_cast<const float*>(p.q) + q_off;
+  const float* dout = static_cast<const float*>(p.dout) + q_off;
   const float* lse = p.lse + static_cast<size_t>(bh) * p.sq;
   const float* delta = p.delta + static_cast<size_t>(bh) * p.sq;
   const int krow = ki * KB + r;
 
-  load_tile<T, D, KB, kNT>(sK, static_cast<const T*>(p.k) + k_off, ki * KB,
-                           p.sk, tid);
-  load_tile<T, D, KB, kNT>(sV, static_cast<const T*>(p.v) + k_off, ki * KB,
-                           p.sk, tid);
+  load_tile<float, D, KB, kNT>(
+      sK, static_cast<const float*>(p.k) + k_off, ki * KB, p.sk, tid);
+  load_tile<float, D, KB, kNT>(
+      sV, static_cast<const float*>(p.v) + k_off, ki * KB, p.sk, tid);
 
   float dk[kCols], dv[kCols];
 #pragma unroll
@@ -244,8 +243,8 @@ flash_bwd_dkv_cc_kernel(BwdParams p) {
 
   for (int qb = qb_start; qb < nq; ++qb) {
     __syncthreads();
-    load_tile<T, D, kBlock, kNT>(sQ, q, qb * kBlock, p.sq, tid);
-    load_tile<T, D, kBlock, kNT>(sDO, dout, qb * kBlock, p.sq, tid);
+    load_tile<float, D, kBlock, kNT>(sQ, q, qb * kBlock, p.sq, tid);
+    load_tile<float, D, kBlock, kNT>(sDO, dout, qb * kBlock, p.sq, tid);
     for (int i = tid; i < 2 * kBlock; i += kNT) {
       int row = qb * kBlock + (i % kBlock);
       if (i < kBlock)
@@ -267,8 +266,8 @@ flash_bwd_dkv_cc_kernel(BwdParams p) {
       }
       float sv = visible(p, qb * kBlock + j, krow) ? s * p.scale2 : kNegInf;
       float pv = exp2f(sv - sL[j]);
-      prow[j] = round_to<T>(pv);
-      srow[j] = round_to<T>(pv * (dp - sD[j]));
+      prow[j] = pv;
+      srow[j] = pv * (dp - sD[j]);
     }
     __syncwarp();
     for (int j = 0; j < kBlock; ++j) {
@@ -286,12 +285,12 @@ flash_bwd_dkv_cc_kernel(BwdParams p) {
 
   if (krow < p.sk) {
     size_t i0 = k_off + static_cast<size_t>(krow) * D + part * kCols;
-    T* gk = static_cast<T*>(p.dk) + i0;
-    T* gv = static_cast<T*>(p.dv) + i0;
+    float* gk = static_cast<float*>(p.dk) + i0;
+    float* gv = static_cast<float*>(p.dv) + i0;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
-      gk[i] = from_f32<T>(dk[i] * p.scale);
-      gv[i] = from_f32<T>(dv[i]);
+      gk[i] = dk[i] * p.scale;
+      gv[i] = dv[i];
     }
   }
 }
@@ -301,15 +300,15 @@ flash_bwd_dkv_cc_kernel(BwdParams p) {
 
 enum Kind { kDq = 0, kDkv = 1 };
 
-template <int Kd, typename T, int D>
+template <int Kd, int D>
 cudaError_t launch(int bh, const BwdParams& p, cudaStream_t stream) {
   constexpr int kb = bwd_kb<D>();
   constexpr int tpr = bwd_tpr<D>();
   constexpr int smem = Kd == kDq ? DqLayout<D, kb>::kSmemBytes
                                  : DkvLayout<D, kb>::kSmemBytes;
   void (*kernel)(BwdParams) = Kd == kDq
-      ? flash_bwd_dq_cc_kernel<T, D, kb, tpr>
-      : flash_bwd_dkv_cc_kernel<T, D, kb, tpr>;
+      ? flash_bwd_dq_cc_kernel<D, kb, tpr>
+      : flash_bwd_dkv_cc_kernel<D, kb, tpr>;
   static std::atomic<uint32_t> opted_in{0};
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
@@ -323,17 +322,14 @@ cudaError_t launch(int bh, const BwdParams& p, cudaStream_t stream) {
 template <int Kd>
 cudaError_t dispatch(const BwdParams& p, int bh, int d, int dtype,
                      cudaStream_t stream) {
-  if (bh <= 0 || p.sq <= 0 || p.sk <= 0 || bh > 65535)
+  if (bh <= 0 || p.sq <= 0 || p.sk <= 0 || bh > 65535 || dtype != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 1)
-    return d == 256 ? launch<Kd, __nv_bfloat16, 256>(bh, p, stream)
-                    : cudaErrorInvalidValue;
   switch (d) {
-    case 16: return launch<Kd, float, 16>(bh, p, stream);
-    case 32: return launch<Kd, float, 32>(bh, p, stream);
-    case 64: return launch<Kd, float, 64>(bh, p, stream);
-    case 128: return launch<Kd, float, 128>(bh, p, stream);
-    case 256: return launch<Kd, float, 256>(bh, p, stream);
+    case 16: return launch<Kd, 16>(bh, p, stream);
+    case 32: return launch<Kd, 32>(bh, p, stream);
+    case 64: return launch<Kd, 64>(bh, p, stream);
+    case 128: return launch<Kd, 128>(bh, p, stream);
+    case 256: return launch<Kd, 256>(bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -342,8 +338,8 @@ cudaError_t dispatch(const BwdParams& p, int bh, int d, int dtype,
 
 // Plain C entry points (no PyTorch headers here: they stay in
 // bindings.cpp). dtype 0: fp32 q, k, v, dO and gradients at d
-// 16/32/64/128/256; dtype 1: bf16 at d 256 (bf16 up to d 128 runs on
-// flash_bwd_sm90.cu); lse and delta are fp32 either way. scale2 is the
+// 16/32/64/128/256 (bf16 runs on flash_bwd_sm90.cu, any other dtype is
+// refused); lse and delta are fp32. scale2 is the
 // softmax scale times log2(e), rounded once by the caller. Each returns a
 // configuration error; the launch itself is checked by the caller with
 // cudaGetLastError.

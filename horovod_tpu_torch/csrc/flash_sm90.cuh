@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA flash-attention
 // kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA loads of
 // 3-D [b*h, s, d] bf16 tensor maps, setmaxnreg, shared-memory matrix
-// descriptors, and the two wgmma shapes the kernels use:
+// descriptors, and the three wgmma shapes the kernels use:
 //   WgmmaSS<N>: D[64 x N] (+)= A[64 x 16] B[N x 16]^T, A and B K-major in
 //               shared memory (Q K^T, dO V^T, K Q^T, V dO^T);
+//   WgmmaSSt<N>: D[64 x N] += A[64 x 16] B[16 x N], A K-major and B
+//               MN-major, both in shared memory (P^T dO, dS^T Q at d 256);
 //   WgmmaRS<N>: D[64 x N] += A[64 x 16] B[16 x N], A in registers (the
 //               mma.sync A fragment of each warp's 16 rows: accumulators of
 //               an earlier product rounded to bf16), B in shared memory with
@@ -321,6 +323,33 @@ struct WgmmaRS<16> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// D[64 x N] += A[64 x 16] B[16 x N], both in shared memory: A K-major (a
+// tile the kernel staged there itself, e.g. P^T), B MN-major (the
+// B-transpose bit)
+template <int N>
+struct WgmmaSSt;
+
+template <>
+struct WgmmaSSt<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" HVD_R0_63 "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24),
+          HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// Writes of the generic proxy (st.shared) made visible to the async proxy
+// (wgmma's shared-memory operands); each writing thread fences, then a
+// barrier orders the writes before the product.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // the A fragments of a WgmmaRS product from the accumulators of an
 // m64nN product (N / 16 k-steps), rounded to bf16

@@ -4,9 +4,9 @@ The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
 backward. A CUDA tensor goes to the hand-written Hopper kernels: every
 bf16 forward (online, lazy, twopass) up to head dim 256 on wgmma and TMA
 in ``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels
-up to head dim 128 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
-fp32 forward and backward, and the bf16 backward at head dims above 128,
-on the CUDA cores in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, and
+up to head dim 256 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
+fp32 forward and backward on the CUDA cores in ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``, and
 every head dim above 256, forward and backward, in ``csrc/flash_dyn.cu``,
 which takes d at run time. A CPU tensor goes to their plain PyTorch versions
 in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
@@ -26,16 +26,17 @@ divide is refused unless the call is causal self-attention. The kernels
 need no such blocks: each masks a partial last q tile and a partial last
 k tile itself, so every accepted length runs unpadded. The CUDA-core
 kernels walk 64-row tiles (the backward's k tiles are 32 rows at d 256);
-the wgmma kernels walk 128 keys per k tile (the forward 64 at d 256) and
-64 or 128 query rows per CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA
-and 64 queries per q tile). ``kernel_blocks`` and ``bwd_kernel_blocks``
+the wgmma kernels walk 128 keys per k tile and 64 or 128 query rows per
+CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA and 64 queries per q
+tile), and at d 256 64 keys per k tile or dk/dv CTA and 64 query rows
+per dq CTA. ``kernel_blocks`` and ``bwd_kernel_blocks``
 name the walks of the kernels a call reaches, so their plain versions
 can walk the same. On the CPU, and under ``interpret=True``, the plain
 walks take the fitted blocks.
 
 Head dims. The kernels are compiled for d in {16, 32, 64, 128, 256}
-(the wgmma forward at every one of them, the wgmma backward up to 128,
-the CUDA-core ones at every one of them); on
+(the wgmma kernels at every one of them in bf16, the CUDA-core ones at
+every one of them in fp32); on
 the card any other d up to 256 is zero-padded on the host to the next of
 those (``pad_head_dim``), with the softmax scale of the true d: a zero
 column adds nothing to any dot product, and the padded output columns
@@ -73,8 +74,9 @@ VARIANTS = ("online", "lazy", "twopass")
 #: variant is picked by the number of these tiles along k.
 BLOCK = 64
 
-#: Keys per k tile of the CUDA-core backward kernels at a head dim above
-#: 128, where 64-row fp32 tiles would not fit a block's shared memory.
+#: Keys per k tile of the CUDA-core (fp32) backward kernels at a head dim
+#: above 128, where 64-row fp32 tiles would not fit a block's shared
+#: memory.
 BWD_BLOCK_K_WIDE = 32
 
 #: ``block_q``/``block_k`` of ``flash_attention`` when the caller gives
@@ -85,9 +87,9 @@ DEFAULT_BLOCK = 512
 #: d ≤ 256 is zero-padded to the next of these (``pad_head_dim``).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
-#: The largest head dim of the wgmma/TMA backward kernels; the bf16
-#: backward above it runs on the CUDA-core kernels.
-SM90_MAX_HEAD_DIM = 128
+#: The largest head dim of the wgmma/TMA backward kernels: every compiled
+#: head dim; the bf16 backward above it runs on the run-time-d kernels.
+SM90_MAX_HEAD_DIM = 256
 
 #: The largest head dim of the wgmma/TMA forward kernel: every compiled
 #: head dim.
@@ -118,8 +120,9 @@ MAX_SMEM = 232448
 #: per CTA).
 SM90_BLOCK_K = 128
 
-#: Keys per k tile of the wgmma/TMA forward at a head dim above 128, where
-#: a 128-key K or V tile would take 64 KB of shared memory.
+#: Keys per k tile of the wgmma/TMA forward and dq, and dk/dv's keys per
+#: CTA, at a head dim above 128, where a 128-key K or V tile would take
+#: 64 KB of shared memory.
 SM90_BLOCK_K_WIDE = 64
 
 #: Queries per q tile of the wgmma/TMA dk/dv kernel.
@@ -303,6 +306,17 @@ def sm90_cta_rows(bh, sq, sm_count):
     return 128 if bh * -(-sq // 128) >= sm_count else 64
 
 
+def sm90_dq_rows(qf, cta_rows=None):
+    """Query rows per CTA of the wgmma dq kernel: as the forward's
+    (``sm90_cta_rows``, or ``cta_rows`` when given) up to d 128; 64 at
+    d 256, where Q and dO for 128 rows beside two stages of 64-key K and
+    V tiles would not fit a block's shared memory."""
+    if kernel_head_dim(qf.shape[2]) > 128:
+        return 64
+    return cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
+                                     _sm_count(qf.device))
+
+
 def on_sm90_fwd(qf):
     """Whether the forward of a ``[b·h, s, d]`` call runs on the wgmma/TMA
     kernel: bf16 at every head dim up to 256 (a d between the compiled
@@ -314,8 +328,9 @@ def on_sm90_fwd(qf):
 
 def on_sm90_bwd(qf):
     """Whether the backward of a ``[b·h, s, d]`` call runs on the
-    wgmma/TMA kernels: bf16 up to head dim 128. fp32, and bf16 above 128,
-    run on the CUDA-core kernels (above 256 on the run-time-d ones)."""
+    wgmma/TMA kernels: bf16 at every head dim up to 256 (a d between the
+    compiled ones padded up). fp32 runs on the CUDA-core kernels, d above
+    256 on the run-time-d ones."""
     return qf.dtype == torch.bfloat16 and qf.shape[2] <= SM90_MAX_HEAD_DIM
 
 
@@ -389,19 +404,19 @@ def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None,
 def bwd_kernel_blocks(qf, kf, cta_rows=None):
     """((block_q, block_k) of dq, (block_q, block_k) of dk/dv): the tile
     walks that the backward kernels a ``[b·h, s, d]`` call reaches take,
-    the counterpart of ``kernel_blocks``. bf16 up to d 128 runs the wgmma
-    kernels (dq over 64 or 128 query rows × 128 keys, ``cta_rows`` forcing
-    the rows; dk/dv over 128 keys × 64 queries), fp32 and bf16 above d 128
-    the CUDA-core ones at 64-row tiles (32-key tiles above d 128), above
-    d 256 the run-time-d ones at 32-row tiles."""
+    the counterpart of ``kernel_blocks``. bf16 up to d 256 runs the wgmma
+    kernels: up to d 128 dq over 64 or 128 query rows × 128 keys
+    (``cta_rows`` forcing the rows) and dk/dv over 128 keys × 64 queries;
+    at d 256 dq over 64 × 64 and dk/dv over 64 keys × 64 queries. fp32
+    runs the CUDA-core ones at 64-row tiles (32-key tiles above d 128),
+    above d 256 the run-time-d ones at 32-row tiles."""
     if on_sm90_bwd(qf):
-        rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
-                                         _sm_count(qf.device))
-        return (rows, SM90_BLOCK_K), (SM90_DKV_BLOCK_Q, SM90_BLOCK_K)
+        bk = sm90_block_k(qf.shape[2])
+        return (sm90_dq_rows(qf, cta_rows), bk), (SM90_DKV_BLOCK_Q, bk)
     if on_dyn(qf.shape[2]):
         blocks = kernel_blocks(qf, kf, "online")
         return blocks, blocks
-    bk = BWD_BLOCK_K_WIDE if qf.shape[2] > SM90_MAX_HEAD_DIM else BLOCK
+    bk = BWD_BLOCK_K_WIDE if qf.shape[2] > 128 else BLOCK
     blocks = fit_block(qf.shape[1]), min(bk, kf.shape[1])
     return blocks, blocks
 
@@ -410,9 +425,9 @@ def _kernel_bwd(qf, kf, vf, dof, lse, delta, causal, scale, cta_rows=None,
                 workspace=False):
     """Launch the backward kernels on ``[b·h, s, d]`` operands (dO like
     q; lse and delta fp32 ``[b·h, sq]``); returns (dq, dk, dv). bf16 up to
-    d 128 runs on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces
-    dq's CTA shape), fp32 and bf16 above d 128 on the CUDA-core ones,
-    every d above 256 on the run-time-d ones (``workspace`` as in
+    d 256 runs on the wgmma/TMA kernels (``cta_rows`` 64 or 128 forces
+    dq's CTA shape up to d 128; d 256 takes 64), fp32 on the CUDA-core
+    ones, every d above 256 on the run-time-d ones (``workspace`` as in
     ``_kernel_fwd``)."""
     _check_operands(qf, kf, vf)
     if dof.shape != qf.shape or dof.dtype != qf.dtype:

@@ -32,10 +32,12 @@ Backward (``--bwd``): ``--check`` holds each tree's bf16 dq and dk/dv
 against the plain walks at the kernels' tiles (two bf16 ulps + 1 % of each
 gradient's largest magnitude) at every head dim, both dq CTA shapes,
 partial tiles with b·h >= 2, non-causal sq != sk, the rising-max
-adversaries and the training shape; ``--time`` prints dq, dk/dv, their
-sum and SDPA's whole backward at the training shape, by CUDA events over
-50 back-to-back calls and by torch.profiler. A tree without
-``flash_bwd_sm90.cu`` runs bf16 on its ``flash_bwd.cu``.
+adversaries and the training shape, and at head dim 256; ``--time``
+prints dq, dk/dv, their sum and SDPA's whole backward at the training
+shape and at head dim 256 (b4 h6 s1024 causal), by CUDA events over 50
+back-to-back calls and by torch.profiler. A tree without
+``flash_bwd_sm90.cu`` runs bf16 on its ``flash_bwd.cu``, and a tree whose
+``flash_bwd_sm90.cu`` stops at head dim 128 runs bf16 d 256 there.
 """
 import argparse
 import ctypes
@@ -363,35 +365,66 @@ class BwdTree:
         lib, self.build_s, self.report, self.warnings = build(
             sources, f"{label}_bwd")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.sm90_max_d = 0
+        self.fns = self.cc_fns = None
         if self.sm90:
             lib.hvd_flash_bwd_sm90_dq.argtypes = [p] * 7 + [i] * 5 + [
                 f, f, i, p]
             lib.hvd_flash_bwd_sm90_dkv.argtypes = [p] * 8 + [i] * 5 + [
                 f, f, p]
             self.fns = (lib.hvd_flash_bwd_sm90_dq, lib.hvd_flash_bwd_sm90_dkv)
-        else:   # an older tree: bf16 (dtype 1) on its mma.sync kernels
+            for fn in self.fns:
+                fn.restype = i
+            self.sm90_max_d = self._sm90_max_d()
+        if self.sm90_max_d < 256:
+            # bf16 (dtype 1) on its CUDA-core (once mma.sync) kernels
             lib.hvd_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
             lib.hvd_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
-            self.fns = (lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
-        for fn in self.fns:
-            fn.restype = i
+            self.cc_fns = (lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
+            for fn in self.cc_fns:
+                fn.restype = i
         self.lib = lib
 
-    def blocks(self, cta_rows):
-        """(dq walk, dk/dv walk) of this tree's bf16 kernels."""
-        if self.sm90:
-            return (cta_rows, 128), (64, 128)
-        return (64, 64), (64, 64)
+    def _sm90_max_d(self):
+        """The largest head dim the built wgmma dk/dv takes: a d-256 call
+        on a tiny input either runs (256) or is refused with
+        cudaErrorInvalidValue (128)."""
+        q = torch.zeros(1, 64, 256, dtype=torch.bfloat16, device="cuda")
+        lse = torch.zeros(1, 64, device="cuda")
+        grads = [torch.empty_like(q) for _ in range(2)]
+        err = self.fns[1](*[t.data_ptr() for t in (q, q, q, q, lse, lse,
+                                                     *grads)],
+                          1, 64, 64, 256, 1, LOG2E / 16, 1 / 16,
+                          torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err not in (0, CUDA_ERROR_INVALID_VALUE):
+            raise RuntimeError(f"{self.label}: the d-256 probe of "
+                               f"hvd_flash_bwd_sm90_dkv returned {err}")
+        return 256 if err == 0 else 128
 
-    def _call(self, fn, ptrs, q, k, causal, cta_rows):
+    def on_sm90(self, d):
+        return d <= self.sm90_max_d
+
+    def blocks(self, cta_rows, d=128):
+        """(dq walk, dk/dv walk) of this tree's bf16 kernels."""
+        if self.on_sm90(d):
+            if d > 128:
+                return (64, 64), (64, 64)
+            return (cta_rows, 128), (64, 128)
+        walk = (64, 32 if d > 128 else 64)
+        return walk, walk
+
+    def _call(self, which, ptrs, q, k, causal, cta_rows):
         bh, sq, d = q.shape
         scale = d ** -0.5
         shape = (bh, sq, k.shape[1], d)
         stream = torch.cuda.current_stream().cuda_stream
-        if self.sm90:
+        if self.on_sm90(d):
+            fn = self.fns[which]
             tail = (*shape, int(causal), scale * LOG2E, scale)
-            tail += (cta_rows,) if fn is self.fns[0] else ()
+            tail += ((64 if d > 128 else cta_rows),) if which == 0 else ()
         else:
+            fn = self.cc_fns[which]
             tail = (*shape, 1, int(causal), scale * LOG2E, scale)
         err = fn(*ptrs, *tail, stream)
         if err:
@@ -399,16 +432,15 @@ class BwdTree:
 
     def dq(self, q, k, v, do, lse, delta, causal, cta_rows=64, out=None):
         dq = torch.empty_like(q) if out is None else out
-        self._call(self.fns[0], [t.data_ptr() for t in
-                                 (q, k, v, do, lse, delta, dq)],
+        self._call(0, [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
                    q, k, causal, cta_rows)
         return dq
 
     def dkv(self, q, k, v, do, lse, delta, causal, out=None):
         dk, dv = (torch.empty_like(k), torch.empty_like(v)) if out is None \
             else out
-        self._call(self.fns[1], [t.data_ptr() for t in
-                                 (q, k, v, do, lse, delta, dk, dv)],
+        self._call(1, [t.data_ptr() for t in
+                       (q, k, v, do, lse, delta, dk, dv)],
                    q, k, causal, None)
         return dk, dv
 
@@ -452,6 +484,15 @@ def bwd_cases():
         cases.append((4, 192, 320, 64, False, rows, None))
         cases.append((4, 320, 200, 32, False, rows, None))
     cases.append((96, 1024, 1024, 128, True, None, None))
+    # head dim 256
+    for causal in (True, False):
+        cases.append((3, 192, 192, 256, causal, None, None))
+        cases.append((2, 1000, 1000, 256, causal, None, None))
+        for ramp in ("down", "up"):
+            cases.append((6, 512, 512, 256, causal, None, ramp))
+    cases.append((4, 192, 320, 256, False, None, None))
+    cases.append((4, 320, 200, 256, False, None, None))
+    cases.append((24, 1024, 1024, 256, True, None, None))
     return cases
 
 
@@ -467,7 +508,7 @@ def check_bwd(tree):
         dq = tree.dq(q, k, v, do, lse, delta, causal, rows)
         dk, dv = tree.dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
-        dq_walk, dkv_walk = tree.blocks(rows)
+        dq_walk, dkv_walk = tree.blocks(rows, d)
         want = (ref.flash_bwd_dq(q, k, v, do, lse, delta, causal, *dq_walk),
                 *ref.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
                                    *dkv_walk))
@@ -498,7 +539,11 @@ def event_ms(fn, iters=50, warmup=5):
 
 
 def bwd_timings(trees):
-    b, h, s, d = 16, 6, 1024, 128
+    for b, h, s, d in ((16, 6, 1024, 128), (4, 6, 1024, 256)):
+        bwd_timings_at(trees, b, h, s, d)
+
+
+def bwd_timings_at(trees, b, h, s, d):
     q, k, v, do, lse, delta = bwd_operands(9, b * h, s, s, d, True)
     qs, ks, vs = (t.view(b, h, s, d).detach().requires_grad_(True)
                   for t in (q, k, v))
@@ -509,7 +554,7 @@ def bwd_timings(trees):
         o, (qs, ks, vs), go, retain_graph=True)}
     for tree in trees:
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        rows = 128 if tree.sm90 else 64
+        rows = 128 if tree.on_sm90(d) and d <= 128 else 64
 
         def f_dq(tree=tree, dq=dq, rows=rows):
             tree.dq(q, k, v, do, lse, delta, True, rows, out=dq)

@@ -174,8 +174,10 @@ class _Job:
             return
         self.forwarded = True
         self.deadline = time.monotonic() + self.term_grace
+        # runs in the SIGTERM handler: ``returncode`` is a plain read,
+        # where ``poll()`` would take the Popen's waitpid lock
         for p in self.procs:
-            if p.poll() is None:
+            if p.returncode is None:
                 try:
                     os.killpg(os.getpgid(p.pid), signal.SIGTERM)
                 except OSError:

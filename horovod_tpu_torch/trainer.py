@@ -30,7 +30,6 @@ compile tracker, the history and alert ticks and, every Nth step, a
 
 import functools
 import signal
-import threading
 import time
 
 import torch
@@ -611,8 +610,8 @@ class Checkpointer:
     end. ``publish=True`` (default HVD_FLEET_PUBLISH) hangs a
     ``fleet.WeightPublisher`` on rank 0's commit hook. Signal handlers
     chain to a previously installed callable handler and are installed
-    from the main thread only; ``preemption=False`` or
-    HVD_CKPT_PREEMPTION=0 turns them off."""
+    from the main thread only and take no lock (they set a flag);
+    ``preemption=False`` or HVD_CKPT_PREEMPTION=0 turns them off."""
 
     def __init__(self, directory, every=None, keep=None, async_save=None,
                  preemption=None, rank=0, world_size=1, manager=None,
@@ -635,7 +634,11 @@ class Checkpointer:
             self.manager.on_commit = self.publisher.publish
         self.verbose = verbose
         self._agree = agree
-        self._preempt = threading.Event()
+        # the signal number that asked for preemption: a plain attribute,
+        # since a signal handler must take no lock (it runs on the main
+        # thread, maybe inside a critical section of the metrics plane)
+        self._preempt_signum = None
+        self._preempt_recorded = False
         self._signals = []
         if preemption is None:
             preemption = env_bool("CKPT_PREEMPTION", True)
@@ -648,9 +651,8 @@ class Checkpointer:
                 prev = signal.getsignal(sig)
 
                 def handler(signum, frame, _prev=prev):
-                    self._preempt.set()
-                    hvd_metrics.get_registry().event(
-                        "ckpt_preempt", signum=int(signum))
+                    # only the flag: ``step_end`` records the event
+                    self._preempt_signum = int(signum)
                     # chain CUSTOM handlers only (the tracing plane's
                     # flight dump): SIG_DFL, SIG_IGN and the default
                     # KeyboardInterrupt raiser would abort the in-flight
@@ -667,7 +669,7 @@ class Checkpointer:
 
     @property
     def preempted(self):
-        return self._preempt.is_set()
+        return self._preempt_signum is not None
 
     def resume(self, like=None, mesh=None, spec_tree=None):
         """(state, start_step, extra): the newest committed checkpoint when
@@ -688,7 +690,11 @@ class Checkpointer:
         checkpoint of ``state`` has already committed). ``state`` may be a
         callable returning the tree, called only when this step saves
         (a state gathered from shards costs collectives)."""
-        preempt = self._preempt.is_set()
+        preempt = self.preempted
+        if preempt and not self._preempt_recorded:
+            self._preempt_recorded = True
+            hvd_metrics.get_registry().event(
+                "ckpt_preempt", signum=self._preempt_signum)
         if self._agree is not None:
             preempt = bool(self._agree(preempt))
         if callable(state) and (preempt or (

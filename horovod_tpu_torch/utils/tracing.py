@@ -30,12 +30,15 @@ null object. Flight dumps also carry the memory plane's section
 sites), None while nothing has been accounted.
 """
 
+import atexit
 import collections
 import json
 import os
+import queue
 import signal
 import tempfile
 import threading
+import time
 
 from ..common import hvd_logging as log
 from ..common.config import env_bool, env_float, env_int, env_str
@@ -535,14 +538,59 @@ def set_rank(rank):
 
 _sigterm_prev = None
 _sigterm_installed = False
+# (signum, redeliver) from the SIGTERM handler to the dump thread. A
+# handler runs on the main thread between two bytecodes, possibly inside
+# a ``with self._lock:`` of the tracer, the registry or a metric family:
+# it must take none of them. ``SimpleQueue.put`` is reentrant; the dump
+# thread takes the locks as any other thread does, once the main thread
+# leaves its critical section.
+_dump_requests = None
+_dumps_asked = 0   # written by the handler only
+_dumps_done = 0    # written by the dump thread only
+
+
+def _dump_worker():
+    global _dumps_done
+    while True:
+        signum, redeliver = _dump_requests.get()
+        try:
+            get_tracer().dump("sigterm")
+        except Exception as exc:  # noqa: BLE001 — the process must still die
+            log.warning("flight recorder: SIGTERM dump failed: %s", exc)
+        _dumps_done += 1
+        if redeliver:
+            # the handler restored SIG_DFL: the process dies with 143
+            os.kill(os.getpid(), signum)
+
+
+def _start_dump_thread():
+    global _dump_requests, _dumps_asked, _dumps_done
+    _dump_requests = queue.SimpleQueue()
+    _dumps_asked = _dumps_done = 0
+    threading.Thread(target=_dump_worker, name="hvd-sigterm-dump",
+                     daemon=True).start()
+
+
+def wait_signal_dumps(timeout=10.0):
+    """Block until every dump a SIGTERM asked for is on disk (or
+    ``timeout`` seconds). Runs at interpreter exit; call it only where
+    the calling thread holds no tracer or metrics lock. Returns True
+    when none is pending."""
+    deadline = time.monotonic() + timeout
+    while _dumps_done < _dumps_asked:
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.005)
+    return True
 
 
 def install_signal_dump():
-    """Chain a SIGTERM handler that dumps the flight recorder before the
-    previous disposition runs — a preempted/killed worker leaves its last
-    seconds on disk.  No-op off the main thread (signal.signal raises
-    there) or under ``HVD_FLIGHT_SIGTERM=0``.  Returns True when (already)
-    installed."""
+    """Chain a SIGTERM handler that has the flight recorder dumped before
+    the previous disposition runs — a preempted/killed worker leaves its
+    last seconds on disk.  The handler takes no lock: it hands the dump
+    to a daemon thread.  No-op off the main thread (signal.signal raises
+    there) or under ``HVD_FLIGHT_SIGTERM=0``.  Returns True when
+    (already) installed."""
     global _sigterm_prev, _sigterm_installed
     if _sigterm_installed:
         return True
@@ -552,21 +600,29 @@ def install_signal_dump():
         return False
 
     def _handler(signum, frame):
-        get_tracer().dump("sigterm")
+        global _dumps_asked
         prev = _sigterm_prev
+        owner = not callable(prev) and signal.getsignal(signum) is _handler
+        if owner:
+            # outermost owner of the signal: the dump thread re-delivers
+            # it under the default disposition, so the process still
+            # dies with the conventional 143 status, after the dump
+            signal.signal(signum, signal.SIG_DFL)
+        _dumps_asked += 1
+        _dump_requests.put((signum, owner))
         if callable(prev):
             prev(signum, frame)
-        elif signal.getsignal(signum) is _handler:
-            # outermost owner of the signal: restore the default
-            # disposition and re-deliver so the process still dies with
-            # the conventional 143 status
-            signal.signal(signum, signal.SIG_DFL)
-            os.kill(os.getpid(), signum)
-        # else a later-installed handler (the Checkpointer's preemption
-        # flag) wrapped this one and owns process fate — dump only
+        # else, when not the owner, a later-installed handler (the
+        # Checkpointer's preemption flag) wrapped this one and owns
+        # process fate — dump only
 
     try:
-        _sigterm_prev = signal.getsignal(signal.SIGTERM)
+        prev = signal.getsignal(signal.SIGTERM)
+        _start_dump_thread()
+        # a forked child inherits the handler but not the thread
+        os.register_at_fork(after_in_child=_start_dump_thread)
+        atexit.register(wait_signal_dumps)
+        _sigterm_prev = prev
         signal.signal(signal.SIGTERM, _handler)
     except (ValueError, OSError):  # non-main thread / exotic runtime
         return False

@@ -303,8 +303,8 @@ def _plain_grads(qf, kf, vf, gf, lse, delta, causal, cta_rows=None):
 
 
 def _on_sm90(dtype, d, forward=False):
-    """Whether a call runs on the wgmma kernels: the bf16 forward up to
-    d 256, the bf16 backward up to 128."""
+    """Whether a call runs on the wgmma kernels: the bf16 forward and
+    backward up to d 256."""
     top = fa.SM90_FWD_MAX_HEAD_DIM if forward else fa.SM90_MAX_HEAD_DIM
     return dtype == torch.bfloat16 and d <= top
 
@@ -463,13 +463,13 @@ def test_backward_refuses_what_it_cannot_take(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("d", [160, 192, 224, 256])
 def test_wide_head_dims_through_the_kernels(card, dtype, causal, d):
-    """Head dims above 128 (zero-padded to 256 on the host below it): the
-    bf16 forward on the wgmma kernel (64-key tiles), the fp32 forward and
-    the backward on the CUDA-core kernels (64-row tiles; 32-key tiles in
-    the backward), at a partial-tile length, agree with the plain walks
-    at the true d and the kernels' tiles."""
+    """Head dims above 128 (zero-padded to 256 on the host below it): bf16
+    on the wgmma kernels (64-key tiles forward, 64 x 64 walks backward),
+    fp32 on the CUDA-core kernels (64-row tiles; 32-key tiles in the
+    backward), at a partial-tile length, agree with the plain walks at the
+    true d and the kernels' tiles."""
     q, k, v = _qkv(70 + d, 1, 200, 3, d, dtype, card)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
         card, dtype)
@@ -479,7 +479,9 @@ def test_wide_head_dims_through_the_kernels(card, dtype, causal, d):
                                       **dict.fromkeys(_bwd_names(dtype, d),
                                                       1)}
     qf, kf, vf, gf = (_flat_bshd(t) for t in (q, k, v, g))
-    assert fa.bwd_kernel_blocks(qf, kf) == ((64, 32), (64, 32))
+    assert fa.bwd_kernel_blocks(qf, kf) == (
+        ((64, 64), (64, 64)) if dtype == torch.bfloat16
+        else ((64, 32), (64, 32)))
     out, lse = ref.flash_fwd_online(qf, kf, vf, causal,
                                     *fa.kernel_blocks(qf, kf, "online"))
     delta = ref.flash_delta(out, gf)

@@ -300,9 +300,11 @@ def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
     bf16 forward runs on the wgmma/TMA kernel (``flash_fwd_sm90``, 64-key
     tiles at d 256, the CTA rows the host picks), counted as
     ``flash_fwd_{variant}``; the fp32 forward on the CUDA-core
-    ``flash_fwd``. The backward stays on the CUDA-core ``flash_bwd_dq``
-    and ``flash_bwd_dkv`` over 32-key tiles in both dtypes (the wgmma
-    backward stops at 128), each counted under its own ``_cc_`` name."""
+    ``flash_fwd``. The bf16 backward runs on the wgmma/TMA
+    ``flash_bwd_sm90_dq`` (64 query rows x 64 keys) and
+    ``flash_bwd_sm90_dkv`` (64 keys x 64 queries); the fp32 backward on
+    the CUDA-core ``flash_bwd_dq`` and ``flash_bwd_dkv`` over 32-key
+    tiles, each counted under its own ``_cc_`` name."""
     qf, kf, vf = _flat(2, 200, d, dtype)
     scale = d ** -0.5
     out, lse = fa.pad_head_dim(
@@ -318,17 +320,23 @@ def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
     dq, dk, dv = fa.pad_head_dim(
         lambda q, k, v, do: fa._kernel_bwd(q, k, v, do, lse, delta, True,
                                            scale), (qf, kf, vf, qf), 3)
-    assert [c[0] for c in stub.calls[1:]] == ["flash_bwd_dq",
-                                              "flash_bwd_dkv"]
+    bwd = (["flash_bwd_sm90_dq", "flash_bwd_sm90_dkv"] if bf16
+           else ["flash_bwd_dq", "flash_bwd_dkv"])
+    assert [c[0] for c in stub.calls[1:]] == bwd
+    # the d-256 dq CTA holds 64 query rows whatever the grid
+    assert stub.calls[1][-1] == (64 if bf16 else None)
     assert dq.shape == dk.shape == dv.shape == qf.shape
-    assert fa.bwd_kernel_blocks(qf, kf) == ((64, 32), (64, 32))
+    assert fa.bwd_kernel_blocks(qf, kf) == (
+        ((64, 64), (64, 64)) if bf16 else ((64, 32), (64, 32)))
+    assert fa.bwd_kernel_blocks(qf, kf, 128) == fa.bwd_kernel_blocks(qf, kf)
     assert fa.kernel_blocks(qf, kf, "online") == (
         (rows, fa.SM90_BLOCK_K_WIDE) if bf16 else (64, 64))
     assert fa.kernel_blocks(qf, kf, "lazy", 128) == (
         (128, 64) if bf16 else (64, 64))
+    family = "sm90" if bf16 else "cc"
     assert dict(fa.launch_counts) == {
         "flash_fwd_online" if bf16 else "flash_fwd_cc_online": 1,
-        "flash_bwd_cc_dq": 1, "flash_bwd_cc_dkv": 1}
+        f"flash_bwd_{family}_dq": 1, f"flash_bwd_{family}_dkv": 1}
 
 
 def test_build_lists_every_cuda_source():

@@ -57,8 +57,8 @@ def test_the_d256_forward_walks_64_keys_per_tile():
     for d in (160, 192):
         assert tfa.sm90_block_k(d) == tfa.SM90_BLOCK_K_WIDE == 64
     assert tfa.sm90_block_k(128) == tfa.SM90_BLOCK_K == 128
-    assert tfa.on_sm90_fwd(q) and not tfa.on_sm90_bwd(q)
-    assert not tfa.on_sm90_fwd(q.float())
+    assert tfa.on_sm90_fwd(q) and tfa.on_sm90_bwd(q)
+    assert not tfa.on_sm90_fwd(q.float()) and not tfa.on_sm90_bwd(q.float())
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
