@@ -8,15 +8,17 @@ kernels from horovod_tpu_torch/csrc/ at first use. Phases, each fatal
 on failure:
 
   1. the card's name and power limit, then the build of every kernel
-     source (flash_fwd.cu, flash_fwd_sm90.cu, flash_bwd.cu,
-     flash_bwd_sm90.cu, flash_dyn.cu, batch_norm.cu, segment_stats.cu)
-     and its time, and beside it the wgmma/TMA sources (forward B1, B2,
-     B3: 30 instantiations, d 16-256; backward B4, B5: 14, d 16-256), the
+     source (flash_fwd.cu, flash_fwd_sm90.cu, flash_fwd_sm90_dyn.cu,
+     flash_bwd.cu, flash_bwd_sm90.cu, flash_dyn.cu, batch_norm.cu,
+     segment_stats.cu) and its time, and beside it the wgmma/TMA sources
+     (forward B1, B2, B3: 30 instantiations, d 16-256; the run-time-d
+     forward above 256: 12, slice width x walk x warpgroups; backward B4,
+     B5: 14, d 16-256), the fp32 CUDA-core forward (15, d x walk), the
      run-time-d
      kernels and the stats kernel each alone through nvcc -Xptxas -v: each
      instantiation's registers and spills, where any spill fails the run,
      and ptxas's performance warnings (C7514/C7520, "wgmma serialized"),
-     printed;
+     printed (any of C7514/C7515/C7520 fails the run);
   2. every flash-attention forward kernel (online, lazy, twopass) held
      against its plain PyTorch version walking the same tiles on the card,
      on O and lse, in bf16 and fp32, causal and not, on unit-scale inputs
@@ -60,12 +62,20 @@ on failure:
      last tiles of s 1000 and sq 192 x sk 320 and 320 x 200, the
      rising-max adversaries for each walk order, causal and not, and b4
      h6 s1024); fp32 to rtol 1e-4 / atol 1e-5, bf16 to two ulps
-     plus 1 % of that gradient's largest magnitude. Then the
-     head dims above 256 on the run-time-d kernels (flash_dyn.cu): d 288,
-     384, 512 and 1024, fp32 and bf16, every forward walk, dq and dk/dv
-     at partial last tiles, sq != sk, causal and not, with the rising-max
-     adversaries, the accumulators in shared memory and in the device
-     workspace, and d 288 through the public autograd path. Then the
+     plus 1 % of that gradient's largest magnitude. Then the fp32
+     register-blocked forward (flash_fwd.cu) at every compiled head dim
+     (16, 32, 64, 128, 256), every walk, at s 192, partial last tiles,
+     sq != sk and (d 128, 256) the rising-max adversaries. Then the head
+     dims above 256: d 288, 384, 512 and 1024, fp32 and bf16, every
+     forward walk, dq and dk/dv at partial last tiles, sq != sk, causal
+     and not, with the rising-max adversaries: the bf16 forward on the
+     run-time-d wgmma kernel (flash_fwd_sm90_dyn.cu, 64-key tiles, both
+     CTA shapes where 128 rows fit), the fp32 forward and the backward on
+     flash_dyn.cu with the accumulators in shared memory and in the
+     device workspace (the forward's for fp32 only); bf16 d 1088, above
+     the wgmma kernel's ceiling, on flash_dyn.cu's forward; d 288 (and
+     bf16 d 300, zero-padded to 304) through the public autograd path.
+     Then the
      BatchNorm statistics kernels (B6 moments, B7 moments2) against their
      plain versions, both held to a float64 sum on the card within 1e-5
      of the per-channel sum of magnitudes, in bf16 and fp32, on
@@ -96,7 +106,8 @@ on failure:
      the loss
      finite and falling; then one step's gradients at batch 2 on the
      kernel path against the same step with every launch replaced by its
-     plain version (bf16 against each gradient's scale, and fp32);
+     plain version (bf16 against each gradient's scale, and fp32 under
+     each forward walk: lazy, online and twopass);
   3c. the vision path: ResNet-50 with norm_impl="tpu" (bf16, fp32
      masters, seeded weights) trained through synthetic_benchmark's
      build_step (DistributedOptimizer(SGD(0.01, momentum=0.9)),
@@ -135,8 +146,8 @@ on failure:
      (flash_bwd_cc_{dq,dkv}) and nothing else; the loss must fall, and the first
      batch's loss on the kernel path at 12 layers must equal the plain
      path's within 2^-8; then the same over 2 heads of 384, served and
-     trained at 2 layers, on the run-time-d kernels (flash_fwd_dyn_*,
-     flash_bwd_dyn_*);
+     trained at 2 layers, on the run-time-d kernels (the bf16 forward on
+     wgmma, flash_fwd_sm90dyn_*; the backward flash_bwd_dyn_*);
   3f. serving on the tensor-parallel mesh: GPT-2-small (bf16, full width
      and depth) served by tp engines of 2, 3 and 4 ranks, the ranks
      threads of this process on the one card (at tp 4 the 6 heads do not
@@ -317,7 +328,8 @@ on failure:
      vocab_chunk 0 and 8192 and with remat off and on (with ms/step over
      20 steps after 3 warm-up steps, each setting timed twice, in turn),
      ring_flash W = 4 forward and backward beside flash on the whole
-     sequence, and the d-256 and d-384 kernels beside d 128.
+     sequence, and the d-256 and d-384 kernels beside d 128 (the fp32
+     forward and backward at d 128 and 256, bf16 at d 256 and 384).
   3n. (run after 3k, before phase 4) the numerics, memory and compile,
      cost-model, attribution and autotuner planes on the flagship eager step
      (gpt2_small_tpu, flash, tied, bf16 logits, b16 x s1024) at world 1
@@ -420,6 +432,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_KV_BLOCK = 4, 1024, 16
 SM90_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90.cu"
+SM90DYN_SOURCE = "horovod_tpu_torch/csrc/flash_fwd_sm90_dyn.cu"
 BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd_sm90.cu"
 CC_FWD_SOURCE = "horovod_tpu_torch/csrc/flash_fwd.cu"
 CC_BWD_SOURCE = "horovod_tpu_torch/csrc/flash_bwd.cu"
@@ -447,13 +460,24 @@ CC_FWD_NAMES = tuple(f"flash_fwd_cc_{v}" for v in ("online", "lazy",
                                                     "twopass"))
 CC_BWD_NAMES = ("flash_bwd_cc_dq", "flash_bwd_cc_dkv")
 # phase 3e again: the flagship's width over 2 heads of 384, on the
-# run-time-d kernels
+# run-time-d kernels (the bf16 forward on wgmma)
 DYN_HEADS = 2
-DYN_NAMES = tuple(f"flash_fwd_dyn_{v}" for v in ("online", "lazy", "twopass")
+DYN_NAMES = tuple(f"flash_fwd_sm90dyn_{v}" for v in ("online", "lazy",
+                                                      "twopass")
                   ) + ("flash_bwd_dyn_dq", "flash_bwd_dyn_dkv")
 DYN_SOURCE = "horovod_tpu_torch/csrc/flash_dyn.cu"
 VISION_BATCH, VISION_SIZE, VISION_STEPS = 32, 224, 10
 BN_PER_STEP = 53   # BatchNorm layers of ResNet-50
+# phase 1's register reports: (source, its kernel instantiations). The
+# wgmma forward: d 16-256 x walk x warpgroups; the run-time-d wgmma
+# forward: slice width (3 or 4 boxes) x walk x warpgroups; the fp32
+# forward: d x walk; the wgmma backward: dq at d 16-128 x warpgroups and
+# d 256 at one, dk/dv at d 16-128 and d 256's split-column kernel; the
+# run-time-d CUDA-core kernels: 6 forward (dtype x walk), 4 backward; the
+# stats kernel's first pass (3 dtypes) and its reduction
+PTXAS_SOURCES = (("flash_fwd_sm90", 30), ("flash_fwd_sm90_dyn", 12),
+                 ("flash_fwd", 15), ("flash_bwd_sm90", 14), ("flash_dyn", 10),
+                 ("segment_stats", 4))
 
 
 def card_line():
@@ -1159,30 +1183,91 @@ def check_wide_head_dims(card, dev, errs):
               f"{errs['dkv_d256_fp32']:.3e}")
 
 
+def check_cc_fwd(card, dev, errs):
+    """The fp32 register-blocked forward (``flash_fwd.cu``) at every
+    compiled head dim (16, 32, 64, 128, 256), every walk, against its plain
+    version at its 64 x 128 tiles: s 192 causal and not, the partial last
+    tiles of sq 130 causal and sq 100 x sk 300 non-causal, and at d 128 and
+    256 the rising-max adversaries (s 512, keys ramped down causal: every
+    tile of lazy's diagonal-first walk raises the row max; ramped up,
+    non-causal: every tile of the ascending walks does); O and lse to
+    2e-5. Folds the largest O error into ``errs`` (``fwd_fp32``)."""
+    errs.setdefault("fwd_fp32", 0.0)
+    ramp = torch.linspace(4.0, 0.5, 512)
+    cases = []   # (bh, sq, sk, d, causal, ramp)
+    for d in fa.KERNEL_HEAD_DIMS:
+        cases += [(3, 192, 192, d, True, None), (3, 192, 192, d, False, None),
+                  (2, 130, 130, d, True, None), (4, 100, 300, d, False, None)]
+    for d in (128, 256):
+        cases += [(6, 512, 512, d, True, "down"),
+                  (6, 512, 512, d, False, "up")]
+    share, n_cmp = 0.0, 0
+    for n, (bh, sq, sk, d, causal, r) in enumerate(cases):
+        g = torch.Generator().manual_seed(2400 + n)
+        qf = torch.randn(bh, sq, d, generator=g)
+        kf, vf = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
+        if r:
+            kf = kf * (ramp if r == "down" else ramp.flip(0))[None, :, None]
+        qf, kf, vf = (t.to(dev) for t in (qf, kf, vf))
+        for variant in fa.VARIANTS:
+            name = f"flash_fwd_cc_{variant}"
+            before = fa.launch_counts[name]
+            out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant)
+            if fa.launch_counts[name] != before + 1:
+                raise AssertionError(f"fp32 d={d} {variant} did not launch "
+                                     f"{name}")
+            p_out, p_lse = plain_fwd(qf, kf, vf, causal, d ** -0.5, variant)
+            label = (f"fp32 {variant} bh={bh} sq={sq} sk={sk} d={d} "
+                     f"causal={causal} ramp={r}")
+            for got, want, what in ((out, p_out, "O"), (lse, p_lse, "lse")):
+                err, frac = hold(got, want, what, torch.float32, label)
+                share = max(share, frac)
+                if what == "O":
+                    errs["fwd_fp32"] = max(errs["fwd_fp32"], err)
+                n_cmp += 1
+    fa.reset_launch_counts()
+    log(card, f"phase 2: {n_cmp} comparisons of the fp32 register-blocked "
+              f"forward (every walk at d {list(fa.KERNEL_HEAD_DIMS)}: s 192 "
+              f"causal and not, sq 130, sq 100 x sk 300, the adversaries at "
+              f"d 128 and 256; O and lse) passed; largest error as a share "
+              f"of its tolerance {share:.3f}; largest O |error| "
+              f"{errs['fwd_fp32']:.3e}")
+
+
 BEYOND_DIMS = (288, 384, 512, 1024)
+# a bf16 head dim above the run-time-d wgmma forward's ceiling
+# (fa.SM90_DYN_MAX_HEAD_DIM): its forward stays on flash_dyn.cu
+ABOVE_CEILING_DIM = 1088
 
 
 def check_beyond_256(card, dev, errs):
-    """Head dims above 256 on the run-time-d kernels (``flash_dyn.cu``):
-    at d 288, 384, 512 and 1024, fp32 and bf16, every forward walk and dq
-    and dk/dv (from the plain forward's lse) against the plain walks at
-    the kernels' 32-row tiles, at sq 130 causal (a partial last tile),
-    sq 100 x sk 300 non-causal, and sq = sk 256 with the rising-max
-    adversaries (keys ramped down, causal: every tile of lazy's
-    diagonal-first walk raises the row max; ramped up, non-causal: every
-    tile of the ascending walks does); the fp32 accumulators in shared
-    memory and, forced, in the device workspace at d 288 and 512 (at
-    d 1024 dk/dv's are there anyway); then d 288 through the public
-    autograd path at s 200, causal and not. Folds the largest bf16
-    errors into ``errs`` (fwd_dyn, dq_dyn, dkv_dyn)."""
-    for key in ("fwd_dyn", "dq_dyn", "dkv_dyn"):
+    """Head dims above 256: at d 288, 384, 512 and 1024, fp32 and bf16,
+    every forward walk and dq and dk/dv (from the plain forward's lse)
+    against the plain walks at the kernels' tiles, at sq 130 causal (a
+    partial last tile), sq 100 x sk 300 non-causal, and sq = sk 256 with
+    the rising-max adversaries (keys ramped down, causal: every tile of
+    lazy's diagonal-first walk raises the row max; ramped up, non-causal:
+    every tile of the ascending walks does). The bf16 forward runs on the
+    run-time-d wgmma kernel (``flash_fwd_sm90_dyn.cu``: 64-key tiles; 64
+    query rows, and 128 where they fit, d <= 576), the fp32 forward and
+    every backward on ``flash_dyn.cu`` (32-row tiles) with the fp32
+    accumulators in shared memory and, forced, in the device workspace at
+    d 288 and 512 (the forward's for fp32 only: the wgmma forward keeps
+    none; at d 1024 dk/dv's are there anyway); bf16 at d 1088, above the
+    wgmma kernel's ceiling, every forward walk on ``flash_dyn.cu``; then
+    d 288 through the public autograd path at s 200, causal and not, and
+    bf16 d 300 (zero-padded to 304 for the wgmma forward). Folds the
+    largest bf16 errors into ``errs`` (fwd_sm90dyn; fwd_dyn, bf16 above
+    the ceiling; dq_dyn, dkv_dyn)."""
+    for key in ("fwd_sm90dyn", "fwd_dyn", "dq_dyn", "dkv_dyn"):
         errs.setdefault(key, 0.0)
     share, n_cmp = {"bfloat16": 0.0, "float32": 0.0}, 0
     cases = ((130, 130, True, None), (100, 300, False, None),
              (256, 256, True, "down"), (256, 256, False, "up"))
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
-        for d in BEYOND_DIMS:
+        bf16 = dtype == torch.bfloat16
+        for d in BEYOND_DIMS + ((ABOVE_CEILING_DIM,) if bf16 else ()):
             scale = d ** -0.5
             spaces = (False, True) if d in (288, 512) else (False,)
             for sq, sk, causal, ramp in cases:
@@ -1198,20 +1283,35 @@ def check_beyond_256(card, dev, errs):
                 qf, kf, vf, dof = (t.to(dev, dtype) for t in (qf, kf, vf,
                                                                dof))
                 label = f"{dt} d={d} sq={sq} sk={sk} causal={causal}"
+                wgmma = fa.on_sm90dyn_fwd(qf)
+                err_key = ("fwd_sm90dyn" if wgmma else "fwd_dyn")
+                runs = ([{"cta_rows": r} for r in (64, 128)
+                         if fa.sm90dyn_fits(d, r)] if wgmma else
+                        [{"workspace": ws} for ws in spaces])
                 for variant in fa.VARIANTS:
-                    p_out, p_lse = plain_fwd(qf, kf, vf, causal, scale,
-                                             variant)
-                    for ws in spaces:
+                    name = fa.fwd_launch_name(qf, variant)
+                    for kw in runs:
+                        blocks = fa.kernel_blocks(qf, kf, variant,
+                                                  kw.get("cta_rows"))
+                        p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                                        *blocks, scale)
+                        before = fa.launch_counts[name]
                         out, lse = fa._kernel_fwd(qf, kf, vf, causal, scale,
-                                                  variant, workspace=ws)
+                                                  variant, **kw)
+                        if fa.launch_counts[name] != before + 1:
+                            raise AssertionError(f"{variant} {label} did not "
+                                                 f"launch {name}")
                         for got, w, what in ((out, p_out, "O"),
                                              (lse, p_lse, "lse")):
                             err, frac = hold(got, w, what, dtype,
-                                             f"{variant} {label} ws={ws}")
+                                             f"{variant} {label} {kw} "
+                                             f"blocks={blocks}")
                             share[dt] = max(share[dt], frac)
-                            if dtype == torch.bfloat16 and what == "O":
-                                errs["fwd_dyn"] = max(errs["fwd_dyn"], err)
+                            if bf16 and what == "O":
+                                errs[err_key] = max(errs[err_key], err)
                             n_cmp += 1
+                if d == ABOVE_CEILING_DIM:
+                    continue   # the backward there is d 1024's kernel
                 delta = ref.flash_delta(p_out, dof)
                 want = plain_bwd(qf, kf, vf, dof, p_lse, delta, causal,
                                  scale)
@@ -1223,11 +1323,13 @@ def check_beyond_256(card, dev, errs):
                                               f"{name} {label} ws={ws}")
                         share[dt] = max(share[dt], frac)
                         key = "dq_dyn" if name == "dq" else "dkv_dyn"
-                        if dtype == torch.bfloat16:
+                        if bf16:
                             errs[key] = max(errs[key], err)
                         n_cmp += 1
-        for causal in (True, False):
-            q, k, v = qkv(2300, b=2, s=200, h=3, d=288, dtype=dtype,
+        for d, causal in ((288, True), (288, False), (300, True)):
+            if d == 300 and not bf16:
+                continue   # fp32 takes any d unpadded: d 288 says it
+            q, k, v = qkv(2012 + d, b=2, s=200, h=3, d=d, dtype=dtype,
                           device=dev)
             g = torch.randn(q.shape, generator=torch.Generator()
                             .manual_seed(2301)).to(dev, dtype)
@@ -1236,20 +1338,22 @@ def check_beyond_256(card, dev, errs):
             out = fa.flash_attention(*ts, causal=causal, variant="online",
                                      device=dev)
             out.backward(g)
-            want_launches = {"flash_fwd_dyn_online": 1, "flash_bwd_dyn_dq": 1,
-                             "flash_bwd_dyn_dkv": 1}
-            if dict(fa.launch_counts) != want_launches:
-                raise AssertionError(f"d=288 {dt} launched "
-                                     f"{dict(fa.launch_counts)}")
             qf, kf, vf, gf = (flat(t) for t in (q, k, v, g))
-            p_out, p_lse = plain_fwd(qf, kf, vf, causal, 288 ** -0.5,
+            want_launches = {fa.fwd_launch_name(qf, "online"): 1,
+                             "flash_bwd_dyn_dq": 1, "flash_bwd_dyn_dkv": 1}
+            if dict(fa.launch_counts) != want_launches:
+                raise AssertionError(f"d={d} {dt} launched "
+                                     f"{dict(fa.launch_counts)}")
+            p_out, p_lse = plain_fwd(qf, kf, vf, causal, d ** -0.5,
                                      "online")
             delta = ref.flash_delta(p_out, gf)
             want = (p_out, *plain_bwd(qf, kf, vf, gf, p_lse, delta, causal,
-                                      288 ** -0.5))
-            label = f"public {dt} d=288 causal={causal}"
+                                      d ** -0.5))
+            label = f"public {dt} d={d} causal={causal}"
             err, frac = hold(flat(out.detach()), want[0], "O", dtype, label)
             share[dt] = max(share[dt], frac)
+            if bf16:
+                errs["fwd_sm90dyn"] = max(errs["fwd_sm90dyn"], err)
             n_cmp += 1
             for name, t, w in zip(("dq", "dk", "dv"), ts, want[1:]):
                 err, frac = hold_grad(flat(t.grad), w, dtype,
@@ -1258,13 +1362,18 @@ def check_beyond_256(card, dev, errs):
                 n_cmp += 1
     fa.reset_launch_counts()
     log(card, f"phase 2: {n_cmp} comparisons of head dims "
-              f"{list(BEYOND_DIMS)} on the run-time-d kernels (every walk, "
-              f"dq and dk/dv; partial last tiles, sq != sk, rising-max "
-              f"adversaries; accumulators in shared memory and in the device "
-              f"workspace; d 288 through the public autograd path) passed; "
-              f"largest error as a share of its tolerance {share}; largest "
-              f"bf16 |error| fwd {errs['fwd_dyn']:.3e}, dq "
-              f"{errs['dq_dyn']:.3e}, dk/dv {errs['dkv_dyn']:.3e}")
+              f"{list(BEYOND_DIMS)} (every walk, dq and dk/dv; partial last "
+              f"tiles, sq != sk, rising-max adversaries; the bf16 forward on "
+              f"the run-time-d wgmma kernel at both CTA shapes where they "
+              f"fit, the fp32 forward and the backward on flash_dyn.cu with "
+              f"the accumulators in shared memory and in the device "
+              f"workspace; bf16 d {ABOVE_CEILING_DIM} on flash_dyn.cu's "
+              f"forward; d 288 and bf16 d 300 through the public autograd "
+              f"path) passed; largest error as a share of its tolerance "
+              f"{share}; largest bf16 |error| fwd (wgmma) "
+              f"{errs['fwd_sm90dyn']:.3e}, fwd above the ceiling "
+              f"{errs['fwd_dyn']:.3e}, dq {errs['dq_dyn']:.3e}, dk/dv "
+              f"{errs['dkv_dyn']:.3e}")
 
 
 def check_ring_pairs(card, dev, errs):
@@ -1516,52 +1625,69 @@ def check_train_grads(card, dev, cfg, batch):
     """One step's gradients at batch 2 on the kernel path against the same
     step with every launch replaced by its plain version: in bf16 against
     each gradient's scale (one rounding flip moves every later layer, as
-    for the serving logits), in fp32 to 1e-4 of it. Returns the fp32
-    kernel path's launches (the CUDA-core forward and backward at the
-    flagship's head dim 128)."""
-    fp32_launches = {}
-    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
-        c = dataclasses.replace(cfg, dtype=dtype)
-        model = tr.init_params(c, torch.Generator().manual_seed(1),
-                               device=dev, train=True)
-        loss_fn = tr.lm_loss_fn(model)
-
-        def grads():
-            model.zero_grad(set_to_none=True)
-            loss = loss_fn(model, batch[:2])
-            loss.backward()
-            return loss.item(), {n: p.grad.clone()
-                                 for n, p in model.named_parameters()}
-        fa.reset_launch_counts()
-        got_loss, got = grads()
-        if dtype == torch.float32:
-            fp32_launches = dict(fa.launch_counts)
-        with plain_path():
-            want_loss, want = grads()
-        if not math.isclose(got_loss, want_loss, rel_tol=tol):
-            raise AssertionError(f"{dtype} loss {got_loss} vs plain "
-                                 f"{want_loss}")
-        worst = 0.0
-        for name, w in want.items():
-            scale = w.abs().max().item()
-            if not torch.isfinite(got[name]).all():
-                raise AssertionError(f"{dtype} grad {name} not finite")
-            torch.testing.assert_close(
-                got[name], w, rtol=tol, atol=tol * scale,
-                msg=lambda m, name=name: f"{dtype} grad {name}: {m}")
-            worst = max(worst, (got[name] - w).abs().max().item() / scale)
-        log(card, f"phase 3b: {dtype} batch-2 step, kernel vs plain path: "
-                  f"loss {got_loss:.6f} vs {want_loss:.6f}; largest grad "
-                  f"|diff| / that grad's max |value| {worst:.3e} over "
-                  f"{len(want)} parameters (tolerance {tol})")
-        del model, got, want
+    for the serving logits), in fp32 to 1e-4 of it, under each forward
+    walk (the default lazy, then the config's flash_variant online and
+    twopass: not the environment, which the process lane's ranks share).
+    Returns the fp32 kernel path's launches (the CUDA-core forward walks
+    and backward at the flagship's head dim 128)."""
+    fp32_launches = collections.Counter()
+    for dtype, tol, walk in ((torch.bfloat16, 5e-2, None),
+                             (torch.float32, 1e-4, None),
+                             (torch.float32, 1e-4, "online"),
+                             (torch.float32, 1e-4, "twopass")):
+        fp32_launches.update(_grads_against_plain(card, dev, cfg, batch,
+                                                  dtype, tol, walk))
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
-    if not all(fp32_launches.get(n) for n in CC_BWD_NAMES):
-        raise AssertionError(f"the fp32 batch-2 step launched "
-                             f"{fp32_launches}")
-    log(card, f"phase 3b: the fp32 batch-2 step on the kernel path launched "
-              f"{fp32_launches}")
+    want = CC_BWD_NAMES + CC_FWD_NAMES
+    if not all(fp32_launches.get(n) for n in want):
+        raise AssertionError(f"the fp32 batch-2 steps launched "
+                             f"{dict(fp32_launches)}; want each of {want}")
+    log(card, f"phase 3b: the fp32 batch-2 steps on the kernel path (one "
+              f"under each forward walk) launched {dict(fp32_launches)}")
+    return dict(fp32_launches)
+
+
+def _grads_against_plain(card, dev, cfg, batch, dtype, tol, walk):
+    """check_train_grads' step in ``dtype`` under forward walk ``walk``
+    (None: the default); returns the kernel path's launches in fp32."""
+    fp32_launches = {}
+    c = dataclasses.replace(cfg, dtype=dtype,
+                            flash_variant=walk or cfg.flash_variant)
+    model = tr.init_params(c, torch.Generator().manual_seed(1),
+                           device=dev, train=True)
+    loss_fn = tr.lm_loss_fn(model)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch[:2])
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+    fa.reset_launch_counts()
+    got_loss, got = grads()
+    if dtype == torch.float32:
+        fp32_launches = dict(fa.launch_counts)
+    with plain_path():
+        want_loss, want = grads()
+    if not math.isclose(got_loss, want_loss, rel_tol=tol):
+        raise AssertionError(f"{dtype} loss {got_loss} vs plain "
+                             f"{want_loss}")
+    worst = 0.0
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        if not torch.isfinite(got[name]).all():
+            raise AssertionError(f"{dtype} grad {name} not finite")
+        torch.testing.assert_close(
+            got[name], w, rtol=tol, atol=tol * scale,
+            msg=lambda m, name=name: f"{dtype} grad {name}: {m}")
+        worst = max(worst, (got[name] - w).abs().max().item() / scale)
+    log(card, f"phase 3b: {dtype} batch-2 step (forward walk "
+              f"{walk or 'auto'}), kernel vs plain path: "
+              f"loss {got_loss:.6f} vs {want_loss:.6f}; largest grad "
+              f"|diff| / that grad's max |value| {worst:.3e} over "
+              f"{len(want)} parameters (tolerance {tol})")
+    del model, got, want
     return fp32_launches
 
 
@@ -2426,16 +2552,40 @@ def check_collective_backends(card, dev, base_model, vocab):
 # phase 4: timings of the training path
 
 
+def _traced(fn, iters):
+    """(device ms per call, device events per call) from torch.profiler
+    over ``iters`` calls after one warm-up call; a trace that recorded no
+    device event is taken again, up to three times; (None, 0) after
+    that."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = profiling.summarize_profile(prof).rows
+        if rows:
+            return (sum(r.total_ms for r in rows) / iters,
+                    sum(r.count for r in rows) / iters)
+    return None, 0
+
+
 def time_pair(fn, iters=50):
     """(event ms, profiler ms, kept ms, which) per call: CUDA events over
     ``iters`` back-to-back calls, and torch.profiler's device time beside
-    it; the profiler's figure is kept unless it reads under 0.8 of the
-    event figure (the profiler has lost events on this card), then the
-    event figure is."""
-    ev, dvc = time_ms(fn, iters, 5), device_ms(fn, iters, False)
-    if dvc is None or dvc < 0.8 * ev:
-        return ev, dvc, ev, "event"
-    return ev, dvc, dvc, "profiler"
+    it. The profiler's figure is kept when its trace holds every call's
+    device events (as many a call as a trace of one call holds) or reads
+    at least 0.8 of the event figure; else the event figure is (the
+    profiler has lost events on this card). Events span the host's
+    launch gaps too: on a slow host they read above the device time of a
+    short kernel, which a complete trace does not."""
+    ev = time_ms(fn, iters, 5)
+    dvc, per_call = _traced(fn, iters)
+    complete = dvc is not None and per_call == _traced(fn, 1)[1]
+    if dvc is not None and (complete or dvc >= 0.8 * ev):
+        return ev, dvc, dvc, "profiler"
+    return ev, dvc, ev, "event"
 
 
 def time_bwd_kernels(card, dev, launches, errs):
@@ -2786,15 +2936,17 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
     """The head dims above 128 beside the wgmma kernels at d 128 (causal,
     b 4 h 6 s 1024): at d 256 the bf16 forward and backward on the wgmma
     kernels and the fp32 forward and backward on the CUDA cores; at d 384
-    the run-time-d kernels, bf16; at d 128 the fp32 backward on the CUDA
-    cores too. Device ms per call of each forward walk (online, lazy,
-    twopass), dq and dk/dv, against the bound (operations at the dtype's
-    peak, or the bytes), their plain versions at the kernels' tiles and
-    SDPA's forward and backward in the same dtype (whichever backend SDPA
-    takes there); returns the d-256 and d-384 entries, each with its
-    launches in phase 3e's runs (``launches``), and the d-128 fp32
-    backward's, with its launches in phase 3b's fp32 step
-    (``fp32_launches``)."""
+    the run-time-d kernels, bf16 (the forward on wgmma); at d 128 the fp32
+    forward and backward on the CUDA cores too. Device ms per call of each
+    forward walk (online, lazy, twopass), dq and dk/dv, against the bound
+    (operations at the dtype's peak, or the bytes), their plain versions
+    at the kernels' tiles (the fp32 forward's plain walk timed once, at
+    the online walk, and given for all three: its trace is what this
+    phase spends its time on) and SDPA's forward and backward in the same
+    dtype (whichever backend SDPA takes there); returns the d-256 and
+    d-384 entries, each with its launches in phase 3e's runs
+    (``launches``), and the d-128 fp32 forward's and backward's, with
+    their launches in phase 3b's fp32 steps (``fp32_launches``)."""
     b, s, h = 4, 1024, 6
     dyn_d = 768 // DYN_HEADS
     entries, rows = [], {}
@@ -2803,8 +2955,6 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
                      (256, torch.bfloat16), (256, torch.float32),
                      (dyn_d, torch.bfloat16)):
         bf16 = dtype == torch.bfloat16
-        # the fp32 forward at d 128 is not timed here: only its backward
-        fwd_rows = bf16 or d != 128
         tag = f"d{d}" + ("" if bf16 else " fp32")
         q, k, v = qkv(1800 + d, b=b, s=s, h=h, d=d, dtype=dtype, device=dev)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
@@ -2844,8 +2994,6 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
                 qs.detach(), ks.detach(), vs.detach(), is_causal=True),
             "bwd": lambda: torch.autograd.grad(o, (qs, ks, vs), go,
                                                retain_graph=True)}
-        if not fwd_rows:
-            del library["fwd"]
         lib = {n_: time_pair(fn) for n_, fn in library.items()}
         item = dtype.itemsize
         calls = {
@@ -2854,7 +3002,7 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
                 lambda variant=variant: plain_fwd(qf, kf, vf, True, scale,
                                                   variant),
                 attention_work(b * h, s, d, True, item), lib["fwd"])
-            for variant in (fa.VARIANTS if fwd_rows else ())}
+            for variant in fa.VARIANTS}
         calls.update({
             "dq": (k_dq, lambda: ref.flash_bwd_dq(
                 qf, kf, vf, gf, lse, delta, True, *dq_walk, scale),
@@ -2865,46 +3013,60 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
         peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
         for name, (kernel, plain, (ops, nbytes), lib_t) in calls.items():
             kt = time_pair(kernel, iters=20)
-            t_plain = time.perf_counter()
-            plain_ms = (device_ms(plain, PLAIN_ITERS) or
-                        time_ms(plain, 2, 1))
-            plain_s += time.perf_counter() - t_plain
+            fwd = name in fa.VARIANTS
+            if bf16 or not fwd or name == "online":
+                t_plain = time.perf_counter()
+                plain_ms = (device_ms(plain, PLAIN_ITERS) or
+                            time_ms(plain, 2, 1))
+                plain_s += time.perf_counter() - t_plain
             b_ms, b_by = bound(ops, nbytes, peak)
             rows[f"{tag} {name}"] = (round(kt[2], 5), round(b_ms, 5),
                                      round(plain_ms, 3), round(lib_t[2], 5))
             if d == 128 and bf16:
                 continue
-            fwd = name in fa.VARIANTS
+            extra = {}
             if fwd:
                 counter = fa.fwd_launch_name(qf, name)
                 source = (SM90_SOURCE if fa.on_sm90_fwd(qf) else
+                          SM90DYN_SOURCE if fa.on_sm90dyn_fwd(qf) else
                           DYN_SOURCE if fa.on_dyn(d) else CC_FWD_SOURCE)
-                err_key = ("fwd_dyn" if fa.on_dyn(d) else "fwd_d256" if bf16
-                           else "fwd_d256_fp32")
+                err = (errs["fwd_sm90dyn"] if fa.on_sm90dyn_fwd(qf) else
+                       errs["fwd_d256"] if bf16 else
+                       max(errs["fwd_fp32"], errs["fwd_d256_fp32"])
+                       if d == 256 else errs["fwd_fp32"])
+                if not bf16:
+                    extra = {"plain_walk": "online"}
             else:
                 counter = fa.bwd_launch_names(qf)[name == "dkv"]
                 source = (DYN_SOURCE if fa.on_dyn(d) else BWD_SOURCE
                           if fa.on_sm90_bwd(qf) else CC_BWD_SOURCE)
-                err_key = name + ("_dyn" if fa.on_dyn(d) else
-                                  "_d256" if d == 256 else "") + (
-                    "" if bf16 else "_fp32")
+                err = errs[name + ("_dyn" if fa.on_dyn(d) else
+                                   "_d256" if d == 256 else "") + (
+                    "" if bf16 else "_fp32")]
             entries.append({
                 "name": counter, "head_dim": d, "dtype": str(dtype)[6:],
                 "route": "cuda", "source": source,
                 "replaces": REPLACES[name],
                 "launches": (launches if d != 128 else fp32_launches).get(
                     counter, 0),
-                "max_abs_err": errs[err_key],
+                "max_abs_err": err,
                 "ms": kt[2], "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_t[2]})
+                "bound_by": b_by, "library_ms": lib_t[2], **extra})
         del o, qs, ks, vs
     fa.reset_launch_counts()
     log(card, f"phase 4: causal b={b} h={h} s={s}, d 256 (bf16 on the wgmma "
               f"kernels, fp32 on the CUDA cores) and d {dyn_d} on the "
-              f"run-time-d kernels beside d 128 (bf16 on the wgmma kernels, "
-              f"the fp32 backward on the CUDA cores), (kernel ms, bound ms, "
-              f"plain ms, SDPA ms in the same dtype; bwd: SDPA's whole "
-              f"backward): {rows}; d256 bf16 backward / SDPA's: dq "
+              f"run-time-d kernels (the bf16 forward on wgmma) beside d 128 "
+              f"(bf16 on the wgmma kernels, fp32 on the CUDA cores), "
+              f"(kernel ms, bound ms, plain ms, SDPA ms in the same dtype; "
+              f"bwd: SDPA's whole backward; the fp32 forward's plain ms the "
+              f"online walk's): {rows}; fp32 forward / SDPA's fp32 forward: "
+              + ", ".join(f"d{d_} {v} {_ratio(rows, f'd{d_} fp32 {v}'):.2f}"
+                          for d_ in (128, 256) for v in fa.VARIANTS) +
+              f"; d{dyn_d} bf16 forward / SDPA's: " + ", ".join(
+                  f"{v} {_ratio(rows, f'd{dyn_d} {v}'):.2f}"
+                  for v in fa.VARIANTS) +
+              f"; d256 bf16 backward / SDPA's: dq "
               f"{rows['d256 dq'][0] / rows['d256 dq'][3]:.2f}, dk/dv "
               f"{rows['d256 dkv'][0] / rows['d256 dkv'][3]:.2f}; fp32 "
               f"backward / SDPA's: d128 dq "
@@ -2929,6 +3091,11 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
         f"; {time.perf_counter() - t0:.1f} s, {plain_s:.1f} of it timing "
         f"the plain walks")
     return entries
+
+
+def _ratio(rows, key):
+    """A timed row's kernel ms over its library (SDPA) ms."""
+    return rows[key][0] / rows[key][3]
 
 
 def bn_work(rows, c, inputs, itemsize):
@@ -7169,12 +7336,12 @@ def main():
     _build.extension()
     log(card, f"phase 1: built {list(_build.SOURCES)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s")
-    # the register reports of the wgmma/TMA sources, the run-time-d
-    # kernels and the stats kernel: each alone through nvcc -Xptxas -v,
-    # all started once the build has the cores back, read after phase 2
+    # the register reports of the wgmma/TMA sources, the fp32 forward, the
+    # run-time-d kernels and the stats kernel: each alone through nvcc
+    # -Xptxas -v, all started once the build has the cores back, read
+    # after phase 2
     ptxas = {}
-    for name in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dyn",
-                 "segment_stats"):
+    for name, _ in PTXAS_SOURCES:
         cubin = os.path.join(ROOT, "build", "flash_fwd_ab", f"{name}.cubin")
         os.makedirs(os.path.dirname(cubin), exist_ok=True)
         ptxas[name] = subprocess.Popen(
@@ -7190,6 +7357,7 @@ def main():
         check_sm90_bwd(card, dev, errs)
         check_partial_tiles_and_head_dims(card, dev, errs)
         check_wide_head_dims(card, dev, errs)
+        check_cc_fwd(card, dev, errs)
         check_beyond_256(card, dev, errs)
         check_ring_pairs(card, dev, errs)
         # the (rows, C) of every BatchNorm of a ResNet-50 step at batch 32
@@ -7207,13 +7375,8 @@ def main():
             proc.communicate()
         raise
 
-    # ---- phase 1's register reports: 30 forward instantiations (d 16-256
-    # x walk x warpgroups), 14 backward (dq: d 16-128 x warpgroups and d
-    # 256 at one; dk/dv: d 16-128, and d 256's split-column kernel); the
-    # run-time-d kernels: 6 forward (dtype x walk), 4 backward; the stats
-    # kernel's first pass (3 dtypes) and its reduction
-    for name, n_kernels in (("flash_fwd_sm90", 30), ("flash_bwd_sm90", 14),
-                            ("flash_dyn", 10), ("segment_stats", 4)):
+    # ---- phase 1's register reports
+    for name, n_kernels in PTXAS_SOURCES:
         out, _ = ptxas[name].communicate(timeout=900)
         report = fwd_ab.ptxas_report(out)
         if ptxas[name].returncode or len(report) != n_kernels:
@@ -7224,7 +7387,10 @@ def main():
         if spilled:
             raise AssertionError(f"{name}.cu spills: {spilled}")
         serialized = [ln.strip() for ln in out.splitlines()
-                      if "C7514" in ln or "C7520" in ln]
+                      if any(c in ln for c in ("C7514", "C7515", "C7520"))]
+        if serialized:
+            raise AssertionError(f"{name}.cu: ptxas serialized wgmma: "
+                                 f"{serialized}")
         note = ("CTAs of 384 threads then move registers to the consumers "
                 "with setmaxnreg (producer 24, consumers 240); "
                 if "sm90" in name else "")

@@ -19,6 +19,13 @@ extern "C" cudaError_t hvd_flash_fwd_sm90(const void* q, const void* k,
                                           int variant, int causal,
                                           float scale2, int cta_rows,
                                           cudaStream_t stream);
+extern "C" cudaError_t hvd_flash_fwd_sm90_dyn(const void* q, const void* k,
+                                              const void* v, void* o,
+                                              float* lse, int bh, int sq,
+                                              int sk, int d, int variant,
+                                              int causal, float scale2,
+                                              int cta_rows,
+                                              cudaStream_t stream);
 extern "C" cudaError_t hvd_flash_bwd_dq(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const float* lse, const float* delta,
@@ -140,6 +147,27 @@ void flash_fwd_sm90(const torch::Tensor& q, const torch::Tensor& k,
                 "flash_fwd_sm90: q, k, v and out must be bfloat16");
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch("flash_fwd_sm90", hvd_flash_fwd_sm90(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(variant),
+      causal ? 1 : 0, static_cast<float>(scale2),
+      static_cast<int>(cta_rows), stream_of(q)));
+}
+
+// The bf16 forward (variant 0 online, 1 lazy, 2 twopass) on wgmma and TMA
+// at a run-time head dim above 256 (flash_fwd_sm90_dyn.cu: d <= 1024, a
+// multiple of 8), with cta_rows (64 or 128) query rows per CTA.
+void flash_fwd_sm90_dyn(const torch::Tensor& q, const torch::Tensor& k,
+                        const torch::Tensor& v, torch::Tensor& out,
+                        torch::Tensor& lse, int64_t variant, bool causal,
+                        double scale2, int64_t cta_rows) {
+  check_fwd("flash_fwd_sm90_dyn", q, k, v, out, lse);
+  for (const auto& t : {q, k, v, out})
+    TORCH_CHECK(t.scalar_type() == torch::kBFloat16,
+                "flash_fwd_sm90_dyn: q, k, v and out must be bfloat16");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch("flash_fwd_sm90_dyn", hvd_flash_fwd_sm90_dyn(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       lse.data_ptr<float>(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
@@ -292,7 +320,8 @@ float* workspace_of(const char* which, const torch::Tensor& ws,
 }
 
 // The forward (variant 0 online, 1 lazy, 2 twopass) at a run-time head dim
-// (flash_dyn.cu: d > 256), fp32 or bf16.
+// (flash_dyn.cu: d > 256): fp32, and bf16 above 1024 (flash_fwd_sm90_dyn.cu
+// takes bf16 up to 1024).
 void flash_fwd_dyn(const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v, torch::Tensor& out,
                    torch::Tensor& lse, const torch::Tensor& ws,
@@ -444,6 +473,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
         "Flash-attention forward, bf16 online/lazy/twopass up to head dim "
         "256, on wgmma and TMA");
+  m.def("flash_fwd_sm90_dyn", &flash_fwd_sm90_dyn,
+        "Flash-attention forward, bf16 online/lazy/twopass at a run-time "
+        "head dim above 256 (up to 1024), on wgmma and TMA");
   m.def("flash_bwd_dq", &flash_bwd_dq,
         "Flash-attention backward, dq, on the CUDA cores (fp32)");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
@@ -456,7 +488,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "wgmma and TMA");
   m.def("flash_fwd_dyn", &flash_fwd_dyn,
         "Flash-attention forward, online/lazy/twopass, at a run-time head "
-        "dim (d > 256) on the CUDA cores, fp32 and bf16");
+        "dim (d > 256) on the CUDA cores: fp32, and bf16 above 1024");
   m.def("flash_bwd_dyn_dq", &flash_bwd_dyn_dq,
         "Flash-attention backward, dq, at a run-time head dim");
   m.def("flash_bwd_dyn_dkv", &flash_bwd_dyn_dkv,

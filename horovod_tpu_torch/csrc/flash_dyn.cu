@@ -10,7 +10,10 @@
 //   flash_bwd_dkv_dyn_kernel<T>       -> _dkv_kernel          (:531)
 // The compile-time-d kernels (flash_fwd.cu, flash_bwd.cu, the wgmma ones)
 // keep whole fp32 rows of Q, K and V in shared memory, which stops at
-// d 256: one 64-row fp32 Q tile alone is 128 KB at d 512.
+// d 256: one 64-row fp32 Q tile alone is 128 KB at d 512. The bf16
+// forward from d 264 to 1024 runs on wgmma and TMA in
+// flash_fwd_sm90_dyn.cu; flash_fwd_dyn_kernel takes the fp32 forward at
+// every d above 256 and the bf16 one above 1024.
 //
 // Contract (the other flash kernels'): q/k/v/dO are [b*h, s, d] contiguous
 // fp32 or bf16, O and the gradients in their dtype; lse is the natural-log

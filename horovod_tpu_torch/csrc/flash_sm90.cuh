@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA flash-attention
-// kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA loads of
-// 3-D [b*h, s, d] bf16 tensor maps, setmaxnreg, shared-memory matrix
-// descriptors, and the three wgmma shapes the kernels use:
+// kernels (flash_fwd_sm90.cu, flash_fwd_sm90_dyn.cu, flash_bwd_sm90.cu):
+// mbarriers, TMA loads of 3-D [b*h, s, d] bf16 tensor maps (d at compile
+// time or at run time), setmaxnreg, shared-memory matrix descriptors, and
+// the three wgmma shapes the kernels use:
 //   WgmmaSS<N>: D[64 x N] (+)= A[64 x 16] B[N x 16]^T, A and B K-major in
 //               shared memory (Q K^T, dO V^T, K Q^T, V dO^T);
 //   WgmmaSSt<N>: D[64 x N] += A[64 x 16] B[16 x N], A K-major and B
@@ -198,12 +199,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
             "%40, %41, %42, %43, %44, %45, %46, %47, " \
             "%48, %49, %50, %51, %52, %53, %54, %55, " \
             "%56, %57, %58, %59, %60, %61, %62, %63"
-#define HVD_R0_127 \
+#define HVD_R0_95 \
   HVD_R0_63 ", %64, %65, %66, %67, %68, %69, %70, %71, " \
             "%72, %73, %74, %75, %76, %77, %78, %79, " \
             "%80, %81, %82, %83, %84, %85, %86, %87, " \
-            "%88, %89, %90, %91, %92, %93, %94, %95, " \
-            "%96, %97, %98, %99, %100, %101, %102, %103, " \
+            "%88, %89, %90, %91, %92, %93, %94, %95"
+#define HVD_R0_127 \
+  HVD_R0_95 ", %96, %97, %98, %99, %100, %101, %102, %103, " \
             "%104, %105, %106, %107, %108, %109, %110, %111, " \
             "%112, %113, %114, %115, %116, %117, %118, %119, " \
             "%120, %121, %122, %123, %124, %125, %126, %127"
@@ -263,6 +265,23 @@ struct WgmmaRS<256> {
           HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56),
           HVD_F8(d, 64), HVD_F8(d, 72), HVD_F8(d, 80), HVD_F8(d, 88),
           HVD_F8(d, 96), HVD_F8(d, 104), HVD_F8(d, 112), HVD_F8(d, 120)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// the run-time-d forward's P V over a slice of three 64-column boxes
+template <>
+struct WgmmaRS<192> {
+  static __device__ __forceinline__ void run(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{" HVD_R0_95 "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24),
+          HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56),
+          HVD_F8(d, 64), HVD_F8(d, 72), HVD_F8(d, 80), HVD_F8(d, 88)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
@@ -394,32 +413,38 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// 3-D map over a contiguous bf16 [bh, s, D]: boxes of kBoxCols x box_rows
-// of one head, rows past s zero-filled
-template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int bh,
-                     int box_rows) {
-  using S = Swz<D>;
+// 3-D map over a contiguous bf16 [bh, s, d]: boxes of box_cols x box_rows
+// of one head (box_cols * 2 bytes = the swizzle span), rows past s and
+// columns past d zero-filled; d * 2 bytes must be a multiple of 16
+inline cudaError_t make_map_cols(CUtensorMap* map, const void* ptr, int d,
+                                 int s, int bh, int box_cols, int box_rows) {
   EncodeTiled encode = encoder();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(s) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(S::kBoxCols),
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
-      S::kSwBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : S::kSwBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                       const_cast<void*>(ptr), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the same over a compile-time head dim D, in Swz<D>'s boxes
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int bh,
+                     int box_rows) {
+  return make_map_cols(map, ptr, D, s, bh, Swz<D>::kBoxCols, box_rows);
 }
 
 }  // namespace

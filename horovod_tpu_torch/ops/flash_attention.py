@@ -3,13 +3,16 @@
 The counterpart of ``horovod_tpu/ops/flash_attention.py``, forward and
 backward. A CUDA tensor goes to the hand-written Hopper kernels: every
 bf16 forward (online, lazy, twopass) up to head dim 256 on wgmma and TMA
-in ``csrc/flash_fwd_sm90.cu``, the bf16 backward's dq and dk/dv kernels
-up to head dim 256 on wgmma and TMA in ``csrc/flash_bwd_sm90.cu``, the
-fp32 forward and backward on the CUDA cores in ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``, and
-every head dim above 256, forward and backward, in ``csrc/flash_dyn.cu``,
-which takes d at run time. A CPU tensor goes to their plain PyTorch versions
-in ``flash_attention_ref.py``, which walk the same tiles. Nothing on a
+in ``csrc/flash_fwd_sm90.cu``, and above 256 up to 1024 in
+``csrc/flash_fwd_sm90_dyn.cu`` (d at run time); the bf16 backward's dq
+and dk/dv kernels up to head dim 256 on wgmma and TMA in
+``csrc/flash_bwd_sm90.cu``; the fp32 forward and backward on the CUDA
+cores in ``csrc/flash_fwd.cu`` (register-blocked) and
+``csrc/flash_bwd.cu``; and every other head dim above 256 (the fp32
+forward, the bf16 forward above 1024, the backward) in
+``csrc/flash_dyn.cu``, which takes d at run time. A CPU tensor goes to
+their plain PyTorch versions in ``flash_attention_ref.py``, which walk
+the same tiles. Nothing on a
 CUDA tensor takes the plain version unless the caller asks for it with
 ``interpret=True`` (the port's counterpart of Pallas interpret mode): if
 a kernel cannot build or launch, the call raises.
@@ -25,11 +28,14 @@ the reference's ``fit_block``, and a length the fitted block does not
 divide is refused unless the call is causal self-attention. The kernels
 need no such blocks: each masks a partial last q tile and a partial last
 k tile itself, so every accepted length runs unpadded. The CUDA-core
-kernels walk 64-row tiles (the backward's k tiles are 32 rows at d 256);
+kernels walk 64-row tiles (the fp32 forward's k tiles are 128 keys, the
+backward's 32 at d 256);
 the wgmma kernels walk 128 keys per k tile and 64 or 128 query rows per
 CTA (``sm90_cta_rows``; dk/dv 128 keys per CTA and 64 queries per q
 tile), and at d 256 64 keys per k tile or dk/dv CTA and 64 query rows
-per dq CTA. ``kernel_blocks`` and ``bwd_kernel_blocks``
+per dq CTA; the bf16 forward above 256 walks 64 keys per k tile and 64
+or 128 query rows per CTA (``sm90dyn_cta_rows``). ``kernel_blocks`` and
+``bwd_kernel_blocks``
 name the walks of the kernels a call reaches, so their plain versions
 can walk the same. On the CPU, and under ``interpret=True``, the plain
 walks take the fitted blocks.
@@ -40,8 +46,11 @@ every one of them in fp32); on
 the card any other d up to 256 is zero-padded on the host to the next of
 those (``pad_head_dim``), with the softmax scale of the true d: a zero
 column adds nothing to any dot product, and the padded output columns
-are sliced off. A d above 256 runs unpadded on the run-time-d kernels
-(``flash_dyn.cu``: 32-row tiles, d walked in 64-column chunks, the fp32
+are sliced off. A d above 256 runs on the run-time-d kernels: the bf16
+forward up to 1024 on wgmma and TMA (``flash_fwd_sm90_dyn.cu``: 64-column
+boxes, V's columns split over the grid; a d that is not a multiple of 8
+zero-padded to one, ``fwd_head_dim``), everything else unpadded on
+``flash_dyn.cu`` (32-row tiles, d walked in 64-column chunks, the fp32
 accumulators in shared memory where they fit and in a device workspace
 otherwise), so no head dim is refused.
 
@@ -74,6 +83,10 @@ VARIANTS = ("online", "lazy", "twopass")
 #: variant is picked by the number of these tiles along k.
 BLOCK = 64
 
+#: Keys per k tile of the fp32 CUDA-core forward (``csrc/flash_fwd.cu``),
+#: whose q tiles are ``BLOCK`` rows.
+CC_BLOCK_K = 128
+
 #: Keys per k tile of the CUDA-core (fp32) backward kernels at a head dim
 #: above 128, where 64-row fp32 tiles would not fit a block's shared
 #: memory.
@@ -94,6 +107,19 @@ SM90_MAX_HEAD_DIM = 256
 #: The largest head dim of the wgmma/TMA forward kernel: every compiled
 #: head dim.
 SM90_FWD_MAX_HEAD_DIM = 256
+
+#: The largest head dim of the run-time-d wgmma/TMA forward
+#: (``csrc/flash_fwd_sm90_dyn.cu``), which takes bf16 above 256: Q of one
+#: 64-row CTA (d / 64 boxes of 8 KB) beside its K and V rings fills the
+#: 227 KB of a block at 1024. The bf16 forward above it stays on
+#: ``flash_dyn.cu``.
+SM90_DYN_MAX_HEAD_DIM = 1024
+
+#: Keys per k tile of the run-time-d wgmma/TMA forward, columns per TMA
+#: box, K boxes and V slices in flight (mirrors of flash_fwd_sm90_dyn.cu)
+SM90_DYN_BLOCK_K = 64
+_SM90_DYN_BOX = 64
+_SM90_DYN_K_STAGES, _SM90_DYN_V_STAGES = 4, 2
 
 #: Rows per tile of the run-time-d kernels (``csrc/flash_dyn.cu``), which
 #: take every head dim above ``KERNEL_HEAD_DIMS[-1]``; d is walked in
@@ -175,12 +201,12 @@ def resolve_variant(variant, causal=True, nk=1):
     return variant
 
 
-def fit_block(s):
+def fit_block(s, block=BLOCK):
     """Tile rows of the fp32 CUDA-core kernels for a sequence of ``s``:
-    the full 64-row tile, or one partial tile when the whole sequence is
-    shorter. A longer sequence ends in a partial tile, which the kernels
-    mask."""
-    return min(BLOCK, s)
+    the full tile (``block`` rows), or one partial tile when the whole
+    sequence is shorter. A longer sequence ends in a partial tile, which
+    the kernels mask."""
+    return min(block, s)
 
 
 def fit_block_ref(block, s):
@@ -222,6 +248,39 @@ def on_dyn(d):
     return d > KERNEL_HEAD_DIMS[-1]
 
 
+def sm90dyn_plan(d):
+    """(boxes, slices, boxes a slice) of the run-time-d wgmma forward at
+    head dim ``d``: d in 64-column boxes, the boxes in as few slices of at
+    most four as hold them, each slice as wide as the widest (3 or 4
+    boxes: O m64n192 or m64n256); one CTA per slice, each computing the
+    logits over the whole d."""
+    boxes = -(-d // _SM90_DYN_BOX)
+    slices = -(-boxes // 4)
+    return boxes, slices, -(-boxes // slices)
+
+
+def sm90dyn_fits(d, cta_rows):
+    """Whether the run-time-d wgmma forward's shared memory at head dim
+    ``d`` and ``cta_rows`` query rows fits a block: Q (cta_rows x d), 4 K
+    boxes, 2 V slices and the barriers (mirrors ``smem_bytes`` in
+    flash_fwd_sm90_dyn.cu): one consumer warpgroup up to d 1024, two up
+    to d 576."""
+    boxes, _, per = sm90dyn_plan(d)
+    box = SM90_DYN_BLOCK_K * 2 * _SM90_DYN_BOX
+    smem = (boxes * cta_rows * 2 * _SM90_DYN_BOX + _SM90_DYN_K_STAGES * box
+            + _SM90_DYN_V_STAGES * per * box + 128 + 1024)
+    return d <= SM90_DYN_MAX_HEAD_DIM and smem <= MAX_SMEM
+
+
+def sm90dyn_cta_rows(bh, sq, d, sm_count):
+    """Query rows per CTA of the run-time-d wgmma forward: 128 (two
+    consumer warpgroups) when Q for 128 rows fits and
+    ``bh·⌈sq/128⌉·slices`` CTAs fill the SMs, else 64."""
+    slices = sm90dyn_plan(d)[1]
+    fill = bh * -(-sq // 128) * slices >= sm_count
+    return 128 if fill and sm90dyn_fits(d, 128) else 64
+
+
 def kernel_head_dim(d):
     """The head dim a head dim of ``d`` runs at on the card: the next
     compiled one up to 256, ``d`` itself above (the run-time-d kernels)."""
@@ -254,14 +313,25 @@ def _workspace(kind, qf, rows, force):
     return torch.empty(n, dtype=torch.float32, device=qf.device)
 
 
-def pad_head_dim(fn, tensors, n_sliced):
+def fwd_head_dim(qf):
+    """The head dim the forward of ``[b·h, s, d]`` operands runs at on the
+    card: ``kernel_head_dim``, except that the bf16 forward on the
+    run-time-d wgmma kernel takes d rounded up to a multiple of 8 (its
+    tensor maps' rows must be multiples of 16 bytes)."""
+    d = qf.shape[-1]
+    if on_sm90dyn_fwd(qf):
+        return -(-d // 8) * 8
+    return kernel_head_dim(d)
+
+
+def pad_head_dim(fn, tensors, n_sliced, to=None):
     """``fn(*tensors)`` with every tensor zero-padded along its last dim to
-    ``kernel_head_dim(d)``, and the first ``n_sliced`` outputs sliced back
-    to d. A zero column adds nothing to any dot product, so the result is
-    the unpadded one as long as ``fn`` takes the softmax scale of the true
-    d, which the callers pass."""
+    ``to`` (default ``kernel_head_dim(d)``), and the first ``n_sliced``
+    outputs sliced back to d. A zero column adds nothing to any dot
+    product, so the result is the unpadded one as long as ``fn`` takes the
+    softmax scale of the true d, which the callers pass."""
     d = tensors[0].shape[-1]
-    pad = kernel_head_dim(d) - d
+    pad = (kernel_head_dim(d) if to is None else to) - d
     if not pad:
         return fn(*tensors)
     outs = fn(*(F.pad(t, (0, pad)) for t in tensors))
@@ -326,6 +396,16 @@ def on_sm90_fwd(qf):
         qf.shape[2] <= SM90_FWD_MAX_HEAD_DIM
 
 
+def on_sm90dyn_fwd(qf):
+    """Whether the forward of a ``[b·h, s, d]`` call runs on the run-time-d
+    wgmma/TMA kernel (``csrc/flash_fwd_sm90_dyn.cu``): bf16 at
+    256 < d ≤ ``SM90_DYN_MAX_HEAD_DIM`` (1024, where shared memory sets the
+    ceiling). fp32 above 256, and bf16 above 1024, run on
+    ``flash_dyn.cu``."""
+    return qf.dtype == torch.bfloat16 and \
+        SM90_FWD_MAX_HEAD_DIM < qf.shape[2] <= SM90_DYN_MAX_HEAD_DIM
+
+
 def on_sm90_bwd(qf):
     """Whether the backward of a ``[b·h, s, d]`` call runs on the
     wgmma/TMA kernels: bf16 at every head dim up to 256 (a d between the
@@ -341,11 +421,16 @@ def sm90_block_k(d):
 
 def fwd_launch_name(qf, variant):
     """The launch count a forward call on ``[b·h, s, d]`` operands adds
-    to: ``flash_fwd_{variant}`` on the wgmma/TMA kernel,
-    ``flash_fwd_cc_{variant}`` on the CUDA-core one,
-    ``flash_fwd_dyn_{variant}`` on the run-time-d one."""
+    to: ``flash_fwd_{variant}`` on the wgmma/TMA kernel (bf16 up to
+    d 256), ``flash_fwd_sm90dyn_{variant}`` on the run-time-d wgmma/TMA
+    kernel (bf16 above 256 up to its shared-memory ceiling,
+    ``SM90_DYN_MAX_HEAD_DIM`` = 1024), ``flash_fwd_cc_{variant}`` on the
+    CUDA-core one (fp32 up to 256), ``flash_fwd_dyn_{variant}`` on the
+    run-time-d CUDA-core one (fp32 above 256, bf16 above 1024)."""
     if on_sm90_fwd(qf):
         return f"flash_fwd_{variant}"
+    if on_sm90dyn_fwd(qf):
+        return f"flash_fwd_sm90dyn_{variant}"
     return f"flash_fwd_{_cc_family(qf)}_{variant}"
 
 
@@ -368,23 +453,44 @@ def kernel_blocks(qf, kf, variant, cta_rows=None):
         rows = cta_rows or sm90_cta_rows(qf.shape[0], qf.shape[1],
                                          _sm_count(qf.device))
         return rows, sm90_block_k(qf.shape[2])
+    if on_sm90dyn_fwd(qf):
+        rows = cta_rows or sm90dyn_cta_rows(
+            qf.shape[0], qf.shape[1], fwd_head_dim(qf), _sm_count(qf.device))
+        return rows, SM90_DYN_BLOCK_K
     if on_dyn(qf.shape[2]):
-        return min(DYN_BLOCK, qf.shape[1]), min(DYN_BLOCK, kf.shape[1])
-    return fit_block(qf.shape[1]), fit_block(kf.shape[1])
+        return _dyn_blocks(qf, kf)
+    return fit_block(qf.shape[1]), fit_block(kf.shape[1], CC_BLOCK_K)
+
+
+def _dyn_blocks(qf, kf):
+    """The run-time-d CUDA-core kernels' 32-row tiles."""
+    return min(DYN_BLOCK, qf.shape[1]), min(DYN_BLOCK, kf.shape[1])
 
 
 def _kernel_fwd(qf, kf, vf, causal, scale, variant, cta_rows=None,
                 workspace=False):
     """Launch the forward kernel on ``[b·h, s, d]`` operands: bf16 up to
-    d 256 on the wgmma/TMA kernel (``cta_rows`` 64 or 128 forces its CTA
-    shape), fp32 on the CUDA-core one, every d above
-    256 on the run-time-d one (``workspace=True`` puts its accumulators
-    in device memory even where shared memory would hold them)."""
+    d 256 on the wgmma/TMA kernel and above it up to 1024 on the run-time-d
+    wgmma/TMA one (``cta_rows`` 64 or 128 forces either's CTA shape; the
+    latter takes d a multiple of 8, which ``fwd_head_dim`` pads to), fp32
+    up to 256 on the CUDA-core one, every other d above 256 on the
+    run-time-d CUDA-core one (``workspace=True`` puts its accumulators in
+    device memory even where shared memory would hold them)."""
     _check_operands(qf, kf, vf)
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:2], dtype=torch.float32, device=qf.device)
     scale2 = float(scale * LOG2E)
-    if on_dyn(qf.shape[2]):
+    if on_sm90dyn_fwd(qf):
+        rows, _ = kernel_blocks(qf, kf, variant, cta_rows)
+        if qf.shape[2] % 8 or not sm90dyn_fits(qf.shape[2], rows):
+            raise ValueError(
+                f"the run-time-d wgmma forward takes a head dim that is a "
+                f"multiple of 8 (fwd_head_dim pads to one) and fits "
+                f"{rows} query rows; got d {qf.shape[2]}")
+        extension().flash_fwd_sm90_dyn(qf, kf, vf, out, lse,
+                                       VARIANTS.index(variant), bool(causal),
+                                       scale2, rows)
+    elif on_dyn(qf.shape[2]):
         extension().flash_fwd_dyn(
             qf, kf, vf, out, lse,
             _workspace("fwd", qf, qf.shape[1], workspace),
@@ -414,7 +520,7 @@ def bwd_kernel_blocks(qf, kf, cta_rows=None):
         bk = sm90_block_k(qf.shape[2])
         return (sm90_dq_rows(qf, cta_rows), bk), (SM90_DKV_BLOCK_Q, bk)
     if on_dyn(qf.shape[2]):
-        blocks = kernel_blocks(qf, kf, "online")
+        blocks = _dyn_blocks(qf, kf)
         return blocks, blocks
     bk = BWD_BLOCK_K_WIDE if qf.shape[2] > 128 else BLOCK
     blocks = fit_block(qf.shape[1]), min(bk, kf.shape[1])
@@ -469,12 +575,17 @@ def _fwd_flat(qf, kf, vf, causal, blocks, variant, interpret=False,
     if interpret or qf.device.type == "cpu":
         return ref.FWD[variant](qf, kf, vf, causal, *blocks, scale)
     if qf.is_cuda:
-        return pad_head_dim(
-            lambda q, k, v: _kernel_fwd(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal, scale,
-                                        variant),
-            (qf, kf, vf), 1)
+        return _card_fwd(qf, kf, vf, causal, scale, variant)
     raise ValueError(f"flash attention runs on cuda or cpu, not {qf.device}")
+
+
+def _card_fwd(qf, kf, vf, causal, scale, variant):
+    """The card path of a forward: the kernel the call reaches, on the
+    operands zero-padded to ``fwd_head_dim`` (O sliced back)."""
+    return pad_head_dim(
+        lambda q, k, v: _kernel_fwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, scale, variant),
+        (qf, kf, vf), 1, fwd_head_dim(qf))
 
 
 def _bwd_flat(qf, kf, vf, of, lse, dof, causal, blocks, dkv_walk=None,

@@ -1,32 +1,38 @@
 """Build the flash kernels alone and compare them across trees.
 
     python -m horovod_tpu_torch.ops.flash_fwd_ab [--bwd] [--against DIR ...]
-        [--check] [--time]
+        [--check] [--time] [--wide]
 
-Needs a CUDA card and nvcc. Compiles the forward sources, ``csrc/flash_fwd.cu``
-and, where the tree has it, ``csrc/flash_fwd_sm90.cu`` (or with ``--bwd``
+Needs a CUDA card and nvcc. Compiles the forward sources,
+``csrc/flash_fwd.cu``, ``csrc/flash_dyn.cu`` and, where the tree has them,
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_fwd_sm90_dyn.cu`` (or with ``--bwd``
 the backward's, ``csrc/flash_bwd.cu`` and, where the tree has it,
 ``csrc/flash_bwd_sm90.cu``) of this checkout and of each ``--against``
 checkout (e.g. the parent commit unpacked with ``git archive``) into one
-shared library per tree with ``nvcc -Xptxas -v``, loaded with ctypes, and
-prints each kernel's registers and spills: seconds per tree instead of
-the full extension build.
+shared library per tree with ``nvcc -Xptxas -v`` (every source of every
+tree its own nvcc, all started together), loaded with ctypes, and prints
+each kernel's registers and spills: a minute or two instead of the full
+extension build.
 
 Forward: ``--check`` holds each tree's bf16 online, lazy and twopass
 kernels against the plain walks (``flash_attention_ref``) at the kernel's
 tiles (bf16 O two ulps + 1 % of its largest value, lse 1e-3), partial
-last tiles and sq != sk among the cases, at head dims 16-128 and 256;
-``--time`` prints device ms per call by torch.profiler and by CUDA events
-over 50 back-to-back calls, side by side in one process, at the training
-shape (b16 h6 s1024 d128 causal), serving shapes (b1 h6
-s16/64/640/960/1024) and head dim 256 (b4 h6 s1024 causal), beside the
-bound, SDPA's forward and (for the online walk) its plain version; then
-an empty kernel's time launched back to back (the launch floor) and the
-host µs per launch. A tree whose ``flash_fwd_sm90.cu`` has no online walk
-runs bf16 online on its ``flash_fwd.cu`` (mma.sync), a tree without
-``flash_fwd_sm90.cu`` runs every bf16 walk there, and a tree whose
-``flash_fwd_sm90.cu`` stops at head dim 128 runs bf16 d 256 on its
-``flash_fwd.cu`` (the CUDA cores).
+last tiles and sq != sk among the cases, at head dims 16-128, 256 and
+288/384/512 (both CTA shapes where they fit, the rising-max adversaries),
+and its fp32 walks at d 128 and 256 (2e-5; partial tiles, sq != sk, the
+adversaries); ``--time`` prints device ms per call by torch.profiler and
+by CUDA events over 50 back-to-back calls, side by side in one process,
+at the training shape (b16 h6 s1024 d128 causal), serving shapes (b1 h6
+s16/64/640/960/1024) and b4 h6 s1024 causal at bf16 d 256 and 384 and
+fp32 d 128 and 256 (``--wide``: those four alone), beside the bound,
+SDPA's forward in the same dtype and (for the online walk) its plain
+version; then an empty kernel's time launched back to back (the launch
+floor) and the host µs per launch. A tree whose ``flash_fwd_sm90.cu`` has
+no online walk runs bf16 online on its ``flash_fwd.cu`` (mma.sync), a
+tree without ``flash_fwd_sm90.cu`` runs every bf16 walk there, a tree
+whose ``flash_fwd_sm90.cu`` stops at head dim 128 runs bf16 d 256 on its
+``flash_fwd.cu`` (the CUDA cores), and a tree without
+``flash_fwd_sm90_dyn.cu`` runs bf16 above 256 on its ``flash_dyn.cu``.
 
 Backward (``--bwd``): ``--check`` holds each tree's bf16 dq and dk/dv
 against the plain walks at the kernels' tiles (two bf16 ulps + 1 % of each
@@ -49,6 +55,7 @@ import time
 
 import torch
 
+from . import flash_attention as fa
 from . import flash_attention_ref as ref
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -58,6 +65,7 @@ NVCC = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
 LOG2E = 1.4426950408889634
 WALKS = {"online": 0, "lazy": 1, "twopass": 2}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12    # and fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12
 H100_SMS = 132
 CUDA_ERROR_INVALID_VALUE = 1
@@ -73,9 +81,11 @@ extern "C" cudaError_t hvd_launch_empty(cudaStream_t stream) {
 """
 
 
-def nvcc_cmd(sources, out, cubin=False):
-    """nvcc for sm_90a with the register report (-Xptxas -v)."""
-    kind = ["-cubin"] if cubin else ["-shared", "-Xcompiler", "-fPIC"]
+def nvcc_cmd(sources, out, cubin=False, obj=False):
+    """nvcc for sm_90a with the register report (-Xptxas -v): a shared
+    library, a cubin or (``obj``) one relocatable object."""
+    kind = (["-cubin"] if cubin else ["-c", "-Xcompiler", "-fPIC"] if obj
+            else ["-shared", "-Xcompiler", "-fPIC"])
     return [NVCC, "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
             "-Xptxas", "-v", *kind, "-o", out, *sources]
 
@@ -114,51 +124,92 @@ def ptxas_report(text):
     return report
 
 
-def build(sources, label):
-    """nvcc of ``sources`` into build/flash_fwd_ab/lib_<label>.so: (the
-    loaded library, seconds, ptxas report, ptxas warnings)."""
+def build_many(jobs):
+    """nvcc of every (label, sources) job into
+    build/flash_fwd_ab/lib_<label>.so: one process per source, all started
+    together, then one link per job. {label: (the loaded library, seconds
+    to its link, ptxas report, ptxas warnings)}."""
     out_dir = os.path.join(_ROOT, "build", "flash_fwd_ab")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, f"lib_{label}.so")
     t0 = time.perf_counter()
-    r = subprocess.run(nvcc_cmd(sources, so), capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"{label}: nvcc failed\n{r.stderr[-4000:]}")
-    text = r.stdout + r.stderr
-    warnings = sorted({ln.strip() for ln in text.splitlines()
-                       if "warning" in ln.lower() or "Performance" in ln})
-    return (ctypes.CDLL(so), time.perf_counter() - t0, ptxas_report(text),
-            warnings)
+    procs = [(label, obj, subprocess.Popen(
+        nvcc_cmd([src], obj, obj=True), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for label, sources in jobs
+        for obj, src in ((os.path.join(out_dir, f"{label}_{i}.o"), src)
+                         for i, src in enumerate(sources))]
+    texts = {label: "" for label, _ in jobs}
+    objs = {label: [] for label, _ in jobs}
+    failed = []
+    for label, obj, proc in procs:
+        out, _ = proc.communicate()
+        texts[label] += out
+        objs[label].append(obj)
+        if proc.returncode:
+            failed.append(f"{label}: nvcc failed on {obj}\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    built = {}
+    for label, _ in jobs:
+        so = os.path.join(out_dir, f"lib_{label}.so")
+        r = subprocess.run([NVCC, "-shared", "-o", so, *objs[label]],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"{label}: link failed\n{r.stderr[-4000:]}")
+        text = texts[label]
+        warnings = sorted({ln.strip() for ln in text.splitlines()
+                           if "warning" in ln.lower() or "Performance" in ln})
+        built[label] = (ctypes.CDLL(so), time.perf_counter() - t0,
+                        ptxas_report(text), warnings)
+    return built
 
 
 class Tree:
     """One checkout's forward kernels, built into build/flash_fwd_ab/."""
 
-    def __init__(self, root, label):
+    suffix = ""
+
+    @staticmethod
+    def sources(root):
+        csrc = os.path.join(root, "horovod_tpu_torch", "csrc")
+        return [p for p in (os.path.join(csrc, f) for f in (
+            "flash_fwd.cu", "flash_dyn.cu", "flash_fwd_sm90.cu",
+            "flash_fwd_sm90_dyn.cu")) if os.path.exists(p)]
+
+    def __init__(self, root, label, built):
         self.label = label
         csrc = os.path.join(root, "horovod_tpu_torch", "csrc")
-        sources = [os.path.join(csrc, "flash_fwd.cu")]
         sm90 = os.path.join(csrc, "flash_fwd_sm90.cu")
+        self.sm90dyn = os.path.exists(os.path.join(csrc,
+                                                   "flash_fwd_sm90_dyn.cu"))
+        # keys per k tile of the fp32 forward: 128 in the register-blocked
+        # kernel, 64 before it
+        with open(os.path.join(csrc, "flash_fwd.cu")) as f:
+            self.cc_block_k = 128 if "2 * kBlock" in f.read() else 64
         # the bf16 walks this tree runs on the wgmma kernel; the others run
         # on its flash_fwd.cu (mma.sync, 64-row tiles)
         self.sm90_walks = ()
         self.sm90_max_d = 128
         if os.path.exists(sm90):
-            sources.append(sm90)
             with open(sm90) as f:
                 online = "kOnlineWalk" in f.read()
             self.sm90_walks = (("online",) if online else ()) + (
                 "lazy", "twopass")
-        lib, self.build_s, self.report, self.warnings = build(sources, label)
+        lib, self.build_s, self.report, self.warnings = built
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if self.sm90_walks:
             lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
             lib.hvd_flash_fwd_sm90.restype = i
             self.sm90_max_d = self._sm90_max_d(lib)
-        if len(self.sm90_walks) < len(WALKS) or self.sm90_max_d < 256:
-            # bf16 (dtype 1) on flash_fwd.cu
-            lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
-            lib.hvd_flash_fwd.restype = i
+        # fp32 (dtype 0), and bf16 (1) where a tree runs it there
+        lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
+        lib.hvd_flash_fwd.restype = i
+        lib.hvd_flash_fwd_dyn.argtypes = [p] * 6 + [i] * 7 + [f, p]
+        lib.hvd_flash_fwd_dyn.restype = i
+        if self.sm90dyn:
+            lib.hvd_flash_fwd_sm90_dyn.argtypes = [p] * 5 + [i] * 6 + [
+                f, i, p]
+            lib.hvd_flash_fwd_sm90_dyn.restype = i
         self.lib = lib
 
     def _sm90_max_d(self, lib):
@@ -181,13 +232,21 @@ class Tree:
     def on_sm90(self, variant, d):
         return variant in self.sm90_walks and d <= self.sm90_max_d
 
-    def cta_rows(self, variant, rows, d=128):
-        """The CTA rows a call walks: ``rows`` on the wgmma kernel (the
-        host's pick when None), 64 on the mma.sync one."""
-        return (rows or 64) if self.on_sm90(variant, d) else 64
+    def on_sm90dyn(self, d, dtype=torch.bfloat16):
+        return (self.sm90dyn and dtype == torch.bfloat16 and
+                256 < d <= fa.SM90_DYN_MAX_HEAD_DIM)
+
+    def cta_rows(self, variant, rows, d=128, dtype=torch.bfloat16):
+        """The CTA rows a call walks: ``rows`` on a wgmma kernel (the
+        host's pick when None), 64 on the mma.sync and CUDA-core ones,
+        32 on flash_dyn.cu's."""
+        if dtype == torch.bfloat16 and (self.on_sm90(variant, d) or
+                                        self.on_sm90dyn(d)):
+            return rows or 64
+        return 32 if d > 256 else 64
 
     def forward(self, q, k, v, causal, variant, cta_rows=64):
-        """(O, lse) of bf16 ``[b·h, s, d]`` operands."""
+        """(O, lse) of bf16 or fp32 ``[b·h, s, d]`` operands."""
         bh, sq, d = q.shape
         o = torch.empty_like(q)
         lse = torch.empty(bh, sq, device=q.device)
@@ -195,31 +254,42 @@ class Tree:
                 lse.data_ptr(), bh, sq, k.shape[1], d)
         stream = torch.cuda.current_stream().cuda_stream
         scale2 = d ** -0.5 * LOG2E
-        if self.on_sm90(variant, d):
-            err = self.lib.hvd_flash_fwd_sm90(*args, WALKS[variant],
-                                              int(causal), scale2, cta_rows,
+        walk = (WALKS[variant], int(causal), scale2)
+        dtype = 0 if q.dtype == torch.float32 else 1
+        if self.on_sm90dyn(d, q.dtype):
+            err = self.lib.hvd_flash_fwd_sm90_dyn(*args, *walk, cta_rows,
+                                                  stream)
+        elif d > 256:
+            err = self.lib.hvd_flash_fwd_dyn(*args[:5], None, *args[5:],
+                                             dtype, *walk, stream)
+        elif dtype == 1 and self.on_sm90(variant, d):
+            err = self.lib.hvd_flash_fwd_sm90(*args, *walk, cta_rows,
                                               stream)
         else:
-            err = self.lib.hvd_flash_fwd(*args, 1, WALKS[variant],
-                                         int(causal), scale2, stream)
+            err = self.lib.hvd_flash_fwd(*args, dtype, *walk, stream)
         if err:
             raise RuntimeError(f"{self.label} {variant}: configuration error "
                                f"{err}")
         return o, lse
 
-    def blocks(self, variant, cta_rows, d=128):
-        if self.on_sm90(variant, d):
-            return cta_rows, (128 if d <= 128 else 64)
-        return 64, 64
+    def blocks(self, variant, cta_rows, d=128, dtype=torch.bfloat16):
+        rows = self.cta_rows(variant, cta_rows, d, dtype)
+        if dtype == torch.bfloat16 and self.on_sm90(variant, d):
+            return rows, (128 if d <= 128 else 64)
+        if self.on_sm90dyn(d, dtype):
+            return rows, 64
+        if dtype == torch.float32 and d <= 256:
+            return rows, self.cc_block_k
+        return rows, rows
 
 
-def operands(seed, bh, sq, sk, d, k_ramp=None):
+def operands(seed, bh, sq, sk, d, k_ramp=None, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(bh, sq, d, generator=g)
     k, v = (torch.randn(bh, sk, d, generator=g) for _ in range(2))
     if k_ramp is not None:
         k = k * k_ramp[None, :, None]
-    return [t.cuda().bfloat16() for t in (q, k, v)]
+    return [t.cuda().to(dtype) for t in (q, k, v)]
 
 
 def check(tree):
@@ -239,25 +309,49 @@ def check(tree):
               for c in (True, False)]
     cases += [(4, 100, 300, 256, c, None) for c in (True, False)]
     cases += [(6, 512, 512, 256, c, r) for c in (True, False) for r in ramps]
-    bad = []
-    for n, (bh, sq, sk, d, causal, ramp) in enumerate(cases):
-        q, k, v = operands(n, bh, sq, sk, d, ramps.get(ramp))
+    cases = [(*c, torch.bfloat16) for c in cases]
+    # above 256: the run-time-d wgmma kernel's slices (d 288 ends in a
+    # partial box), partial tiles, sq != sk, the adversaries; fp32 on the
+    # CUDA cores at d 128 and 256
+    for d, dtype in ((288, torch.bfloat16), (384, torch.bfloat16),
+                     (512, torch.bfloat16), (128, torch.float32),
+                     (256, torch.float32)):
+        cases += [(2, 130, 130, d, True, None, dtype),
+                  (2, 64, 200, d, False, None, dtype),
+                  (4, 100, 300, d, True, None, dtype)]
+        cases += [(6, 512, 512, d, c, r, dtype) for c in (True, False)
+                  for r in ramps]
+    bad, n_cmp = [], 0
+    for n, (bh, sq, sk, d, causal, ramp, dtype) in enumerate(cases):
+        q, k, v = operands(n, bh, sq, sk, d, ramps.get(ramp), dtype)
         for variant in WALKS:
-            for rows in ((64, 128) if tree.on_sm90(variant, d) else (64,)):
+            shapes = ((64, 128) if dtype == torch.bfloat16 and (
+                tree.on_sm90(variant, d) or (tree.on_sm90dyn(d) and
+                                             fa.sm90dyn_fits(d, 128)))
+                else (64,))
+            for rows in shapes:
                 o, lse = tree.forward(q, k, v, causal, variant, rows)
                 torch.cuda.synchronize()
-                p_o, p_lse = ref.FWD[variant](q, k, v, causal,
-                                              *tree.blocks(variant, rows, d))
+                blocks = tree.blocks(variant, rows, d, dtype)
+                p_o, p_lse = ref.FWD[variant](q, k, v, causal, *blocks)
                 p_o = p_o.float()
-                atol = 1e-2 * p_o.abs().max().item()
+                if dtype == torch.float32:
+                    atol = rtol = lse_tol = 2e-5
+                else:
+                    atol, rtol = 1e-2 * p_o.abs().max().item(), 1.6e-2
+                    lse_tol = 1e-3
                 o_ok = torch.isfinite(o).all() and (
-                    (o.float() - p_o).abs() <= atol + 1.6e-2 * p_o.abs()).all()
+                    (o.float() - p_o).abs() <= atol + rtol * p_o.abs()).all()
                 lse_err = (lse - p_lse).abs().max().item()
-                if not (o_ok and lse_err <= 1e-3):
-                    bad.append((bh, sq, sk, d, causal, ramp, variant, rows,
-                                lse_err))
-    print(f"{tree.label}: {len(WALKS) * len(cases)} cases x CTA shapes "
-          f"checked, failures {bad}", flush=True)
+                lse_rtol = rtol if dtype == torch.float32 else 0.0
+                lse_ok = ((lse - p_lse).abs() <=
+                          lse_tol + lse_rtol * p_lse.abs()).all()
+                n_cmp += 1
+                if not (o_ok and lse_ok):
+                    bad.append((bh, sq, sk, d, str(dtype)[6:], causal, ramp,
+                                variant, blocks, lse_err))
+    print(f"{tree.label}: {n_cmp} forward cases (walk x CTA shape) checked, "
+          f"failures {bad}", flush=True)
     return bad
 
 
@@ -274,13 +368,15 @@ def device_ms(fn, iters=20):
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
-def forward_bound_ms(bh, s, d):
-    """The least time of a causal bf16 forward on the card: 4·d operations
-    per visible (q, k) pair at the dense bf16 peak, or q, k, v read and O
-    and lse written once at the memory rate, whichever is longer."""
+def forward_bound_ms(bh, s, d, dtype=torch.bfloat16):
+    """The least time of a causal forward on the card: 4·d operations per
+    visible (q, k) pair at the dtype's peak (dense bf16 tensor cores, or
+    fp32 on the CUDA cores), or q, k, v read and O and lse written once at
+    the memory rate, whichever is longer."""
     ops = 4 * d * s * (s + 1) // 2 * bh
-    nbytes = (4 * s * d * 2 + 4 * s) * bh
-    return max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    nbytes = (4 * s * d * dtype.itemsize + 4 * s) * bh
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    return max(ops / peak, nbytes / PEAK_BYTES) * 1e3
 
 
 def launch_floor():
@@ -305,35 +401,45 @@ def launch_floor():
     return event_ms(launch, 200, 20), device_ms(launch, 200)
 
 
-def timings(trees):
-    """Device ms per call of each tree's bf16 walks (causal, d 128), by
-    profiler and by CUDA events, beside the bound, SDPA's forward and the
-    plain online walk at the wgmma kernel's tiles."""
+WIDE_SHAPES = ((4, 1024, 256, torch.bfloat16), (4, 1024, 384, torch.bfloat16),
+               (4, 1024, 128, torch.float32), (4, 1024, 256, torch.float32))
+
+
+def timings(trees, wide_only=False):
+    """Device ms per call of each tree's walks (causal), by profiler and by
+    CUDA events, beside the bound, SDPA's forward in the same dtype and
+    the plain online walk at the first tree's tiles."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, s, d in ((16, 1024, 128), (1, 16, 128), (1, 64, 128),
-                    (1, 640, 128), (1, 960, 128), (1, 1024, 128),
-                    (4, 1024, 256)):
+    shapes = WIDE_SHAPES if wide_only else tuple(
+        (b, s, 128, torch.bfloat16) for b, s in (
+            (16, 1024), (1, 16), (1, 64), (1, 640), (1, 960), (1, 1024))
+    ) + WIDE_SHAPES
+    for b, s, d, dtype in shapes:
         bh = b * 6
-        q, k, v = operands(9, bh, s, s, d)
-        rows = 128 if bh * -(-s // 128) >= sms else 64
+        q, k, v = operands(9, bh, s, s, d, dtype=dtype)
+        rows = (fa.sm90dyn_cta_rows(bh, s, d, sms) if d > 256 else
+                128 if bh * -(-s // 128) >= sms else 64)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         calls = {"sdpa": lambda: sdpa(
             *(t.view(b, 6, s, d) for t in (q, k, v)), is_causal=True)}
         for tree in trees:
             for variant in WALKS:
-                r = tree.cta_rows(variant, rows, d)
+                r = tree.cta_rows(variant, rows, d, dtype)
                 calls[f"{tree.label} {variant} ({r} rows)"] = (
                     lambda tree=tree, variant=variant, r=r:
                     tree.forward(q, k, v, True, variant, r))
         row = {name: (round(device_ms(fn), 6), round(event_ms(fn), 6))
                for name, fn in calls.items()}
-        plain = (lambda: ref.flash_fwd_online(
-            q, k, v, True, rows, 128 if d <= 128 else 64))
+        blocks = trees[0].blocks("online", rows, d, dtype)
+        plain = (lambda: ref.flash_fwd_online(q, k, v, True, *blocks))
         row["plain online"] = (round(device_ms(plain, 3), 5),
                                round(event_ms(plain, 3, 1), 5))
-        print(f"device ms (profiler, events) b{b} h6 s{s} d{d} causal bf16, "
-              f"bound {forward_bound_ms(bh, s, d):.6f} ms: "
+        print(f"device ms (profiler, events) b{b} h6 s{s} d{d} causal "
+              f"{str(dtype)[6:]}, bound "
+              f"{forward_bound_ms(bh, s, d, dtype):.6f} ms: "
               f"{json.dumps(row)}", flush=True)
+    if wide_only:
+        return
     ev, prof = launch_floor()
     print(f"empty kernel launched back to back: event ms {ev:.6f}, profiler "
           f"ms {prof:.6f}", flush=True)
@@ -355,15 +461,19 @@ def timings(trees):
 class BwdTree:
     """One checkout's backward kernels, built into build/flash_fwd_ab/."""
 
-    def __init__(self, root, label):
+    suffix = "_bwd"
+
+    @staticmethod
+    def sources(root):
+        csrc = os.path.join(root, "horovod_tpu_torch", "csrc")
+        return [p for p in (os.path.join(csrc, f) for f in (
+            "flash_bwd.cu", "flash_bwd_sm90.cu")) if os.path.exists(p)]
+
+    def __init__(self, root, label, built):
         self.label = label
         csrc = os.path.join(root, "horovod_tpu_torch", "csrc")
-        sources = [os.path.join(csrc, "flash_bwd.cu")]
         self.sm90 = os.path.exists(os.path.join(csrc, "flash_bwd_sm90.cu"))
-        if self.sm90:
-            sources.append(os.path.join(csrc, "flash_bwd_sm90.cu"))
-        lib, self.build_s, self.report, self.warnings = build(
-            sources, f"{label}_bwd")
+        lib, self.build_s, self.report, self.warnings = built
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.sm90_max_d = 0
         self.fns = self.cc_fns = None
@@ -579,6 +689,9 @@ def main(argv=None):
     parser.add_argument("--time", action="store_true")
     parser.add_argument("--bwd", action="store_true",
                         help="the backward kernels instead of the forward")
+    parser.add_argument("--wide", action="store_true",
+                        help="--time only b4 h6 s1024 at bf16 d 256/384 "
+                             "and fp32 d 128/256 (forward)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_ab needs a CUDA card")
@@ -587,9 +700,13 @@ def main(argv=None):
                           text=True).stdout.strip()
     print(card, flush=True)
     kind = BwdTree if args.bwd else Tree
-    trees = [kind(_ROOT, "this")]
-    trees += [kind(os.path.abspath(d), os.path.basename(os.path.normpath(d)))
-              for d in args.against]
+    roots = [(_ROOT, "this")] + [
+        (os.path.abspath(d), os.path.basename(os.path.normpath(d)))
+        for d in args.against]
+    built = build_many([(label + kind.suffix, kind.sources(root))
+                        for root, label in roots])
+    trees = [kind(root, label, built[label + kind.suffix])
+             for root, label in roots]
     for tree in trees:
         print(f"{tree.label}: built in {tree.build_s:.1f} s; (registers, "
               f"spill store bytes, spill load bytes): {tree.report}; "
@@ -599,7 +716,10 @@ def main(argv=None):
         failures = sum(len((check_bwd if args.bwd else check)(t))
                        for t in trees)
     if args.time:
-        (bwd_timings if args.bwd else timings)(trees)
+        if args.bwd:
+            bwd_timings(trees)
+        else:
+            timings(trees, args.wide)
     return 1 if failures else 0
 
 

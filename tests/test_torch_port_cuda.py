@@ -163,15 +163,15 @@ def test_sm90_kernel_rising_max_at_its_tiles(card, variant, causal, ramp,
 
 
 def test_kernel_refuses_what_it_cannot_take(card):
-    """fp16 is refused; a head dim above 256 no longer is: d 288 runs on
-    the run-time-d kernel and agrees with the plain walk."""
+    """fp16 is refused; a head dim above 256 no longer is: bf16 d 288 runs
+    on the run-time-d wgmma kernel and agrees with the plain walk."""
     q, k, v = _qkv(13, 1, 64, 2, 128, torch.float16, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q, k, v, True)
     q, k, v = _qkv(13, 1, 64, 2, 288, torch.bfloat16, card)
     fa.reset_launch_counts()
     _check(q, k, v, True, "online", torch.bfloat16)
-    assert dict(fa.launch_counts) == {"flash_fwd_dyn_online": 1}
+    assert dict(fa.launch_counts) == {"flash_fwd_sm90dyn_online": 1}
 
 
 def _flat_bshd(t):
@@ -314,10 +314,14 @@ def _family(d):
 
 
 def _fwd_name(dtype, variant, d=128):
-    """The launch count of a forward: the wgmma kernel's, or the CUDA-core
-    or run-time-d kernel's own."""
-    return (f"flash_fwd_{variant}" if _on_sm90(dtype, d, forward=True)
-            else f"flash_fwd_{_family(d)}_{variant}")
+    """The launch count of a forward: the wgmma kernel's (up to d 256),
+    the run-time-d wgmma kernel's (bf16 above 256 up to 1024), or the
+    CUDA-core or run-time-d CUDA-core kernel's own."""
+    if _on_sm90(dtype, d, forward=True):
+        return f"flash_fwd_{variant}"
+    if dtype == torch.bfloat16 and d <= fa.SM90_DYN_MAX_HEAD_DIM:
+        return f"flash_fwd_sm90dyn_{variant}"
+    return f"flash_fwd_{_family(d)}_{variant}"
 
 
 def _bwd_names(dtype, d=128):
@@ -516,11 +520,12 @@ def test_d256_forward_every_walk(card, variant, dtype, sq, sk, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [288, 384, 512, 1024])
 def test_beyond_256_through_the_kernels(card, dtype, causal, d):
-    """Head dims above 256 run unpadded on the run-time-d kernels through
-    the public autograd path, forward and backward, at a partial-tile
-    length (s 200 = 6 · 32 + 8), and agree with the plain walks at the
-    kernels' 32-row tiles; at d 1024 the dk/dv accumulators are in the
-    device workspace."""
+    """Head dims above 256 run on the run-time-d kernels through the public
+    autograd path, forward and backward, at a partial-tile length (s 200
+    = 6 · 32 + 8 = 3 · 64 + 8), and agree with the plain walks at the
+    kernels' tiles (the bf16 forward's 64-key wgmma tiles, the rest 32-row
+    tiles); at d 1024 the dk/dv accumulators are in the device
+    workspace."""
     q, k, v = _qkv(90 + d, 1, 200, 3, d, dtype, card)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
         card, dtype)
@@ -550,8 +555,8 @@ def test_beyond_256_every_walk(card, variant, dtype, d, sq, sk, causal,
                                workspace):
     """Each forward walk, and dq and dk/dv, on the run-time-d kernels with
     their accumulators in shared memory and forced into the device
-    workspace, against the plain walks at the kernels' tiles; sq != sk,
-    partial last tiles."""
+    workspace (the bf16 forward, on wgmma, keeps none), against the plain
+    walks at the kernels' tiles; sq != sk, partial last tiles."""
     g = torch.Generator().manual_seed(sq + sk + d)
     qf, dof = (torch.randn(2, sq, d, generator=g) for _ in range(2))
     kf, vf = (torch.randn(2, sk, d, generator=g) for _ in range(2))
@@ -559,7 +564,7 @@ def test_beyond_256_every_walk(card, variant, dtype, d, sq, sk, causal,
     fa.reset_launch_counts()
     out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
                               workspace=workspace)
-    assert dict(fa.launch_counts) == {f"flash_fwd_dyn_{variant}": 1}
+    assert dict(fa.launch_counts) == {_fwd_name(dtype, variant, d): 1}
     p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
                                     *fa.kernel_blocks(qf, kf, variant))
     _assert_kernel_close(out, p_out, "O", dtype)
@@ -570,6 +575,66 @@ def test_beyond_256_every_walk(card, variant, dtype, d, sq, sk, causal,
     for a, w in zip(got, _plain_grads(qf, kf, vf, dof, p_lse, delta,
                                       causal)):
         _assert_grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("d,cta_rows", [(288, 64), (288, 128), (384, 64),
+                                        (384, 128), (512, 64), (512, 128),
+                                        (1024, 64)])
+@pytest.mark.parametrize("sq,sk,causal,ramp", [(130, 130, True, None),
+                                               (64, 200, False, None),
+                                               (256, 256, True, "down"),
+                                               (256, 256, False, "up")])
+def test_sm90dyn_forward_every_walk(card, variant, d, cta_rows, sq, sk,
+                                    causal, ramp):
+    """The bf16 forward above 256 on the run-time-d wgmma kernel
+    (flash_fwd_sm90_dyn.cu), each walk at both CTA shapes where 128 query
+    rows fit (d <= 576), against the plain walk at its 64-key tiles:
+    partial last tiles, sq != sk, the rising-max adversaries (keys ramped
+    down, causal; up, non-causal)."""
+    assert fa.sm90dyn_fits(d, cta_rows)
+    g = torch.Generator().manual_seed(sq + sk + d + cta_rows)
+    qf = torch.randn(2, sq, d, generator=g)
+    kf, vf = (torch.randn(2, sk, d, generator=g) for _ in range(2))
+    if ramp:
+        r = torch.linspace(4.0, 0.5, sk)
+        kf = kf * (r if ramp == "down" else r.flip(0))[None, :, None]
+    qf, kf, vf = (t.to(card, torch.bfloat16) for t in (qf, kf, vf))
+    fa.reset_launch_counts()
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant,
+                              cta_rows=cta_rows)
+    assert dict(fa.launch_counts) == {f"flash_fwd_sm90dyn_{variant}": 1}
+    p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal, cta_rows,
+                                    fa.SM90_DYN_BLOCK_K)
+    _assert_kernel_close(out, p_out, "O", torch.bfloat16)
+    _assert_kernel_close(lse, p_lse, "lse", torch.bfloat16)
+
+
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("sq,sk,causal,ramp", [(192, 192, True, None),
+                                               (130, 130, True, None),
+                                               (100, 300, False, None),
+                                               (512, 512, True, "down"),
+                                               (512, 512, False, "up")])
+def test_cc_forward_every_head_dim(card, variant, d, sq, sk, causal, ramp):
+    """The fp32 register-blocked forward (flash_fwd.cu) at every compiled
+    head dim, each walk, against the plain walk at its 64-row tiles to
+    2e-5: partial last tiles, sq != sk, the rising-max adversaries."""
+    g = torch.Generator().manual_seed(sq + sk + d)
+    qf = torch.randn(3, sq, d, generator=g)
+    kf, vf = (torch.randn(3, sk, d, generator=g) for _ in range(2))
+    if ramp:
+        r = torch.linspace(4.0, 0.5, sk)
+        kf = kf * (r if ramp == "down" else r.flip(0))[None, :, None]
+    qf, kf, vf = (t.to(card) for t in (qf, kf, vf))
+    fa.reset_launch_counts()
+    out, lse = fa._kernel_fwd(qf, kf, vf, causal, d ** -0.5, variant)
+    assert dict(fa.launch_counts) == {f"flash_fwd_cc_{variant}": 1}
+    p_out, p_lse = ref.FWD[variant](qf, kf, vf, causal,
+                                    *fa.kernel_blocks(qf, kf, variant))
+    _assert_kernel_close(out, p_out, "O", torch.float32)
+    _assert_kernel_close(lse, p_lse, "lse", torch.float32)
 
 
 def _ring_pair(dtype, d, card, offset=0.0, seed=90, bh=6, s=256):

@@ -7,13 +7,18 @@ every bf16 variant up to head dim 256 goes to the wgmma/TMA entry point
 forces; 64-key tiles at d 256), every fp32 variant to ``flash_fwd``, and
 the launch counts keep one name per variant; a head dim between the
 compiled ones reaches the kernel zero-padded, with the true d's scale.
+The bf16 forward above 256 up to 1024 goes to the run-time-d wgmma/TMA
+entry point (``flash_fwd_sm90_dyn``, counted as
+``flash_fwd_sm90dyn_{variant}``), with the CTA rows the host picks from
+the grid of column slices.
 Backward: bf16 up to d 128 goes to the wgmma/TMA pair
 (``flash_bwd_sm90_dq`` with the dq CTA shape the host picks or the caller
 forces, ``flash_bwd_sm90_dkv``), fp32 and bf16 above 128 to
 ``flash_bwd_dq`` and ``flash_bwd_dkv``, each counted under its own name. Every head dim above
-256 reaches the run-time-d entry points (``flash_fwd_dyn``,
-``flash_bwd_dyn_dq``, ``flash_bwd_dyn_dkv``) unpadded, with a device
-workspace only where the accumulators do not fit shared memory. The
+256 reaches the run-time-d CUDA-core entry points (the fp32 and above-1024
+bf16 forward ``flash_fwd_dyn``, ``flash_bwd_dyn_dq``,
+``flash_bwd_dyn_dkv``) unpadded, with a device workspace only where the
+accumulators do not fit shared memory. The
 stub's outputs
 are never read: on the card the kernels
 themselves are held against their plain versions
@@ -45,6 +50,11 @@ class _Recorder:
     def flash_fwd_sm90(self, q, k, v, out, lse, variant, causal, scale2,
                        cta_rows):
         self.calls.append(("flash_fwd_sm90", variant, causal, cta_rows))
+        self.head_dims.append((q.shape[2], scale2))
+
+    def flash_fwd_sm90_dyn(self, q, k, v, out, lse, variant, causal, scale2,
+                           cta_rows):
+        self.calls.append(("flash_fwd_sm90_dyn", variant, causal, cta_rows))
         self.head_dims.append((q.shape[2], scale2))
 
     def flash_bwd_dq(self, q, k, v, dout, lse, delta, dq, causal, scale2,
@@ -126,7 +136,7 @@ def test_host_picks_the_cta_shape_from_the_grid(stub, bh, sq, rows):
     for variant in fa.VARIANTS:
         assert fa.kernel_blocks(qf, kf, variant) == (rows, fa.SM90_BLOCK_K)
     assert fa.kernel_blocks(qf.float(), kf.float(), "online") == (
-        fa.fit_block(sq), fa.fit_block(sq))
+        fa.fit_block(sq), fa.fit_block(sq, fa.CC_BLOCK_K))
     fa._kernel_fwd(qf, kf, vf, True, 0.25, "lazy")
     assert stub.calls[-1][-1] == rows
 
@@ -229,34 +239,42 @@ def test_head_dim_reaches_the_kernel_padded(stub, d, padded, dtype):
 
 
 def test_head_dim_beyond_128_raises_before_any_launch(stub):
-    """No head dim is refused any more: d 288 passes the padding helper
-    unpadded and reaches the run-time-d forward, nothing raising."""
+    """No head dim is refused any more: bf16 d 288 passes the padding
+    helper unpadded and reaches the run-time-d wgmma forward (64 query
+    rows: 2 x 1 x 2 slices of CTAs leave the SMs idle), nothing raising."""
     qf, kf, vf = _flat(2, 64, 288, torch.bfloat16)
     out, lse = fa.pad_head_dim(
-        lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"), (qf, kf, vf), 1)
-    assert stub.calls == [("flash_fwd_dyn", 1, True, 0)]
+        lambda *t: fa._kernel_fwd(*t, True, 0.1, "lazy"), (qf, kf, vf), 1,
+        fa.fwd_head_dim(qf))
+    assert stub.calls == [("flash_fwd_sm90_dyn", 1, True, 64)]
     assert stub.head_dims == [(288, pytest.approx(0.1 * fa.LOG2E))]
     assert out.shape == qf.shape and lse.shape == (2, 64)
-    assert dict(fa.launch_counts) == {"flash_fwd_dyn_lazy": 1}
+    assert dict(fa.launch_counts) == {"flash_fwd_sm90dyn_lazy": 1}
 
 
 @pytest.mark.parametrize("d", [257, 288, 384, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("variant", fa.VARIANTS)
 def test_beyond_256_reaches_the_run_time_d_kernels(stub, d, dtype, variant):
-    """d > 256 goes to the run-time-d kernels with no padding (the true d
-    reaches them, and so does its scale), forward and backward, counted
-    under ``flash_fwd_dyn_{variant}`` and ``flash_bwd_dyn_{dq,dkv}``, and
-    the walks are their 32-row tiles."""
+    """d > 256 goes to the run-time-d kernels, forward and backward, with
+    the true d's scale: the fp32 forward to ``flash_fwd_dyn`` unpadded
+    (counted as ``flash_fwd_dyn_{variant}``, 32-row tiles), the bf16 one to
+    the wgmma ``flash_fwd_sm90_dyn`` (``flash_fwd_sm90dyn_{variant}``,
+    64-key tiles, d padded to a multiple of 8: 257 reaches it as 264);
+    the backward of both to ``flash_bwd_dyn_{dq,dkv}`` unpadded at 32-row
+    tiles."""
     qf, kf, vf = _flat(2, 100, d, dtype)
     scale = d ** -0.5
+    bf16 = dtype == torch.bfloat16
     assert fa.kernel_head_dim(d) == d and fa.on_dyn(d)
-    out, lse = fa.pad_head_dim(
-        lambda q, k, v: fa._kernel_fwd(q, k, v, True, scale, variant),
-        (qf, kf, vf), 1)
-    assert stub.head_dims == [(d, pytest.approx(scale * fa.LOG2E))]
-    assert stub.calls[0][:3] == ("flash_fwd_dyn", fa.VARIANTS.index(variant),
-                                 True)
+    assert fa.on_sm90dyn_fwd(qf) == bf16
+    fwd_d = -(-d // 8) * 8 if bf16 else d
+    assert fa.fwd_head_dim(qf) == fwd_d
+    out, lse = fa._card_fwd(qf, kf, vf, True, d ** -0.5, variant)
+    assert stub.head_dims == [(fwd_d, pytest.approx(scale * fa.LOG2E))]
+    assert stub.calls[0][:3] == (
+        "flash_fwd_sm90_dyn" if bf16 else "flash_fwd_dyn",
+        fa.VARIANTS.index(variant), True)
     delta = torch.zeros(2, 100)
     dq, dk, dv = fa.pad_head_dim(
         lambda q, k, v, do: fa._kernel_bwd(q, k, v, do, lse, delta, True,
@@ -266,9 +284,11 @@ def test_beyond_256_reaches_the_run_time_d_kernels(stub, d, dtype, variant):
     for call in stub.calls[1:]:
         assert call[1:4] == (True, pytest.approx(scale * fa.LOG2E), scale)
     assert out.shape == dq.shape == dk.shape == dv.shape == qf.shape
-    assert fa.kernel_blocks(qf, kf, variant) == (32, 32)
+    assert fa.kernel_blocks(qf, kf, variant) == ((64, 64) if bf16
+                                                 else (32, 32))
     assert fa.bwd_kernel_blocks(qf, kf) == ((32, 32), (32, 32))
-    assert dict(fa.launch_counts) == {f"flash_fwd_dyn_{variant}": 1,
+    family = "sm90dyn" if bf16 else "dyn"
+    assert dict(fa.launch_counts) == {f"flash_fwd_{family}_{variant}": 1,
                                       "flash_bwd_dyn_dq": 1,
                                       "flash_bwd_dyn_dkv": 1}
 
@@ -286,11 +306,112 @@ def test_run_time_d_accumulators_leave_shared_memory_only_when_full(
     assert fa.dyn_workspace("dq", 1, 32, d) == fwd
     assert fa.dyn_workspace("dkv", 1, 32, d) == dkv
     assert fa.dyn_workspace("fwd", 3, 100, d) == 3 * 4 * fwd
-    qf, kf, vf = _flat(3, 100, d, torch.bfloat16)
+    # fp32: the run-time-d CUDA-core forward (bf16 up to 1024 is wgmma's)
+    qf, kf, vf = _flat(3, 100, d, torch.float32)
     fa._kernel_fwd(qf, kf, vf, False, 0.1, "online")
     fa._kernel_fwd(qf, kf, vf, False, 0.1, "online", workspace=True)
     assert stub.calls[0][-1] == 3 * 4 * fwd
     assert stub.calls[1][-1] == 3 * 4 * 32 * d
+
+
+@pytest.mark.parametrize("d,plan", [(264, (5, 2, 3)), (288, (5, 2, 3)),
+                                    (384, (6, 2, 3)), (448, (7, 2, 4)),
+                                    (512, (8, 2, 4)), (576, (9, 3, 3)),
+                                    (640, (10, 3, 4)), (1024, (16, 4, 4))])
+def test_run_time_d_wgmma_forward_plan(d, plan):
+    """d in 64-column boxes, the boxes in slices of at most four (one CTA
+    each, O at most m64n256), each slice 3 or 4 boxes wide; two consumer
+    warpgroups fit up to d 576, one up to the ceiling of 1024."""
+    assert fa.sm90dyn_plan(d) == plan
+    assert fa.sm90dyn_fits(d, 64)
+    assert fa.sm90dyn_fits(d, 128) == (d <= 576)
+    assert not fa.sm90dyn_fits(1088, 64)
+
+
+@pytest.mark.parametrize("d,bh,sq,rows", [(288, 24, 1024, 128),
+                                          (384, 24, 1024, 128),
+                                          (384, 2, 1024, 64),
+                                          (512, 24, 1024, 128),
+                                          (512, 6, 200, 64),
+                                          (1024, 24, 1024, 64)])
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+def test_bf16_beyond_256_reaches_the_wgmma_forward(stub, d, bh, sq, rows,
+                                                   variant):
+    """bf16 d 288/384/512/1024 reach ``flash_fwd_sm90_dyn`` unpadded under
+    ``flash_fwd_sm90dyn_{variant}``, with the CTA rows the host picks from
+    the grid (128 when bh·⌈sq/128⌉·slices CTAs fill the 132 SMs and Q for
+    128 rows fits, else 64) and 64-key tiles; the kernel cuts d into the
+    slices ``sm90dyn_plan`` names. A caller may force 64 rows anywhere,
+    128 where it fits; fp32 at the same d stays on ``flash_fwd_dyn``."""
+    qf, kf, vf = _flat(bh, sq, d, torch.bfloat16)
+    slices = fa.sm90dyn_plan(d)[1]
+    assert fa.sm90dyn_cta_rows(bh, sq, d, H100_SMS) == rows
+    assert rows == (128 if bh * -(-sq // 128) * slices >= H100_SMS and
+                    d <= 576 else 64)
+    assert fa.kernel_blocks(qf, kf, variant) == (rows, fa.SM90_DYN_BLOCK_K)
+    assert fa.fwd_launch_name(qf, variant) == f"flash_fwd_sm90dyn_{variant}"
+    out, lse = fa._card_fwd(qf, kf, vf, True, d ** -0.5, variant)
+    fa._kernel_fwd(qf, kf, vf, False, 0.1, variant, cta_rows=64)
+    code = fa.VARIANTS.index(variant)
+    assert stub.calls == [("flash_fwd_sm90_dyn", code, True, rows),
+                          ("flash_fwd_sm90_dyn", code, False, 64)]
+    assert stub.head_dims[0] == (d, pytest.approx(d ** -0.5 * fa.LOG2E))
+    assert out.shape == qf.shape and out.dtype == torch.bfloat16
+    assert lse.shape == (bh, sq) and lse.dtype == torch.float32
+    assert dict(fa.launch_counts) == {f"flash_fwd_sm90dyn_{variant}": 2}
+    if d > 576:
+        with pytest.raises(ValueError, match="fits 128 query rows"):
+            fa._kernel_fwd(qf, kf, vf, True, 0.1, variant, cta_rows=128)
+    fa._kernel_fwd(qf.float(), kf.float(), vf.float(), True, 0.1, variant)
+    assert stub.calls[-1][0] == "flash_fwd_dyn"
+    assert fa.fwd_launch_name(qf.float(), variant) == \
+        f"flash_fwd_dyn_{variant}"
+
+
+@pytest.mark.parametrize("d", [300, 1020])
+def test_bf16_head_dim_off_the_8_grid_is_padded_to_it(stub, d):
+    """A bf16 d above 256 that is not a multiple of 8 reaches the wgmma
+    forward zero-padded to the next multiple (the tensor maps' rows must
+    be multiples of 16 bytes), with the true d's scale and O sliced back;
+    unpadded, the launch wrapper refuses it."""
+    qf, kf, vf = _flat(2, 100, d, torch.bfloat16)
+    out, lse = fa._card_fwd(qf, kf, vf, True, d ** -0.5, "online")
+    assert stub.head_dims == [(-(-d // 8) * 8,
+                               pytest.approx(d ** -0.5 * fa.LOG2E))]
+    assert out.shape == qf.shape and out.is_contiguous()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa._kernel_fwd(qf, kf, vf, True, 0.1, "online")
+    assert len(stub.calls) == 1
+
+
+@pytest.mark.parametrize("d", [1032, 1088, 2048])
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+def test_bf16_above_the_wgmma_ceiling_stays_on_the_cuda_cores(stub, d,
+                                                              variant):
+    """Above 1024 Q of one 64-row CTA no longer fits beside the wgmma
+    kernel's rings: bf16 stays on the run-time-d CUDA-core forward,
+    unpadded, at its 32-row tiles."""
+    qf, kf, vf = _flat(2, 100, d, torch.bfloat16)
+    assert not fa.on_sm90dyn_fwd(qf) and fa.fwd_head_dim(qf) == d
+    fa._card_fwd(qf, kf, vf, True, 0.1, variant)
+    assert stub.calls[0][:3] == ("flash_fwd_dyn", fa.VARIANTS.index(variant),
+                                 True)
+    assert fa.kernel_blocks(qf, kf, variant) == (32, 32)
+    assert dict(fa.launch_counts) == {f"flash_fwd_dyn_{variant}": 1}
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("variant", fa.VARIANTS)
+def test_fp32_up_to_256_reaches_the_cuda_core_forward(stub, d, variant):
+    """fp32 at every compiled head dim goes to the register-blocked
+    ``flash_fwd`` at its 64-row q tiles and 128-key k tiles, counted as
+    ``flash_fwd_cc_{variant}``."""
+    qf, kf, vf = _flat(3, 150, d, torch.float32)
+    fa._kernel_fwd(qf, kf, vf, True, 0.2, variant)
+    assert stub.calls == [("flash_fwd", fa.VARIANTS.index(variant), True,
+                           None)]
+    assert fa.kernel_blocks(qf, kf, variant) == (fa.BLOCK, fa.CC_BLOCK_K)
+    assert dict(fa.launch_counts) == {f"flash_fwd_cc_{variant}": 1}
 
 
 @pytest.mark.parametrize("d", [160, 192, 256])
@@ -330,9 +451,9 @@ def test_wide_head_dims_reach_the_cuda_core_kernels(stub, d, dtype):
         ((64, 64), (64, 64)) if bf16 else ((64, 32), (64, 32)))
     assert fa.bwd_kernel_blocks(qf, kf, 128) == fa.bwd_kernel_blocks(qf, kf)
     assert fa.kernel_blocks(qf, kf, "online") == (
-        (rows, fa.SM90_BLOCK_K_WIDE) if bf16 else (64, 64))
+        (rows, fa.SM90_BLOCK_K_WIDE) if bf16 else (64, 128))
     assert fa.kernel_blocks(qf, kf, "lazy", 128) == (
-        (128, 64) if bf16 else (64, 64))
+        (128, 64) if bf16 else (64, 128))
     family = "sm90" if bf16 else "cc"
     assert dict(fa.launch_counts) == {
         "flash_fwd_online" if bf16 else "flash_fwd_cc_online": 1,
