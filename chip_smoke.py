@@ -2552,40 +2552,16 @@ def check_collective_backends(card, dev, base_model, vocab):
 # phase 4: timings of the training path
 
 
-def _traced(fn, iters):
-    """(device ms per call, device events per call) from torch.profiler
-    over ``iters`` calls after one warm-up call; a trace that recorded no
-    device event is taken again, up to three times; (None, 0) after
-    that."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = profiling.summarize_profile(prof).rows
-        if rows:
-            return (sum(r.total_ms for r in rows) / iters,
-                    sum(r.count for r in rows) / iters)
-    return None, 0
-
-
 def time_pair(fn, iters=50):
     """(event ms, profiler ms, kept ms, which) per call: CUDA events over
     ``iters`` back-to-back calls, and torch.profiler's device time beside
-    it. The profiler's figure is kept when its trace holds every call's
-    device events (as many a call as a trace of one call holds) or reads
-    at least 0.8 of the event figure; else the event figure is (the
-    profiler has lost events on this card). Events span the host's
-    launch gaps too: on a slow host they read above the device time of a
-    short kernel, which a complete trace does not."""
-    ev = time_ms(fn, iters, 5)
-    dvc, per_call = _traced(fn, iters)
-    complete = dvc is not None and per_call == _traced(fn, 1)[1]
-    if dvc is not None and (complete or dvc >= 0.8 * ev):
-        return ev, dvc, dvc, "profiler"
-    return ev, dvc, ev, "event"
+    it; the profiler's figure is kept unless it reads under 0.8 of the
+    event figure (the profiler has lost events on this card), then the
+    event figure is."""
+    ev, dvc = time_ms(fn, iters, 5), device_ms(fn, iters, False)
+    if dvc is None or dvc < 0.8 * ev:
+        return ev, dvc, ev, "event"
+    return ev, dvc, dvc, "profiler"
 
 
 def time_bwd_kernels(card, dev, launches, errs):
@@ -2949,7 +2925,7 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
     their launches in phase 3b's fp32 steps (``fp32_launches``)."""
     b, s, h = 4, 1024, 6
     dyn_d = 768 // DYN_HEADS
-    entries, rows = [], {}
+    entries, rows, kept = [], {}, {}
     t0, plain_s = time.perf_counter(), 0.0
     for d, dtype in ((128, torch.bfloat16), (128, torch.float32),
                      (256, torch.bfloat16), (256, torch.float32),
@@ -3022,6 +2998,7 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
             b_ms, b_by = bound(ops, nbytes, peak)
             rows[f"{tag} {name}"] = (round(kt[2], 5), round(b_ms, 5),
                                      round(plain_ms, 3), round(lib_t[2], 5))
+            kept[f"{tag} {name}"] = (kt[3], lib_t[3])
             if d == 128 and bf16:
                 continue
             extra = {}
@@ -3060,7 +3037,9 @@ def time_wide_kernels(card, dev, errs, launches, fp32_launches):
               f"(bf16 on the wgmma kernels, fp32 on the CUDA cores), "
               f"(kernel ms, bound ms, plain ms, SDPA ms in the same dtype; "
               f"bwd: SDPA's whole backward; the fp32 forward's plain ms the "
-              f"online walk's): {rows}; fp32 forward / SDPA's fp32 forward: "
+              f"online walk's): {rows}; the figure kept by time_pair "
+              f"(kernel's, SDPA's): {kept}; fp32 forward / SDPA's fp32 "
+              f"forward: "
               + ", ".join(f"d{d_} {v} {_ratio(rows, f'd{d_} fp32 {v}'):.2f}"
                           for d_ in (128, 256) for v in fa.VARIANTS) +
               f"; d{dyn_d} bf16 forward / SDPA's: " + ", ".join(

@@ -557,3 +557,7 @@ extern "C" cudaError_t hvd_flash_fwd(const void* q, const void* k,
   }
   return cudaErrorInvalidValue;
 }
+
+// Keys per k tile of the fp32 forward's walk, the same at every d: the
+// plain version walks these tiles (a tool reads it from a built library).
+extern "C" int hvd_flash_fwd_block_k() { return CcPlan<256>::kKeys; }

@@ -19,9 +19,11 @@
 // diagonal tile, P rounded to bf16 before P@V while l takes it unrounded.
 //
 // What bounds it. 4*d operations per visible (q, k) pair against q, k, v
-// read once and O written once: at b4 h6 s1024 d384 causal, 12.1 G
-// operations (0.0122 ms at 989 TFLOP/s) and 75.6 MB (0.0226 ms at 3.35
-// TB/s), so the bytes. flash_fwd_dyn_kernel, which this replaces there,
+// read once and O written once: at b4 h6 s1024 d384 causal, 19.3 G
+// operations (0.0196 ms at 989 TFLOP/s) and 75.6 MB (0.0226 ms at 3.35
+// TB/s), so the bytes. The slices' recompute of S (design, 2) raises the
+// work this kernel does to 6*d, 29.0 G operations (0.0293 ms), above the
+// bytes. flash_fwd_dyn_kernel, which this replaces there,
 // took 4.3-6.5 ms: scalar dot products on the CUDA cores with both
 // operands reloaded into shared memory for every 64-column chunk. This
 // kernel: 0.095-0.098 ms online and lazy, 0.133-0.137 twopass, against

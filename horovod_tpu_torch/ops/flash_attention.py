@@ -116,7 +116,8 @@ SM90_FWD_MAX_HEAD_DIM = 256
 SM90_DYN_MAX_HEAD_DIM = 1024
 
 #: Keys per k tile of the run-time-d wgmma/TMA forward, columns per TMA
-#: box, K boxes and V slices in flight (mirrors of flash_fwd_sm90_dyn.cu)
+#: box, K boxes and V slices in flight: copies of flash_fwd_sm90_dyn.cu's
+#: constants, which tests/test_torch_port_dispatch.py holds them to
 SM90_DYN_BLOCK_K = 64
 _SM90_DYN_BOX = 64
 _SM90_DYN_K_STAGES, _SM90_DYN_V_STAGES = 4, 2

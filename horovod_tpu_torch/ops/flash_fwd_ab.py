@@ -1,7 +1,7 @@
 """Build the flash kernels alone and compare them across trees.
 
     python -m horovod_tpu_torch.ops.flash_fwd_ab [--bwd] [--against DIR ...]
-        [--check] [--time] [--wide]
+        [--check] [--time] [--wide] [--probe]
 
 Needs a CUDA card and nvcc. Compiles the forward sources,
 ``csrc/flash_fwd.cu``, ``csrc/flash_dyn.cu`` and, where the tree has them,
@@ -33,6 +33,10 @@ tree without ``flash_fwd_sm90.cu`` runs every bf16 walk there, a tree
 whose ``flash_fwd_sm90.cu`` stops at head dim 128 runs bf16 d 256 on its
 ``flash_fwd.cu`` (the CUDA cores), and a tree without
 ``flash_fwd_sm90_dyn.cu`` runs bf16 above 256 on its ``flash_dyn.cu``.
+
+``--probe`` first times 16-byte shared loads in the lane patterns of the
+fp32 forward's loops, and FFMA, in cycles per warp instruction per SM,
+and prints each loop's loads against its FMAs per step.
 
 Backward (``--bwd``): ``--check`` holds each tree's bf16 dq and dk/dv
 against the plain walks at the kernels' tiles (two bf16 ulps + 1 % of each
@@ -80,6 +84,133 @@ extern "C" cudaError_t hvd_launch_empty(cudaStream_t stream) {
 }
 """
 
+
+# Shared-memory loads by the lanes' access pattern, and FFMA beside them:
+# cycles per warp instruction per SM, by clock64 in one block of 32 warps
+# on every SM
+SMEM_PROBE = r"""
+#include <cuda_runtime.h>
+// a lane's float offset in one warp-wide 16-byte load of pattern pat
+__device__ int lane_base(int pat, int lane) {
+  switch (pat) {
+    case 0: return 4 * lane;           // 32 neighbouring float4s
+    case 1: return 36 * (lane & 15);   // 16 rows 36 floats apart, 2 lanes each
+    case 2: return 68 * (lane >> 4);   // 2 addresses
+    default: return 0;                 // 1 address
+  }
+}
+__global__ void __launch_bounds__(1024) hvd_lds_probe(int pat, float* out,
+                                                      long long* cyc,
+                                                      int iters) {
+  __shared__ __align__(16) float sm[12288];
+  for (int i = threadIdx.x; i < 12288; i += blockDim.x) sm[i] = i * 1e-3f;
+  __syncthreads();
+  const int base = lane_base(pat, threadIdx.x & 31) +
+                   ((threadIdx.x >> 5) & 7) * 1024;
+  float acc[8] = {0};
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float4 v = *reinterpret_cast<const float4*>(sm + base + u * 128);
+      acc[u] += v.x + v.y + v.z + v.w;
+    }
+    __syncwarp();
+  }
+  const long long t1 = clock64();
+  float s = 0;
+  for (int u = 0; u < 8; ++u) s += acc[u];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) cyc[blockIdx.x] = t1 - t0;
+}
+__global__ void __launch_bounds__(1024) hvd_ffma_probe(int, float* out,
+                                                       long long* cyc,
+                                                       int iters) {
+  float a[16];
+  for (int i = 0; i < 16; ++i) a[i] = threadIdx.x * 1e-3f + i;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = fmaf(a[i], 0.999f, 0.001f);
+  }
+  const long long t1 = clock64();
+  float s = 0;
+  for (int i = 0; i < 16; ++i) s += a[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) cyc[blockIdx.x] = t1 - t0;
+}
+// cycles per warp instruction per SM of pattern pat (-1: FFMA), over
+// iters iterations on one block of 1024 threads per SM
+extern "C" cudaError_t hvd_smem_probe(int pat, int iters, double* result) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms,
+                                           cudaDevAttrMultiProcessorCount, 0);
+  if (err != cudaSuccess) return err;
+  float* out;
+  long long* cyc;
+  if ((err = cudaMalloc(&out, sms * 1024 * sizeof(float))) != cudaSuccess)
+    return err;
+  if ((err = cudaMalloc(&cyc, sms * sizeof(long long))) != cudaSuccess)
+    return err;
+  auto kernel = pat < 0 ? hvd_ffma_probe : hvd_lds_probe;
+  kernel<<<sms, 1024>>>(pat, out, cyc, 16);   // warm-up
+  kernel<<<sms, 1024>>>(pat, out, cyc, iters);
+  long long* host = new long long[sms];
+  err = cudaMemcpy(host, cyc, sms * sizeof(long long),
+                   cudaMemcpyDeviceToHost);
+  double mean = 0;
+  for (int i = 0; i < sms; ++i) mean += host[i];
+  delete[] host;
+  cudaFree(out);
+  cudaFree(cyc);
+  // warp instructions per SM: 32 warps x iters x (16 FFMA or 8 loads)
+  *result = mean / sms / (32.0 * iters * (pat < 0 ? 16 : 8));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+"""
+PROBE_PATTERNS = {"32 neighbouring float4s": 0,
+                  "16 rows 36 floats apart": 1, "2 addresses": 2,
+                  "1 address": 3, "FFMA": -1}
+
+
+def smem_probe(iters=4096):
+    """{pattern: cycles per warp instruction per SM} of 16-byte shared
+    loads (LDS.128) in the lane patterns of the fp32 forward's loops, and
+    of FFMA; then those loops' loads against their FMAs per step."""
+    out_dir = os.path.join(_ROOT, "build", "flash_fwd_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "smem_probe.cu")
+    with open(src, "w") as f:
+        f.write(SMEM_PROBE)
+    so = os.path.join(out_dir, "lib_smem_probe.so")
+    r = subprocess.run(nvcc_cmd([src], so), capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"smem probe: nvcc failed\n{r.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    lib.hvd_smem_probe.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_double)]
+    lib.hvd_smem_probe.restype = ctypes.c_int
+    cycles = {}
+    for name, pat in PROBE_PATTERNS.items():
+        x = ctypes.c_double()
+        err = lib.hvd_smem_probe(pat, iters, ctypes.byref(x))
+        if err:
+            raise RuntimeError(f"smem probe {name}: CUDA error {err}")
+        cycles[name] = round(x.value, 4)
+    c = cycles
+    # flash_fwd.cu's S = Q K^T per 4 columns of d: 4 loads of Q rows (the
+    # 16 lanes of a half-warp share a row), 8 of K rows (16 a warp, rows
+    # 36 floats apart), 128 FFMA; its O += P V at d 256 per 4 keys: 8
+    # loads of P (one row a warp), 8 of V (32 neighbouring), 256 FFMA
+    s_lds = 4 * c["2 addresses"] + 8 * c["16 rows 36 floats apart"]
+    o_lds = 8 * c["1 address"] + 8 * c["32 neighbouring float4s"]
+    print(f"smem probe, cycles per warp instruction per SM: {cycles}; "
+          f"fp32 forward S step: 12 LDS.128 {s_lds:.2f} cycles against 128 "
+          f"FFMA {128 * c['FFMA']:.2f} ({s_lds / (128 * c['FFMA']):.2f}); "
+          f"P V step at d 256: 16 LDS.128 {o_lds:.2f} against 256 FFMA "
+          f"{256 * c['FFMA']:.2f} ({o_lds / (256 * c['FFMA']):.2f})",
+          flush=True)
+    return cycles
 
 def nvcc_cmd(sources, out, cubin=False, obj=False):
     """nvcc for sm_90a with the register report (-Xptxas -v): a shared
@@ -182,10 +313,6 @@ class Tree:
         sm90 = os.path.join(csrc, "flash_fwd_sm90.cu")
         self.sm90dyn = os.path.exists(os.path.join(csrc,
                                                    "flash_fwd_sm90_dyn.cu"))
-        # keys per k tile of the fp32 forward: 128 in the register-blocked
-        # kernel, 64 before it
-        with open(os.path.join(csrc, "flash_fwd.cu")) as f:
-            self.cc_block_k = 128 if "2 * kBlock" in f.read() else 64
         # the bf16 walks this tree runs on the wgmma kernel; the others run
         # on its flash_fwd.cu (mma.sync, 64-row tiles)
         self.sm90_walks = ()
@@ -197,6 +324,16 @@ class Tree:
                 "lazy", "twopass")
         lib, self.build_s, self.report, self.warnings = built
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # keys per k tile of the fp32 forward, as the built library reports
+        # them; a library without the symbol predates the register-blocked
+        # kernel and walks 64
+        try:
+            block_k = lib.hvd_flash_fwd_block_k
+        except AttributeError:
+            self.cc_block_k = 64
+        else:
+            block_k.argtypes, block_k.restype = [], i
+            self.cc_block_k = block_k()
         if self.sm90_walks:
             lib.hvd_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
             lib.hvd_flash_fwd_sm90.restype = i
@@ -689,6 +826,9 @@ def main(argv=None):
     parser.add_argument("--time", action="store_true")
     parser.add_argument("--bwd", action="store_true",
                         help="the backward kernels instead of the forward")
+    parser.add_argument("--probe", action="store_true",
+                        help="shared-load and FFMA cycles in the fp32 "
+                             "forward's access patterns, first")
     parser.add_argument("--wide", action="store_true",
                         help="--time only b4 h6 s1024 at bf16 d 256/384 "
                              "and fp32 d 128/256 (forward)")
@@ -699,6 +839,8 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
+    if args.probe:
+        smem_probe()
     kind = BwdTree if args.bwd else Tree
     roots = [(_ROOT, "this")] + [
         (os.path.abspath(d), os.path.basename(os.path.normpath(d)))

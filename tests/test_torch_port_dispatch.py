@@ -26,6 +26,7 @@ themselves are held against their plain versions
 """
 
 import os
+import re
 
 import pytest
 import torch
@@ -326,6 +327,40 @@ def test_run_time_d_wgmma_forward_plan(d, plan):
     assert fa.sm90dyn_fits(d, 64)
     assert fa.sm90dyn_fits(d, 128) == (d <= 576)
     assert not fa.sm90dyn_fits(1088, 64)
+
+
+def _cxx_constants(source):
+    """The integer ``constexpr int`` literals of a CUDA source, by name."""
+    with open(os.path.join(_build.CSRC, source)) as f:
+        return {name: int(value) for name, value in re.findall(
+            r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_run_time_d_wgmma_plan_mirrors_the_kernel_source(rows):
+    """The host's copy of the run-time-d wgmma forward's plan (the boxes,
+    the rings, the ceiling, and so which CTA shapes fit at each d) agrees
+    with the constants of ``flash_fwd_sm90_dyn.cu``, which refuses a
+    launch whose shared memory does not fit: a drift would refuse launches
+    the host picks, or have the plain walk take tiles the kernel does not."""
+    c = _cxx_constants("flash_fwd_sm90_dyn.cu")
+    assert c["kBoxCols"] == fa._SM90_DYN_BOX
+    assert c["kKeys"] == fa.SM90_DYN_BLOCK_K
+    assert (c["kKStages"], c["kVStages"]) == (fa._SM90_DYN_K_STAGES,
+                                              fa._SM90_DYN_V_STAGES)
+    assert c["kMaxSmem"] == fa.MAX_SMEM
+    assert c["kMaxBoxes"] * c["kBoxCols"] == fa.SM90_DYN_MAX_HEAD_DIM
+    assert c["kWgRows"] == 64
+    box = c["kKeys"] * 2 * c["kBoxCols"]   # bytes of one bf16 box
+    for d in range(264, 1160, 8):
+        nbox = -(-d // c["kBoxCols"])
+        slices = -(-nbox // 4)
+        nb = -(-nbox // slices)
+        smem = (nbox * rows * 2 * c["kBoxCols"] + c["kKStages"] * box +
+                c["kVStages"] * nb * box + 128 + 1024)
+        fits = nbox <= c["kMaxBoxes"] and smem <= c["kMaxSmem"]
+        assert fa.sm90dyn_plan(d) == (nbox, slices, nb), d
+        assert fa.sm90dyn_fits(d, rows) == fits, d
 
 
 @pytest.mark.parametrize("d,bh,sq,rows", [(288, 24, 1024, 128),
