@@ -35,10 +35,13 @@
 //  1. S = Q K^T for a 64 x 128 tile: thread (ty, tx) of a 16 x 16 grid owns
 //     the 4 x 8 logits of rows ty + 16i and keys tx + 16j. Q (resident for
 //     the CTA's rows) and K sit in shared memory row-major, rows padded by
-//     4 floats; per 4 columns of d a thread reads its 4 Q rows and 8 K rows
-//     as float4 (16-byte, conflict-free: neighbouring tx read neighbouring
-//     rows) and does 128 FMAs. The old kernel took two scalar shared loads
-//     per FMA.
+//     4 floats (cp.async copies a row's 16-byte runs as they lie; k-major
+//     would take the same loads per FMA at this micro-tile); per 4 columns
+//     of d a thread reads its 4 Q rows and 8 K rows as float4 and does 128
+//     FMAs. The old kernel took two scalar shared loads per FMA. These 12
+//     loads take 1.2x the cycles of the 128 FMAs (the K reads, 16 rows a
+//     warp, cost as much as 32 distinct float4s; flash_fwd_ab --probe), so
+//     this loop is bound by shared memory.
 //  2. O += P V the same way, in a layout of its own: P goes to a shared
 //     64 x 128 tile, and a thread owns 8 of O's rows and d/32 columns from
 //     d 128 on (4 x 4 at d 64, fewer below; float4 loads of V's rows); per
@@ -57,7 +60,7 @@
 // The kernel runs at about a third of the CUDA cores' rate (PERF.md
 // sections 6-7): neither one CTA an SM or two, 256 threads or 512, warps
 // specialised to S and to O, nor a kernel without its copies, changed that
-// by more than a fifth, and where the rest goes is not measured.
+// by more than a fifth; step 1's shared loads are the one limit measured.
 //
 // The lazy walk (tiles diagonal-first) raises m on every tile and takes
 // no predicate: a row whose max did not rise gets alpha = exp2(m - m) = 1

@@ -26,7 +26,7 @@
 // bytes. flash_fwd_dyn_kernel, which this replaces there,
 // took 4.3-6.5 ms: scalar dot products on the CUDA cores with both
 // operands reloaded into shared memory for every 64-column chunk. This
-// kernel: 0.095-0.098 ms online and lazy, 0.133-0.137 twopass, against
+// kernel: 0.081-0.098 ms online and lazy, 0.133-0.137 twopass, against
 // SDPA's forward at 0.20-0.21 (PERF.md section 6; H100 80GB HBM3, 700 W).
 // Registers 202 (4-box slices) and 170 (3-box) with one consumer
 // warpgroup, 168 at the launch bound with two; no spill (nvcc -Xptxas -v,
